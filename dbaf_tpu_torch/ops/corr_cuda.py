@@ -71,12 +71,13 @@ def prepare_corr_fmaps(fmap1: torch.Tensor, fmap2: torch.Tensor):
     return f1p, f2p
 
 
-def _xy_tent(coord: torch.Tensor, size: int, level: int, radius: int) -> torch.Tensor:
+def _xy_tent(coord: torch.Tensor, size: int, level: int) -> torch.Tensor:
     """Tent weights of the fused kernel's tables (corr_pallas.py:176-203):
     ``max(0, 1 - |(floor(w/2^l) - off) - coord/2^l|) / 2^l``.
     coord: (E, P).  Returns (E, P, 2r+1, size) f32."""
     inv = 2.0 ** (-level)
-    offs = torch.arange(2 * radius + 1, dtype=torch.float32, device=coord.device) - radius
+    offs = torch.arange(2 * DEFAULT_RADIUS + 1, dtype=torch.float32,
+                        device=coord.device) - DEFAULT_RADIUS
     g = torch.floor(torch.arange(size, dtype=torch.float32, device=coord.device) * inv)
     g0 = g[None, :] - offs[:, None]  # (R, size)
     cm = (coord * inv)[..., None, None]
@@ -84,8 +85,7 @@ def _xy_tent(coord: torch.Tensor, size: int, level: int, radius: int) -> torch.T
 
 
 def corr_fused_xy_plain(f1p: torch.Tensor, f2p: torch.Tensor, coords: torch.Tensor,
-                        H2: int, W2: int, radius: int = DEFAULT_RADIUS,
-                        num_levels: int = DEFAULT_LEVELS) -> torch.Tensor:
+                        H2: int, W2: int) -> torch.Tensor:
     """Plain version of K1: what ``corr_fused_xy_prepared(..., raw=False,
     int8=False)`` computes.  The volume is rounded to bf16, then per level
     P2 = bf16(vol @ bf16(kx)) over x, then bf16(bf16(ky) @ P2) over y.
@@ -95,34 +95,31 @@ def corr_fused_xy_plain(f1p: torch.Tensor, f2p: torch.Tensor, coords: torch.Tens
     """
     E, P, C = f1p.shape
     _, H, W, _ = coords.shape
-    R = 2 * radius + 1
+    R = 2 * DEFAULT_RADIUS + 1
     dt = torch.bfloat16
     vol = torch.bmm(f1p.float(), f2p.float().transpose(1, 2)).to(dt).float()
     vol = vol.reshape(E, P, H2, W2)
     flat = coords.reshape(E, P, 2).float()
     outs = []
-    for lvl in range(num_levels):
-        kx = _round(_xy_tent(flat[..., 0], W2, lvl, radius), dt)  # (E,P,R,W2)
-        ky = _round(_xy_tent(flat[..., 1], H2, lvl, radius), dt)  # (E,P,R,H2)
+    for lvl in range(DEFAULT_LEVELS):
+        kx = _round(_xy_tent(flat[..., 0], W2, lvl), dt)  # (E,P,R,W2)
+        ky = _round(_xy_tent(flat[..., 1], H2, lvl), dt)  # (E,P,R,H2)
         p2 = _round(torch.einsum("ephw,epaw->epha", vol, kx), dt)
         o = torch.einsum("epbh,epha->epab", ky, p2)  # (E,P,x-tap,y-tap)
         outs.append(o.reshape(E, P, R * R))
     out = torch.cat(outs, dim=-1).to(dt)
-    return out.reshape(E, H, W, num_levels * R * R)
+    return out.reshape(E, H, W, NUM_CHANNELS)
 
 
 def corr_fused_xy(f1p: torch.Tensor, f2p: torch.Tensor, coords: torch.Tensor,
-                  H2: int, W2: int, radius: int = DEFAULT_RADIUS,
-                  num_levels: int = DEFAULT_LEVELS) -> torch.Tensor:
+                  H2: int, W2: int) -> torch.Tensor:
     """Fused correlation build + 4-level lookup, channels-last bf16.
 
     Same contract as :func:`corr_fused_xy_plain`.  A CUDA input launches
     kernel K1; a CPU input takes the plain version.
     """
     if not f1p.is_cuda:
-        return corr_fused_xy_plain(f1p, f2p, coords, H2, W2, radius, num_levels)
-    _check(radius == DEFAULT_RADIUS and num_levels == DEFAULT_LEVELS,
-           "corr_fused_xy: the kernel is built for radius 3 and 4 levels")
+        return corr_fused_xy_plain(f1p, f2p, coords, H2, W2)
     _check(f1p.dtype == torch.bfloat16 and f2p.dtype == torch.bfloat16,
            "corr_fused_xy: f1p/f2p must be bf16")
     _check(coords.dtype == torch.float32, "corr_fused_xy: coords must be f32")
@@ -172,14 +169,12 @@ def corr_fused_xy(f1p: torch.Tensor, f2p: torch.Tensor, coords: torch.Tensor,
 # K2: lookup on a prebuilt volume
 # ---------------------------------------------------------------------------
 
-def corr_lookup_plain(volume: torch.Tensor, coords: torch.Tensor, radius: int = DEFAULT_RADIUS,
-                      num_levels: int = DEFAULT_LEVELS) -> torch.Tensor:
+def corr_lookup_plain(volume: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """Plain version of K2 (``lookup_fused``): (E, 196, H, W) f32."""
-    return lookup_fused(volume, coords, radius, num_levels)
+    return lookup_fused(volume, coords)
 
 
-def corr_lookup(volume: torch.Tensor, coords: torch.Tensor, radius: int = DEFAULT_RADIUS,
-                num_levels: int = DEFAULT_LEVELS) -> torch.Tensor:
+def corr_lookup(volume: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """4-level windowed lookup on a prebuilt (E, H*W, H2, W2) volume.
 
     volume bf16 or f32; coords (E, H, W, 2) f32 at level-0 scale.  Returns
@@ -187,9 +182,7 @@ def corr_lookup(volume: torch.Tensor, coords: torch.Tensor, radius: int = DEFAUL
     launches kernel K2; a CPU volume takes the plain version.
     """
     if not volume.is_cuda:
-        return corr_lookup_plain(volume, coords, radius, num_levels)
-    _check(radius == DEFAULT_RADIUS and num_levels == DEFAULT_LEVELS,
-           "corr_lookup: the kernel is built for radius 3 and 4 levels")
+        return corr_lookup_plain(volume, coords)
     _check(volume.dtype in (torch.bfloat16, torch.float32),
            "corr_lookup: volume must be bf16 or f32")
     _check(coords.dtype == torch.float32, "corr_lookup: coords must be f32")

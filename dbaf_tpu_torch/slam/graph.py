@@ -45,10 +45,11 @@ def corr_operands(fmaps_buf: torch.Tensor, ii: torch.Tensor, jj: torch.Tensor):
 
 def corr_round(prep, coords1: torch.Tensor) -> torch.Tensor:
     """(E, H, W, 196) correlation features of one round."""
-    if len(prep) == 2:
+    if coords1.is_cuda:
         f1p, f2p = prep
         return corr_cuda.corr_fused_xy(f1p, f2p, coords1, coords1.shape[1], coords1.shape[2])
-    return corr_ops.lookup_fused(prep[0], coords1).permute(0, 2, 3, 1)
+    (vol,) = prep
+    return corr_ops.lookup_fused(vol, coords1).permute(0, 2, 3, 1)
 
 
 class UpdateStep:
@@ -471,7 +472,7 @@ class CovisibleGraph:
                               beta: float = 0.25, thresh: float = 16.0, remove: bool = False):
         """Distance-ranked edge selection with NMS, forced radius edges and
         the opportunistic skip edge (covisible_graph.py:357-441), run by the
-        native scheduler ``csrc/graphops.cpp``."""
+        native scheduler ``native/graphops.cpp``."""
         t = self.video.counter
         ix = np.arange(t0, t)
         jx = np.arange(t1, t)

@@ -1,10 +1,10 @@
 """Build the port's native sources on first use and load them with ctypes.
 
 CUDA kernels (``csrc/*.cu``) are compiled with ``nvcc`` for ``sm_90a`` into
-shared libraries with a plain C interface; the host edge scheduler
-(``csrc/graphops.cpp``) with ``g++``.  Outputs go to ``dbaf_tpu_torch/_build``
-(listed in ``.gitignore``), named by a hash of the source so an edited
-source is rebuilt.  A failed build raises.
+shared libraries with a plain C interface; the host edge scheduler, the
+repo's ``native/graphops.cpp`` built as it is, with ``g++``.  Outputs go to
+``dbaf_tpu_torch/_build`` (listed in ``.gitignore``), named by a hash of the
+source so an edited source is rebuilt.  A failed build raises.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from typing import Dict, Iterable, List
 _PKG = osp.abspath(osp.join(osp.dirname(__file__), ".."))
 CSRC = osp.join(_PKG, "csrc")
 BUILD_DIR = osp.join(_PKG, "_build")
+GRAPHOPS_SRC = osp.join(osp.dirname(_PKG), "native", "graphops.cpp")
 
 KERNELS = ("corr_fused_xy", "corr_lookup")
 
@@ -110,15 +111,18 @@ def load_kernel_library(name: str) -> ctypes.CDLL:
 
 
 def load_graphops() -> ctypes.CDLL:
-    """The host edge scheduler ``csrc/graphops.cpp`` (a byte-identical copy
-    of the JAX package's ``native/graphops.cpp``), built with ``g++``."""
+    """The host edge scheduler ``native/graphops.cpp``, built with ``g++``
+    into ``BUILD_DIR``.  Its edge order feeds slot order and age eviction,
+    so the port runs the very source the reference runs."""
     lib = _libs.get("graphops")
     if lib is not None:
         return lib
     with _lock:
         if "graphops" not in _libs:
             os.makedirs(BUILD_DIR, exist_ok=True)
-            src = osp.join(CSRC, "graphops.cpp")
+            src = GRAPHOPS_SRC
+            if not osp.isfile(src):
+                raise RuntimeError(f"graphops source not found: {src}")
             out = _lib_path("graphops", src)
             if not osp.isfile(out):
                 tmp = f"{out}.{os.getpid()}.tmp"

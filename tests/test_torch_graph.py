@@ -174,11 +174,15 @@ def test_proximity_edges_match_jax_order():
     assert len(tgr.ii) > 2
 
 
-def test_graphops_source_is_a_byte_identical_copy():
+def test_graphops_builds_the_native_source():
+    """The port builds native/graphops.cpp itself (no copy to drift) into
+    its own build directory."""
     import os
 
+    from dbaf_tpu_torch.utils import cuda_build
+
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    with open(os.path.join(root, "native", "graphops.cpp"), "rb") as f:
-        ref = f.read()
-    with open(os.path.join(root, "dbaf_tpu_torch", "csrc", "graphops.cpp"), "rb") as f:
-        assert f.read() == ref
+    assert cuda_build.GRAPHOPS_SRC == os.path.join(root, "native", "graphops.cpp")
+    assert not os.path.exists(os.path.join(root, "dbaf_tpu_torch", "csrc", "graphops.cpp"))
+    lib = cuda_build.load_graphops()
+    assert os.path.dirname(lib._name) == cuda_build.BUILD_DIR
