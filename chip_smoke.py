@@ -1,14 +1,25 @@
 """Chip smoke test of the PyTorch/CUDA port (dbaf_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--root DIR] [--kernels-only]
+
+``--root`` names the directory that holds the ``dbaf_tpu_torch`` package to
+drive (default: this checkout); ``--kernels-only`` stops after phase 2.  With
+both, an older commit's package unpacked under a gitignored directory has
+its kernels timed on the same inputs by the same code, so two versions are
+compared in one call by running the script in turns (old, new, new, old).
 
 Phases, each fatal on failure:
   1. build   print the card's name and power limit, build the CUDA kernels
              (one nvcc per source, started together) and print the seconds;
-  2. kernels K1 corr_fused_xy at (E=48, 48x64, C=128) and at a ragged shape,
-             K2 corr_lookup at (E=1, 48x64) in bf16 and f32, each against its
-             plain PyTorch version on the card: max abs error against the
-             stated bound, kernel ms, plain ms and the computed bound ms;
+  2. kernels K1 corr_fused_xy at (E=48, 48x64, C=128), at a ragged shape,
+             with every coordinate off the image (output exactly 0; at the
+             main shape, so its time is K1 with no lookup work) and with
+             a NaN coordinate row (0 there), K2 corr_lookup at (E=1, 48x64)
+             in bf16 and f32, each against its plain PyTorch version on the
+             card: max abs error against the stated bound, kernel ms (CUDA
+             graph replay; the eager launch loop's ms beside it), plain ms,
+             the computed bound ms, and the achieved TFLOP/s, TB/s and share
+             of the bound (bound ms / kernel ms);
   3. main    the port's DBAFusion at tumvi_config() (384x512 frames, 48x64
              features, full-width DROID net with seeded random weights in the
              reference checkpoint format) on procedural frames with
@@ -26,6 +37,7 @@ Exits non-zero without a CUDA device, and without the port's package.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -65,6 +77,9 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean ms per call of ``fn`` launched from Python, CUDA events around
+    ``iters`` calls after warm-up (includes the host's launch cost where it
+    exceeds the device time)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -77,18 +92,41 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int, replays: int = 5) -> float:
+    """Mean device ms per call of ``fn``: ``iters`` calls captured in one
+    CUDA graph, replayed ``replays`` times between CUDA events, so the
+    host's launch cost drops out."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
 # ---------------------------------------------------------------------------
 # operation counts of this run's data (tent supports clipped at the borders)
 # ---------------------------------------------------------------------------
 
 def _support_sizes(c: torch.Tensor, size: int, level: int) -> torch.Tensor:
-    """Taps with a nonzero weight per offset a in -3..3: (..., 7)."""
+    """Taps with a nonzero weight per offset a in -3..3: (..., 7); none for
+    a non-finite coordinate."""
     s = 2 ** level
     off = torch.arange(-3, 4, device=c.device, dtype=torch.float32)
     k0 = torch.floor(c / s)[..., None] + off
     lo = torch.clamp(k0 * s, 0, size)
     hi = torch.clamp((k0 + 2) * s, 0, size)
-    return (hi - lo).clamp(min=0)
+    return torch.nan_to_num((hi - lo).clamp(min=0), nan=0.0)
 
 
 def _union_rows(c: torch.Tensor, size: int, level: int) -> torch.Tensor:
@@ -96,7 +134,7 @@ def _union_rows(c: torch.Tensor, size: int, level: int) -> torch.Tensor:
     k0 = torch.floor(c / s)
     lo = torch.clamp((k0 - 3) * s, 0, size)
     hi = torch.clamp((k0 + 5) * s, 0, size)
-    return (hi - lo).clamp(min=0)
+    return torch.nan_to_num((hi - lo).clamp(min=0), nan=0.0)
 
 
 def lookup_flops(coords: torch.Tensor, H2: int, W2: int, x_first: bool) -> float:
@@ -141,33 +179,56 @@ def phase_kernels(dev) -> dict:
         noise = (torch.rand(E, H, W, 2, generator=g) - 0.5) * 16.0
         return f1, f2, (grid[None].float() + noise).to(dev).contiguous()
 
-    def case(name, kernel, plain, tol, iters, plain_iters, nbytes, op_seconds):
+    def case(name, kernel, plain, tol, iters, plain_iters, nbytes, ops, peak, compare=None):
         out = kernel()
         torch.cuda.synchronize()
         ref = plain()
-        err = (out.float() - ref.float()).abs().max().item()
+        if compare is None:
+            err = (out.float() - ref.float()).abs().max().item()
+        else:
+            err = compare(out, ref)
         if not err <= tol:
             raise SystemExit(f"{name} disagrees with its plain version: {err} > {tol}")
-        ms = cuda_ms(kernel, iters)
+        ms = graph_ms(kernel, iters)
+        eager_ms = cuda_ms(kernel, iters)
         plain_ms = cuda_ms(plain, plain_iters, warmup=1)
-        bms, by = bound(nbytes, op_seconds)
-        row = dict(case=name, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                   bound_ms=bms, bound_by=by)
+        bms, by = bound(nbytes, ops / peak)
+        row = dict(case=name, max_abs_err=err, tol=tol, ms=ms, eager_ms=eager_ms,
+                   plain_ms=plain_ms, bound_ms=bms, bound_by=by)
         log("[kernels] " + json.dumps(row))
+        log(f"[rate] {name}: {ops / (ms * 1e-3) / 1e12:.3f} TFLOP/s, "
+            f"{nbytes / (ms * 1e-3) / 1e12:.4f} TB/s, share of bound {bms / ms:.4f} "
+            f"(bound by {by})")
         return row
 
-    def k1_case(name, E, H, W, C):
+    def k1_case(name, E, H, W, C, kind="noise", iters=50):
         f1, f2, coords = inputs(E, H, W, C)
+        compare = None
+        if kind == "off_image":  # every support misses the image: exactly 0
+            coords = coords + torch.tensor([2.0 * W + 40.0, -2.0 * H - 40.0], device=dev)
+
+            def compare(out, ref):
+                if torch.count_nonzero(out) or torch.count_nonzero(ref):
+                    raise SystemExit(f"{name}: off-image coordinates gave a nonzero output")
+                return 0.0
+        if kind == "nan_row":  # an empty support: 0 there, the plain values elsewhere
+            coords[:, H // 2] = float("nan")
+            keep = torch.arange(H, device=dev) != H // 2
+
+            def compare(out, ref):
+                if torch.count_nonzero(out[:, H // 2]) or not torch.isfinite(out).all():
+                    raise SystemExit(f"{name}: the NaN row is not 0, or an output is not finite")
+                return (out[:, keep].float() - ref[:, keep].float()).abs().max().item()
         f1p, f2p = cc.prepare_corr_fmaps(f1, f2)
         P = H * W
         return case(
             name, lambda: cc.corr_fused_xy(f1p, f2p, coords, H, W),
             lambda: cc.corr_fused_xy_plain(f1p, f2p, coords, H, W),
             2e-2,  # test_corr.py's bf16 bound; K1 sums in another order
-            20, 2,
+            iters, 2,
             E * P * C * 2 * 2 + E * P * 2 * 4 + E * P * 196 * 2,
             # the build and both tent contractions take bf16 operands
-            (2.0 * E * P * P * C + lookup_flops(coords, H, W, True)) / PEAK_BF16)
+            2.0 * E * P * P * C + lookup_flops(coords, H, W, True), PEAK_BF16, compare)
 
     def k2_case(name, dtype):
         E, H, W = 1, 48, 64
@@ -177,12 +238,16 @@ def phase_kernels(dev) -> dict:
         peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
         return case(
             name, lambda: cc.corr_lookup(vol, coords), lambda: cc.corr_lookup_plain(vol, coords),
-            K2_TOL, 50, 5, vol.numel() * vol.element_size() + P * 2 * 4 + P * 196 * 4,
-            lookup_flops(coords, H, W, False) / peak)
+            K2_TOL, 500, 5, vol.numel() * vol.element_size() + P * 2 * 4 + P * 196 * 4,
+            lookup_flops(coords, H, W, False), peak)
 
     return {
         "corr_fused_xy": k1_case("K1 E=48 48x64 C=128", 48, 48, 64, 128),
-        "corr_fused_xy_ragged": k1_case("K1 ragged E=8 37x45 C=128", 8, 37, 45, 128),
+        "corr_fused_xy_ragged": k1_case("K1 ragged E=8 37x45 C=128", 8, 37, 45, 128, iters=20),
+        "corr_fused_xy_off_image": k1_case("K1 off-image E=48 48x64 C=128", 48, 48, 64, 128,
+                                           "off_image"),
+        "corr_fused_xy_nan_row": k1_case("K1 NaN row E=8 37x45 C=128", 8, 37, 45, 128,
+                                         "nan_row", iters=20),
         "corr_lookup": k2_case("K2 E=1 48x64 bf16", torch.bfloat16),
         "corr_lookup_f32": k2_case("K2 E=1 48x64 f32", torch.float32),
     }
@@ -312,21 +377,30 @@ def phase_check(dev) -> None:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
+    ap.add_argument("--root", default=ROOT,
+                    help="directory holding the dbaf_tpu_torch package (default: this checkout)")
+    ap.add_argument("--kernels-only", action="store_true", help="stop after phase 2")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args.root))
+    import dbaf_tpu_torch
     from dbaf_tpu_torch.utils import cuda_build
     from dbaf_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device("cuda")
     card = card_line()
-    log(f"[build] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"[build] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+        f"package {os.path.dirname(dbaf_tpu_torch.__file__)}")
     t = time.perf_counter()
     cuda_build.build_kernels(verbose=True)
     log(f"[build] kernels built in {time.perf_counter() - t:.1f} s")
 
     rows = phase_kernels(dev)
+    if args.kernels_only:
+        return 0
     main_res = phase_main(dev, N_FRAMES)
     phase_check(dev)
 

@@ -3,9 +3,9 @@ launch counters and plain PyTorch versions.
 
 K1 ``corr_fused_xy`` replaces the Pallas kernel ``_fused_xy_kernel``
 (``dbaf_tpu/ops/corr_pallas.py:206``, driven by ``corr_fused_xy_prepared``):
-the correlation rows are built in shared memory and contracted with the
-4-level tent weights, x first, without ever storing the volume.  It runs in
-every update round for every active edge.
+the correlation rows are built in shared memory (``wgmma`` on TMA-fed
+tiles) and contracted with the 4-level tent weights, x first, without ever
+storing the volume.  It runs in every update round for every active edge.
 
 K2 ``corr_lookup`` replaces ``_lookup_kernel`` (``corr_pallas.py:58``,
 driven by ``lookup_pallas``): the same 4-level lookup, y first, on a
@@ -27,7 +27,8 @@ import torch.nn.functional as F
 from .corr import DEFAULT_LEVELS, DEFAULT_RADIUS, _round, lookup_fused
 
 NUM_CHANNELS = DEFAULT_LEVELS * (2 * DEFAULT_RADIUS + 1) ** 2  # 196
-K1_TILE = 16  # source pixels per block of K1 (one wmma row tile)
+K1_CHUNK = 128  # f2 positions per K1 chunk: whole rows, so W2 <= 128
+K1_BOX_C = 64  # channels per K1 TMA box (128-byte rows)
 
 # launches of each kernel; a plain integer per wrapper, reset by the caller
 LAUNCHES = {"corr_fused_xy": 0, "corr_lookup": 0}
@@ -111,12 +112,23 @@ def corr_fused_xy_plain(f1p: torch.Tensor, f2p: torch.Tensor, coords: torch.Tens
     return out.reshape(E, H, W, NUM_CHANNELS)
 
 
+def check_k1_shape(W2: int, C: int) -> None:
+    """Raise ``ValueError`` unless K1 takes feature maps W2 wide with C
+    channels: W2 <= 128 (a chunk of f2 holds whole rows, so images up to
+    1024 px wide) and C <= 128 (two TMA boxes).  The plain version takes
+    any shape."""
+    _check(W2 <= K1_CHUNK, f"corr_fused_xy: feature width W2={W2} above {K1_CHUNK} "
+           f"(image width {8 * W2} px above {8 * K1_CHUNK}): K1 holds whole rows in a chunk")
+    _check(C <= 2 * K1_BOX_C, f"corr_fused_xy: C={C} channels above {2 * K1_BOX_C}")
+
+
 def corr_fused_xy(f1p: torch.Tensor, f2p: torch.Tensor, coords: torch.Tensor,
                   H2: int, W2: int) -> torch.Tensor:
     """Fused correlation build + 4-level lookup, channels-last bf16.
 
     Same contract as :func:`corr_fused_xy_plain`.  A CUDA input launches
-    kernel K1; a CPU input takes the plain version.
+    kernel K1, within the limits of :func:`check_k1_shape`, and raises
+    beyond them; a CPU input takes the plain version.
     """
     if not f1p.is_cuda:
         return corr_fused_xy_plain(f1p, f2p, coords, H2, W2)
@@ -135,19 +147,17 @@ def corr_fused_xy(f1p: torch.Tensor, f2p: torch.Tensor, coords: torch.Tensor,
            and coords.shape[3] == 2, "corr_fused_xy: coords must be (E, H, W, 2), H*W == P")
     _check(f1p.is_contiguous() and f2p.is_contiguous() and coords.is_contiguous(),
            "corr_fused_xy: inputs must be contiguous")
-    # wmma tiles are 16 x 16 x 16: pad channels and rows with zeros (padded
-    # channels add nothing; padded rows are never read or written back)
-    cpad = (-C) % 16
-    p1pad = (-P) % K1_TILE
-    p2pad = (-(H2 * W2)) % 16
-    if cpad or p1pad:
-        f1p = F.pad(f1p, (0, cpad, 0, p1pad))
-    if cpad or p2pad:
-        f2p = F.pad(f2p, (0, cpad, 0, p2pad))
-    # wmma loads need 32-byte aligned rows; coords are read as float2
-    if f1p.data_ptr() % 32:
+    check_k1_shape(W2, C)
+    # TMA boxes are 64 channels (128-byte rows): pad channels with zeros,
+    # which add nothing.  Rows beyond P or P2 are zero-filled by TMA.
+    cpad = (-C) % K1_BOX_C
+    if cpad:
+        f1p = F.pad(f1p, (0, cpad))
+        f2p = F.pad(f2p, (0, cpad))
+    # tensor maps need 16-byte aligned bases; coords are read as float2
+    if f1p.data_ptr() % 16:
         f1p = f1p.clone()
-    if f2p.data_ptr() % 32:
+    if f2p.data_ptr() % 16:
         f2p = f2p.clone()
     if coords.data_ptr() % 8:
         coords = coords.clone()
@@ -157,8 +167,7 @@ def corr_fused_xy(f1p: torch.Tensor, f2p: torch.Tensor, coords: torch.Tensor,
     out = torch.empty((E, coords.shape[1], coords.shape[2], NUM_CHANNELS),
                       dtype=torch.bfloat16, device=f1p.device)
     rc = lib.corr_fused_xy_launch(
-        _ptr(f1p), _ptr(f2p), _ptr(coords), _ptr(out),
-        E, P, f1p.shape[1], f2p.shape[1], H2, W2, f1p.shape[2], _stream(),
+        _ptr(f1p), _ptr(f2p), _ptr(coords), _ptr(out), E, P, H2, W2, f1p.shape[2], _stream(),
     )
     _raise_on(rc, "corr_fused_xy")
     LAUNCHES["corr_fused_xy"] += 1
@@ -179,7 +188,9 @@ def corr_lookup(volume: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
 
     volume bf16 or f32; coords (E, H, W, 2) f32 at level-0 scale.  Returns
     (E, 196, H, W) f32 in the reference channel order.  A CUDA volume
-    launches kernel K2; a CPU volume takes the plain version.
+    launches kernel K2, which raises where two volume rows do not fit one
+    block's shared memory (H2*W2 above 57k in bf16 or 28k in f32 on the
+    H100); a CPU volume takes the plain version.
     """
     if not volume.is_cuda:
         return corr_lookup_plain(volume, coords)

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from ..models.net import DroidNet
+from ..ops.corr_cuda import check_k1_shape
 from ..utils.config import DBAFusionConfig
 from ..utils.device import resolve_device
 from .frontend import Frontend
@@ -28,6 +29,9 @@ class DBAFusion:
     may be injected instead (test oracles), with the signatures of
     ``DroidNet.features_only``/``context_only``/``update_step``.  ``device`` defaults to the
     card and raises without one; pass ``device="cpu"`` for the plain path.
+    On the card the image may be at most 1024 px wide (kernel K1's limit,
+    :func:`~dbaf_tpu_torch.ops.corr_cuda.check_k1_shape`); a wider
+    ``cfg.image_size`` raises ``ValueError`` here.
     ``dtype`` is the network's compute type.
     """
 
@@ -36,6 +40,10 @@ class DBAFusion:
                  feat_fn: Optional[Callable] = None, ctx_fn: Optional[Callable] = None,
                  update_fn: Optional[Callable] = None, dtype: torch.dtype = torch.bfloat16):
         self.cfg = cfg
+        if torch.device("cuda" if device is None else device).type == "cuda":
+            # K1 runs in every update round: refuse a feature grid it does
+            # not take here rather than in the first round (fnet's 128 channels)
+            check_k1_shape(cfg.feat_size[1], 128)
         self.device = resolve_device(device)
         self.video = DepthVideo(cfg, self.device)
         self.model = None

@@ -126,3 +126,36 @@ def test_dispatch_sends_cpu_tensors_to_plain_path():
     np.testing.assert_array_equal(
         k1.float().numpy(), tk.corr_fused_xy_plain(f1p, f2p, torch.tensor(co), 6, 8).float().numpy())
     assert tk.LAUNCHES == {"corr_fused_xy": 0, "corr_lookup": 0}
+
+
+
+@pytest.mark.parametrize("preset", ["tumvi_config", "kitti360_config", "whu_config",
+                                    "subt_config"])
+def test_k1_takes_every_preset(preset):
+    """Every preset's feature grid is within K1's limits (W2 <= 128, C = 128)."""
+    from dbaf_tpu_torch.utils import config
+
+    cfg = getattr(config, preset)()
+    tk.check_k1_shape(cfg.feat_size[1], 128)
+
+
+@pytest.mark.parametrize("W2,C", [(129, 128), (136, 128), (64, 192)],
+                         ids=["w2_129", "w2_136", "c_192"])
+def test_k1_shape_check_rejects_what_the_kernel_does_not_take(W2, C):
+    with pytest.raises(ValueError, match="W2" if W2 > 128 else "channels"):
+        tk.check_k1_shape(W2, C)
+
+
+def test_dbafusion_refuses_a_grid_k1_does_not_take_at_construction():
+    """An image wider than 1024 px raises when the system is built for the
+    card, before any card is looked for, and is accepted on the CPU (the
+    plain version takes any width)."""
+    from dbaf_tpu_torch.slam.system import DBAFusion
+    from dbaf_tpu_torch.utils import config
+
+    cfg = config.tumvi_config(image_size=(384, 1088))
+    with pytest.raises(ValueError, match="1088 px"):
+        DBAFusion(cfg, device="cuda", feat_fn=lambda *a: None, ctx_fn=lambda *a: None,
+                  update_fn=lambda *a: None)
+    assert DBAFusion(cfg, device="cpu", feat_fn=lambda *a: None, ctx_fn=lambda *a: None,
+                     update_fn=lambda *a: None).device.type == "cpu"

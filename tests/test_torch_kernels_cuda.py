@@ -35,13 +35,26 @@ def _inputs(dev, E, H, W, C, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(4, 48, 64, 128), (3, 10, 13, 128), (2, 37, 45, 40)],
-                         ids=["main", "ragged", "ragged_channels"])
-def test_corr_fused_xy_matches_plain(dev, shape):
+@pytest.mark.parametrize("case", [
+    (4, 48, 64, 128, "noise"), (3, 10, 13, 128, "noise"), (2, 37, 45, 40, "noise"),
+    (1, 48, 64, 128, "noise"), (48, 48, 64, 128, "noise"), (2, 7, 45, 128, "noise"),
+    (2, 40, 112, 128, "noise"), (2, 48, 64, 128, "off_image"), (2, 37, 45, 128, "nan_row"),
+], ids=["main", "ragged", "ragged_channels", "one_edge", "e48", "p_not_multiple_of_block",
+        "one_row_chunks", "off_image", "nan_row"])
+def test_corr_fused_xy_matches_plain(dev, case):
+    """K1 against its plain version.  P = 130 and 315 are not multiples of
+    the block's 64 pixels, W2 = 13 and 45 not multiples of 8, W2 = 112 puts
+    one row in a chunk.  Off-image coordinates give exactly 0; a NaN
+    coordinate row gives 0 there (an empty support) and the plain values
+    elsewhere."""
     from dbaf_tpu_torch.ops import corr_cuda as cc
 
-    E, H, W, C = shape
+    E, H, W, C, kind = case
     f1, f2, coords = _inputs(dev, E, H, W, C, 1)
+    if kind == "off_image":
+        coords = coords + torch.tensor([2.0 * W + 40.0, -2.0 * H - 40.0], device=dev)
+    if kind == "nan_row":
+        coords[:, H // 2] = float("nan")
     f1p, f2p = cc.prepare_corr_fmaps(f1, f2)
     before = cc.LAUNCHES["corr_fused_xy"]
     got = cc.corr_fused_xy(f1p, f2p, coords, H, W)
@@ -49,13 +62,27 @@ def test_corr_fused_xy_matches_plain(dev, shape):
     assert cc.LAUNCHES["corr_fused_xy"] == before + 1
     want = cc.corr_fused_xy_plain(f1p, f2p, coords, H, W)
     assert got.shape == want.shape == (E, H, W, 196) and got.dtype == torch.bfloat16
+    if kind == "off_image":
+        assert torch.count_nonzero(got) == 0 and torch.count_nonzero(want) == 0
+    if kind == "nan_row":
+        assert torch.count_nonzero(got[:, H // 2]) == 0
+        assert torch.isfinite(got).all()
+        keep = torch.ones(H, dtype=torch.bool, device=dev)
+        keep[H // 2] = False
+        got, want = got[:, keep], want[:, keep]
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", [(1, 48, 64), (2, 11, 14)], ids=["main", "ragged"])
+@pytest.mark.parametrize("shape", [(1, 48, 64), (2, 11, 14), (4, 48, 64), (3, 37, 45),
+                                   (1, 128, 128)],
+                         ids=["main", "ragged", "tail", "ragged_tail", "wide"])
 def test_corr_lookup_matches_plain(dev, dtype, shape):
+    """K2 against its plain version.  4 x 3072 pixels leave the persistent
+    warps a ragged last round; 37 x 45 rows are not 16-byte multiples, so
+    the rows come in by element loads; 128 x 128 rows are too long for four
+    warps' buffers in a block (two warps a block in bf16, one in f32)."""
     from dbaf_tpu_torch.ops import corr as corr_ops
     from dbaf_tpu_torch.ops import corr_cuda as cc
 
@@ -81,3 +108,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     vol = torch.zeros(1, 48, 6, 8, device=dev, dtype=torch.float16)
     with pytest.raises(ValueError):
         cc.corr_lookup(vol, coords)
+    # K1 holds whole rows of f2 in a chunk: W2 <= 128
+    f1, f2, coords = _inputs(dev, 1, 2, 136, 32, 3)
+    f1p, f2p = cc.prepare_corr_fmaps(f1, f2)
+    with pytest.raises(ValueError, match="W2=136"):
+        cc.corr_fused_xy(f1p, f2p, coords, 2, 136)
+    # K2 needs two f32 rows of 180 x 180 in one block: more than 227 KB
+    vol = torch.zeros(1, 4, 180, 180, device=dev)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        cc.corr_lookup(vol, torch.zeros(1, 2, 2, 2, device=dev))
