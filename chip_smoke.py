@@ -29,8 +29,25 @@ Phases, each fatal on failure:
              and the device's idle share over the last 3 frames, run under
              torch.profiler (its table goes to chiprun_out/profile_main.txt);
   4. check   the 16-frame golden-trace config of tests/test_golden_trace.py
-             on the card, held against tests/data/golden_trace.npz.
-Then one JSON line listing both kernels, and last the ok line.
+             on the card, held against tests/data/golden_trace.npz;
+  5. coupled the tightly-coupled IMU solve through DBAFusion.set_multisensor
+             and track at tumvi_config() full width (bench.py's coupled
+             configuration: 48-slot buffer, window 44, rollup 36/15, VI
+             warmup 12, 48 edges, the device factor graph and the fused
+             coupled step, filter_thresh=-1), 100 procedural frames with a
+             simulated 200 Hz IMU; the full network runs every round and the
+             synthetic-scene oracle replaces its outputs (bench.py:261-268),
+             so the trajectory is metric.  Fatal unless VI init triggers,
+             >= 10 fused coupled steps and a rollup run, K1 launches in every update round
+             and K2 on every gated frame, the trajectory is finite, the
+             SE3-aligned ATE of the body positions is under 0.08 x span and
+             every |bias| is under 0.2.  Prints coupled kf/s after VI init,
+             LM iterations per pass, host reads per keyframe, K1 ms per
+             round, and the idle share over the last 3 frames under
+             torch.profiler (its table goes to chiprun_out/profile_coupled.txt).
+Then one JSON line listing both kernels (launches summed over the main and
+coupled paths, each counted from 0 just before its run; "launches_by_path"
+splits them), and last the ok line.
 
 Exits non-zero without a CUDA device, and without the port's package.
 """
@@ -62,6 +79,8 @@ PEAK_BYTES = 3.35e12
 K2_TOL = 1e-5
 
 N_FRAMES = 30  # main path: initialization at 8, then ~20 fused keyframe steps
+N_COUPLED = 100  # coupled path: VI init after the 12-keyframe warmup, then a rollup
+COUPLED_FPS = 10.0
 
 
 def log(msg: str) -> None:
@@ -253,6 +272,41 @@ def phase_kernels(dev) -> dict:
     }
 
 
+N_PROFILED = 3  # the last frames of a path run under torch.profiler, off its steady clock
+
+
+class Profile:
+    """torch.profiler over a path's last frames: device busy time (kernel
+    rows only; CPU-op rows repeat their kernels' time), idle share, the
+    table under chiprun_out/, and the device time of each kernel by name."""
+
+    def __init__(self):
+        torch.cuda.synchronize()
+        self.prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                       torch.profiler.ProfilerActivity.CUDA])
+        self.prof.__enter__()
+        self.t0 = time.perf_counter()
+
+    def stop(self, tag: str, table_name: str) -> dict:
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - self.t0) * 1e3
+        self.prof.__exit__(None, None, None)
+        events = self.prof.key_averages()
+        kernels = {e.key: e.self_device_time_total / 1e3 for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation}
+        busy = sum(kernels.values())
+        idle = 1.0 - busy / wall
+        log(f"[{tag}] profile of the last {N_PROFILED} frames: device busy {busy:.3f} ms of "
+            f"{wall:.3f} ms wall, idle share {idle:.3f} (profiler on)")
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+        for name, ms in top:
+            log(f"[{tag}]   {ms:10.3f} ms  {name[:100]}")
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", table_name), "w") as f:
+            f.write(events.table(sort_by="self_device_time_total", row_limit=60))
+        return dict(busy_ms=busy, wall_ms=wall, idle_share=idle, kernels=kernels)
+
+
 def seeded_params(seed: int):
     from dbaf_tpu_torch.models.convert import load_reference_state_dict, synth_reference_state_dict
 
@@ -280,35 +334,19 @@ def phase_main(dev, n_frames: int) -> dict:
 
     cc.reset_launch_counts()
     fe = system.frontend
-    n_prof = 3  # the last frames run under torch.profiler, outside the steady clock
     t_steady = wall = None
     prof = None
     for k in range(n_frames):
         if fe.is_initialized and t_steady is None:
             torch.cuda.synchronize()
             t_steady, steps0 = time.perf_counter(), fe.keyframe_steps
-        if k == n_frames - n_prof:
+        if k == n_frames - N_PROFILED:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t_steady
             steps_steady = fe.keyframe_steps - steps0
-            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                      torch.profiler.ProfilerActivity.CUDA])
-            prof.__enter__()
-            t_prof = time.perf_counter()
+            prof = Profile()
         system.track(float(k), frame(k), intrinsics=intr)
-    torch.cuda.synchronize()
-    prof_wall = time.perf_counter() - t_prof
-    prof.__exit__(None, None, None)
-    events = prof.key_averages()
-    # kernel rows only (CPU-op rows repeat their kernels' time)
-    busy = sum(e.self_device_time_total for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation) / 1e3
-    log(f"[profile] last {n_prof} frames: device busy {busy:.3f} ms of {prof_wall * 1e3:.3f} ms "
-        f"wall, idle share {1.0 - busy / (prof_wall * 1e3):.3f} (profiler on)")
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "profile_main.txt"), "w") as f:
-        f.write(events.table(sort_by="self_device_time_total", row_limit=60))
+    prof.stop("main", "profile_main.txt")
     launches = dict(cc.LAUNCHES)
     traj = system.terminate()
     log(f"[main] frames {n_frames}, keyframes {system.video.counter}, keyframe steps "
@@ -376,6 +414,145 @@ def phase_check(dev) -> None:
         raise SystemExit("golden trace on the card is outside its bounds")
 
 
+def coupled_config():
+    """bench.py:240-255's coupled configuration, on the synchronous path."""
+    from dbaf_tpu_torch.utils.config import tumvi_config
+
+    cfg = tumvi_config()
+    cfg.buffer = 48
+    cfg.ba.window = 44
+    cfg.frontend.rollup_start = 36
+    cfg.frontend.rollup_shift = 15
+    cfg.frontend.vi_warmup = 12
+    cfg.frontend.filter_thresh = -1.0  # admit every frame
+    cfg.graph.edge_capacity = 48
+    cfg.sensors.device_solver = True
+    cfg.sensors.coupled_mega = True
+    cfg.sensors.coupled_async = False  # the zero-pull pipeline is not ported
+    return cfg
+
+
+def phase_coupled(dev, n_frames: int) -> dict:
+    """The tightly-coupled path through DBAFusion's entry points; the
+    network's outputs are replaced by the synthetic-scene oracle on the
+    update rounds (the motion gate keeps the network's own)."""
+    from dbaf_tpu_torch.eval.ate import ate_rmse
+    from dbaf_tpu_torch.eval.synthetic import (make_oracle, scene_from_poses,
+                                               simulate_imu_and_poses)
+    from dbaf_tpu_torch.models.net import DroidNet
+    from dbaf_tpu_torch.ops import corr_cuda as cc
+    from dbaf_tpu_torch.slam.system import DBAFusion
+    from dbaf_tpu_torch.utils import device as devmod
+
+    cfg = coupled_config()
+    fps = COUPLED_FPS
+    HT, WD = cfg.image_size
+    H8, W8 = cfg.feat_size
+    intr8 = np.asarray([2.0 * W8, 2.0 * W8, W8 / 2, H8 / 2], np.float32)
+    imu_rows, poses_at = simulate_imu_and_poses(n_frames / fps + 0.5, fps=fps)
+    gt_cw, gt_disps = scene_from_poses(poses_at, n_frames, intr8, H8, W8)
+    model = DroidNet(device=dev)
+    model.load_state_dict(seeded_params(20260820))
+    model.eval()
+    oracle = make_oracle(gt_cw, gt_disps, intr8, device=dev)
+
+    def update_fn(net, inp, corr, motn, ii, jj, aux):
+        net2, delta, weight = model.update_fn(net, inp, corr, motn, ii, jj, aux)
+        if "id_map" not in aux:  # the motion gate
+            return net2, delta, weight
+        # the network's outputs folded in at 1e-30, as bench.py does
+        _, d_o, w_o = oracle(net, inp, corr, motn, ii, jj, aux)
+        return net2, d_o + delta.float() * 1e-30, w_o + weight.float() * 1e-30
+
+    system = DBAFusion(cfg, device=dev, feat_fn=model.features_only, ctx_fn=model.context_only,
+                       update_fn=update_fn)
+    system.set_multisensor(imu_rows, np.eye(4), imu_noise=[0.05, 0.005, 1e-4, 1e-6])
+    fe, g, v = system.frontend, system.graph, system.video
+    rng = np.random.default_rng(1)
+    base = rng.integers(0, 255, size=(HT + 64, WD + 64, 3)).astype(np.uint8)
+    id_map = np.zeros(cfg.buffer, np.int64)
+
+    def track(k):
+        # video slot -> frame id for the oracle (the frame takes slot
+        # `counter`; culls and rollups move slots, so it is rebuilt after)
+        id_map[v.counter] = k
+        g.aux = {"id_map": torch.as_tensor(id_map, device=dev)}
+        ox, oy = (3 * k) % 64, (2 * k) % 64
+        system.track(k / fps, base[oy:oy + HT, ox:ox + WD], intrinsics=intr8 * 8.0)
+        n = v.counter
+        id_map[:n] = np.round(v.tstamp[:n] * fps).astype(np.int64)
+        g.aux = {"id_map": torch.as_tensor(id_map, device=dev)}
+
+    cc.reset_launch_counts()
+    vi_key = t_steady = prof = None
+    lm_iters = lm_passes = 0
+    for k in range(n_frames):
+        if k == n_frames - N_PROFILED:
+            if t_steady is None:
+                raise SystemExit(f"coupled: VI initialization did not trigger in {k} frames")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_steady
+            steps_steady = fe.keyframe_steps - steps0
+            reads_steady = devmod.HOST_READS["count"] - reads0
+            rounds_prof0 = fe.update_rounds
+            prof = Profile()
+        megas0 = g.mega_count
+        track(k)
+        if g.mega_count > megas0:  # realized LM iterations of the executed passes
+            lm_iters += int(g.lm_stats.sum())
+            lm_passes += int(np.count_nonzero(g.lm_stats))
+        if vi_key is None and v.imu_enabled:
+            vi_key = k
+            torch.cuda.synchronize()
+            t_steady, steps0 = time.perf_counter(), fe.keyframe_steps
+            reads0 = devmod.HOST_READS["count"]
+    rounds_prof = fe.update_rounds - rounds_prof0
+    pr = prof.stop("coupled", "profile_coupled.txt")
+    launches = dict(cc.LAUNCHES)
+    traj = system.terminate()
+    ecef = system.trajectory_ecef
+    k1_ms = sum(ms for name, ms in pr["kernels"].items() if "corr_fused_xy_kernel" in name)
+
+    t1 = fe.t1
+    st = g.coupled.state
+    est = np.asarray([st.wTbs[k].t for k in range(t1)])
+    ref = np.stack([poses_at[i][1] for i in np.round(v.tstamp[:t1] * fps).astype(int)])
+    ate = ate_rmse(est, ref, align="se3")
+    span = float(np.linalg.norm(ref.max(0) - ref.min(0)))
+    bias = float(np.abs(np.asarray([st.bs[k] for k in range(t1)])).max())
+    res = dict(frames=n_frames, vi_key=vi_key, keyframe_steps=fe.keyframe_steps,
+               mega_steps=g.mega_count, culls=fe.culls, rollups=fe.rollup_count,
+               update_rounds=fe.update_rounds, launches=launches,
+               kf_per_s=steps_steady / wall, steady_steps=steps_steady,
+               host_reads_per_kf=reads_steady / steps_steady,
+               lm_iters_per_pass=lm_iters / max(lm_passes, 1), lm_passes=lm_passes,
+               k1_ms_per_round=k1_ms / max(rounds_prof, 1), idle_share=pr["idle_share"],
+               ate=ate, span=span, ate_share=ate / span, max_abs_bias=bias,
+               ecef_rows=len(ecef))
+    log("[coupled] " + json.dumps(res))
+    if launches["corr_lookup"] < n_frames - 1:
+        raise SystemExit(f"coupled: K2 launched {launches['corr_lookup']} times for "
+                         f"{n_frames - 1} gated frames")
+    if launches["corr_fused_xy"] < fe.update_rounds or fe.update_rounds == 0:
+        raise SystemExit(f"coupled: K1 launched {launches['corr_fused_xy']} times for "
+                         f"{fe.update_rounds} update rounds")
+    if g.mega_count < 10:
+        raise SystemExit(f"coupled: only {g.mega_count} fused coupled steps ran")
+    if fe.rollup_count < 1:
+        raise SystemExit("coupled: no rollup ran")
+    if traj.shape[0] == 0 or not np.all(np.isfinite(traj)):
+        raise SystemExit(f"coupled: trajectory {traj.shape} is empty or not finite")
+    if not ate < 0.08 * span:
+        raise SystemExit(f"coupled: ATE {ate} m is not under 0.08 x span ({span} m)")
+    if not bias < 0.2:
+        raise SystemExit(f"coupled: a bias reached {bias} (bound 0.2)")
+    log(f"[coupled] {res['kf_per_s']:.3f} kf/s after VI init ({steps_steady} steps), "
+        f"{res['lm_iters_per_pass']:.3f} LM iterations per pass, "
+        f"{res['host_reads_per_kf']:.3f} host reads per keyframe, K1 "
+        f"{res['k1_ms_per_round']:.4f} ms per round, ATE {ate:.4f} m of span {span:.3f} m")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--root", default=ROOT,
@@ -401,8 +578,14 @@ def main() -> int:
     rows = phase_kernels(dev)
     if args.kernels_only:
         return 0
+    t = time.perf_counter()
     main_res = phase_main(dev, N_FRAMES)
     phase_check(dev)
+    log(f"[time] phases 3-4 took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    coupled_res = phase_coupled(dev, N_COUPLED)
+    log(f"[time] phase 5 (coupled) took {time.perf_counter() - t:.1f} s")
+    paths = {"main": main_res["launches"], "coupled": coupled_res["launches"]}
 
     src = "dbaf_tpu_torch/csrc/"
     kernels = [
@@ -414,10 +597,12 @@ def main() -> int:
     out = []
     for k in kernels:
         r = k.pop("row")
-        out.append(dict(k, launches=main_res["launches"][k["name"]], max_abs_err=r["max_abs_err"],
+        by_path = {p: n[k["name"]] for p, n in paths.items()}
+        out.append(dict(k, launches=sum(by_path.values()), max_abs_err=r["max_abs_err"],
                         ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                        bound_by=r["bound_by"], library_ms=None))
+                        bound_by=r["bound_by"], library_ms=None, launches_by_path=by_path))
     log(f"[main] {main_res['kf_per_s']:.3f} kf/s on {card}")
+    log(f"[coupled] {coupled_res['kf_per_s']:.3f} kf/s after VI init on {card}")
     print(card, flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

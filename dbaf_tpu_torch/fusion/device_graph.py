@@ -1,0 +1,902 @@
+"""Device factor-graph solve for the tightly-coupled DBA loop (f32).
+
+Port of ``dbaf_tpu/fusion/device_graph.py``.  The window graph packs into
+fixed-shape tensors (per-frame 15-dim tangent layout [pose w, v | vel |
+bias]) and the whole Levenberg-Marquardt solve -- factor linearization,
+damped Cholesky solve, manifold retraction -- runs on the device next to the
+visual reduced camera system, so a coupled round moves no window state to
+the host.
+
+Factor coverage (the live set of depth_video.py:480-521): CombinedImuFactor,
+PriorPose, PriorVec (bias), GPSFactor (Cauchy robust, lever arm applied on
+the host), VelFactor, the marginal LinearContainerFactor and the visual
+CustomHessianFactor (camera->body adjoint on the device).
+
+Eager-PyTorch notes:
+
+* the vmapped per-factor closures of the JAX package are batched tensor
+  formulas; masks stay multiplications, as there;
+* every block scatter-add (``H.at[rows, cols].add``) is an ``index_put_``
+  with ``accumulate=True``, which sums repeated indices;
+* the LM ``while_loop`` is a Python loop that reads its ``done`` flag on the
+  host once per iteration and stops there, so the state is frozen once done
+  and the iteration count is the realized one;
+* a failed Cholesky factorization: ``cholesky_ex`` returns a partial factor
+  and ``info > 0`` where ``cho_factor`` gives NaN, so the step is accepted
+  only with ``info == 0`` as well as a finite step.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..utils.device import to_host
+
+# ---------------------------------------------------------------------------
+# f32-safe SO(3)/SE(3) (matrix form, [omega, v] tangents, right perturbation)
+# ---------------------------------------------------------------------------
+
+
+def _eye3(x: torch.Tensor) -> torch.Tensor:
+    return torch.eye(3, dtype=x.dtype, device=x.device)
+
+
+def _hat(w: torch.Tensor) -> torch.Tensor:
+    zero = torch.zeros_like(w[..., 0])
+    return torch.stack([
+        torch.stack([zero, -w[..., 2], w[..., 1]], -1),
+        torch.stack([w[..., 2], zero, -w[..., 0]], -1),
+        torch.stack([-w[..., 1], w[..., 0], zero], -1),
+    ], -2)
+
+
+def _theta(w: torch.Tensor):
+    th2 = torch.sum(w * w, -1)
+    return th2, torch.sqrt(th2 + 1e-30)
+
+
+def _so3_exp(w: torch.Tensor) -> torch.Tensor:
+    th2, th = _theta(w)
+    small = th < 1e-4
+    A = torch.where(small, 1.0 - th2 / 6.0, torch.sin(th) / th)
+    B = torch.where(small, 0.5 - th2 / 24.0, (1.0 - torch.cos(th)) / th2)
+    W = _hat(w)
+    return _eye3(w) + A[..., None, None] * W + B[..., None, None] * (W @ W)
+
+
+def _so3_log(R: torch.Tensor) -> torch.Tensor:
+    tr = torch.clamp((R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2] - 1.0) / 2.0, -1.0, 1.0)
+    th = torch.arccos(tr)
+    skew = torch.stack([
+        R[..., 2, 1] - R[..., 1, 2],
+        R[..., 0, 2] - R[..., 2, 0],
+        R[..., 1, 0] - R[..., 0, 1],
+    ], -1)
+    small = th < 1e-4
+    # residual rotations in the coupled window stay far from pi
+    scale = torch.where(small, 0.5 + th * th / 12.0,
+                        0.5 * th / torch.sin(torch.where(small, torch.ones_like(th), th)))
+    return scale[..., None] * skew
+
+
+def _so3_V(w: torch.Tensor) -> torch.Tensor:
+    """Left Jacobian of SO(3) (the V of SE(3) exp)."""
+    th2, th = _theta(w)
+    small = th < 1e-4
+    B = torch.where(small, 0.5 - th2 / 24.0, (1.0 - torch.cos(th)) / th2)
+    C = torch.where(small, 1.0 / 6.0 - th2 / 120.0, (th - torch.sin(th)) / (th2 * th))
+    W = _hat(w)
+    return _eye3(w) + B[..., None, None] * W + C[..., None, None] * (W @ W)
+
+
+def _cot_term(w: torch.Tensor) -> torch.Tensor:
+    th2, th = _theta(w)
+    small = th < 1e-4
+    one = torch.ones_like(th)
+    return torch.where(
+        small, 1.0 / 12.0 + th2 / 720.0,
+        (1.0 / torch.where(small, one, th2))
+        - (1.0 + torch.cos(th)) / (2.0 * th * torch.sin(torch.where(small, one, th))))
+
+
+def _so3_V_inv(w: torch.Tensor) -> torch.Tensor:
+    W = _hat(w)
+    return _eye3(w) - 0.5 * W + _cot_term(w)[..., None, None] * (W @ W)
+
+
+def _jr_inv(w: torch.Tensor) -> torch.Tensor:
+    """Inverse right Jacobian of SO(3)."""
+    W = _hat(w)
+    return _eye3(w) + 0.5 * W + _cot_term(w)[..., None, None] * (W @ W)
+
+
+def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return (M @ v[..., None])[..., 0]
+
+
+def _se3_retract(R, t, xi):
+    """T * Exp(xi), xi = [omega, v] (se3np.Pose.retract)."""
+    w, v = xi[..., :3], xi[..., 3:]
+    return R @ _so3_exp(w), t + _mv(R, _mv(_so3_V(w), v))
+
+
+def _se3_local(Ra, ta, Rb, tb):
+    """Log(Ta^-1 Tb) -> [omega, v]."""
+    RaT = Ra.transpose(-1, -2)
+    w = _so3_log(RaT @ Rb)
+    return torch.cat([w, _mv(_so3_V_inv(w), _mv(RaT, tb - ta))], -1)
+
+
+def _orthonormalize(R: torch.Tensor) -> torch.Tensor:
+    """Project back to SO(3) (f32 drift control): Gram-Schmidt columns."""
+    c0 = R[..., :, 0]
+    c0 = c0 / torch.linalg.norm(c0, dim=-1, keepdim=True)
+    c1 = R[..., :, 1]
+    c1 = c1 - torch.sum(c0 * c1, -1, keepdim=True) * c0
+    c1 = c1 / torch.linalg.norm(c1, dim=-1, keepdim=True)
+    c2 = torch.linalg.cross(c0, c1, dim=-1)
+    return torch.stack([c0, c1, c2], -1)
+
+
+# ---------------------------------------------------------------------------
+# packed graph + state
+# ---------------------------------------------------------------------------
+
+
+class FgState(NamedTuple):
+    """Window states, slot f = global frame t0+f."""
+    R: torch.Tensor      # (NW, 3, 3) body rotation wRb
+    t: torch.Tensor      # (NW, 3)
+    vel: torch.Tensor    # (NW, 3)
+    bias: torch.Tensor   # (NW, 6) [ba, bg]
+    valid: torch.Tensor  # (NW,) bool
+
+
+class PackedGraph(NamedTuple):
+    """Fixed-capacity tensors for every non-visual factor."""
+    # IMU factors: slot k connects frames (k, k+1)
+    imu_mask: torch.Tensor   # (NW-1,)
+    imu_dR: torch.Tensor     # (NW-1, 3, 3)
+    imu_dv: torch.Tensor     # (NW-1, 3)
+    imu_dp: torch.Tensor     # (NW-1, 3)
+    imu_dt: torch.Tensor     # (NW-1,)
+    imu_dRg: torch.Tensor    # (NW-1, 3, 3)
+    imu_dvg: torch.Tensor
+    imu_dva: torch.Tensor
+    imu_dpg: torch.Tensor
+    imu_dpa: torch.Tensor
+    imu_bias0: torch.Tensor  # (NW-1, 6) integration bias
+    imu_info: torch.Tensor   # (NW-1, 15, 15)
+    g_vec: torch.Tensor      # (3,)
+    # pose priors
+    pp_mask: torch.Tensor    # (PP,)
+    pp_frame: torch.Tensor   # (PP,)
+    pp_R: torch.Tensor       # (PP, 3, 3)
+    pp_t: torch.Tensor       # (PP, 3)
+    pp_info: torch.Tensor    # (PP, 6, 6)
+    # bias priors (PriorVec on B)
+    pb_mask: torch.Tensor    # (PB,)
+    pb_frame: torch.Tensor
+    pb_prior: torch.Tensor   # (PB, 6)
+    pb_info: torch.Tensor    # (PB, 6, 6)
+    # GNSS per frame (lever arm applied on the host, Cauchy robust)
+    gnss_mask: torch.Tensor  # (NW,)
+    gnss_pos: torch.Tensor   # (NW, 3)
+    gnss_info: torch.Tensor  # (3, 3)
+    gnss_k2: torch.Tensor    # () Cauchy k^2
+    # wheel-odometry body velocity per frame
+    odo_mask: torch.Tensor   # (NW,)
+    odo_vel: torch.Tensor    # (NW, 3)
+    odo_info: torch.Tensor   # (3, 3)
+
+
+class MargDense(NamedTuple):
+    """Marginal prior (LinearContainerFactor) in dense window form: the
+    quadratic 0.5|dx|^2_H - v.dx over the full (NW*15) window tangent at
+    fixed lin points (rows/cols of absent dims are zero).  The device
+    marginalization emits it directly, so it stays on the device across
+    keyframes."""
+    mask: torch.Tensor  # (NW,) frame participates
+    lin: torch.Tensor   # (NW, 21) lin point rows [R(9)|t|vel|bias]
+    H: torch.Tensor     # (NW*15, NW*15)
+    v: torch.Tensor     # (NW*15,)
+
+
+def marg_identity_np(NW: int) -> MargDense:
+    """The empty marginal (no prior information), host arrays."""
+    lin = np.zeros((NW, 21), np.float32)
+    lin[:, :9] = np.eye(3, dtype=np.float32).reshape(9)
+    N = NW * 15
+    return MargDense(np.zeros(NW, bool), lin, np.zeros((N, N), np.float32),
+                     np.zeros(N, np.float32))
+
+
+def marg_to_device(md, device) -> MargDense:
+    return MargDense(*(torch.as_tensor(np.asarray(a), device=device) for a in md))
+
+
+def _sel_pose(NW: int) -> np.ndarray:
+    """Static (NW*15, NW*6) selector: global rows <- stacked pose rows."""
+    S = np.zeros((NW * 15, NW * 6), np.float32)
+    for f in range(NW):
+        S[15 * f: 15 * f + 6, 6 * f: 6 * f + 6] = np.eye(6)
+    return S
+
+
+def make_sel_pose(NW: int, device=None) -> torch.Tensor:
+    return torch.as_tensor(_sel_pose(NW), device=device)
+
+
+def _graph_spec(NW: int, PP: int, PB: int):
+    """(name, shape, kind) per PackedGraph field, in field order: the flat
+    single-upload layout (kind 'f' f32, 'b' bool as 0/1, 'i' small int
+    stored exactly in f32)."""
+    NF = NW - 1
+    by_name = dict(
+        imu_mask=((NF,), "b"), imu_dR=((NF, 3, 3), "f"),
+        imu_dv=((NF, 3), "f"), imu_dp=((NF, 3), "f"), imu_dt=((NF,), "f"),
+        imu_dRg=((NF, 3, 3), "f"), imu_dvg=((NF, 3, 3), "f"),
+        imu_dva=((NF, 3, 3), "f"), imu_dpg=((NF, 3, 3), "f"),
+        imu_dpa=((NF, 3, 3), "f"), imu_bias0=((NF, 6), "f"),
+        imu_info=((NF, 15, 15), "f"), g_vec=((3,), "f"),
+        pp_mask=((PP,), "b"), pp_frame=((PP,), "i"),
+        pp_R=((PP, 3, 3), "f"), pp_t=((PP, 3), "f"),
+        pp_info=((PP, 6, 6), "f"),
+        pb_mask=((PB,), "b"), pb_frame=((PB,), "i"),
+        pb_prior=((PB, 6), "f"), pb_info=((PB, 6, 6), "f"),
+        gnss_mask=((NW,), "b"), gnss_pos=((NW, 3), "f"),
+        gnss_info=((3, 3), "f"), gnss_k2=((), "f"),
+        odo_mask=((NW,), "b"), odo_vel=((NW, 3), "f"),
+        odo_info=((3, 3), "f"),
+    )
+    return [(n, *by_name[n]) for n in PackedGraph._fields]
+
+
+def flatten_graph_np(d: dict, NW: int, PP: int = 4, PB: int = 4) -> np.ndarray:
+    """Host dict of numpy arrays -> one flat f32 buffer (single upload)."""
+    parts = []
+    for name, shape, _ in _graph_spec(NW, PP, PB):
+        a = np.asarray(d[name], np.float32).reshape(-1)
+        assert a.size == int(np.prod(shape, dtype=int)), name
+        parts.append(a)
+    return np.concatenate(parts)
+
+
+def unflatten_graph(flat: torch.Tensor, NW: int, PP: int = 4, PB: int = 4) -> PackedGraph:
+    """Flat device buffer -> PackedGraph (views and casts, no copy to host)."""
+    out = {}
+    o = 0
+    for name, shape, kind in _graph_spec(NW, PP, PB):
+        sz = int(np.prod(shape, dtype=int))
+        a = flat[o: o + sz].reshape(shape)
+        if kind == "b":
+            a = a > 0.5
+        elif kind == "i":
+            a = a.to(torch.int64)
+        out[name] = a
+        o += sz
+    return PackedGraph(**out)
+
+
+def graph_flat_size(NW: int, PP: int = 4, PB: int = 4) -> int:
+    return sum(int(np.prod(s, dtype=int)) for _, s, _ in _graph_spec(NW, PP, PB))
+
+
+# per-frame 21-wide state row: [R.ravel(9) | t(3) | vel(3) | bias(6)]
+def flatten_state_np(R, t, vel, bias) -> np.ndarray:
+    NW = R.shape[0]
+    return np.concatenate([R.reshape(NW, 9), t, vel, bias], axis=1).astype(np.float32).reshape(-1)
+
+
+def flatten_state(fg: FgState) -> torch.Tensor:
+    """FgState -> flat (NW*21,) f32 (one transfer on sync)."""
+    NW = fg.R.shape[0]
+    return torch.cat([fg.R.reshape(NW, 9), fg.t, fg.vel, fg.bias], dim=1).reshape(-1)
+
+
+def unflatten_state(flat: torch.Tensor, n: int, NW: int) -> FgState:
+    """Flat buffer + live count -> FgState (valid = arange < n)."""
+    rows = flat.reshape(NW, 21)
+    return FgState(rows[:, :9].reshape(NW, 3, 3), rows[:, 9:12], rows[:, 12:15],
+                   rows[:, 15:21], torch.arange(NW, device=flat.device) < n)
+
+
+# ---------------------------------------------------------------------------
+# linearization
+# ---------------------------------------------------------------------------
+
+
+def _imu_residual_jac(state: FgState, pg: PackedGraph):
+    """CombinedImuFactor residuals (K, 15) and stacked Jacobians (K, 15, 30)
+    over [Xi(6) Vi(3) Bi(6) Xj(6) Vj(3) Bj(6)] for every slot k = (k, k+1)
+    (fusion/factors.py:169-252)."""
+    Ri, ti, vi, bi = state.R[:-1], state.t[:-1], state.vel[:-1], state.bias[:-1]
+    Rj, tj, vj, bj = state.R[1:], state.t[1:], state.vel[1:], state.bias[1:]
+    dt = pg.imu_dt[:, None]
+    g = pg.g_vec
+    db = bi - pg.imu_bias0
+    dR = pg.imu_dR @ _so3_exp(_mv(pg.imu_dRg, db[:, 3:]))
+    dv = pg.imu_dv + _mv(pg.imu_dva, db[:, :3]) + _mv(pg.imu_dvg, db[:, 3:])
+    dp = pg.imu_dp + _mv(pg.imu_dpa, db[:, :3]) + _mv(pg.imu_dpg, db[:, 3:])
+
+    RiT = Ri.transpose(-1, -2)
+    Erot = dR.transpose(-1, -2) @ RiT @ Rj
+    r_th = _so3_log(Erot)
+    dvw = vj - vi - g * dt
+    dpw = tj - ti - vi * dt - 0.5 * g * dt * dt
+    r_v = _mv(RiT, dvw) - dv
+    r_p = _mv(RiT, dpw) - dp
+    r = torch.cat([r_th, r_v, r_p, bj - bi], -1)
+
+    Jri = _jr_inv(r_th)
+    K = Ri.shape[0]
+    eye3 = _eye3(Ri)
+    eye6 = torch.eye(6, dtype=Ri.dtype, device=Ri.device)
+    J = torch.zeros((K, 15, 30), dtype=Ri.dtype, device=Ri.device)
+    # Xi
+    J[:, 0:3, 0:3] = -Jri @ Rj.transpose(-1, -2) @ Ri
+    J[:, 3:6, 0:3] = _hat(_mv(RiT, dvw))
+    J[:, 6:9, 0:3] = _hat(_mv(RiT, dpw))
+    J[:, 6:9, 3:6] = -eye3
+    # Vi
+    J[:, 3:6, 6:9] = -RiT
+    J[:, 6:9, 6:9] = -RiT * dt[:, :, None]
+    # Bi
+    J[:, 0:3, 12:15] = -Jri @ Erot.transpose(-1, -2) @ pg.imu_dRg
+    J[:, 3:6, 9:12] = -pg.imu_dva
+    J[:, 3:6, 12:15] = -pg.imu_dvg
+    J[:, 6:9, 9:12] = -pg.imu_dpa
+    J[:, 6:9, 12:15] = -pg.imu_dpg
+    J[:, 9:15, 9:15] = -eye6
+    # Xj
+    J[:, 0:3, 15:18] = Jri
+    J[:, 6:9, 18:21] = RiT @ Rj
+    # Vj
+    J[:, 3:6, 21:24] = RiT
+    # Bj
+    J[:, 9:15, 24:30] = eye6
+    return r, J
+
+
+def _prior_pose_jac(r: torch.Tensor) -> torch.Tensor:
+    """d Log(M Exp(xi)) / d xi at xi=0 for SE(3): block inverse right
+    Jacobian (the host uses finite differences; this analytic form matches
+    to O(|r|^2))."""
+    J = torch.zeros(r.shape[:-1] + (6, 6), dtype=r.dtype, device=r.device)
+    J[..., :3, :3] = _jr_inv(r[..., :3])
+    J[..., 3:, 3:] = _so3_V_inv(r[..., :3])
+    return J
+
+
+def _gauss_newton_terms(J, Lam, r, m):
+    """Masked (J^T L J, -J^T L r, 0.5 r^T L r) per factor."""
+    JtL = J.transpose(-1, -2) @ Lam
+    m = m.to(J.dtype)
+    return (m[:, None, None] * (JtL @ J), m[:, None] * -_mv(JtL, r),
+            m * 0.5 * torch.sum(r * _mv(Lam, r), -1))
+
+
+def _scatter_blocks(H, b, rows, A, rhs):
+    """H[rows_i, rows_j] += A, b[rows] += rhs, summing repeated indices."""
+    H.index_put_((rows[:, :, None], rows[:, None, :]), A, accumulate=True)
+    b.index_put_((rows,), rhs, accumulate=True)
+
+
+def linearize(state: FgState, pg: PackedGraph, vis_H, vis_v, vis_linR, vis_lint, sel_pose,
+              mgd: Optional[MargDense] = None, hold_empty: bool = True):
+    """Dense normal equations over the padded window.
+
+    vis_H/vis_v: body-frame reduced camera system (NW*6 square/vec),
+    anchored at vis_linR/vis_lint; sel_pose: static (N, NW*6) selector;
+    mgd: dense marginal prior (or None).  Returns (H, b, err); with
+    ``hold_empty`` unconstrained rows are held at identity (the solve needs
+    an invertible system; the marginalization must not)."""
+    NW = state.R.shape[0]
+    N = NW * 15
+    dtype, dev = state.t.dtype, state.t.device
+    H = torch.zeros((N, N), dtype=dtype, device=dev)
+    b = torch.zeros((N,), dtype=dtype, device=dev)
+    ar = lambda n: torch.arange(n, device=dev)  # noqa: E731
+    NWr = ar(NW)
+
+    # IMU chain: contiguous 30x30 blocks at 15k
+    r, J = _imu_residual_jac(state, pg)
+    A, rhs, e = _gauss_newton_terms(J, pg.imu_info, r, pg.imu_mask)
+    _scatter_blocks(H, b, (15 * ar(NW - 1))[:, None] + ar(30), A, rhs)
+    err = torch.sum(e)
+
+    # pose priors
+    f = pg.pp_frame
+    r = _se3_local(pg.pp_R, pg.pp_t, state.R[f], state.t[f])
+    A, rhs, e = _gauss_newton_terms(_prior_pose_jac(r), pg.pp_info, r, pg.pp_mask)
+    _scatter_blocks(H, b, (15 * f)[:, None] + ar(6), A, rhs)
+    err = err + torch.sum(e)
+
+    # bias priors
+    f = pg.pb_frame
+    r = state.bias[f] - pg.pb_prior
+    m = pg.pb_mask.to(dtype)
+    Lam = pg.pb_info
+    _scatter_blocks(H, b, (15 * f + 9)[:, None] + ar(6), m[:, None, None] * Lam,
+                    m[:, None] * -_mv(Lam, r))
+    err = err + torch.sum(m * 0.5 * torch.sum(r * _mv(Lam, r), -1))
+
+    # GNSS (Cauchy robust; J = [0 | R], factors.py:133-147)
+    r = state.t - pg.gnss_pos
+    e2 = torch.sum(r * _mv(pg.gnss_info, r), -1)
+    k2 = pg.gnss_k2
+    w = k2 / (k2 + e2)
+    rho = 0.5 * k2 * torch.log1p(e2 / k2)
+    Lam = w[:, None, None] * pg.gnss_info
+    JtL = state.R.transpose(-1, -2) @ Lam
+    m = pg.gnss_mask.to(dtype)
+    _scatter_blocks(H, b, (15 * NWr + 3)[:, None] + ar(3), m[:, None, None] * (JtL @ state.R),
+                    m[:, None] * -_mv(JtL, r))
+    err = err + torch.sum(m * rho)
+
+    # odometry body velocity (factors.py:150-166)
+    RT = state.R.transpose(-1, -2)
+    vb = _mv(RT, state.vel)
+    r = vb - pg.odo_vel
+    J = torch.cat([_hat(vb), RT], dim=-1)  # (NW, 3, 6) over [w, vel]
+    A, rhs, e = _gauss_newton_terms(J, pg.odo_info.expand(NW, 3, 3), r, pg.odo_mask)
+    # rows [15f..15f+3) (pose w) ++ [15f+6..15f+9) (vel)
+    o_rows = torch.cat([(15 * NWr)[:, None] + ar(3), (15 * NWr + 6)[:, None] + ar(3)], dim=1)
+    _scatter_blocks(H, b, o_rows, A, rhs)
+    err = err + torch.sum(e)
+
+    # marginal prior (LinearContainerFactor, factors.py:254-293) in dense
+    # window form: 0.5 |dx|^2_H - v.dx with dx the local deviation from the
+    # stored lin points; dims absent from the marginal have zero H rows/cols
+    # and v entries, so their (arbitrary) deltas cancel
+    if mgd is not None:
+        lin = mgd.lin
+        d_pose = _se3_local(lin[:, :9].reshape(NW, 3, 3), lin[:, 9:12], state.R, state.t)
+        dvec = torch.cat([d_pose, state.vel - lin[:, 12:15], state.bias - lin[:, 15:21]], -1)
+        dvec = (dvec * mgd.mask[:, None].to(dtype)).reshape(N)
+        Hd = mgd.H @ dvec
+        H = H + mgd.H
+        b = b + mgd.v - Hd
+        err = err + 0.5 * (dvec @ Hd) - mgd.v @ dvec
+
+    # visual hessian (camera system converted to body upstream)
+    dpose = _se3_local(vis_linR, vis_lint, state.R, state.t) * state.valid[:, None].to(dtype)
+    dp6 = dpose.reshape(NW * 6)
+    Hv = vis_H @ dp6
+    H = H + sel_pose @ vis_H @ sel_pose.T
+    b = b + sel_pose @ (vis_v - Hv)
+    err = err + 0.5 * (dp6 @ Hv) - vis_v @ dp6
+
+    if hold_empty:
+        # hold unconstrained rows (invalid frames / untouched states)
+        H = H + torch.diag((torch.diagonal(H) == 0.0).to(dtype))
+    return H, b, err
+
+
+# ---------------------------------------------------------------------------
+# Levenberg-Marquardt (fusion.graph.LevenbergMarquardt semantics)
+# ---------------------------------------------------------------------------
+
+
+def _retract_state(state: FgState, d: torch.Tensor) -> FgState:
+    NW = state.R.shape[0]
+    d3 = d.reshape(NW, 15)
+    R, t = _se3_retract(state.R, state.t, d3[:, :6])
+    return FgState(_orthonormalize(R), t, state.vel + d3[:, 6:9], state.bias + d3[:, 9:15],
+                   state.valid)
+
+
+def _select_state(accept: torch.Tensor, a: FgState, b: FgState) -> FgState:
+    return FgState(*(torch.where(accept, y, x) for x, y in zip(a[:4], b[:4])), a.valid)
+
+
+class LMStep(NamedTuple):
+    state: FgState
+    H: torch.Tensor
+    b: torch.Tensor
+    lam: torch.Tensor
+    err: torch.Tensor
+    done: torch.Tensor  # bool (0-d)
+    ok: torch.Tensor    # the factorization succeeded and the step is finite
+    accept: torch.Tensor
+
+
+def lm_step(st: FgState, H, b, lam, err, relin, lambda_factor=10.0, lambda_max=1e5,
+            relative_tol=1e-5, absolute_tol=1e-5) -> LMStep:
+    """One damped Gauss-Newton iteration (graph.py:156-212): accept on
+    improvement / raise lambda on rejection; the candidate's (H, b, err)
+    from ``relin`` doubles as the next iteration's normal equations."""
+    Hd = H + lam * torch.diag(torch.diagonal(H))
+    L, info = torch.linalg.cholesky_ex(Hd)
+    d = torch.cholesky_solve(b[:, None], L)[:, 0]
+    ok = (info == 0) & torch.all(torch.isfinite(d))
+    cand = _retract_state(st, torch.where(ok, d, torch.zeros_like(d)))
+    Hc, bc, errc = relin(cand)
+    accept = ok & (errc < err)
+    rel = torch.abs(err - errc) / torch.clamp(torch.abs(err), min=1e-12)
+    # plateau: in f32 a converged solve often rejects on errc == err (strict
+    # <); climbing the whole lambda ladder would cost ~10 iterations for the
+    # same fixed point -- treat it as converged
+    converged = (rel < relative_tol) | (torch.abs(err - errc) < absolute_tol)
+    lam2 = torch.where(accept, torch.clamp(lam / lambda_factor, min=1e-10), lam * lambda_factor)
+    stalled = (~accept) & (lam2 > lambda_max)
+    return LMStep(_select_state(accept, st, cand), torch.where(accept, Hc, H),
+                  torch.where(accept, bc, b), lam2, torch.where(accept, errc, err),
+                  converged | stalled, ok, accept)
+
+
+def lm_optimize(state: FgState, pg: PackedGraph, vis_H, vis_v, vis_linR, vis_lint, sel_pose,
+                mgd: Optional[MargDense] = None, lambda_initial=1e-5, lambda_factor=10.0,
+                lambda_max=1e5, max_iterations=24, relative_tol=1e-5, absolute_tol=1e-5):
+    """Damped Gauss-Newton on the packed window, at most ``max_iterations``
+    iterations; stops at convergence or stall with one host read of the
+    ``done`` flag per iteration.  Returns (state, (err, iterations))."""
+
+    def relin(st):
+        return linearize(st, pg, vis_H, vis_v, vis_linR, vis_lint, sel_pose, mgd)
+
+    H, b, err = relin(state)
+    lam = torch.tensor(lambda_initial, dtype=state.t.dtype, device=state.t.device)
+    st, it = state, 0
+    while it < max_iterations:
+        s = lm_step(st, H, b, lam, err, relin, lambda_factor, lambda_max, relative_tol,
+                    absolute_tol)
+        st, H, b, lam, err = s.state, s.H, s.b, s.lam, s.err
+        it += 1
+        if to_host(s.done):
+            break
+    return st, (err, it)
+
+
+# ---------------------------------------------------------------------------
+# the coupled round: hessian -> LM -> retract, n_iters times
+# ---------------------------------------------------------------------------
+
+
+def _body_system(S, v, A, NW: int):
+    """Camera-tangent reduced system -> body tangent (BA2GTSAM)."""
+    H4 = S[: NW * 6, : NW * 6].reshape(NW, 6, NW, 6)
+    Hb = torch.einsum("ca,icjd,db->iajb", A, H4, A).reshape(NW * 6, NW * 6)
+    vb = torch.einsum("ca,ic->ia", A, v[: NW * 6].reshape(NW, 6)).reshape(-1)
+    return Hb, vb
+
+
+def coupled_rounds_body(poses_buf, disps_buf, damping_buf, intrinsics, target, weight,
+                        ii_d, jj_d, mask, t0: int, n: int, fg: FgState, pg: PackedGraph,
+                        mgd: MargDense, A, sel_pose, P: int, NW: int, n_iters: int = 2,
+                        eps_damping: float = 1e-7):
+    """The multi-sensor DBA call of depth_video.py:524-558: reduced camera
+    system -> body conversion -> factor-graph LM -> camera dx -> depth
+    back-substitution and retraction, ``n_iters`` times with
+    relinearization.  Poses and disparities are updated in place.  Returns
+    (poses_buf, disps_buf, fg, realized LM iterations per pass)."""
+    from ..ops import dba
+
+    S, v = dba.coupled_hessian_full(poses_buf, disps_buf, damping_buf, intrinsics, target,
+                                    weight, ii_d, jj_d, mask, t0, n, P=P,
+                                    eps_damping=eps_damping)
+    lm_its = []
+    for it in range(n_iters):
+        Hb, vb = _body_system(S, v, A, NW)
+        fg2, (_, lm_it) = lm_optimize(fg, pg, Hb, vb, fg.R, fg.t, sel_pose, mgd)
+        lm_its.append(lm_it)
+        dxb = _se3_local(fg.R, fg.t, fg2.R, fg2.t) * fg.valid[:, None].to(poses_buf.dtype)
+        dx_full = torch.zeros((P, 6), dtype=poses_buf.dtype, device=poses_buf.device)
+        dx_full[:NW] = torch.einsum("ab,ib->ia", A, dxb)
+        poses_buf, disps_buf, S, v = dba.coupled_retract_full(
+            poses_buf, disps_buf, damping_buf, intrinsics, target, weight, ii_d, jj_d, mask,
+            t0, n, dx_full, P=P, eps_damping=eps_damping, with_hessian=(it + 1 < n_iters))
+        fg = fg2
+    return poses_buf, disps_buf, fg, lm_its
+
+
+# ---------------------------------------------------------------------------
+# device sliding-window marginalization
+# ---------------------------------------------------------------------------
+
+
+def _cho_solve_or_nan(L, info, B):
+    """Cholesky solve that gives NaN after a failed factorization, as
+    ``cho_solve`` of a NaN factor does."""
+    X = torch.cholesky_solve(B, L)
+    return torch.where(info == 0, X, torch.full_like(X, float("nan")))
+
+
+def marginalize_window_body(poses_buf, disps_buf, damping_buf, intrinsics, marg_target,
+                            marg_weight, ii_d, jj_d, mask_m, s0: int, fg: FgState,
+                            pg: PackedGraph, mgd_old: MargDense, A, m: int, k_end: int,
+                            P: int, NW: int, eps_damping: float = 1e-7) -> MargDense:
+    """The numeric core of coupled._marginalize on the device: visual
+    hessian of the marginalized edges -> body conversion -> linearize
+    {IMU/priors/GNSS/odometry on the eliminated frames} + old marginal at
+    the current states -> Schur-eliminate the first ``m`` frame blocks ->
+    re-base to the new window origin (fusion.graph.marginalize_out
+    semantics; dims absent from the host graph carry zero rows)."""
+    from ..ops import dba
+
+    N = NW * 15
+    dev = poses_buf.device
+    ar15 = torch.arange(N, device=dev)
+    arW = torch.arange(NW, device=dev)
+
+    S, v = dba.coupled_hessian_full(poses_buf, disps_buf, damping_buf, intrinsics, marg_target,
+                                    marg_weight, ii_d, jj_d, mask_m, s0, k_end, P=P,
+                                    eps_damping=eps_damping)
+    any_edge = torch.any(mask_m).to(S.dtype)
+    # first-pose diagonal stabilization, only when visual info exists
+    # (coupled.py _marginalize: H[:6] diag += 0.00025)
+    S = S + 0.00025 * any_edge * torch.diag(
+        (torch.arange(S.shape[0], device=dev) < 6).to(S.dtype))
+    Hb, vb = _body_system(S, v, A, NW)
+
+    # restrict the packed factors to the eliminated frames (the host
+    # marginalization graph holds exactly the factors anchored at frames
+    # < t0: coupled.py:214-246)
+    pgm = pg._replace(
+        imu_mask=pg.imu_mask & (arW[:-1] < m),
+        pp_mask=pg.pp_mask & (pg.pp_frame < m),
+        pb_mask=pg.pb_mask & (pg.pb_frame < m),
+        gnss_mask=pg.gnss_mask & (arW < m),
+        odo_mask=pg.odo_mask & (arW < m),
+    )
+    H, b, _ = linearize(fg, pgm, Hb, vb, fg.R, fg.t, sel_pose_for(NW, dev), mgd_old,
+                        hold_empty=False)
+
+    # Schur-eliminate rows [0, 15m) on the Jacobi-scaled system (unit
+    # diagonal): IMU information spans ~10 orders of magnitude across dims,
+    # and in f32 a raw Cholesky of the mixed-scale block loses the
+    # small-pivot dims entirely
+    rm = ar15 < 15 * m
+    keep = (~rm) & (ar15 < 15 * k_end)
+    rmf = rm.to(H.dtype)
+    kf = keep.to(H.dtype)
+    dsc = torch.sqrt(torch.abs(torch.diagonal(H)))
+    live = dsc > 1e-20
+    one = torch.ones_like(dsc)
+    dinv = torch.where(live, 1.0 / torch.where(live, dsc, one), one)
+    Hn = H * dinv[:, None] * dinv[None, :]
+    bn = b * dinv
+    # unit pivots on eliminated dims (zero-information dims included),
+    # identity rows elsewhere; 1e-6 relative reg (the host adds 1e-10
+    # absolute in f64)
+    Hrr = Hn * rmf[:, None] * rmf[None, :] + torch.diag(
+        torch.where(rm, 1e-6 + torch.where(live, 0.0, 1.0), 1.0).to(H.dtype))
+    Hrk = Hn * rmf[:, None] * kf[None, :]
+    L, info = torch.linalg.cholesky_ex(Hrr)
+    X = _cho_solve_or_nan(L, info, Hrk)
+    xb = _cho_solve_or_nan(L, info, (bn * rmf)[:, None])[:, 0]
+    Hmn = Hn * kf[:, None] * kf[None, :] - Hrk.T @ X
+    bmn = bn * kf - Hrk.T @ xb
+    Hm = Hmn * dsc[:, None] * dsc[None, :]
+    bm = bmn * dsc
+
+    # re-base kept slots to the new origin t0 = s0 + m
+    sh = 15 * m
+    Hm = torch.roll(Hm, shifts=(-sh, -sh), dims=(0, 1))
+    bm = torch.roll(bm, -sh)
+    lf = (ar15 < 15 * (k_end - m)).to(H.dtype)
+    Hm = Hm * lf[:, None] * lf[None, :]
+    bm = bm * lf
+    lin = torch.roll(flatten_state(fg).reshape(NW, 21), -m, dims=0)
+    mask = arW < (k_end - m)
+    lin = torch.where(mask[:, None], lin, torch.as_tensor(marg_identity_np(NW).lin, device=dev))
+    return MargDense(mask, lin, Hm, bm)
+
+
+_SEL_CACHE: dict = {}
+
+
+def sel_pose_for(NW: int, device) -> torch.Tensor:
+    """The static pose selector, uploaded once per device."""
+    key = (NW, str(device))
+    if key not in _SEL_CACHE:
+        _SEL_CACHE[key] = make_sel_pose(NW, device)
+    return _SEL_CACHE[key]
+
+
+# ---------------------------------------------------------------------------
+# host -> device packing (numpy, f32)
+# ---------------------------------------------------------------------------
+
+
+def pack_graph(msba, t0: int, t1: int, NW: int, PP: int = 4, PB: int = 4, device=None):
+    """The window graph as a PackedGraph on ``device`` (one upload per
+    field; tests).  None on a capacity miss."""
+    arrs = pack_graph_np(msba, t0, t1, NW, PP, PB)
+    if arrs is None:
+        return None
+    return unflatten_graph(torch.as_tensor(flatten_graph_np(arrs, NW, PP, PB), device=device),
+                           NW, PP, PB)
+
+
+def pack_graph_flat(msba, t0: int, t1: int, NW: int, PP: int = 4, PB: int = 4):
+    """The window graph as one flat f32 host buffer (single upload;
+    unflatten_graph on the device).  None on a capacity miss."""
+    arrs = pack_graph_np(msba, t0, t1, NW, PP, PB)
+    if arrs is None:
+        return None
+    return flatten_graph_np(arrs, NW, PP, PB)
+
+
+def pack_graph_np(msba, t0: int, t1: int, NW: int, PP: int = 4, PB: int = 4):
+    """Pack the MultiSensorBA window graph (slam/coupled.py ``base``) into
+    fixed-capacity numpy arrays.  None if the layout exceeds a capacity
+    (the caller falls back to the host solver)."""
+    from ..slam.coupled import GNSS_NOISE, ODO_NOISE
+    from ..utils import geodesy
+    from .factors import PriorPose, PriorVec
+
+    n = t1 - t0
+    if n > NW:
+        return None
+    f32 = np.float32
+    NF = NW - 1
+    z = np.zeros
+    imu = dict(
+        imu_mask=z(NF, bool), imu_dR=np.tile(np.eye(3, dtype=f32), (NF, 1, 1)),
+        imu_dv=z((NF, 3), f32), imu_dp=z((NF, 3), f32), imu_dt=z(NF, f32),
+        imu_dRg=z((NF, 3, 3), f32), imu_dvg=z((NF, 3, 3), f32),
+        imu_dva=z((NF, 3, 3), f32), imu_dpg=z((NF, 3, 3), f32),
+        imu_dpa=z((NF, 3, 3), f32), imu_bias0=z((NF, 6), f32),
+        imu_info=z((NF, 15, 15), f32),
+    )
+    g_vec = np.array([0.0, 0.0, -9.807], f32)
+    if not msba.ignore_imu:
+        for i in range(t0 + 1, t1):
+            k = i - 1 - t0
+            pim = msba.state.preintegrations[i - 1]
+            imu["imu_mask"][k] = True
+            imu["imu_dR"][k] = pim.dR
+            imu["imu_dv"][k] = pim.dv
+            imu["imu_dp"][k] = pim.dp
+            imu["imu_dt"][k] = pim.dt
+            imu["imu_dRg"][k] = pim.dRg
+            imu["imu_dvg"][k] = pim.dvg
+            imu["imu_dva"][k] = pim.dva
+            imu["imu_dpg"][k] = pim.dpg
+            imu["imu_dpa"][k] = pim.dpa
+            imu["imu_bias0"][k] = pim.bias
+            imu["imu_info"][k] = pim.noise_information()
+            g_vec = pim.params.g_vec.astype(f32)
+
+    pp = dict(pp_mask=z(PP, bool), pp_frame=z(PP, np.int32),
+              pp_R=np.tile(np.eye(3, dtype=f32), (PP, 1, 1)),
+              pp_t=z((PP, 3), f32), pp_info=z((PP, 6, 6), f32))
+    pb = dict(pb_mask=z(PB, bool), pb_frame=z(PB, np.int32),
+              pb_prior=z((PB, 6), f32), pb_info=z((PB, 6, 6), f32))
+    npp = npb = 0
+    for i in sorted(msba.prior_factor_map.keys()):
+        if not (t0 <= i < t1):
+            continue
+        for fct in msba.prior_factor_map[i]:
+            if isinstance(fct, PriorPose):
+                if npp >= PP:
+                    return None
+                pp["pp_mask"][npp] = True
+                pp["pp_frame"][npp] = i - t0
+                pp["pp_R"][npp] = fct.prior.R
+                pp["pp_t"][npp] = fct.prior.t
+                pp["pp_info"][npp] = fct.noise.information
+                npp += 1
+            elif isinstance(fct, PriorVec) and len(fct.prior) == 6:
+                if npb >= PB:
+                    return None
+                pb["pb_mask"][npb] = True
+                pb["pb_frame"][npb] = i - t0
+                pb["pb_prior"][npb] = fct.prior
+                pb["pb_info"][npb] = fct.noise.information
+                npb += 1
+            else:
+                return None  # unsupported prior layout
+
+    gnss = dict(gnss_mask=z(NW, bool), gnss_pos=z((NW, 3), f32))
+    if msba.gnss_init_t1 > 0:
+        for i in range(t0, t1):
+            if msba.state.gnss_valid[i]:
+                p = geodesy.Cen(msba.ten0).T @ (msba.state.gnss_position[i] - msba.ten0)
+                p = p - msba.state.wTbs[i].R @ msba.tbg
+                gnss["gnss_mask"][i - t0] = True
+                gnss["gnss_pos"][i - t0] = p
+    odo = dict(odo_mask=z(NW, bool), odo_vel=z((NW, 3), f32))
+    for i in range(t0, t1):
+        if msba.state.odo_valid[i]:
+            odo["odo_mask"][i - t0] = True
+            odo["odo_vel"][i - t0] = msba.state.odo_vel[i]
+
+    return dict(**imu, g_vec=g_vec, **pp, **pb, **gnss,
+                gnss_info=GNSS_NOISE.information.astype(f32),
+                gnss_k2=np.asarray(GNSS_NOISE.cauchy_k ** 2, f32),
+                **odo, odo_info=ODO_NOISE.information.astype(f32))
+
+
+def marg_dense_to_factor(md, t0: int):
+    """Pulled :class:`MargDense` (numpy) -> host LinearContainerFactor at
+    global frame keys (origin ``t0``).  Dims the device marginal never
+    touched keep zero rows -- the dense encoding of an absent key."""
+    from .factors import B, LinearContainerFactor, V, X
+    from .se3np import Pose
+
+    frames = np.nonzero(np.asarray(md.mask))[0]
+    if len(frames) == 0:
+        return None
+    keys, dims, lin, idx = [], [], {}, []
+    for f in frames:
+        i = t0 + int(f)
+        row = np.asarray(md.lin[f], np.float64)
+        keys += [X(i), V(i), B(i)]
+        dims += [6, 3, 6]
+        lin[X(i)] = Pose(row[:9].reshape(3, 3), row[9:12])
+        lin[V(i)] = row[12:15]
+        lin[B(i)] = row[15:21]
+        idx += list(range(15 * int(f), 15 * int(f) + 15))
+    ix = np.asarray(idx, int)
+    H = np.asarray(md.H, np.float64)[np.ix_(ix, ix)]
+    v = np.asarray(md.v, np.float64)[ix]
+    return LinearContainerFactor(keys, dims, H, v, lin)
+
+
+def marg_dense_np(mf, t0: int, t1: int, NW: int):
+    """Host LinearContainerFactor -> dense window :class:`MargDense` (or
+    None when a key falls outside [t0, t1))."""
+    md = marg_identity_np(NW)
+    if mf is None:
+        return md
+    offs = np.cumsum([0] + list(mf.dims))
+    rows = []
+    for k, key in enumerate(mf.keys):
+        typ, idx = key[0], int(key[1:])
+        if not (t0 <= idx < t1):
+            return None
+        f = idx - t0
+        md.mask[f] = True
+        lp = mf.lin_point[key]
+        if typ == "x":
+            md.lin[f, :9] = lp.R.reshape(9)
+            md.lin[f, 9:12] = lp.t
+            base, dim = 15 * f, 6
+        elif typ == "v":
+            md.lin[f, 12:15] = lp
+            base, dim = 15 * f + 6, 3
+        else:
+            md.lin[f, 15:21] = lp
+            base, dim = 15 * f + 9, 6
+        if dim != mf.dims[k]:
+            return None
+        rows.append((base, offs[k], dim))
+    for (ra, sa, da) in rows:
+        md.v[ra: ra + da] = mf.v[sa: sa + da]
+        for (rb, sb, db) in rows:
+            md.H[ra: ra + da, rb: rb + db] = mf.H[sa: sa + da, sb: sb + db]
+    return md
+
+
+def pack_state_np(msba, t0: int, t1: int, NW: int):
+    f32 = np.float32
+    R = np.tile(np.eye(3, dtype=f32), (NW, 1, 1))
+    t = np.zeros((NW, 3), f32)
+    vel = np.zeros((NW, 3), f32)
+    bias = np.zeros((NW, 6), f32)
+    valid = np.zeros(NW, bool)
+    for i in range(t0, t1):
+        f = i - t0
+        R[f] = msba.state.wTbs[i].R
+        t[f] = msba.state.wTbs[i].t
+        vel[f] = msba.state.vs[i]
+        bias[f] = msba.state.bs[i]
+        valid[f] = True
+    return R, t, vel, bias, valid
+
+
+def pack_state(msba, t0: int, t1: int, NW: int, device=None) -> FgState:
+    return FgState(*(torch.as_tensor(a, device=device)
+                     for a in pack_state_np(msba, t0, t1, NW)))
+
+
+def pack_state_flat(msba, t0: int, t1: int, NW: int) -> np.ndarray:
+    """One flat (NW*21,) f32 host buffer; unflatten_state on the device
+    (valid is derived from the live count n = t1 - t0)."""
+    R, t, vel, bias, _ = pack_state_np(msba, t0, t1, NW)
+    return flatten_state_np(R, t, vel, bias)

@@ -230,3 +230,10 @@ class DroidNet(nn.Module):
             _nchw(net.to(dt)), _nchw(inp.to(dt)), _nchw(corr.to(dt)), _nchw(flow.to(dt)), dt
         )
         return _nhwc(net_n), _nhwc(delta), _nhwc(weight)
+
+    def update_fn(self, net: torch.Tensor, inp: torch.Tensor, corr: torch.Tensor,
+                  motn: torch.Tensor, ii: torch.Tensor, jj: torch.Tensor, aux: dict):
+        """:meth:`update_step` with the graph's update-operator signature
+        ``(net, inp, corr, motn, ii, jj, aux)`` (edge endpoints and the
+        round's ``aux`` are unused by the network)."""
+        return self.update_step(net, inp, corr, motn)

@@ -331,3 +331,88 @@ def ba(poses, disps, intrinsics, targets, weights, eta, ii, jj, edge_mask, nfixe
         depth_active = torch.arange(P, device=poses.device) < nactive
         p, d = retract(p, d, dx, dz, pose_active, depth_active)
     return BAState(p, torch.clamp(d, min=0.001))
+
+
+# ---------------------------------------------------------------------------
+# multi-sensor coupling surface (BACore, droid_kernels.cu:1786-1956)
+# ---------------------------------------------------------------------------
+
+def window_rows(buf: torch.Tensor, s0: int, P: int) -> torch.Tensor:
+    """Rows ``[s0, s0 + P)`` of a keyframe buffer; slots past its end read
+    the last row and only ever serve as inactive padding.
+
+    Where ``s0 + P`` fits the buffer this is the slice the JAX package takes
+    with ``jax.lax.dynamic_slice``.  Past the end that call moves the start
+    down to ``B - P`` instead, so its slots stop meaning frames ``s0 + l``
+    and the coupled solve reads the wrong poses; the port pads instead.
+    """
+    B = buf.shape[0]
+    if s0 + P <= B:
+        return buf[s0:s0 + P]
+    idx = torch.clamp(torch.arange(s0, s0 + P, device=buf.device), max=B - 1)
+    return buf[idx]
+
+
+def write_window_rows(buf: torch.Tensor, rows: torch.Tensor, s0: int) -> None:
+    """Write a window back in place, dropping its padding slots."""
+    n = min(rows.shape[0], buf.shape[0] - s0)
+    buf[s0:s0 + n] = rows[:n]
+
+
+def coupled_hessian(poses_w, disps_w, intrinsics, targets, weights, eta, ii_w, jj_w, mask,
+                    nactive, disps_sens=None, use_sens: bool = False, alpha: float = 0.001):
+    """Undamped reduced camera system over the window (BACore::hessian):
+    every slot below ``nactive`` is a free pose (the factor graph anchors the
+    gauge); alpha is BACore's 0.001 (droid_kernels.cu:1873)."""
+    P = poses_w.shape[0]
+    es = build_edge_system(poses_w, disps_w, intrinsics, targets, weights, ii_w, jj_w, mask)
+    ps = assemble_pairwise(es, ii_w, jj_w, P, 0, nactive, eta,
+                           disps=disps_w if use_sens else None,
+                           disps_sens=disps_sens if use_sens else None, alpha=alpha)
+    return ps.S, ps.v
+
+
+def coupled_retract(poses_w, disps_w, intrinsics, targets, weights, eta, ii_w, jj_w, mask,
+                    nactive, dx):
+    """Apply an externally solved (P, 6) pose step and the depth update it
+    induces (BACore::retract, droid_kernels.cu:1918-1956), relinearizing at
+    the current state instead of caching E/Q/w."""
+    P = poses_w.shape[0]
+    es = build_edge_system(poses_w, disps_w, intrinsics, targets, weights, ii_w, jj_w, mask)
+    ps = assemble_pairwise(es, ii_w, jj_w, P, 0, nactive, eta)
+    dz = back_substitute_pairwise(ps, es, ii_w, jj_w, dx, 0, nactive)
+    depth_active = torch.arange(P, device=poses_w.device) < nactive
+    poses_w, disps_w = retract(poses_w, disps_w, dx, dz, ps.pose_active, depth_active)
+    return poses_w, torch.clamp(disps_w, min=0.001)
+
+
+def _window_eta(damping_buf, s0: int, P: int, eps_damping: float):
+    return 0.2 * window_rows(damping_buf, s0, P).reshape(P, -1) + eps_damping
+
+
+def coupled_hessian_full(poses_buf, disps_buf, damping_buf, intrinsics, targets, weights,
+                         ii_w, jj_w, mask, s0: int, nactive, P: int, eps_damping: float = 1e-7):
+    """BACore::hessian on the window ``[s0, s0 + P)`` of the full buffers."""
+    return coupled_hessian(window_rows(poses_buf, s0, P), window_rows(disps_buf, s0, P),
+                           intrinsics, targets, weights,
+                           _window_eta(damping_buf, s0, P, eps_damping), ii_w, jj_w, mask, nactive)
+
+
+def coupled_retract_full(poses_buf, disps_buf, damping_buf, intrinsics, targets, weights,
+                         ii_w, jj_w, mask, s0: int, nactive, dx, P: int,
+                         eps_damping: float = 1e-7, with_hessian: bool = False):
+    """BACore::retract on the full buffers, written back in place; with
+    ``with_hessian`` also the reduced camera system of the retracted state
+    (the coupled loop alternates retract and hessian).  Returns
+    (poses_buf, disps_buf, S or None, v or None)."""
+    eta = _window_eta(damping_buf, s0, P, eps_damping)
+    poses_w, disps_w = coupled_retract(window_rows(poses_buf, s0, P),
+                                       window_rows(disps_buf, s0, P), intrinsics, targets,
+                                       weights, eta, ii_w, jj_w, mask, nactive, dx)
+    write_window_rows(poses_buf, poses_w, s0)
+    write_window_rows(disps_buf, disps_w, s0)
+    if not with_hessian:
+        return poses_buf, disps_buf, None, None
+    S, v = coupled_hessian(poses_w, disps_w, intrinsics, targets, weights, eta, ii_w, jj_w, mask,
+                           nactive)
+    return poses_buf, disps_buf, S, v

@@ -205,3 +205,39 @@ def se3_matrix(g: torch.Tensor) -> torch.Tensor:
     bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=g.dtype, device=g.device)
     bottom = bottom.expand(g.shape[:-1] + (1, 4))
     return torch.cat([top, bottom], dim=-2)
+
+
+def matrix_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """3x3 rotation matrix -> xyzw quaternion (batched, branch-free): all
+    four Shepperd candidates, the best-conditioned one picked by argmax,
+    sign canonical (qw >= 0)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw2 = 1.0 + tr
+    qx2 = 1.0 + m00 - m11 - m22
+    qy2 = 1.0 - m00 + m11 - m22
+    qz2 = 1.0 - m00 - m11 + m22
+    best = torch.argmax(torch.stack([qx2, qy2, qz2, qw2], dim=-1), dim=-1)
+
+    def safe_sqrt(v):
+        return torch.sqrt(torch.clamp(v, min=_EPS))
+
+    sw = safe_sqrt(qw2) * 2.0
+    q_w = torch.stack([(m21 - m12) / sw, (m02 - m20) / sw, (m10 - m01) / sw, 0.25 * sw], dim=-1)
+    sx = safe_sqrt(qx2) * 2.0
+    q_x = torch.stack([0.25 * sx, (m01 + m10) / sx, (m02 + m20) / sx, (m21 - m12) / sx], dim=-1)
+    sy = safe_sqrt(qy2) * 2.0
+    q_y = torch.stack([(m01 + m10) / sy, 0.25 * sy, (m12 + m21) / sy, (m02 - m20) / sy], dim=-1)
+    sz = safe_sqrt(qz2) * 2.0
+    q_z = torch.stack([(m02 + m20) / sz, (m12 + m21) / sz, 0.25 * sz, (m10 - m01) / sz], dim=-1)
+    stacked = torch.stack([q_x, q_y, q_z, q_w], dim=-2)
+    idx = best[..., None, None].expand(best.shape + (1, 4))
+    q = torch.gather(stacked, -2, idx)[..., 0, :]
+    return q * torch.where(q[..., 3:4] < 0, -1.0, 1.0).to(q.dtype)
+
+
+def se3_from_matrix(T: torch.Tensor) -> torch.Tensor:
+    """4x4 homogeneous matrix -> 7-vector."""
+    return torch.cat([T[..., :3, 3], matrix_to_quat(T[..., :3, :3])], dim=-1)

@@ -1,0 +1,108 @@
+"""The fused coupled keyframe step.
+
+Port of ``dbaf_tpu/slam/coupled_fused.py``.  One coupled keyframe step runs
+``rounds_a`` rounds of update (reprojection, correlation -- kernel K1 on the
+card -- update operator) and multi-sensor solve (reduced camera system,
+factor-graph LM, retraction), then the multi-sensor cull decision (flow
+distance + translation hysteresis, dbaf_frontend.py:317-336), then
+``rounds_b`` more rounds unless the keyframe is culled.  The JAX package
+gates the rounds with ``lax.cond`` inside one ``fori_loop``; here they are
+a Python loop and the decision is one host read, made only when rounds
+follow it.  Everything else the host needs -- the cull pack, the
+hysteresis norms, the window state rows and the post-``rounds_a`` body
+pose of the new keyframe -- comes back in one packed read at the end.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..fusion import device_graph as dg
+from ..ops import lie
+from ..utils.config import DBAFusionConfig
+from ..utils.device import to_host
+from .graph import EdgeSets, UpdateStep, corr_operands
+from .video import DepthVideo
+
+MAX_ROUNDS = 8  # lm_stats capacity (iters1 + iters2 <= 8 everywhere)
+
+
+class CoupledStepResult(NamedTuple):
+    host_pack: torch.Tensor  # [cull, d, prox..., hyst(7), window state(NW*21), pose(12)]
+    cur_target: torch.Tensor
+    cur_weight: torch.Tensor
+    fg_flat: torch.Tensor    # (NW*21,) window state
+    lm_stats: np.ndarray     # (MAX_ROUNDS, lm_iters) realized LM iterations
+
+
+def hyst_norms(poses: torch.Tensor, t1: int, P: int) -> torch.Tensor:
+    """Translation-hysteresis norms (dbaf_frontend.py:319-325): |rel t|
+    between candidates t1-10+k (k < 7) and the reference t1-2."""
+    cand = torch.clamp(t1 - 10 + torch.arange(7, device=poses.device), 0, P - 1)
+    ref = poses[min(max(t1 - 2, 0), P - 1)]
+    rel = lie.se3_mul(poses[cand], lie.se3_inv(ref)[None])
+    return torch.linalg.norm(rel[:, :3], dim=1)
+
+
+def run_coupled_rounds(step: UpdateStep, cfg: DBAFusionConfig, video: DepthVideo, edges,
+                       ii, jj, e_mask, t_inac, w_inac, sets: EdgeSets, t1: int, aux: dict,
+                       prep: dict, rounds_a: int, rounds_b: int,
+                       use_inactive: bool) -> CoupledStepResult:
+    """Runs in place on ``video`` (poses, disps) and ``edges``.  ``prep`` is
+    :meth:`MultiSensorBA.prepare_device`'s output (window origin, packed
+    graph and state, edge selection, marginal, adjoint)."""
+    P = cfg.ba.window
+    NW = cfg.sensors.fg_cap
+    dev = video.poses.device
+    fg_t0, n_fg = prep["t0"], prep["n"]
+    fg = prep["fg"]
+    sel_pose = dg.sel_pose_for(NW, dev)
+    # round-invariant correlation operands and context features
+    corr_prep = corr_operands(video.fmaps, ii, jj)
+    inp_e = video.inps[ii]
+    lm_stats = np.zeros((MAX_ROUNDS, cfg.ba.lm_iters), np.int64)
+    pack = cur_target = cur_weight = None
+
+    def one(r: int):
+        nonlocal fg, pack, cur_target, cur_weight
+        t_all, w_ba = step.update_round(video, edges, ii, jj, e_mask, t_inac, w_inac, sets,
+                                        corr_prep, inp_e, aux, use_inactive)
+        if r in (rounds_a - 1, rounds_a + rounds_b - 1):
+            # the cull distance and the next keyframe's proximity
+            # distances, on the pre-solve state of the deciding/last round
+            pack = step.host_metrics(video, t1)
+        cur_target = t_all[prep["sel"]]
+        cur_weight = w_ba[prep["sel"]]
+        _, _, fg, its = dg.coupled_rounds_body(
+            video.poses, video.disps, video.damping, video.intrinsics, cur_target, cur_weight,
+            prep["ii"], prep["jj"], prep["mask"], fg_t0, n_fg, fg, prep["pg"], prep["mgd"],
+            prep["A"], sel_pose, P=P, NW=NW, n_iters=cfg.ba.lm_iters,
+            eps_damping=cfg.ba.eps_damping)
+        lm_stats[min(r, MAX_ROUNDS - 1)] = its
+
+    for r in range(rounds_a):
+        one(r)
+    # the multi-sensor cull decision on the post-rounds_a state: d from the
+    # last round's pre-solve pack, hysteresis on the post-solve poses, the
+    # out-of-range candidate slots masked like the host's k0 slice
+    d = pack[0]
+    lo = t1 - 10 if t1 > 10 else t1 - 6
+    k0 = max(lo, 0) - (t1 - 10)
+    valid = torch.arange(7, device=dev) >= k0
+    hyst = hyst_norms(video.poses, t1, P)
+    cull = (d < cfg.frontend.keyframe_thresh) | torch.any(
+        (hyst < cfg.frontend.translation_threshold) & valid)
+    # the reference writes the trajectory row from the post-iters1 state
+    # (dbaf_frontend.py:261-274): snapshot the new keyframe's body pose
+    slot = min(max(t1 - 1 - fg_t0, 0), NW - 1)
+    wtb = torch.cat([fg.R[slot].reshape(9), fg.t[slot]])
+    if rounds_b > 0 and not to_host(cull):
+        for r in range(rounds_a, rounds_a + rounds_b):
+            one(r)
+    fg_flat = dg.flatten_state(fg)
+    host_pack = torch.cat([cull.to(torch.float32).reshape(1), d.reshape(1), pack[1:],
+                           hyst_norms(video.poses, t1, P), fg_flat, wtb])
+    return CoupledStepResult(host_pack, cur_target, cur_weight, fg_flat, lm_stats)

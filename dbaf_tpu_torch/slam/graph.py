@@ -25,6 +25,7 @@ from ..ops import corr_cuda
 from ..ops import dba, lie
 from ..ops import projective as pj
 from ..utils.config import DBAFusionConfig
+from ..utils.device import to_host
 from .video import DepthVideo
 
 
@@ -52,89 +53,134 @@ def corr_round(prep, coords1: torch.Tensor) -> torch.Tensor:
     return corr_ops.lookup_fused(vol, coords1).permute(0, 2, 3, 1)
 
 
+class EdgeSets(NamedTuple):
+    """The edges one step solves over: inactive then active rows (device
+    tensors) and the same rows on the host, for the coupled solve."""
+    ii: torch.Tensor
+    jj: torch.Tensor
+    mask: torch.Tensor
+    ii_np: np.ndarray
+    jj_np: np.ndarray
+    mask_np: np.ndarray
+
+
 class UpdateStep:
-    """The fused update step (``make_update_kernel``'s visual ``do_ba``
-    path, mega and per-round variants)."""
+    """The fused update step (``make_update_kernel``): the visual ``do_ba``
+    path (mega and per-round variants) and, through :meth:`update_round`,
+    the rounds of the coupled step (slam/coupled_fused.py).
+
+    ``update_fn(net, inp, corr, motn, ii, jj, aux) -> (net, delta, weight)``
+    is the update operator (or a test oracle); ``aux`` is the graph's
+    ``aux`` dict extended by this round's ``coords1``, ``poses`` and
+    ``disps``."""
 
     def __init__(self, cfg: DBAFusionConfig, update_fn: Callable):
         self.cfg = cfg
         self.update_fn = update_fn
 
-    def __call__(self, video: DepthVideo, edges, ii, jj, e_mask, t_inac, w_inac, ii_i, jj_i, i_mask,
-                 t0: int, t1: int, s0: int, rounds: int, rounds_b: int, iters: int,
-                 use_inactive: bool, mega: bool) -> UpdateResult:
-        """Runs in place on ``video`` (poses, disps) and ``edges`` (net,
-        target, weight).  Index arguments are device int64 tensors."""
+    def edge_sets(self, ii, jj, e_mask, ii_i, jj_i, i_mask, t0: int, use_inactive: bool,
+                  device: torch.device) -> EdgeSets:
+        """Active edges, preceded by the inactive ones still in range
+        (``inac_range``) when ``use_inactive``.  Index arguments are host
+        int64 arrays (the masks bool)."""
+        if use_inactive:
+            inac = self.cfg.graph.inac_range
+            keep_i = i_mask & (ii_i >= t0 - inac) & (jj_i >= t0 - inac)
+            ii_np = np.concatenate([ii_i, ii])
+            jj_np = np.concatenate([jj_i, jj])
+            m_np = np.concatenate([keep_i, e_mask])
+        else:
+            ii_np, jj_np, m_np = ii, jj, e_mask
+        t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+        return EdgeSets(t(ii_np), t(jj_np), t(m_np), ii_np, jj_np, m_np)
+
+    def update_round(self, video: DepthVideo, edges, ii, jj, e_mask, t_inac, w_inac,
+                     sets: EdgeSets, prep, inp_e, aux: dict, use_inactive: bool):
+        """Reprojection -> correlation -> update operator -> confidence
+        heuristics (covisible_graph.py:213-328).  Edge state is written in
+        place; returns the BA inputs (t_all, w_ba) over ``sets``."""
+        cfg = self.cfg
+        dev = video.poses.device
+        poses, disps, intrinsics = video.poses, video.disps, video.intrinsics
+        m4 = e_mask[:, None, None, None]
+        grid = pj.coords_grid(video.h8, video.w8, device=dev)
+        coords1, _ = pj.projective_transform(poses, disps, intrinsics, ii, jj)
+        motn = torch.cat([coords1 - grid, edges.target - coords1], dim=-1).clamp(-64.0, 64.0)
+        corr = corr_round(prep, coords1)
+        net_dt = edges.net.dtype
+        aux_full = dict(aux)
+        aux_full.update(coords1=coords1, poses=poses, disps=disps)
+        net_new, delta, weight_up = self.update_fn(
+            edges.net, inp_e.to(net_dt), corr.to(net_dt), motn.to(net_dt), ii, jj, aux_full)
+        target = torch.where(m4, coords1 + delta.float(), edges.target)
+        weight = torch.where(m4, weight_up.float(), torch.zeros((), device=dev))
+        edges.net.copy_(torch.where(m4, net_new.to(net_dt), edges.net))
+        edges.target.copy_(target)
+        edges.weight.copy_(weight)
+
+        if use_inactive:
+            t_all = torch.cat([t_inac, target], dim=0)
+            w_all = torch.cat([w_inac, weight], dim=0)
+        else:
+            t_all, w_all = target, weight
+
+        # confidence heuristics (covisible_graph.py:309-328)
+        ii_all, jj_all, m_all = sets.ii, sets.jj, sets.mask
+        neg = torch.full_like(ii_all, -1)
+        max_i = torch.max(torch.where(m_all, ii_all, neg))
+        max_j = torch.max(torch.where(m_all, jj_all, neg))
+        wmul = torch.where(ii_all == max_i, 0.1, 1.0) * torch.where(jj_all == max_j, 0.25, 1.0)
+        if cfg.graph.mask_threshold > 0:
+            tnorm = torch.linalg.norm(lie.se3_rel(poses[jj_all], poses[ii_all])[:, :3], dim=-1)
+            if video.imu_enabled:
+                wmul = wmul * torch.where(tnorm < cfg.graph.mask_threshold, 1e-3, 1.0)
+        w_ba = w_all * wmul.to(torch.float32)[:, None, None, None]
+        if cfg.graph.far_threshold > 0 and video.imu_enabled:
+            pixmask = (disps[ii_all] < cfg.graph.far_threshold)[..., None]
+            w_ba = torch.where(pixmask, w_ba * 1e-3, w_ba)
+        return t_all, w_ba
+
+    def window_ba(self, video: DepthVideo, t_all, w_ba, sets: EdgeSets, t0: int, t1: int,
+                  s0: int, iters: int):
+        """Window-local dense BA over [s0, s0 + window), in place."""
         cfg = self.cfg
         P = cfg.ba.window
-        EP = cfg.ba.eps_damping
-        far_thresh = cfg.graph.far_threshold
-        mask_thresh = cfg.graph.mask_threshold
         B = video.poses.shape[0]
-        dev = video.poses.device
-        intrinsics = video.intrinsics
-        grid = pj.coords_grid(video.h8, video.w8, device=dev)
-        prep = corr_operands(video.fmaps, ii, jj)
-        inp_e = video.inps[ii]
-        # window start as jax.lax.dynamic_slice clamps it
+        # window start as jax.lax.dynamic_slice clamps it (s0 = t1 - P keeps
+        # it inside the buffer)
         sw = max(0, min(s0, B - P))
-        m4 = e_mask[:, None, None, None]
-        if use_inactive:
-            inac = cfg.graph.inac_range
-            keep_i = i_mask & (ii_i >= t0 - inac) & (jj_i >= t0 - inac)
-            ii_all = torch.cat([ii_i, ii])
-            jj_all = torch.cat([jj_i, jj])
-            m_all = torch.cat([keep_i, e_mask])
-        else:
-            ii_all, jj_all, m_all = ii, jj, e_mask
+        poses_w = video.poses[sw:sw + P]
+        disps_w = video.disps[sw:sw + P]
+        eta = 0.2 * video.damping[sw:sw + P].reshape(P, -1) + cfg.ba.eps_damping
+        m_ba = sets.mask & (sets.ii >= s0) & (sets.jj >= s0)
+        ii_w = torch.clamp(sets.ii - s0, 0, P - 1)
+        jj_w = torch.clamp(sets.jj - s0, 0, P - 1)
+        state = dba.ba(poses_w, disps_w, video.intrinsics, t_all, w_ba, eta, ii_w, jj_w, m_ba,
+                       t0 - s0, t1 - s0, iterations=iters, lm=cfg.ba.lm, ep=cfg.ba.ep,
+                       alpha=cfg.ba.alpha)
+        poses_w.copy_(state.poses)
+        disps_w.copy_(state.disps)
+
+    def __call__(self, video: DepthVideo, edges, ii, jj, e_mask, t_inac, w_inac, ii_i, jj_i,
+                 i_mask, t0: int, t1: int, s0: int, rounds: int, rounds_b: int, iters: int,
+                 use_inactive: bool, mega: bool, aux: Optional[dict] = None) -> UpdateResult:
+        """The visual step, in place on ``video`` (poses, disps) and
+        ``edges`` (net, target, weight).  Index arguments are host int64
+        arrays (the masks bool)."""
+        aux = {} if aux is None else aux
+        dev = video.poses.device
+        ii, jj, e_mask, ii_i, jj_i, i_mask = (np.asarray(a) for a in (ii, jj, e_mask, ii_i, jj_i,
+                                                                       i_mask))
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        ii_t, jj_t, e_mask_t = t(ii), t(jj), t(e_mask)
+        inp_e = video.inps[ii_t]
+        prep = corr_operands(video.fmaps, ii_t, jj_t)
+        sets = self.edge_sets(ii, jj, e_mask, ii_i, jj_i, i_mask, t0, use_inactive, dev)
 
         def one_round():
-            poses, disps = video.poses, video.disps
-            coords1, _ = pj.projective_transform(poses, disps, intrinsics, ii, jj)
-            motn = torch.cat([coords1 - grid, edges.target - coords1], dim=-1).clamp(-64.0, 64.0)
-            corr = corr_round(prep, coords1)
-            net_dt = edges.net.dtype
-            net_new, delta, weight_up = self.update_fn(
-                edges.net, inp_e.to(net_dt), corr.to(net_dt), motn.to(net_dt))
-            target = torch.where(m4, coords1 + delta.float(), edges.target)
-            weight = torch.where(m4, weight_up.float(), torch.zeros((), device=dev))
-            edges.net.copy_(torch.where(m4, net_new.to(net_dt), edges.net))
-            edges.target.copy_(target)
-            edges.weight.copy_(weight)
-
-            if use_inactive:
-                t_all = torch.cat([t_inac, target], dim=0)
-                w_all = torch.cat([w_inac, weight], dim=0)
-            else:
-                t_all, w_all = target, weight
-
-            # confidence heuristics (covisible_graph.py:309-328)
-            imu_f = 1.0 if video.imu_enabled else 0.0
-            neg = torch.full_like(ii_all, -1)
-            max_i = torch.max(torch.where(m_all, ii_all, neg))
-            max_j = torch.max(torch.where(m_all, jj_all, neg))
-            wmul = torch.where(ii_all == max_i, 0.1, 1.0) * torch.where(jj_all == max_j, 0.25, 1.0)
-            if mask_thresh > 0:
-                tnorm = torch.linalg.norm(lie.se3_rel(poses[jj_all], poses[ii_all])[:, :3], dim=-1)
-                wmul = wmul * torch.where((tnorm < mask_thresh) & (imu_f > 0), 1e-3, 1.0)
-            w_ba = w_all * wmul.to(torch.float32)[:, None, None, None]
-            if far_thresh > 0 and imu_f > 0:
-                pixmask = (disps[ii_all] < far_thresh)[..., None]
-                w_ba = torch.where(pixmask, w_ba * 1e-3, w_ba)
-
-            # window-local BA, written back in place
-            poses_w = poses[sw:sw + P]
-            disps_w = disps[sw:sw + P]
-            eta = 0.2 * video.damping[sw:sw + P].reshape(P, -1) + EP
-            in_window = (ii_all >= s0) & (jj_all >= s0)
-            m_ba = m_all & in_window
-            ii_w = torch.clamp(ii_all - s0, 0, P - 1)
-            jj_w = torch.clamp(jj_all - s0, 0, P - 1)
-            state = dba.ba(poses_w, disps_w, intrinsics, t_all, w_ba, eta, ii_w, jj_w, m_ba,
-                           t0 - s0, t1 - s0, iterations=iters, lm=cfg.ba.lm, ep=cfg.ba.ep,
-                           alpha=cfg.ba.alpha)
-            poses_w.copy_(state.poses)
-            disps_w.copy_(state.disps)
+            t_all, w_ba = self.update_round(video, edges, ii_t, jj_t, e_mask_t, t_inac, w_inac,
+                                            sets, prep, inp_e, aux, use_inactive)
+            self.window_ba(video, t_all, w_ba, sets, t0, t1, s0, iters)
 
         traj_row = None
         if not mega:
@@ -149,7 +195,7 @@ class UpdateStep:
                 one_round()
             d_cull = self.cull_metric(video, t1)
             traj_row = lie.se3_inv(video.poses[t1 - 1])
-            cull = float(d_cull) < cfg.frontend.keyframe_thresh
+            cull = to_host(d_cull) < self.cfg.frontend.keyframe_thresh
             if not cull:
                 for _ in range(rounds_b):
                     one_round()
@@ -229,7 +275,15 @@ class CovisibleGraph:
         self._host_pack_dev = None
         self._host_pack_np = None
         self._host_pack_t1 = -1
+        self._host_pack_tail = 0    # trailing window-state floats (coupled)
+        self._host_pack_dec = 0     # trailing decision-pose floats (coupled)
+        self.dec_pose = None        # post-rounds_a body pose [R(9)|t(3)]
+        self.hyst_norms = None      # (7,) cull-hysteresis |rel t| (coupled)
         self._prox_offset = 1
+        self.aux = {}               # forwarded to update_fn each round
+        self.coupled = None         # MultiSensorBA when multi-sensor fusion is on
+        self.mega_count = 0         # fused coupled keyframe steps taken
+        self.lm_stats = None        # realized LM iterations per coupled round
         self._perm = np.arange(self.e_cap, dtype=np.int64)
         self._is_new = np.zeros(self.e_cap, dtype=bool)
         self._dirty = False
@@ -385,29 +439,54 @@ class CovisibleGraph:
         keep = np.nonzero((self.ii_inac >= 0) & (self.jj_inac >= 0))[0]
         if len(keep) != len(self.ii_inac):
             self._compact_inactive(keep)
+        # the coupled state keys frames by index: an active edge left below 0
+        # would silently corrupt it (the config must keep rollup_start -
+        # rollup_shift >= active_window)
+        if self.coupled is not None and len(self.ii) and (
+                int(self.ii.min()) < 0 or int(self.jj.min()) < 0):
+            raise ValueError(
+                "rollup left active edges with negative indices -- config violates "
+                "rollup_start - rollup_shift >= active_window "
+                f"(min ii={int(self.ii.min())}, min jj={int(self.jj.min())})")
 
     # ------------------------------------------------------------------
-    def _run(self, t0: int, t1: int, iters: int, use_inactive: bool, rounds: int, rounds_b: int,
-             mega: bool) -> UpdateResult:
-        s0 = max(0, t1 - self.cfg.ba.window)
+    def _masks(self):
         e_mask = np.zeros(self.e_cap, dtype=bool)
         e_mask[: self.n] = True
         i_mask = np.zeros(self.i_cap, dtype=bool)
         i_mask[: len(self.ii_inac)] = True
+        return e_mask, i_mask
+
+    def _pad_np(self, arr, cap: int) -> np.ndarray:
+        out = np.zeros(cap, dtype=np.int64)
+        out[: len(arr)] = arr
+        return out
+
+    def _set_pack(self, pack: torch.Tensor, tail: int = 0, dec: int = 0):
+        self._host_pack_dev = pack
+        self._host_pack_np = None
+        self._host_pack_tail = tail
+        self._host_pack_dec = dec
+        self.hyst_norms = None
+        self.dec_pose = None
+
+    def _run(self, t0: int, t1: int, iters: int, use_inactive: bool, rounds: int, rounds_b: int,
+             mega: bool) -> UpdateResult:
+        s0 = max(0, t1 - self.cfg.ba.window)
+        e_mask, i_mask = self._masks()
         res = self._step(
             self.video, self.edges,
-            self._padded(self.ii, self.e_cap), self._padded(self.jj, self.e_cap), self._dev(e_mask),
+            self._pad_np(self.ii, self.e_cap), self._pad_np(self.jj, self.e_cap), e_mask,
             self.t_inac, self.w_inac,
-            self._padded(self.ii_inac, self.i_cap), self._padded(self.jj_inac, self.i_cap),
-            self._dev(i_mask), t0, t1, s0, rounds, rounds_b, iters,
-            use_inactive, mega)
-        self._host_pack_dev = res.host_pack
-        self._host_pack_np = None
+            self._pad_np(self.ii_inac, self.i_cap), self._pad_np(self.jj_inac, self.i_cap),
+            i_mask, t0, t1, s0, rounds, rounds_b, iters, use_inactive, mega, self.aux)
+        self._set_pack(res.host_pack)
         return res
 
     def update(self, t0: Optional[int] = None, t1: Optional[int] = None, iters: int = 2,
                use_inactive: bool = False, rounds: int = 1):
-        """``rounds`` update rounds (covisible_graph.py:213-342 per round)."""
+        """``rounds`` update rounds (covisible_graph.py:213-342 per round);
+        in coupled mode each round's BA is the multi-sensor solve."""
         if self.n == 0:
             return
         if t0 is None:
@@ -415,10 +494,40 @@ class CovisibleGraph:
         if t1 is None:
             t1 = int(max(self.ii.max(), self.jj.max())) + 1
         self._flush()
-        self._run(t0, t1, iters, use_inactive, rounds, 0, mega=False)
-        self._host_pack_t1 = t1
         self._prox_offset = 1
+        if self.video.imu_enabled and self.coupled is not None:
+            self._update_coupled(t0, t1, iters, use_inactive, rounds)
+        else:
+            self._run(t0, t1, iters, use_inactive, rounds, 0, mega=False)
+        self._host_pack_t1 = t1
         self.age += rounds
+
+    def _update_coupled(self, t0: int, t1: int, iters: int, use_inactive: bool, rounds: int):
+        """Coupled rounds: the fused device step, or per round an update
+        followed by the host/device multi-sensor call (coupled.ba)."""
+        s0 = max(0, t1 - self.cfg.ba.window)
+        if self.cfg.sensors.device_solver and self._update_coupled_fused(
+                rounds, 0, iters, use_inactive, t0, t1, s0) is not None:
+            return
+        step = self._step
+        dev = self.device
+        e_mask, i_mask = self._masks()
+        ii, jj = self._pad_np(self.ii, self.e_cap), self._pad_np(self.jj, self.e_cap)
+        sets = step.edge_sets(ii, jj, e_mask, self._pad_np(self.ii_inac, self.i_cap),
+                              self._pad_np(self.jj_inac, self.i_cap), i_mask, t0, use_inactive,
+                              dev)
+        ii_t, jj_t = torch.as_tensor(ii, device=dev), torch.as_tensor(jj, device=dev)
+        prep = corr_operands(self.video.fmaps, ii_t, jj_t)
+        inp_e = self.video.inps[ii_t]
+        for r in range(rounds):
+            t_all, w_ba = step.update_round(self.video, self.edges, ii_t, jj_t,
+                                            torch.as_tensor(e_mask, device=dev), self.t_inac,
+                                            self.w_inac, sets, prep, inp_e, self.aux,
+                                            use_inactive)
+            self._set_pack(step.host_metrics(self.video, t1))
+            self.coupled.ba(sets.ii_np, sets.jj_np, sets.mask_np, t_all, w_ba, t1, itrs=iters,
+                            reuse_state=r > 0)
+        self.coupled.sync_host()
 
     def update_mega(self, rounds_a: int, rounds_b: int, iters: int = 2):
         """The fused visual keyframe step: rounds_a rounds, the cull
@@ -439,12 +548,86 @@ class CovisibleGraph:
             self.age += rounds_a + rounds_b
         return culled, float(pack[1]), res.traj_row
 
+    # ------------------------------------------------------------------
+    def update_coupled_mega(self, rounds_a: int, rounds_b: int, iters: int = 2):
+        """The fused coupled keyframe step (slam/coupled_fused.py): rounds_a
+        update+solve rounds, the multi-sensor cull decision (flow distance +
+        translation hysteresis), rounds_b more unless culled.  Returns
+        (culled, cull_distance), or None to fall back to the two-call flow
+        (window exceeds fg_cap / unsupported factors / coupled mode off)."""
+        if (self.n == 0 or self.coupled is None or not self.video.imu_enabled
+                or not self.cfg.sensors.device_solver or not self.cfg.sensors.coupled_mega):
+            return None
+        from .coupled_fused import MAX_ROUNDS
+
+        assert rounds_a + rounds_b <= MAX_ROUNDS, (
+            f"iters1+iters2 = {rounds_a}+{rounds_b} exceeds MAX_ROUNDS={MAX_ROUNDS}")
+        self._flush()
+        t0 = max(1, int(self.ii.min()) + 1)
+        t1 = int(max(self.ii.max(), self.jj.max())) + 1
+        s0 = max(0, t1 - self.cfg.ba.window)
+        out = self._update_coupled_fused(rounds_a, rounds_b, iters, True, t0, t1, s0)
+        if out is None:
+            return None
+        culled, d = out
+        self.mega_count += 1
+        self.age += rounds_a + (0 if culled else rounds_b)
+        if culled:
+            self._host_pack_t1 = -(10 ** 6)  # prox entries predate the shift
+        return culled, d
+
+    def _update_coupled_fused(self, rounds_a: int, rounds_b: int, iters: int,
+                              use_inactive: bool, t0: int, t1: int, s0: int):
+        """All rounds of a coupled keyframe step on the device
+        (slam/coupled_fused.py), one host read of the packed results at the
+        end.  Returns (culled, cull_distance), or None to fall back to the
+        per-round path."""
+        from .coupled_fused import run_coupled_rounds
+
+        dev = self.device
+        e_mask, i_mask = self._masks()
+        ii, jj = self._pad_np(self.ii, self.e_cap), self._pad_np(self.jj, self.e_cap)
+        sets = self._step.edge_sets(ii, jj, e_mask, self._pad_np(self.ii_inac, self.i_cap),
+                                    self._pad_np(self.jj_inac, self.i_cap), i_mask, t0,
+                                    use_inactive, dev)
+        prep = self.coupled.prepare_device(sets.ii_np, sets.jj_np, sets.mask_np, t1, iters)
+        if prep is None:
+            return None
+        out = run_coupled_rounds(
+            self._step, self.cfg, self.video, self.edges, torch.as_tensor(ii, device=dev),
+            torch.as_tensor(jj, device=dev), torch.as_tensor(e_mask, device=dev), self.t_inac,
+            self.w_inac, sets, t1, self.aux, prep, rounds_a, rounds_b, use_inactive)
+        NW = self.cfg.sensors.fg_cap
+        self.lm_stats = out.lm_stats
+        self._set_pack(out.host_pack, tail=NW * 21, dec=12)
+        self._host_pack_t1 = t1
+        self._prox_offset = 2
+        c = self.coupled
+        c.cur_target, c.cur_weight = out.cur_target, out.cur_weight
+        c._fg_state = out.fg_flat
+        c._lm_stats = out.lm_stats
+        c._fg_synced = False
+        pack = self.host_pack  # one read: cull pack + window state rows
+        c.sync_host()
+        return bool(pack[0] > 0.5), float(pack[1])
+
     @property
     def host_pack(self) -> Optional[np.ndarray]:
+        """The last step's packed scalars, read from the device once.  After
+        a coupled step the trailing [hysteresis(7) | window state | decision
+        pose(12)] go to ``hyst_norms``, the MultiSensorBA and ``dec_pose``."""
         if self._host_pack_dev is None:
             return None
         if self._host_pack_np is None:
-            self._host_pack_np = self._host_pack_dev.cpu().numpy()
+            full = to_host(self._host_pack_dev)
+            tail, dec = self._host_pack_tail, self._host_pack_dec
+            if tail:
+                self._host_pack_np = full[: -(tail + 7 + dec)]
+                self.hyst_norms = full[-(tail + 7 + dec): -(tail + dec)]
+                self.coupled.stash_state_rows(full[-(tail + dec): len(full) - dec])
+                self.dec_pose = full[len(full) - dec:] if dec else None
+            else:
+                self._host_pack_np = full
         return self._host_pack_np
 
     # ------------------------------------------------------------------

@@ -19,6 +19,7 @@ from ..ops import corr_cuda
 from ..ops import lie
 from ..ops import projective as pj
 from ..utils.config import DBAFusionConfig
+from ..utils.device import to_host
 from .video import DepthVideo
 
 
@@ -26,8 +27,9 @@ class MotionFilter:
     def __init__(self, video: DepthVideo, cfg: DBAFusionConfig, feat_fn: Callable,
                  ctx_fn: Callable, update_fn: Callable):
         """feat_fn(images (1,H,W,3) uint8) -> fmaps (1,H/8,W/8,128);
-        ctx_fn(images) -> (net, inp); update_fn(net, inp, corr, motn) ->
-        (net, delta, weight), all NHWC (``DroidNet.update_step``)."""
+        ctx_fn(images) -> (net, inp); update_fn(net, inp, corr, motn, ii, jj,
+        aux) -> (net, delta, weight), all NHWC (``DroidNet.update_fn``); the
+        gate passes edge 0 -> 0 and an empty aux."""
         self.video = video
         self.cfg = cfg
         self.thresh = cfg.frontend.filter_thresh
@@ -49,8 +51,9 @@ class MotionFilter:
         corr = corr_cuda.corr_lookup(vol, coords0).permute(0, 2, 3, 1)
         net_kf = self._kf_net
         zero_motn = torch.zeros((1, H, W, 4), dtype=net_kf.dtype, device=image.device)
+        ii = torch.zeros((1,), dtype=torch.int64, device=image.device)
         _, delta, _ = self.update_fn(net_kf[None], self._kf_inp[None], corr.to(net_kf.dtype),
-                                     zero_motn)
+                                     zero_motn, ii, ii, {})
         return fmap_cur, torch.linalg.norm(delta[0].float(), dim=-1).mean()
 
     def track(self, tstamp: float, image: np.ndarray, intrinsics: Optional[np.ndarray] = None) -> bool:
@@ -67,7 +70,7 @@ class MotionFilter:
                      fmap, net[0], inp[0])
             return True
         fmap, delta = self.gate(img)
-        if float(delta) > self.thresh:
+        if to_host(delta) > self.thresh:
             idx = v.counter
             net, inp = self.ctx(img)
             v.set_features(idx, fmap, net[0], inp[0])

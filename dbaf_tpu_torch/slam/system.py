@@ -1,5 +1,6 @@
 """System facade (port of ``dbaf_tpu/slam/system.py``): wires the network,
-keyframe store, motion filter, covisibility graph and frontend.
+keyframe store, motion filter, covisibility graph and frontend, and the
+tightly-coupled multi-sensor solve (:meth:`DBAFusion.set_multisensor`).
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import torch
 from ..models.net import DroidNet
 from ..ops.corr_cuda import check_k1_shape
 from ..utils.config import DBAFusionConfig
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, to_host
 from .frontend import Frontend
 from .graph import CovisibleGraph
 from .motion_filter import MotionFilter
@@ -20,14 +21,17 @@ from .video import DepthVideo
 
 
 class DBAFusion:
-    """Streaming visual SLAM: feed frames with :meth:`track`.
+    """Streaming VIO/SLAM: feed frames with :meth:`track`; enable the
+    tightly-coupled IMU/GNSS/odometry solve with :meth:`set_multisensor`.
 
     ``params`` is the port's DroidNet ``state_dict``
     (:mod:`dbaf_tpu_torch.models.convert` makes one from JAX parameters or a
     reference checkpoint); without it ``cfg.weights_path`` names a
     reference-format ``droid.pth``.  ``feat_fn``/``ctx_fn``/``update_fn``
     may be injected instead (test oracles), with the signatures of
-    ``DroidNet.features_only``/``context_only``/``update_step``.  ``device`` defaults to the
+    ``DroidNet.features_only``/``context_only``/``update_fn`` (the update
+    operator's signature is ``(net, inp, corr, motn, ii, jj, aux)``, as in
+    the JAX package).  ``device`` defaults to the
     card and raises without one; pass ``device="cpu"`` for the plain path.
     On the card the image may be at most 1024 px wide (kernel K1's limit,
     :func:`~dbaf_tpu_torch.ops.corr_cuda.check_k1_shape`); a wider
@@ -60,13 +64,34 @@ class DBAFusion:
             self.model.eval()
             feat_fn = feat_fn or self.model.features_only
             ctx_fn = ctx_fn or self.model.context_only
-            update_fn = update_fn or self.model.update_step
+            update_fn = update_fn or self.model.update_fn
         self.graph = CovisibleGraph(self.video, update_fn, cfg)
         self.filter = MotionFilter(self.video, cfg, feat_fn, ctx_fn, update_fn)
         self.frontend = Frontend(self.video, self.graph, cfg)
 
-    def set_multisensor(self, *args, **kwargs):
-        return self.frontend.set_multisensor(*args, **kwargs)
+    def set_multisensor(self, all_imu, Tbc, all_gnss=None, all_odo=None, all_stamp=None,
+                        tbg=None, ten0=None, imu_noise=None, visual_only: bool = False):
+        """Enable tightly-coupled fusion (demo_vio_whu.py:190-211).
+
+        Tbc: 4x4 body<-camera extrinsic; tbg: GNSS lever arm (body); ten0:
+        ECEF reference for GNSS; imu_noise: (acc, gyro, acc_walk, gyro_walk)
+        sigmas.  Raises ``NotImplementedError`` while
+        ``cfg.sensors.coupled_async`` is set (that pipeline is not ported)."""
+        from ..fusion.se3np import Pose
+        from .coupled import MultiSensorBA
+
+        self.frontend.set_multisensor(all_imu, all_gnss, all_odo, all_stamp,
+                                      visual_only=visual_only)
+        coupled = MultiSensorBA(self.video, self.cfg)
+        coupled.Tbc = Pose.from_matrix(np.asarray(Tbc, float))
+        if tbg is not None:
+            coupled.tbg = np.asarray(tbg, float)
+        if ten0 is not None:
+            coupled.ten0 = np.asarray(ten0, float)
+        if imu_noise is not None:
+            coupled.state.set_imu_params(imu_noise)
+        self.graph.coupled = coupled
+        return coupled
 
     def track(self, tstamp: float, image: np.ndarray, depth: Optional[np.ndarray] = None,
               intrinsics: Optional[np.ndarray] = None, image_right: Optional[np.ndarray] = None):
@@ -80,12 +105,35 @@ class DBAFusion:
     def trajectory(self):
         return self.frontend.trajectory
 
+    @property
+    def trajectory_ecef(self):
+        """f64 ECEF positions keyed by trajectory row index (rows written
+        after GNSS initialization; dbaf_frontend.py:270-272)."""
+        return self.frontend.trajectory_ecef
+
     def terminate(self) -> np.ndarray:
         """Keyframe trajectory as (N, 8) ``[t, x, y, z, qx, qy, qz, qw]``
-        (camera-to-world), pulled from the device in one transfer."""
+        (camera-to-world on the visual path, body-to-world on the coupled
+        path), the rows still on the device pulled in one transfer.  Once
+        georeferenced, rows without an ECEF position get one."""
         traj = self.frontend.trajectory
         if not traj:
             return np.zeros((0, 8))
-        rows = torch.stack([p for _, p in traj]).cpu().numpy()
-        t = np.asarray([ts for ts, _ in traj], np.float64)
-        return np.concatenate([t[:, None], rows.astype(np.float64)], axis=1)
+        dev_idx = [k for k, (_, p) in enumerate(traj) if isinstance(p, torch.Tensor)]
+        rows = np.zeros((len(traj), 8))
+        rows[:, 0] = [ts for ts, _ in traj]
+        if dev_idx:
+            rows[dev_idx, 1:] = to_host(torch.stack([traj[k][1] for k in dev_idx]))
+        for k, (_, p) in enumerate(traj):
+            if not isinstance(p, torch.Tensor):
+                rows[k, 1:] = p
+        coupled = self.graph.coupled
+        if coupled is not None and coupled.gnss_init_t1 > 0 and coupled.ten0 is not None:
+            from ..utils import geodesy
+
+            Cen = geodesy.Cen(coupled.ten0)
+            ecef = self.frontend.trajectory_ecef
+            for k in dev_idx:
+                if k not in ecef:
+                    ecef[k] = coupled.ten0 + Cen @ rows[k, 1:4]
+        return rows

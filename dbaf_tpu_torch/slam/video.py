@@ -4,7 +4,8 @@ Poses, disparities, damping and the feature/context buffers are
 preallocated tensors on the device, written in place where the JAX package
 donates its buffers; timestamps and thumbnails stay on the host.  The
 visual path's rows: ring buffers, ``append``, ``rm_keyframe``, ``rollup``,
-``distance``, ``seed_next`` and ``normalize``.  Depth-sensor rows, the
+``distance``, ``seed_next`` and ``normalize``; the initializations of the
+coupled path rewrite poses and rescale disparities in place.  Depth-sensor rows, the
 stereo feature buffer and the ``.pkl`` archive come with later slices.
 """
 
@@ -17,7 +18,7 @@ import torch
 
 from ..ops import projective as pj
 from ..utils.config import DBAFusionConfig
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, to_host
 
 
 class DepthVideo:
@@ -80,6 +81,15 @@ class DepthVideo:
     def set_disp(self, idx: int, disp):
         self.disps[idx] = disp
 
+    def set_poses_range(self, start: int, poses: np.ndarray):
+        """Write poses for frames [start, start + len) in one copy."""
+        p = torch.as_tensor(np.asarray(poses, np.float32), device=self.device)
+        self.poses[start:start + p.shape[0]] = p
+
+    def scale_disps(self, n: int, scale: float):
+        """disps[:n] *= 1/scale (the VI/GNSS initialization's rescale)."""
+        self.disps[:n] *= 1.0 / torch.tensor(scale, dtype=torch.float32)
+
     # ------------------------------------------------------------------
     def copy_row(self, dst: int, src: int):
         """Copy every per-frame row src -> dst (host rows included)."""
@@ -110,7 +120,7 @@ class DepthVideo:
     def distance(self, ii, jj, beta: float = 0.3) -> np.ndarray:
         d = pj.frame_distance_bidirectional(
             self.poses, self.disps, self.intrinsics, self._idx(ii), self._idx(jj), beta)
-        return d.cpu().numpy()
+        return to_host(d)
 
     def normalize(self):
         """Scale disparities of the live rows to unit mean (poses scale along)."""

@@ -38,3 +38,18 @@ def configure_cuda_numerics() -> None:
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+# device -> host reads made through :func:`to_host` (the coupled path's
+# cull decisions, LM stopping flags, host packs and state pulls); the chip
+# smoke test reports them per keyframe
+HOST_READS = {"count": 0}
+
+
+def to_host(x: torch.Tensor):
+    """One counted device -> host read: a Python scalar for a 0-d tensor,
+    else a numpy array."""
+    HOST_READS["count"] += 1
+    if x.dim() == 0:
+        return x.item()
+    return x.detach().cpu().numpy()

@@ -80,3 +80,95 @@ def test_indefinite_system_gives_zero_step():
     assert torch.equal(dx, torch.zeros_like(dx))
     good = td.damped_solve(torch.eye(6 * P), v, torch.ones(P, dtype=torch.bool), 0.0, 0.0)
     np.testing.assert_allclose(good.numpy(), np.ones(6 * P), atol=1e-6)
+
+
+def _buffers(seed, B=8, s0=2):
+    """_problem's window placed at slot s0 of B-slot buffers (the other
+    slots hold unrelated frames), with a damping buffer."""
+    poses0, disps0, intr, targets, weights, eta, ii, jj, mask = _problem(seed)
+    P = poses0.shape[0]
+    rng = np.random.default_rng(seed + 100)
+    poses_buf = np.tile(poses0[:1], (B, 1))
+    poses_buf[:, :3] += 0.1 * rng.normal(size=(B, 3)).astype(np.float32)
+    poses_buf[s0:s0 + P] = poses0
+    disps_buf = np.ones((B,) + disps0.shape[1:], np.float32)
+    disps_buf[s0:s0 + P] = disps0
+    damp_buf = (1e-3 * rng.random(disps_buf.shape)).astype(np.float32)
+    return poses_buf, disps_buf, damp_buf, intr, targets, weights, ii, jj, mask, P
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_coupled_hessian_matches_jax(full):
+    """BACore::hessian: the undamped reduced camera system, every slot below
+    nactive free.  Tolerance 1e-5 of the system's scale (f32 Gram products
+    and segment sums in another order)."""
+    pb, db, damp, intr, targets, weights, ii, jj, mask, P = _buffers(3)
+    s0, nactive = 2, 4
+    if full:
+        args = (pb, db, damp, intr, targets, weights, ii, jj, mask)
+        Sj, vj = jd.coupled_hessian_full(*(jnp.asarray(a) for a in args), jnp.asarray(s0),
+                                         jnp.asarray(nactive), P=P)
+        St, vt = td.coupled_hessian_full(*(torch.tensor(a) for a in args), s0, nactive, P=P)
+    else:
+        eta = (0.2 * damp[s0:s0 + P].reshape(P, -1) + 1e-7).astype(np.float32)
+        args = (pb[s0:s0 + P], db[s0:s0 + P], intr, targets, weights, eta, ii, jj, mask)
+        Sj, vj = jd.coupled_hessian(*(jnp.asarray(a) for a in args), jnp.asarray(nactive))
+        St, vt = td.coupled_hessian(*(torch.tensor(a) for a in args), nactive)
+    Sj, vj = np.asarray(Sj), np.asarray(vj)
+    assert np.abs(Sj[6 * nactive:]).max() < np.abs(Sj).max()  # inactive slots carry damping only
+    np.testing.assert_allclose(St.numpy(), Sj, atol=1e-5 * np.abs(Sj).max())
+    np.testing.assert_allclose(vt.numpy(), vj, atol=1e-5 * np.abs(vj).max())
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_coupled_retract_matches_jax(full):
+    """BACore::retract: an external pose step and the depth update it
+    induces; ``_full`` writes the window back in place and relinearizes.
+    Poses and disparities to 1e-5, the next system to 1e-5 of its scale."""
+    pb, db, damp, intr, targets, weights, ii, jj, mask, P = _buffers(4)
+    s0, nactive = 2, 4
+    rng = np.random.default_rng(9)
+    dx = (1e-2 * rng.normal(size=(P, 6))).astype(np.float32)
+    if full:
+        args = (pb, db, damp, intr, targets, weights, ii, jj, mask)
+        pj_, dj_, Sj, vj = jd.coupled_retract_full(
+            *(jnp.asarray(a) for a in args), jnp.asarray(s0), jnp.asarray(nactive),
+            jnp.asarray(dx), P=P, with_hessian=True)
+        pt, dt_, St, vt = td.coupled_retract_full(
+            *(torch.tensor(a) for a in args), s0, nactive, torch.tensor(dx), P=P,
+            with_hessian=True)
+        np.testing.assert_allclose(St.numpy(), np.asarray(Sj), atol=1e-5 * np.abs(Sj).max())
+        np.testing.assert_allclose(vt.numpy(), np.asarray(vj), atol=1e-5 * np.abs(vj).max())
+        np.testing.assert_array_equal(pt.numpy()[:s0], pb[:s0])  # outside the window: untouched
+    else:
+        eta = (0.2 * damp[s0:s0 + P].reshape(P, -1) + 1e-7).astype(np.float32)
+        args = (pb[s0:s0 + P], db[s0:s0 + P], intr, targets, weights, eta, ii, jj, mask)
+        pj_, dj_ = jd.coupled_retract(*(jnp.asarray(a) for a in args), jnp.asarray(nactive),
+                                      jnp.asarray(dx))
+        pt, dt_ = td.coupled_retract(*(torch.tensor(a) for a in args), nactive,
+                                     torch.tensor(dx))
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pj_), atol=1e-5)
+    np.testing.assert_allclose(dt_.numpy(), np.asarray(dj_), atol=1e-5)
+
+
+def test_window_rows_slot_keeps_its_frame_past_the_buffer_end():
+    """Where [s0, s0 + P) fits the buffer, the window is the slice
+    jax.lax.dynamic_slice takes.  Past the end, dynamic_slice moves the
+    start down to B - P, so slot l stops holding frame s0 + l; the port keeps
+    slot l = frame s0 + l and pads the slots past the end with the last row
+    (they carry no edge)."""
+    import jax
+
+    buf = np.arange(10 * 7, dtype=np.float32).reshape(10, 7)
+    for s0, P in ((2, 5), (5, 5), (7, 5)):
+        got = td.window_rows(torch.tensor(buf), s0, P).numpy()
+        ref = np.asarray(jax.lax.dynamic_slice(jnp.asarray(buf), (s0, 0), (P, 7)))
+        if s0 + P <= 10:
+            np.testing.assert_array_equal(got, ref)
+        else:
+            np.testing.assert_array_equal(got[: 10 - s0], buf[s0:])
+            np.testing.assert_array_equal(got[10 - s0:], np.repeat(buf[-1:], s0 + P - 10, 0))
+            assert not np.array_equal(ref[0], buf[s0])  # the JAX slice starts at B - P
+    out = torch.zeros(10, 7)
+    td.write_window_rows(out, torch.ones(5, 7), 7)
+    assert out[7:].eq(1).all() and out[:7].eq(0).all()

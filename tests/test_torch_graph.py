@@ -61,7 +61,7 @@ def nets():
 
     tm = DroidNet(dtype=torch.float32, device="cpu")
     tm.load_state_dict(from_jax_params(params))
-    return j_update_fn, tm.update_step
+    return j_update_fn, tm.update_fn
 
 
 def _state(seed, n_kf=8):

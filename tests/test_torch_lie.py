@@ -77,3 +77,50 @@ def test_exp_log_roundtrip():
     xi[:, 3:] = np.clip(xi[:, 3:], -1.0, 1.0)
     back = tl.se3_log(tl.se3_exp(torch.tensor(xi))).numpy()
     np.testing.assert_allclose(back, xi, atol=1e-4)
+
+
+def _rotations(rng, n):
+    """Rotation matrices over every Shepperd branch: generic angles, angles
+    near pi about each axis (qx, qy or qz largest) and the identity."""
+    w = rng.normal(size=(n, 3))
+    w *= (rng.uniform(0.0, np.pi, size=(n, 1)) / np.linalg.norm(w, axis=1, keepdims=True))
+    w[: n // 4] = np.eye(3)[rng.integers(0, 3, n // 4)] * (np.pi - 1e-2) + \
+        1e-2 * rng.normal(size=(n // 4, 3))
+    w[-1] = 0.0
+    return np.asarray(jl.quat_to_matrix(jl.so3_exp(jnp.asarray(w, jnp.float32))))
+
+
+def test_matrix_to_quat_and_se3_from_matrix_match_jax():
+    """Both are branch-free over the four Shepperd candidates with qw >= 0
+    canonical, so the quaternions agree without a sign flip (f32, 1e-5)."""
+    rng = np.random.default_rng(6)
+    R = _rotations(rng, 64)
+    _close(jl.matrix_to_quat(jnp.asarray(R)), tl.matrix_to_quat(torch.tensor(R)))
+    T = np.tile(np.eye(4, dtype=np.float32), (64, 1, 1))
+    T[:, :3, :3] = R
+    T[:, :3, 3] = rng.normal(size=(64, 3))
+    _close(jl.se3_from_matrix(jnp.asarray(T)), tl.se3_from_matrix(torch.tensor(T)))
+    # round trip through the port's se3_matrix
+    np.testing.assert_allclose(tl.se3_matrix(tl.se3_from_matrix(torch.tensor(T))).numpy(), T,
+                               atol=2e-6)
+
+
+@pytest.mark.parametrize("name", ["se3_mul", "se3_inv", "se3_from_matrix", "quat_to_matrix",
+                                  "matrix_to_quat", "se3_matrix"])
+def test_lie_np_matches_jax_lie_np(name):
+    """The port's numpy host twin (f64) against the JAX package's exec-twin
+    of ops/lie.py, to 1e-12."""
+    from dbaf_tpu.ops import lie_np as jnp_lie
+    from dbaf_tpu_torch.ops import lie_np as tnp_lie
+
+    rng = np.random.default_rng(7)
+    g = _poses(rng, 32).astype(np.float64)
+    g[:, 3:] /= np.linalg.norm(g[:, 3:], axis=1, keepdims=True)
+    R = _rotations(rng, 32).astype(np.float64)
+    args = {"se3_mul": (g, g[::-1]), "se3_inv": (g,), "se3_matrix": (g,),
+            "quat_to_matrix": (g[:, 3:],), "matrix_to_quat": (R,),
+            "se3_from_matrix": (jnp_lie.se3_matrix(g),)}[name]
+    got = getattr(tnp_lie, name)(*args)
+    ref = getattr(jnp_lie, name)(*args)
+    assert got.dtype == np.float64
+    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-12)
