@@ -45,9 +45,23 @@ Phases, each fatal on failure:
              LM iterations per pass, host reads per keyframe, K1 ms per
              round, and the idle share over the last 3 frames under
              torch.profiler (its table goes to chiprun_out/profile_coupled.txt).
-Then one JSON line listing both kernels (launches summed over the main and
-coupled paths, each counted from 0 just before its run; "launches_by_path"
-splits them), and last the ok line.
+  6. coupled_async  phase 5's frames with cfg.sensors.coupled_async on (the
+             zero-pull pipeline, as bench.py runs the coupled mode).  Every
+             steady-state frame runs under torch.cuda.set_sync_debug_mode
+             ("error"), the oracle's frame map uploaded from pinned memory.
+             Fatal unless >= 60 async steps, a cull and a rollup inside the
+             pipeline, K1 in every update round and K2 on every gated frame,
+             a finite trajectory, ATE under 0.08 x span, every |bias| under
+             0.2, phase 5's keyframe stamps, solved positions and trajectory
+             rows within 2e-2 m of phase 5's (the bias reinitialization's
+             drain included), and <= 3 blocking host reads per async step.
+             Prints coupled kf/s over the async steps, reads per step, LM
+             iterations and masked ones per pass, K1 ms per round, the idle
+             share (its table goes to profile_coupled_async.txt beside phase
+             5's) and the launches of one device edge selection.
+Then one JSON line listing both kernels (launches summed over the main,
+coupled and coupled_async paths, each counted from 0 just before its run;
+"launches_by_path" splits them), and last the ok line.
 
 Exits non-zero without a CUDA device, and without the port's package.
 """
@@ -414,8 +428,9 @@ def phase_check(dev) -> None:
         raise SystemExit("golden trace on the card is outside its bounds")
 
 
-def coupled_config():
-    """bench.py:240-255's coupled configuration, on the synchronous path."""
+def coupled_config(coupled_async: bool = False):
+    """bench.py:240-255's coupled configuration; bench.py runs it with the
+    asynchronous pipeline on (phase 6), phase 5 with it off."""
     from dbaf_tpu_torch.utils.config import tumvi_config
 
     cfg = tumvi_config()
@@ -428,60 +443,93 @@ def coupled_config():
     cfg.graph.edge_capacity = 48
     cfg.sensors.device_solver = True
     cfg.sensors.coupled_mega = True
-    cfg.sensors.coupled_async = False  # the zero-pull pipeline is not ported
+    cfg.sensors.coupled_async = coupled_async
     return cfg
 
 
+class CoupledRun:
+    """The coupled path's system on the card: the full network in every
+    round with the synthetic-scene oracle replacing its outputs on the
+    update rounds (the motion gate keeps the network's own), a simulated
+    200 Hz IMU, procedural frames."""
+
+    def __init__(self, dev, cfg, n_frames: int):
+        from dbaf_tpu_torch.eval.synthetic import (make_oracle, scene_from_poses,
+                                                   simulate_imu_and_poses)
+        from dbaf_tpu_torch.models.net import DroidNet
+        from dbaf_tpu_torch.slam.system import DBAFusion
+
+        self.dev, self.cfg, self.fps = dev, cfg, COUPLED_FPS
+        HT, WD = self.image_size = cfg.image_size
+        H8, W8 = cfg.feat_size
+        self.intr8 = np.asarray([2.0 * W8, 2.0 * W8, W8 / 2, H8 / 2], np.float32)
+        imu_rows, self.poses_at = simulate_imu_and_poses(n_frames / self.fps + 0.5, fps=self.fps)
+        gt_cw, gt_disps = scene_from_poses(self.poses_at, n_frames, self.intr8, H8, W8)
+        model = DroidNet(device=dev)
+        model.load_state_dict(seeded_params(20260820))
+        model.eval()
+        oracle = make_oracle(gt_cw, gt_disps, self.intr8, device=dev)
+
+        def update_fn(net, inp, corr, motn, ii, jj, aux):
+            net2, delta, weight = model.update_fn(net, inp, corr, motn, ii, jj, aux)
+            if "id_map" not in aux:  # the motion gate
+                return net2, delta, weight
+            # the network's outputs folded in at 1e-30, as bench.py does
+            _, d_o, w_o = oracle(net, inp, corr, motn, ii, jj, aux)
+            return net2, d_o + delta.float() * 1e-30, w_o + weight.float() * 1e-30
+
+        self.system = DBAFusion(cfg, device=dev, feat_fn=model.features_only,
+                                ctx_fn=model.context_only, update_fn=update_fn)
+        self.system.set_multisensor(imu_rows, np.eye(4), imu_noise=[0.05, 0.005, 1e-4, 1e-6])
+        rng = np.random.default_rng(1)
+        self.base = rng.integers(0, 255, size=(HT + 64, WD + 64, 3)).astype(np.uint8)
+        self.id_map = np.zeros(cfg.buffer, np.int64)
+
+    def track(self, k: int, upload) -> None:
+        """Feed frame k.  The oracle's map (video slot -> frame id: the frame
+        takes slot `counter`; culls and rollups move slots, so it is rebuilt
+        after) goes up through ``upload(array, device)``."""
+        v, g = self.system.video, self.system.graph
+        HT, WD = self.image_size
+        self.id_map[v.counter] = k
+        g.aux = {"id_map": upload(self.id_map, self.dev)}
+        ox, oy = (3 * k) % 64, (2 * k) % 64
+        self.system.track(k / self.fps, self.base[oy:oy + HT, ox:ox + WD],
+                          intrinsics=self.intr8 * 8.0)
+        n = v.counter
+        self.id_map[:n] = np.round(v.tstamp[:n] * self.fps).astype(np.int64)
+        g.aux = {"id_map": upload(self.id_map, self.dev)}
+
+    def positions(self) -> np.ndarray:
+        """The solved body positions of every keyframe, after terminate."""
+        st = self.system.graph.coupled.state
+        return np.asarray([st.wTbs[k].t for k in range(self.system.frontend.t1)])
+
+    def accuracy(self):
+        """(ATE of the body positions, trajectory span, max |bias|)."""
+        from dbaf_tpu_torch.eval.ate import ate_rmse
+
+        v, st, fps = self.system.video, self.system.graph.coupled.state, self.fps
+        t1 = self.system.frontend.t1
+        est = self.positions()
+        ref = np.stack([self.poses_at[i][1] for i in np.round(v.tstamp[:t1] * fps).astype(int)])
+        return (ate_rmse(est, ref, align="se3"), float(np.linalg.norm(ref.max(0) - ref.min(0))),
+                float(np.abs(np.asarray([st.bs[k] for k in range(t1)])).max()))
+
+
 def phase_coupled(dev, n_frames: int) -> dict:
-    """The tightly-coupled path through DBAFusion's entry points; the
-    network's outputs are replaced by the synthetic-scene oracle on the
-    update rounds (the motion gate keeps the network's own)."""
-    from dbaf_tpu_torch.eval.ate import ate_rmse
-    from dbaf_tpu_torch.eval.synthetic import (make_oracle, scene_from_poses,
-                                               simulate_imu_and_poses)
-    from dbaf_tpu_torch.models.net import DroidNet
+    """The tightly-coupled path through DBAFusion's entry points, on the
+    synchronous flow."""
     from dbaf_tpu_torch.ops import corr_cuda as cc
-    from dbaf_tpu_torch.slam.system import DBAFusion
     from dbaf_tpu_torch.utils import device as devmod
 
-    cfg = coupled_config()
-    fps = COUPLED_FPS
-    HT, WD = cfg.image_size
-    H8, W8 = cfg.feat_size
-    intr8 = np.asarray([2.0 * W8, 2.0 * W8, W8 / 2, H8 / 2], np.float32)
-    imu_rows, poses_at = simulate_imu_and_poses(n_frames / fps + 0.5, fps=fps)
-    gt_cw, gt_disps = scene_from_poses(poses_at, n_frames, intr8, H8, W8)
-    model = DroidNet(device=dev)
-    model.load_state_dict(seeded_params(20260820))
-    model.eval()
-    oracle = make_oracle(gt_cw, gt_disps, intr8, device=dev)
-
-    def update_fn(net, inp, corr, motn, ii, jj, aux):
-        net2, delta, weight = model.update_fn(net, inp, corr, motn, ii, jj, aux)
-        if "id_map" not in aux:  # the motion gate
-            return net2, delta, weight
-        # the network's outputs folded in at 1e-30, as bench.py does
-        _, d_o, w_o = oracle(net, inp, corr, motn, ii, jj, aux)
-        return net2, d_o + delta.float() * 1e-30, w_o + weight.float() * 1e-30
-
-    system = DBAFusion(cfg, device=dev, feat_fn=model.features_only, ctx_fn=model.context_only,
-                       update_fn=update_fn)
-    system.set_multisensor(imu_rows, np.eye(4), imu_noise=[0.05, 0.005, 1e-4, 1e-6])
+    run = CoupledRun(dev, coupled_config(), n_frames)
+    system = run.system
     fe, g, v = system.frontend, system.graph, system.video
-    rng = np.random.default_rng(1)
-    base = rng.integers(0, 255, size=(HT + 64, WD + 64, 3)).astype(np.uint8)
-    id_map = np.zeros(cfg.buffer, np.int64)
+    upload = lambda a, d: torch.as_tensor(a, device=d)  # noqa: E731
 
     def track(k):
-        # video slot -> frame id for the oracle (the frame takes slot
-        # `counter`; culls and rollups move slots, so it is rebuilt after)
-        id_map[v.counter] = k
-        g.aux = {"id_map": torch.as_tensor(id_map, device=dev)}
-        ox, oy = (3 * k) % 64, (2 * k) % 64
-        system.track(k / fps, base[oy:oy + HT, ox:ox + WD], intrinsics=intr8 * 8.0)
-        n = v.counter
-        id_map[:n] = np.round(v.tstamp[:n] * fps).astype(np.int64)
-        g.aux = {"id_map": torch.as_tensor(id_map, device=dev)}
+        run.track(k, upload)
 
     cc.reset_launch_counts()
     vi_key = t_steady = prof = None
@@ -499,8 +547,9 @@ def phase_coupled(dev, n_frames: int) -> dict:
         megas0 = g.mega_count
         track(k)
         if g.mega_count > megas0:  # realized LM iterations of the executed passes
-            lm_iters += int(g.lm_stats.sum())
-            lm_passes += int(np.count_nonzero(g.lm_stats))
+            lm = g.lm_stats.cpu()
+            lm_iters += int(lm.sum())
+            lm_passes += int(torch.count_nonzero(lm))
         if vi_key is None and v.imu_enabled:
             vi_key = k
             torch.cuda.synchronize()
@@ -512,14 +561,7 @@ def phase_coupled(dev, n_frames: int) -> dict:
     traj = system.terminate()
     ecef = system.trajectory_ecef
     k1_ms = sum(ms for name, ms in pr["kernels"].items() if "corr_fused_xy_kernel" in name)
-
-    t1 = fe.t1
-    st = g.coupled.state
-    est = np.asarray([st.wTbs[k].t for k in range(t1)])
-    ref = np.stack([poses_at[i][1] for i in np.round(v.tstamp[:t1] * fps).astype(int)])
-    ate = ate_rmse(est, ref, align="se3")
-    span = float(np.linalg.norm(ref.max(0) - ref.min(0)))
-    bias = float(np.abs(np.asarray([st.bs[k] for k in range(t1)])).max())
+    ate, span, bias = run.accuracy()
     res = dict(frames=n_frames, vi_key=vi_key, keyframe_steps=fe.keyframe_steps,
                mega_steps=g.mega_count, culls=fe.culls, rollups=fe.rollup_count,
                update_rounds=fe.update_rounds, launches=launches,
@@ -550,7 +592,155 @@ def phase_coupled(dev, n_frames: int) -> dict:
         f"{res['lm_iters_per_pass']:.3f} LM iterations per pass, "
         f"{res['host_reads_per_kf']:.3f} host reads per keyframe, K1 "
         f"{res['k1_ms_per_round']:.4f} ms per round, ATE {ate:.4f} m of span {span:.3f} m")
+    res["traj"], res["pos"] = traj, run.positions()  # for phase 6's comparison, not printed
     return res
+
+
+def phase_coupled_async(dev, n_frames: int, sync_res: dict) -> dict:
+    """Phase 6: phase 5's run with the asynchronous coupled pipeline on
+    (bench.py's coupled mode).  Every steady-state frame -- the pipeline
+    active before and after it, outside the last 3 frames under the profiler
+    and the frames that drain the pipeline -- runs under
+    torch.cuda.set_sync_debug_mode("error"), and its host time, async steps
+    and blocking host reads are summed; the oracle's frame map is uploaded
+    through pinned memory, so the harness makes no sync."""
+    from dbaf_tpu_torch.ops import corr_cuda as cc
+    from dbaf_tpu_torch.utils import device as devmod
+
+    run = CoupledRun(dev, coupled_config(coupled_async=True), n_frames)
+    system = run.system
+    fe, g = system.frontend, system.graph
+    cc.reset_launch_counts()
+    prof = None
+    guarded = steps_timed = reads_timed = 0
+    wall = 0.0
+    for k in range(n_frames):
+        ca = fe._casync
+        active = ca is not None and ca.active
+        # the bias reinitialization 5 s after VI init drains the pipeline
+        reinit = g.coupled is not None and k / run.fps - g.coupled.vi_init_time > 5.0
+        if k == n_frames - N_PROFILED:
+            k1_prof0 = cc.LAUNCHES["corr_fused_xy"]
+            prof = Profile()
+        guard = active and not reinit and prof is None
+        steps0 = ca.total_steps if active else 0
+        reads0 = devmod.HOST_READS["count"]
+        if guard:
+            torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            run.track(k, devmod.upload)
+        finally:
+            if guard:
+                torch.cuda.set_sync_debug_mode(0)
+        if guard and ca.active:
+            wall += time.perf_counter() - t0
+            guarded += 1
+            steps_timed += ca.total_steps - steps0
+            reads_timed += devmod.HOST_READS["count"] - reads0
+    ca = fe._casync
+    if prof is None or steps_timed == 0:
+        raise SystemExit("coupled_async: no steady-state async step before the profiled frames")
+    k1_prof = cc.LAUNCHES["corr_fused_xy"] - k1_prof0
+    pr = prof.stop("coupled_async", "profile_coupled_async.txt")
+    launches = dict(cc.LAUNCHES)
+    stats = ca.stats()
+    traj = system.terminate()
+    ate, span, bias = run.accuracy()
+    k1_ms = sum(ms for name, ms in pr["kernels"].items() if "corr_fused_xy_kernel" in name)
+    # the keyframes' solved positions and the trajectory rows (decision-time
+    # poses after rounds_a, the reinit drain's keyframe included) against
+    # phase 5's, at the bound of test_coupled_async.py
+    ref, pos = sync_res["traj"], run.positions()
+    same_stamps = traj.shape == ref.shape and np.array_equal(traj[:, 0], ref[:, 0])
+    pos_diff = (float(np.abs(pos - sync_res["pos"]).max()) if pos.shape == sync_res["pos"].shape
+                else float("inf"))
+    row_diff = (np.abs(traj[:, 1:4] - ref[:, 1:4]).max(axis=1) if same_stamps
+                else np.full(1, np.inf))
+    res = dict(frames=n_frames, async_steps=ca.total_steps, activations_steps=ca.steps,
+               culls=ca.culls, rollups=ca.rollups, keyframe_steps=fe.keyframe_steps,
+               update_rounds=fe.update_rounds, launches=launches, guarded_steps=guarded,
+               kf_per_s=steps_timed / wall, timed_steps=steps_timed,
+               host_reads_per_step=reads_timed / steps_timed,
+               lm_iters_per_pass=stats["lm_iters"] / max(stats["lm_passes"], 1),
+               wasted_lm_iters_per_pass=(stats["lm_launched"] - stats["lm_iters"])
+               / max(stats["lm_passes"], 1),
+               masked_rounds=stats["masked_rounds"], wasted_rounds=stats["wasted_rounds"],
+               k1_ms_per_round=k1_ms / max(k1_prof, 1), idle_share=pr["idle_share"],
+               ate=ate, span=span, ate_share=ate / span, max_abs_bias=bias,
+               same_stamps_as_sync=bool(same_stamps), max_pos_diff_to_sync=pos_diff,
+               traj_row_diff_to_sync_max=float(row_diff.max()),
+               traj_row_diff_to_sync_mean=float(row_diff.mean()),
+               traj_row_diff_to_sync_argmax=int(row_diff.argmax()))
+    log("[coupled_async] " + json.dumps(res))
+    checks = [
+        (ca.total_steps >= 60, f"only {ca.total_steps} async steps ran"),
+        (ca.culls >= 1, "no cull inside the pipeline"),
+        (ca.rollups >= 1, "no rollup inside the pipeline"),
+        (guarded >= 5, f"only {guarded} steady-state steps ran under sync debug 'error'"),
+        (launches["corr_fused_xy"] >= fe.update_rounds > 0,
+         f"K1 launched {launches['corr_fused_xy']} times for {fe.update_rounds} update rounds"),
+        (launches["corr_lookup"] >= n_frames - 1,
+         f"K2 launched {launches['corr_lookup']} times for {n_frames - 1} gated frames"),
+        (traj.shape[0] > 0 and np.all(np.isfinite(traj)), f"trajectory {traj.shape} not finite"),
+        (ate < 0.08 * span, f"ATE {ate} m is not under 0.08 x span ({span} m)"),
+        (bias < 0.2, f"a bias reached {bias} (bound 0.2)"),
+        (same_stamps, "keyframe stamps differ from phase 5's"),
+        (pos_diff <= 2e-2, f"solved positions {pos_diff} m from phase 5's (bound 2e-2)"),
+        (row_diff.max() <= 2e-2,
+         f"trajectory row {int(row_diff.argmax())} {float(row_diff.max())} m from phase 5's "
+         "(bound 2e-2)"),
+        (res["host_reads_per_step"] <= 3,
+         f"{res['host_reads_per_step']} blocking host reads per async step (bound 3)"),
+    ]
+    for ok, msg in checks:
+        if not ok:
+            raise SystemExit("coupled_async: " + msg)
+    log(f"[coupled_async] {res['kf_per_s']:.3f} kf/s over {steps_timed} async steps, "
+        f"{res['host_reads_per_step']:.3f} host reads per async step, "
+        f"{res['lm_iters_per_pass']:.3f} LM iterations and "
+        f"{res['wasted_lm_iters_per_pass']:.3f} masked ones per pass, "
+        f"{stats['wasted_rounds']} of {stats['masked_rounds']} masked rounds undone, K1 "
+        f"{res['k1_ms_per_round']:.4f} ms per round (one launch a round), "
+        f"idle share {pr['idle_share']:.3f}")
+    greedy_launches(dev)
+    return res
+
+
+def greedy_launches(dev) -> int:
+    """Kernel launches of one device edge selection (slam/edge_select.py)
+    at the TUM-VI preset's shapes, counted by torch.profiler."""
+    from dbaf_tpu_torch.slam.edge_select import select_proximity_edges
+    from dbaf_tpu_torch.utils.config import tumvi_config
+
+    gc = tumvi_config().graph
+    src = wf = gc.frontend_window
+    n_skip = len(gc.skip_edge)
+    t = 30
+    rng = np.random.default_rng(0)
+    ii = np.concatenate([np.repeat(np.arange(t - src, t), wf), np.full(n_skip, t - 1)])
+    jj = np.concatenate([np.tile(np.arange(t - wf, t), src), t - src + np.asarray(gc.skip_edge)])
+    args = [torch.as_tensor(a, device=dev) for a in (
+        rng.uniform(0, 30, len(ii)).astype(np.float32), ii, jj,
+        rng.integers(0, t, 200), rng.integers(0, t, 200), rng.random(200) < 0.5,
+        t - src, t - wf, t)]
+
+    def call():
+        return select_proximity_edges(*args, gc.frontend_thresh, src=src, win=wf, n_skip=n_skip,
+                                      rad=gc.frontend_radius, nms=gc.frontend_nms,
+                                      max_factors=gc.max_factors,
+                                      max_out=4 * (gc.max_factors + 60))
+
+    call()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as p:
+        call()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in p.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    log(f"[coupled_async] device edge selection: {n} kernel launches per keyframe "
+        f"({src * wf + n_skip} greedy trips)")
+    return n
 
 
 def main() -> int:
@@ -585,7 +775,11 @@ def main() -> int:
     t = time.perf_counter()
     coupled_res = phase_coupled(dev, N_COUPLED)
     log(f"[time] phase 5 (coupled) took {time.perf_counter() - t:.1f} s")
-    paths = {"main": main_res["launches"], "coupled": coupled_res["launches"]}
+    t = time.perf_counter()
+    async_res = phase_coupled_async(dev, N_COUPLED, coupled_res)
+    log(f"[time] phase 6 (coupled_async) took {time.perf_counter() - t:.1f} s")
+    paths = {"main": main_res["launches"], "coupled": coupled_res["launches"],
+             "coupled_async": async_res["launches"]}
 
     src = "dbaf_tpu_torch/csrc/"
     kernels = [
@@ -603,6 +797,7 @@ def main() -> int:
                         bound_by=r["bound_by"], library_ms=None, launches_by_path=by_path))
     log(f"[main] {main_res['kf_per_s']:.3f} kf/s on {card}")
     log(f"[coupled] {coupled_res['kf_per_s']:.3f} kf/s after VI init on {card}")
+    log(f"[coupled_async] {async_res['kf_per_s']:.3f} kf/s over the async steps on {card}")
     print(card, flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

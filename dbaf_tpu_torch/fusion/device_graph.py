@@ -33,7 +33,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..utils.device import to_host
+from ..utils.device import FlagPoll
 
 # ---------------------------------------------------------------------------
 # f32-safe SO(3)/SE(3) (matrix form, [omega, v] tangents, right perturbation)
@@ -530,25 +530,43 @@ def lm_step(st: FgState, H, b, lam, err, relin, lambda_factor=10.0, lambda_max=1
 
 def lm_optimize(state: FgState, pg: PackedGraph, vis_H, vis_v, vis_linR, vis_lint, sel_pose,
                 mgd: Optional[MargDense] = None, lambda_initial=1e-5, lambda_factor=10.0,
-                lambda_max=1e5, max_iterations=24, relative_tol=1e-5, absolute_tol=1e-5):
+                lambda_max=1e5, max_iterations=24, relative_tol=1e-5, absolute_tol=1e-5,
+                poll: Optional[FlagPoll] = None):
     """Damped Gauss-Newton on the packed window, at most ``max_iterations``
-    iterations; stops at convergence or stall with one host read of the
-    ``done`` flag per iteration.  Returns (state, (err, iterations))."""
+    iterations, stopping at convergence or stall.  Returns (state, (err,
+    iterations)).
+
+    ``done`` goes to ``poll`` (a :class:`~dbaf_tpu_torch.utils.device.FlagPoll`;
+    by default a blocking one, one host read per iteration) after each
+    iteration, and the loop stops once a post has answered True.  With a
+    non-blocking poll no call waits for the card, and iterations launched
+    before the answer is in are masked: the state, system, lambda and error
+    stay as they were once done, as after the JAX ``while_loop``.  The
+    realized count is a 0-d device tensor."""
 
     def relin(st):
         return linearize(st, pg, vis_H, vis_v, vis_linR, vis_lint, sel_pose, mgd)
 
+    poll = poll or FlagPoll(blocking=True)
     H, b, err = relin(state)
-    lam = torch.tensor(lambda_initial, dtype=state.t.dtype, device=state.t.device)
-    st, it = state, 0
-    while it < max_iterations:
+    lam = torch.full((), lambda_initial, dtype=state.t.dtype, device=state.t.device)
+    st = state
+    done = torch.zeros((), dtype=torch.bool, device=state.t.device)
+    its = torch.zeros((), dtype=torch.int64, device=state.t.device)
+    poll.reset()
+    for _ in range(max_iterations):
+        if poll.value():
+            break
         s = lm_step(st, H, b, lam, err, relin, lambda_factor, lambda_max, relative_tol,
                     absolute_tol)
-        st, H, b, lam, err = s.state, s.H, s.b, s.lam, s.err
-        it += 1
-        if to_host(s.done):
-            break
-    return st, (err, it)
+        live = ~done
+        st = _select_state(live, st, s.state)
+        H, b, lam, err = (torch.where(live, new, old)
+                          for new, old in ((s.H, H), (s.b, b), (s.lam, lam), (s.err, err)))
+        its = its + live.long()
+        done = done | s.done
+        poll.post(done)
+    return st, (err, its)
 
 
 # ---------------------------------------------------------------------------
@@ -565,14 +583,16 @@ def _body_system(S, v, A, NW: int):
 
 
 def coupled_rounds_body(poses_buf, disps_buf, damping_buf, intrinsics, target, weight,
-                        ii_d, jj_d, mask, t0: int, n: int, fg: FgState, pg: PackedGraph,
+                        ii_d, jj_d, mask, t0, n, fg: FgState, pg: PackedGraph,
                         mgd: MargDense, A, sel_pose, P: int, NW: int, n_iters: int = 2,
-                        eps_damping: float = 1e-7):
+                        eps_damping: float = 1e-7, poll: Optional[FlagPoll] = None):
     """The multi-sensor DBA call of depth_video.py:524-558: reduced camera
     system -> body conversion -> factor-graph LM -> camera dx -> depth
     back-substitution and retraction, ``n_iters`` times with
-    relinearization.  Poses and disparities are updated in place.  Returns
-    (poses_buf, disps_buf, fg, realized LM iterations per pass)."""
+    relinearization.  Poses and disparities are updated in place.  ``t0``
+    and ``n`` are ints or 0-d device tensors; ``poll`` goes to
+    :func:`lm_optimize`.  Returns (poses_buf, disps_buf, fg, realized LM
+    iterations per pass)."""
     from ..ops import dba
 
     S, v = dba.coupled_hessian_full(poses_buf, disps_buf, damping_buf, intrinsics, target,
@@ -581,7 +601,7 @@ def coupled_rounds_body(poses_buf, disps_buf, damping_buf, intrinsics, target, w
     lm_its = []
     for it in range(n_iters):
         Hb, vb = _body_system(S, v, A, NW)
-        fg2, (_, lm_it) = lm_optimize(fg, pg, Hb, vb, fg.R, fg.t, sel_pose, mgd)
+        fg2, (_, lm_it) = lm_optimize(fg, pg, Hb, vb, fg.R, fg.t, sel_pose, mgd, poll=poll)
         lm_its.append(lm_it)
         dxb = _se3_local(fg.R, fg.t, fg2.R, fg2.t) * fg.valid[:, None].to(poses_buf.dtype)
         dx_full = torch.zeros((P, 6), dtype=poses_buf.dtype, device=poses_buf.device)
@@ -606,15 +626,16 @@ def _cho_solve_or_nan(L, info, B):
 
 
 def marginalize_window_body(poses_buf, disps_buf, damping_buf, intrinsics, marg_target,
-                            marg_weight, ii_d, jj_d, mask_m, s0: int, fg: FgState,
-                            pg: PackedGraph, mgd_old: MargDense, A, m: int, k_end: int,
+                            marg_weight, ii_d, jj_d, mask_m, s0, fg: FgState,
+                            pg: PackedGraph, mgd_old: MargDense, A, m, k_end,
                             P: int, NW: int, eps_damping: float = 1e-7) -> MargDense:
     """The numeric core of coupled._marginalize on the device: visual
     hessian of the marginalized edges -> body conversion -> linearize
     {IMU/priors/GNSS/odometry on the eliminated frames} + old marginal at
     the current states -> Schur-eliminate the first ``m`` frame blocks ->
     re-base to the new window origin (fusion.graph.marginalize_out
-    semantics; dims absent from the host graph carry zero rows)."""
+    semantics; dims absent from the host graph carry zero rows).  ``s0``,
+    ``m`` and ``k_end`` are ints or 0-d device tensors (no host read)."""
     from ..ops import dba
 
     N = NW * 15
@@ -673,17 +694,25 @@ def marginalize_window_body(poses_buf, disps_buf, damping_buf, intrinsics, marg_
     Hm = Hmn * dsc[:, None] * dsc[None, :]
     bm = bmn * dsc
 
-    # re-base kept slots to the new origin t0 = s0 + m
-    sh = 15 * m
-    Hm = torch.roll(Hm, shifts=(-sh, -sh), dims=(0, 1))
-    bm = torch.roll(bm, -sh)
+    # re-base kept slots to the new origin t0 = s0 + m (torch.roll by -15m
+    # as a gather, so m may live on the device)
+    src = (ar15 + 15 * m) % N
+    Hm = Hm[src][:, src]
+    bm = bm[src]
     lf = (ar15 < 15 * (k_end - m)).to(H.dtype)
     Hm = Hm * lf[:, None] * lf[None, :]
     bm = bm * lf
-    lin = torch.roll(flatten_state(fg).reshape(NW, 21), -m, dims=0)
+    lin = flatten_state(fg).reshape(NW, 21)[(arW + m) % NW]
     mask = arW < (k_end - m)
-    lin = torch.where(mask[:, None], lin, torch.as_tensor(marg_identity_np(NW).lin, device=dev))
+    lin = torch.where(mask[:, None], lin, marg_identity_lin(NW, H.dtype, dev))
     return MargDense(mask, lin, Hm, bm)
+
+
+def marg_identity_lin(NW: int, dtype, device) -> torch.Tensor:
+    """marg_identity_np(NW).lin built on the device (identity rotations,
+    zero elsewhere) with no host->device copy."""
+    eye9 = torch.eye(3, dtype=dtype, device=device).reshape(1, 9).expand(NW, 9)
+    return torch.cat([eye9, torch.zeros((NW, 12), dtype=dtype, device=device)], dim=1)
 
 
 _SEL_CACHE: dict = {}

@@ -196,15 +196,17 @@ class DroidNet(nn.Module):
         self.fnet = BasicEncoder(output_dim=128, norm="instance")
         self.cnet = BasicEncoder(output_dim=256, norm="none")
         self.update = UpdateModule()
+        # on the device once: a per-frame host->device copy would
+        # synchronise the stream
+        self.register_buffer("_mean", torch.tensor(IMAGE_MEAN), persistent=False)
+        self.register_buffer("_std", torch.tensor(IMAGE_STD), persistent=False)
         self.to(resolve_device(device))
 
     def _normalize(self, images: torch.Tensor) -> torch.Tensor:
         """(N, H, W, 3) BGR uint8-valued -> NCHW normalized RGB in dtype
         (droid_net.py:155-160)."""
         x = images.flip(-1).float() / 255.0
-        mean = torch.tensor(IMAGE_MEAN, device=x.device)
-        std = torch.tensor(IMAGE_STD, device=x.device)
-        return _nchw(((x - mean) / std).to(self.dtype))
+        return _nchw(((x - self._mean) / self._std).to(self.dtype))
 
     @torch.no_grad()
     def features_only(self, images: torch.Tensor) -> torch.Tensor:

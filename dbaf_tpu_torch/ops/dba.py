@@ -20,7 +20,7 @@ back-substitution skips the first active pose's step.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -337,7 +337,7 @@ def ba(poses, disps, intrinsics, targets, weights, eta, ii, jj, edge_mask, nfixe
 # multi-sensor coupling surface (BACore, droid_kernels.cu:1786-1956)
 # ---------------------------------------------------------------------------
 
-def window_rows(buf: torch.Tensor, s0: int, P: int) -> torch.Tensor:
+def window_rows(buf: torch.Tensor, s0: Union[int, torch.Tensor], P: int) -> torch.Tensor:
     """Rows ``[s0, s0 + P)`` of a keyframe buffer; slots past its end read
     the last row and only ever serve as inactive padding.
 
@@ -345,18 +345,28 @@ def window_rows(buf: torch.Tensor, s0: int, P: int) -> torch.Tensor:
     with ``jax.lax.dynamic_slice``.  Past the end that call moves the start
     down to ``B - P`` instead, so its slots stop meaning frames ``s0 + l``
     and the coupled solve reads the wrong poses; the port pads instead.
+    ``s0`` may be a 0-d device tensor (the asynchronous step's window
+    origin): then the rows are one gather, with no host read.
     """
     B = buf.shape[0]
-    if s0 + P <= B:
+    if isinstance(s0, int) and s0 + P <= B:
         return buf[s0:s0 + P]
-    idx = torch.clamp(torch.arange(s0, s0 + P, device=buf.device), max=B - 1)
+    idx = torch.clamp(torch.arange(P, device=buf.device) + s0, max=B - 1)
     return buf[idx]
 
 
-def write_window_rows(buf: torch.Tensor, rows: torch.Tensor, s0: int) -> None:
-    """Write a window back in place, dropping its padding slots."""
-    n = min(rows.shape[0], buf.shape[0] - s0)
-    buf[s0:s0 + n] = rows[:n]
+def write_window_rows(buf: torch.Tensor, rows: torch.Tensor, s0: Union[int, torch.Tensor]) -> None:
+    """Write a window back in place, dropping its padding slots.  With a
+    tensor ``s0``, every buffer row is selected from the window or kept
+    (one gather, no host read)."""
+    if isinstance(s0, int):
+        n = min(rows.shape[0], buf.shape[0] - s0)
+        buf[s0:s0 + n] = rows[:n]
+        return
+    P = rows.shape[0]
+    slot = torch.arange(buf.shape[0], device=buf.device) - s0
+    inside = ((slot >= 0) & (slot < P)).reshape((-1,) + (1,) * (buf.dim() - 1))
+    buf.copy_(torch.where(inside, rows[torch.clamp(slot, 0, P - 1)], buf))
 
 
 def coupled_hessian(poses_w, disps_w, intrinsics, targets, weights, eta, ii_w, jj_w, mask,
@@ -386,20 +396,21 @@ def coupled_retract(poses_w, disps_w, intrinsics, targets, weights, eta, ii_w, j
     return poses_w, torch.clamp(disps_w, min=0.001)
 
 
-def _window_eta(damping_buf, s0: int, P: int, eps_damping: float):
+def _window_eta(damping_buf, s0, P: int, eps_damping: float):
     return 0.2 * window_rows(damping_buf, s0, P).reshape(P, -1) + eps_damping
 
 
 def coupled_hessian_full(poses_buf, disps_buf, damping_buf, intrinsics, targets, weights,
-                         ii_w, jj_w, mask, s0: int, nactive, P: int, eps_damping: float = 1e-7):
-    """BACore::hessian on the window ``[s0, s0 + P)`` of the full buffers."""
+                         ii_w, jj_w, mask, s0, nactive, P: int, eps_damping: float = 1e-7):
+    """BACore::hessian on the window ``[s0, s0 + P)`` of the full buffers
+    (``s0`` and ``nactive`` ints or 0-d device tensors)."""
     return coupled_hessian(window_rows(poses_buf, s0, P), window_rows(disps_buf, s0, P),
                            intrinsics, targets, weights,
                            _window_eta(damping_buf, s0, P, eps_damping), ii_w, jj_w, mask, nactive)
 
 
 def coupled_retract_full(poses_buf, disps_buf, damping_buf, intrinsics, targets, weights,
-                         ii_w, jj_w, mask, s0: int, nactive, dx, P: int,
+                         ii_w, jj_w, mask, s0, nactive, dx, P: int,
                          eps_damping: float = 1e-7, with_hessian: bool = False):
     """BACore::retract on the full buffers, written back in place; with
     ``with_hessian`` also the reduced camera system of the retracted state

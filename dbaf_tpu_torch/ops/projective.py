@@ -13,6 +13,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..utils.device import device_const
 from . import lie
 
 MIN_DEPTH_PY = 0.2
@@ -67,7 +68,7 @@ def _intrinsics_ij(intrinsics, ii, jj):
 def _edge_rel_poses(poses: torch.Tensor, ii: torch.Tensor, jj: torch.Tensor) -> torch.Tensor:
     """Per-edge G_ij with the fixed stereo baseline for ii == jj edges."""
     gij = lie.se3_rel(poses[ii], poses[jj])
-    override = torch.tensor(_STEREO_POSE, dtype=gij.dtype, device=gij.device)
+    override = device_const(_STEREO_POSE, gij.dtype, gij.device)
     return torch.where((ii == jj)[..., None], override, gij)
 
 

@@ -81,6 +81,7 @@ class MultiSensorBA:
         self._fg_key = None
         self._fg_synced = True
         self._A_dev = None
+        self._Tbc12 = None
         self._lm_stats = None    # realized LM iterations of the last call
         self._fg_rows_np = None  # host state copy that rode the host pack
         self._mgd_cache = None   # ((t0, marginal version), device MargDense)
@@ -532,6 +533,15 @@ class MultiSensorBA:
             self._A_dev = torch.as_tensor(ba2fg_block(self.Tbc), dtype=torch.float32,
                                           device=self.device)
         return self._A_dev
+
+    def _Tbc12_dev(self) -> torch.Tensor:
+        """Cached device copy of the body<-camera extrinsic as 12 floats
+        [R(9)|t(3)], for the asynchronous step's pose seed
+        (slam/coupled_async.py); Tbc is fixed after init."""
+        if self._Tbc12 is None:
+            self._Tbc12 = torch.as_tensor(np.concatenate([self.Tbc.R.reshape(9), self.Tbc.t]),
+                                          dtype=torch.float32, device=self.device)
+        return self._Tbc12
 
     def stash_state_rows(self, rows_flat_np):
         """Host copy of the flat window state that rode the host-pack read;

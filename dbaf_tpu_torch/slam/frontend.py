@@ -7,9 +7,11 @@ reinitialization, IMU-rate trajectory rows).
 The JAX package defers the cull bookkeeping of a visual keyframe step to the
 next frame's gate pull, to save a transport round trip.  The port resolves
 it right after the step, from the same packed scalars; the state the next
-frame sees is the same.  The zero-pull asynchronous coupled pipeline
-(``cfg.sensors.coupled_async``) is not ported: the coupled path runs the
-synchronous flow.
+frame sees is the same.  With ``device_solver``, ``coupled_mega`` and
+``coupled_async`` on, the coupled path enters the zero-pull asynchronous
+pipeline (``slam/coupled_async.py``) after a non-culled fused step and drains
+back to the synchronous flow on a bias reinitialization; with
+``device_solver`` off it runs the host f64 solve, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -72,14 +74,10 @@ class Frontend:
         self.keyframe_steps = 0
         self.update_rounds = 0
         self.culls = 0
+        self._casync = None  # the asynchronous coupled pipeline (slam/coupled_async.py)
 
     def set_multisensor(self, all_imu, all_gnss=None, all_odo=None, all_stamp=None,
                         visual_only: bool = False):
-        if self.cfg.sensors.coupled_async:
-            raise NotImplementedError(
-                "dbaf_tpu_torch: the zero-pull asynchronous coupled pipeline "
-                "(cfg.sensors.coupled_async, slam/coupled_async.py) arrives with a later "
-                "slice; set cfg.sensors.coupled_async = False for the synchronous coupled path")
         self.all_imu = np.asarray(all_imu) if all_imu is not None else None
         self.all_gnss = np.asarray(all_gnss) if all_gnss is not None else np.zeros((0, 4))
         self.all_odo = np.asarray(all_odo) if all_odo is not None else np.zeros((0, 4))
@@ -97,6 +95,12 @@ class Frontend:
             self._initialize()
         elif self.is_initialized and self.t1 < self.video.counter:
             self._update()
+
+    def drain_async(self):
+        """Bring the asynchronous coupled pipeline's device state back into
+        the host mirrors (terminate and other whole-state readers)."""
+        if self._casync is not None and self._casync.active:
+            self._casync.sync()
 
     # ------------------------------------------------------------------
     def _initialize(self):
@@ -235,6 +239,16 @@ class Frontend:
                 self.coupled.reinit = True
                 self.coupled.vi_init_time = 1e9
             self._ingest_sensors(cur_t)
+            # the zero-pull device keyframe step (slam/coupled_async.py): the
+            # rollup runs inside it, so only a reinit drains back to the
+            # synchronous flow below
+            ca = self._casync
+            if ca is not None and ca.active:
+                if self.coupled.reinit:
+                    ca.sync()
+                else:
+                    ca.step(cur_t)
+                    return
             # IMU-predicted pose seed (dbaf_frontend.py:222-228)
             if v.imu_enabled:
                 Twc = self.coupled.state.wTbs[-1].compose(self.coupled.Tbc)
@@ -276,6 +290,7 @@ class Frontend:
                 self._cull()
             self._maybe_init_gnss()
             v.seed_next(self.t1)
+            self._maybe_activate_casync()
             return
 
         self._update_two_call(cur_t)
@@ -288,6 +303,18 @@ class Frontend:
             self.coupled.rm_new_gnss(self.t1 - 2)
             self.coupled.state.merge_keyframe(self.t1 - 2)
         self.t1 -= 1
+
+    def _maybe_activate_casync(self):
+        """Enter the asynchronous coupled pipeline once the state qualifies
+        (CoupledAsync.can_activate)."""
+        if not self.cfg.sensors.coupled_async:
+            return
+        if self._casync is None:
+            from .coupled_async import CoupledAsync
+
+            self._casync = CoupledAsync(self)
+        if not self._casync.active and self._casync.can_activate():
+            self._casync.activate()
 
     def _maybe_init_gnss(self):
         c = self.coupled

@@ -25,7 +25,7 @@ from ..ops import corr_cuda
 from ..ops import dba, lie
 from ..ops import projective as pj
 from ..utils.config import DBAFusionConfig
-from ..utils.device import to_host
+from ..utils.device import clip, device_const, rows_at, set_row, to_host
 from .video import DepthVideo
 
 
@@ -211,35 +211,33 @@ class UpdateStep:
             video.poses, video.disps, video.intrinsics, idx(t1 - 3), idx(t1 - 2),
             beta=self.cfg.graph.beta)[0]
 
-    def host_metrics(self, video: DepthVideo, t1: int) -> torch.Tensor:
+    def host_metrics(self, video: DepthVideo, t1) -> torch.Tensor:
         """[cull distance, next keyframe's proximity candidate distances],
         computed on the end state with the incoming frame seeded
-        (covisible_graph.py:379)."""
+        (covisible_graph.py:379).  ``t1`` is an int or a 0-d device tensor
+        (the asynchronous step's); the candidates are built on the device."""
         cfg = self.cfg
         wf = cfg.graph.frontend_window
         n_skip = len(cfg.graph.skip_edge) if wf == 5 else 0
         poses, disps = video.poses, video.disps
         B = poses.shape[0]
-        t_next = t1 + 1
-        seed = min(max(t1, 0), B - 1)
+        dev = poses.device
+        seed = clip(t1, 0, B - 1)
         poses_x = poses.clone()
         disps_x = disps.clone()
-        poses_x[seed] = poses[seed - 1]
-        disps_x[seed] = disps[seed - 1].mean()
-        ii_c = t_next - 5 + np.arange(5)
-        jj_c = t_next - wf + np.arange(wf)
-        pi = np.repeat(ii_c, wf)
-        pj_ = np.tile(jj_c, 5)
+        set_row(poses_x, seed, rows_at(poses, (seed - 1) % B))
+        set_row(disps_x, seed, rows_at(disps, (seed - 1) % B).mean().expand(disps.shape[1:]))
+        t_next = t1 + 1
+        ar = lambda n: torch.arange(n, device=dev)  # noqa: E731
+        pi = (t_next - 5 + ar(5))[:, None].expand(5, wf).reshape(-1)
+        pj_ = (t_next - wf + ar(wf)).repeat(5)
         if n_skip:
-            pi = np.concatenate([pi, np.full(n_skip, t_next - 1)])
-            pj_ = np.concatenate([pj_, t_next - 5 + np.asarray(cfg.graph.skip_edge)])
-        cand_i = np.clip(np.concatenate([[t1 - 3], pi]), 0, B - 1)
-        cand_j = np.clip(np.concatenate([[t1 - 2], pj_]), 0, B - 1)
-        dev = poses.device
-        return pj.frame_distance_bidirectional(
-            poses_x, disps_x, video.intrinsics,
-            torch.as_tensor(cand_i, dtype=torch.int64, device=dev),
-            torch.as_tensor(cand_j, dtype=torch.int64, device=dev), beta=cfg.graph.beta)
+            pi = torch.cat([pi, t_next - 1 + 0 * ar(n_skip)])
+            pj_ = torch.cat([pj_, t_next - 5 + device_const(cfg.graph.skip_edge, torch.int64, dev)])
+        cand_i = torch.clamp(torch.cat([t1 - 3 + ar(1), pi]), 0, B - 1)
+        cand_j = torch.clamp(torch.cat([t1 - 2 + ar(1), pj_]), 0, B - 1)
+        return pj.frame_distance_bidirectional(poses_x, disps_x, video.intrinsics, cand_i, cand_j,
+                                               beta=cfg.graph.beta)
 
 
 class EdgeArrays:
@@ -249,6 +247,36 @@ class EdgeArrays:
         self.net = torch.zeros((e_cap, h8, w8, 128), dtype=torch.bfloat16, device=device)
         self.target = torch.zeros((e_cap, h8, w8, 2), dtype=torch.float32, device=device)
         self.weight = torch.zeros((e_cap, h8, w8, 2), dtype=torch.float32, device=device)
+
+    def assign(self, arrays) -> None:
+        """Write (net, target, weight) into the stores in place."""
+        for dst, src in zip((self.net, self.target, self.weight), arrays):
+            dst.copy_(src)
+
+
+def _rebuild_edges(edges: EdgeArrays, perm, is_new, ii, jj, poses, disps, intrinsics, nets_buf):
+    """The edge stores after a membership change, as new tensors
+    (dbaf_tpu/slam/graph.py:45): slot ``s`` takes old slot ``perm[s]``
+    (clipped), except where ``is_new``, where a new edge starts from
+    ``nets_buf[ii]``, its reprojection and zero weight
+    (covisible_graph.py:124-149).  perm, is_new, ii, jj: (E_CAP,) device
+    tensors."""
+    perm = torch.clamp(perm, 0, edges.net.shape[0] - 1)
+    coords, _ = pj.projective_transform(poses, disps, intrinsics, ii, jj)
+    sel = is_new[:, None, None, None]
+    return (torch.where(sel, nets_buf[ii].to(edges.net.dtype), edges.net[perm]),
+            torch.where(sel, coords, edges.target[perm]),
+            torch.where(sel, 0.0, edges.weight[perm]))
+
+
+def _rebuild_inactive(t_inac, w_inac, perm_old, from_active, act_idx, target, weight):
+    """The inactive store compacted and absorbing retired edges, as new
+    tensors (dbaf_tpu/slam/graph.py:68): slot ``s`` takes old inactive slot
+    ``perm_old[s]``, or active slot ``act_idx[s]`` where ``from_active``."""
+    po = torch.clamp(perm_old, 0, t_inac.shape[0] - 1)
+    pa = torch.clamp(act_idx, 0, target.shape[0] - 1)
+    sel = from_active[:, None, None, None]
+    return torch.where(sel, target[pa], t_inac[po]), torch.where(sel, weight[pa], w_inac[po])
 
 
 class CovisibleGraph:
@@ -355,26 +383,20 @@ class CovisibleGraph:
         reprojection and zero weight (covisible_graph.py:124-149)."""
         if not self._dirty:
             return
-        e = self.edges
-        perm = self._dev(np.clip(self._perm, 0, self.e_cap - 1))
-        is_new = self._dev(self._is_new)[:, None, None, None]
-        ii, jj = self._padded(self.ii, self.e_cap), self._padded(self.jj, self.e_cap)
         v = self.video
-        coords, _ = pj.projective_transform(v.poses, v.disps, v.intrinsics, ii, jj)
-        e.net.copy_(torch.where(is_new, v.nets[ii], e.net[perm]))
-        e.target.copy_(torch.where(is_new, coords, e.target[perm]))
-        e.weight.copy_(torch.where(is_new, torch.zeros((), device=self.device), e.weight[perm]))
+        self.edges.assign(_rebuild_edges(
+            self.edges, self._dev(self._perm), self._dev(self._is_new),
+            self._padded(self.ii, self.e_cap), self._padded(self.jj, self.e_cap),
+            v.poses, v.disps, v.intrinsics, v.nets))
         self._perm = np.arange(self.e_cap, dtype=np.int64)
         self._is_new[:] = False
         self._dirty = False
 
     def _rebuild_inactive(self, perm_old, from_active, act_idx):
         """Compact the inactive store, absorbing retired active edges."""
-        po = self._dev(np.clip(perm_old, 0, self.i_cap - 1))
-        pa = self._dev(np.clip(act_idx, 0, self.e_cap - 1))
-        sel = self._dev(from_active)[:, None, None, None]
-        t_new = torch.where(sel, self.edges.target[pa], self.t_inac[po])
-        w_new = torch.where(sel, self.edges.weight[pa], self.w_inac[po])
+        t_new, w_new = _rebuild_inactive(self.t_inac, self.w_inac, self._dev(perm_old),
+                                         self._dev(from_active), self._dev(act_idx),
+                                         self.edges.target, self.edges.weight)
         self.t_inac.copy_(t_new)
         self.w_inac.copy_(w_new)
 
@@ -558,10 +580,6 @@ class CovisibleGraph:
         if (self.n == 0 or self.coupled is None or not self.video.imu_enabled
                 or not self.cfg.sensors.device_solver or not self.cfg.sensors.coupled_mega):
             return None
-        from .coupled_fused import MAX_ROUNDS
-
-        assert rounds_a + rounds_b <= MAX_ROUNDS, (
-            f"iters1+iters2 = {rounds_a}+{rounds_b} exceeds MAX_ROUNDS={MAX_ROUNDS}")
         self._flush()
         t0 = max(1, int(self.ii.min()) + 1)
         t1 = int(max(self.ii.max(), self.jj.max())) + 1

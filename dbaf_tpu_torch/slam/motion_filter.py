@@ -4,7 +4,7 @@ Every frame runs the feature encoder; one correlation lookup against the
 last keyframe (kernel K2 on the card) and one update-operator step estimate
 the mean flow, and frames above ``filter_thresh`` become keyframes
 (motion_filter.py:12-93 of the reference).  The gate's scalar is read on
-the host once per frame.
+the host once per frame; the frame's upload does not synchronise.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from ..ops import corr_cuda
 from ..ops import lie
 from ..ops import projective as pj
 from ..utils.config import DBAFusionConfig
-from ..utils.device import to_host
+from ..utils.device import host_wait, to_host, upload
 from .video import DepthVideo
 
 
@@ -59,8 +59,8 @@ class MotionFilter:
     def track(self, tstamp: float, image: np.ndarray, intrinsics: Optional[np.ndarray] = None) -> bool:
         """Process one (H, W, 3) BGR frame; returns True if admitted."""
         v = self.video
-        img = torch.as_tensor(np.asarray(image, dtype=np.uint8), device=v.device)[None]
-        intr8 = torch.as_tensor(np.asarray(intrinsics, np.float32), device=v.device) / 8.0
+        img = upload(np.asarray(image, dtype=np.uint8), v.device)[None]
+        intr8 = upload(np.asarray(intrinsics, np.float32), v.device) / 8.0
         small = np.asarray(image[::8, ::8]).astype(np.uint8)
         if v.counter == 0:
             fmap = self.feat(img)[0]
@@ -70,7 +70,9 @@ class MotionFilter:
                      fmap, net[0], inp[0])
             return True
         fmap, delta = self.gate(img)
-        if to_host(delta) > self.thresh:
+        with host_wait():  # the one read a frame makes (motion_filter.py:159)
+            admit = to_host(delta) > self.thresh
+        if admit:
             idx = v.counter
             net, inp = self.ctx(img)
             v.set_features(idx, fmap, net[0], inp[0])

@@ -75,8 +75,9 @@ class DBAFusion:
 
         Tbc: 4x4 body<-camera extrinsic; tbg: GNSS lever arm (body); ten0:
         ECEF reference for GNSS; imu_noise: (acc, gyro, acc_walk, gyro_walk)
-        sigmas.  Raises ``NotImplementedError`` while
-        ``cfg.sensors.coupled_async`` is set (that pipeline is not ported)."""
+        sigmas.  With ``cfg.sensors.device_solver``, ``coupled_mega`` and
+        ``coupled_async`` on, keyframes after VI initialization run the
+        asynchronous coupled pipeline (``slam/coupled_async.py``)."""
         from ..fusion.se3np import Pose
         from .coupled import MultiSensorBA
 
@@ -115,7 +116,9 @@ class DBAFusion:
         """Keyframe trajectory as (N, 8) ``[t, x, y, z, qx, qy, qz, qw]``
         (camera-to-world on the visual path, body-to-world on the coupled
         path), the rows still on the device pulled in one transfer.  Once
-        georeferenced, rows without an ECEF position get one."""
+        georeferenced, rows without an ECEF position get one.  The
+        asynchronous coupled pipeline is drained first."""
+        self.frontend.drain_async()
         traj = self.frontend.trajectory
         if not traj:
             return np.zeros((0, 8))

@@ -7,8 +7,11 @@ falling back to the CPU; the CPU runs only where a caller asks for it
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -53,3 +56,126 @@ def to_host(x: torch.Tensor):
     if x.dim() == 0:
         return x.item()
     return x.detach().cpu().numpy()
+
+
+# deliberate waits for the card in progress (host_wait): a test guard that
+# flags host reads on the CPU lets these through
+WAITING = {"depth": 0}
+
+
+@contextlib.contextmanager
+def host_wait():
+    """Marks a deliberate wait for the card: inside it CUDA's sync debug
+    mode (``torch.cuda.set_sync_debug_mode``) is off, so a caller that
+    guards a steady-state stretch with ``"error"`` lets through the waits
+    that belong there (the motion gate's per-frame read, the lagged drain of
+    the asynchronous coupled pipeline)."""
+    mode = torch.cuda.get_sync_debug_mode() if torch.cuda.is_available() else None
+    if mode is not None:
+        torch.cuda.set_sync_debug_mode(0)
+    WAITING["depth"] += 1
+    try:
+        yield
+    finally:
+        WAITING["depth"] -= 1
+        if mode is not None:
+            torch.cuda.set_sync_debug_mode(mode)
+
+
+def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> ``device`` with no stream synchronisation (see
+    :func:`_h2d`)."""
+    return _h2d(torch.from_numpy(np.ascontiguousarray(a)), device)
+
+
+def _h2d(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A copy from pageable memory synchronises, so on the card the host
+    tensor is staged in pinned memory and copied with ``non_blocking=True``;
+    PyTorch's caching host allocator records an event on the staging block
+    at the copy and reuses the block only once that event has completed."""
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+class FlagPoll:
+    """Reads of a 0-d device flag (an LM loop's ``done``, which once True
+    stays True; a keyframe's cull decision).
+
+    Non-blocking (the default): :meth:`post` copies the flag into pinned
+    host memory behind a CUDA event; :meth:`value` answers from the newest
+    post whose event has completed and never waits (None while none has).
+    On the CPU the flag is on the host already and :meth:`post` reads it at
+    once.  ``blocking=True`` (the synchronous flow) makes :meth:`post` one
+    counted :func:`to_host` read, so :meth:`value` always answers.
+    ``posted`` counts posts over the object's life (the LM loop posts once
+    per launched iteration)."""
+
+    def __init__(self, blocking: bool = False):
+        self.blocking = blocking
+        self._posts = []
+        self._value = None
+        self.posted = 0
+
+    def reset(self) -> None:
+        self._posts = []
+        self._value = None
+
+    def post(self, flag: torch.Tensor) -> None:
+        self.posted += 1
+        if self.blocking:
+            self._value = bool(to_host(flag))
+            return
+        if not flag.is_cuda:
+            with host_wait():
+                self._value = bool(flag)
+            return
+        host = torch.empty((), dtype=flag.dtype, pin_memory=True)
+        host.copy_(flag, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        self._posts.append((host, ev))
+
+    def value(self) -> Optional[bool]:
+        for k in range(len(self._posts) - 1, -1, -1):
+            host, ev = self._posts[k]
+            if ev.query():
+                self._value = bool(host)
+                del self._posts[:k + 1]
+                break
+        return self._value
+
+
+def device_const(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """A small constant vector on ``device``, uploaded once per (values,
+    dtype, device) with no stream synchronisation and shared by every later
+    caller: never write into it."""
+    return _device_const(tuple(values), dtype, torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_const(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return _h2d(torch.tensor(values, dtype=dtype), device)
+
+
+def clip(x, lo: int, hi: int):
+    """``min(max(x, lo), hi)`` for an int or a device tensor (no host read)."""
+    if isinstance(x, torch.Tensor):
+        return torch.clamp(x, lo, hi)
+    return min(max(x, lo), hi)
+
+
+def rows_at(buf: torch.Tensor, idx) -> torch.Tensor:
+    """``buf[idx]`` for an int or a 0-d device index (indexing with a 0-d
+    tensor reads it back to the host)."""
+    if isinstance(idx, torch.Tensor):
+        return buf.index_select(0, idx.reshape(1))[0]
+    return buf[idx]
+
+
+def set_row(buf: torch.Tensor, idx, row: torch.Tensor) -> None:
+    """``buf[idx] = row`` in place, for an int or a 0-d device index."""
+    if isinstance(idx, torch.Tensor):
+        buf.index_copy_(0, idx.reshape(1), row[None].to(buf.dtype))
+    else:
+        buf[idx] = row

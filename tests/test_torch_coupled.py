@@ -201,25 +201,6 @@ def test_coupled_e2e_host_solver(scene):
     _accuracy_asserts(got, scene[3])
 
 
-def test_set_multisensor_refuses_the_async_pipeline():
-    from dbaf_tpu_torch.slam.system import DBAFusion
-    from dbaf_tpu_torch.utils import config as tconfig
-
-    cfg = _cfg(tconfig)
-    cfg.sensors.coupled_async = True
-    system = DBAFusion(cfg, device="cpu", feat_fn=lambda x: x, ctx_fn=lambda x: x,
-                       update_fn=lambda *a: a)
-    with pytest.raises(NotImplementedError, match="coupled_async"):
-        system.set_multisensor(np.zeros((4, 7)), np.eye(4))
-    assert system.graph.coupled is None
-    cfg.sensors.coupled_async = False
-    coupled = system.set_multisensor(np.zeros((4, 7)), np.eye(4), imu_noise=[0.05, 0.005,
-                                                                             1e-4, 1e-6])
-    assert system.graph.coupled is coupled
-    assert (system.frontend.iters1, system.frontend.iters2) == (2, 1)
-    assert coupled.state.params.accel_noise == 0.05
-
-
 def _frontends(cfg_kw=None):
     """A JAX and a port Frontend on the same config, over a stand-in graph
     that holds only the MultiSensorBA (the ZUPT and ECEF-row cases)."""
