@@ -59,9 +59,36 @@ Phases, each fatal on failure:
              iterations and masked ones per pass, K1 ms per round, the idle
              share (its table goes to profile_coupled_async.txt beside phase
              5's) and the launches of one device edge selection.
-Then one JSON line listing both kernels (launches summed over the main,
-coupled and coupled_async paths, each counted from 0 just before its run;
-"launches_by_path" splits them), and last the ok line.
+  7. visual_async  bench.py's visual modes (bench.py:68-123: tumvi_config()
+             with rollup 40/15, BA window 48, async_pipeline on; phase 3's
+             network and frames, the synthetic-scene oracle's targets in the
+             update rounds) through the asynchronous visual pipeline:
+             "visual" (every frame admitted; warmed until a rollup has run
+             inside the pipeline), "cull" (every keyframe culled) and
+             "gateonly" (the gate rejects every frame after activation).
+             Each settles 2 x drain_batch frames and times 30, every one
+             under torch.cuda.set_sync_debug_mode("error").  Fatal unless
+             the pipeline stays active, K2 runs on every frame and K1 in
+             every admitted round, the trajectory is finite, at most one
+             blocking read per drain, a rollup (visual) and a cull on every
+             step (cull) ran inside the pipeline, t1 froze (gateonly), and
+             "visual" gives the synchronous flow's keyframe stamps, edge
+             lists and poses (within 1e-4: with the oracle's targets the two
+             flows ran bit-equal on the card).  Prints kf/s per mode beside the synchronous
+             flow's at the same frames and phase 3's, gateonly frames/s,
+             reads per frame, masked rounds, K1 ms per round and the idle
+             share of 3 more "visual" frames under torch.profiler (table in
+             chiprun_out/profile_visual_async.txt);
+  7b. int8   phase 3's main path for 12 keyframe steps with
+             cfg.graph.corr_int8: fatal unless K1-int8 and its max pass run
+             in every round and the trajectory is finite; prints the largest
+             position difference from phase 3's bf16 rows at the same stamps.
+Phase 2 also holds K1-int8 (max pass included) at (E=48, 48x64, C=128, tile
+256), at a tile-128 shape, off the image and with a NaN row, and the max
+pass alone, against their plain versions.
+Then one JSON line listing the kernels (launches summed over the main,
+coupled, coupled_async, visual_async and int8 paths, each counted from 0
+just before its run; "launches_by_path" splits them), and last the ok line.
 
 Exits non-zero without a CUDA device, and without the port's package.
 """
@@ -220,6 +247,8 @@ def phase_kernels(dev) -> dict:
             err = (out.float() - ref.float()).abs().max().item()
         else:
             err = compare(out, ref)
+        if isinstance(err, tuple):  # a per-element bound: (max error, max bound)
+            err, tol = err
         if not err <= tol:
             raise SystemExit(f"{name} disagrees with its plain version: {err} > {tol}")
         ms = graph_ms(kernel, iters)
@@ -263,6 +292,68 @@ def phase_kernels(dev) -> dict:
             # the build and both tent contractions take bf16 operands
             2.0 * E * P * P * C + lookup_flops(coords, H, W, True), PEAK_BF16, compare)
 
+    def int8_case(name, E, H, W, C, tile, kind="noise", iters=50):
+        """K1-int8 (its max pass included) against its plain version, by
+        corr_cuda.int8_agreement: at most INT8_OFF_SHARE of the outputs
+        more than one bf16 ulp apart (an f32 sum in another order flips the
+        rounding of a quantized entry only near a half step), each within
+        one int8 quantum of its tile's scale per tap, vmax * 1.07 / 127,
+        plus one bf16 ulp of P2 (2^-7 vmax) and of the output (2^-7 |out|).
+        The control: K1 (bf16, no quantization) on the same inputs must
+        fail the check, unless every output is 0 (off the image)."""
+        f1, f2, coords = inputs(E, H, W, C)
+        if kind == "off_image":
+            coords = coords + torch.tensor([2.0 * W + 40.0, -2.0 * H - 40.0], device=dev)
+        if kind == "nan_row":
+            coords[:, H // 2] = float("nan")
+        f1p, f2p = cc.prepare_corr_fmaps(f1, f2)
+        vmax = cc.corr_int8_vmax_plain(f1p, f2p, tile)
+        keep = torch.arange(H, device=dev) != (H // 2 if kind == "nan_row" else -1)
+
+        def compare(out, ref):
+            if kind == "off_image" and (torch.count_nonzero(out) or torch.count_nonzero(ref)):
+                raise SystemExit(f"{name}: off-image coordinates gave a nonzero output")
+            if kind == "nan_row" and (torch.count_nonzero(out[:, H // 2])
+                                      or not torch.isfinite(out).all()):
+                raise SystemExit(f"{name}: the NaN row is not 0, or an output is not finite")
+            agree = cc.int8_agreement(out, ref, vmax, tile, keep)
+            log(f"[kernels] {name}: {agree}")
+            if not agree.ok:
+                raise SystemExit(f"{name}: disagrees with its plain version (at most "
+                                 f"{cc.INT8_OFF_SHARE} of the outputs may be over one ulp)")
+            if kind != "off_image":
+                control = cc.int8_agreement(cc.corr_fused_xy(f1p, f2p, coords, H, W), ref, vmax,
+                                            tile, keep)
+                log(f"[kernels] {name} control, K1 (bf16): {control}")
+                if control.ok:
+                    raise SystemExit(f"{name}: K1 (bf16) passes the int8 check")
+            return agree.max_abs_err, agree.max_bound
+        P = H * W
+        return case(
+            name, lambda: cc.corr_fused_xy_int8(f1p, f2p, coords, H, W, tile),
+            lambda: cc.corr_fused_xy_int8_plain(f1p, f2p, coords, H, W, tile),
+            None, iters, 2,
+            E * P * C * 2 * 2 + E * P * 2 * 4 + E * P * 196 * 2,
+            # the build's flops once, as for K1: a two-pass design reads 2x
+            2.0 * E * P * P * C + lookup_flops(coords, H, W, True), PEAK_BF16, compare)
+
+    def vmax_case(name, E, H, W, C, tile):
+        """The max pass alone against its plain version: f32 sums of bf16
+        products in another order, rtol 1e-4."""
+        f1, f2, _ = inputs(E, H, W, C)
+        f1p, f2p = cc.prepare_corr_fmaps(f1, f2)
+        P = H * W
+
+        def compare(out, ref):
+            err, bnd = (out - ref).abs(), 1e-4 * ref
+            if not bool((err <= bnd).all()):
+                raise SystemExit(f"{name}: a tile's scale is off by {float((err / ref).max())}")
+            return float(err.max()), float(bnd.max())
+        return case(
+            name, lambda: cc.corr_int8_vmax(f1p, f2p, H, W, tile),
+            lambda: cc.corr_int8_vmax_plain(f1p, f2p, tile), None, 50, 2,
+            E * P * C * 2 * 2 + E * (P // tile) * 4, 2.0 * E * P * P * C, PEAK_BF16, compare)
+
     def k2_case(name, dtype):
         E, H, W = 1, 48, 64
         f1, f2, coords = inputs(E, H, W, 128)
@@ -281,6 +372,16 @@ def phase_kernels(dev) -> dict:
                                            "off_image"),
         "corr_fused_xy_nan_row": k1_case("K1 NaN row E=8 37x45 C=128", 8, 37, 45, 128,
                                          "nan_row", iters=20),
+        "corr_int8_vmax": vmax_case("K1-int8 max pass E=48 48x64 C=128 tile 256", 48, 48, 64,
+                                    128, 256),
+        "corr_fused_xy_int8": int8_case("K1-int8 E=48 48x64 C=128 tile 256", 48, 48, 64, 128,
+                                        256),
+        "corr_fused_xy_int8_tile128": int8_case("K1-int8 E=8 32x60 C=128 tile 128", 8, 32, 60,
+                                                128, 128, iters=20),
+        "corr_fused_xy_int8_off_image": int8_case("K1-int8 off-image E=48 48x64 C=128", 48, 48,
+                                                  64, 128, 256, "off_image"),
+        "corr_fused_xy_int8_nan_row": int8_case("K1-int8 NaN row E=8 32x60 C=128", 8, 32, 60,
+                                                128, 128, "nan_row", iters=20),
         "corr_lookup": k2_case("K2 E=1 48x64 bf16", torch.bfloat16),
         "corr_lookup_f32": k2_case("K2 E=1 48x64 f32", torch.float32),
     }
@@ -377,7 +478,7 @@ def phase_main(dev, n_frames: int) -> dict:
     kfs = steps_steady / wall
     log(f"[main] steady state: {steps_steady} keyframe steps in {wall:.3f} s = "
         f"{kfs:.3f} kf/s (frame = gate + admission + fused step)")
-    return dict(launches=launches, kf_per_s=kfs)
+    return dict(launches=launches, kf_per_s=kfs, traj=traj)
 
 
 GOLDEN_H, GOLDEN_W, GOLDEN_SEED = 64, 96, 20260820
@@ -743,6 +844,279 @@ def greedy_launches(dev) -> int:
     return n
 
 
+N_MEASURED = 30  # phase 7: measured frames per mode
+
+
+def visual_config(mode: str, async_on: bool = True):
+    """bench.py:80-88's visual configuration: tumvi_config() with rollup
+    40/15, BA window 48 and the pipeline on; every frame admitted, and in
+    "cull" mode every keyframe culled (keyframe_thresh 1e9)."""
+    from dbaf_tpu_torch.utils.config import tumvi_config
+
+    cfg = tumvi_config()
+    cfg.frontend.rollup_start = 40
+    cfg.frontend.rollup_shift = 15
+    cfg.frontend.async_pipeline = async_on
+    cfg.ba.window = 48
+    cfg.frontend.filter_thresh = -1.0
+    cfg.frontend.keyframe_thresh = 1e9 if mode == "cull" else -1.0
+    return cfg
+
+
+class VisualRun:
+    """bench.py's visual mode on the card: the full network with phase 3's
+    seeded weights in every round and gate, procedural frames.  The update
+    rounds take the synthetic-scene oracle's targets and weights (the
+    network's outputs folded in at 1e-30, as phase 5 does); the oracle's
+    slot -> frame map is a slot-keyed aux leaf, rolled with the video at a
+    rollup by both flows, so without culls it is the true map."""
+
+    def __init__(self, dev, cfg, model, oracle, n_scene: int):
+        from dbaf_tpu_torch.slam.system import DBAFusion
+
+        def update_fn(net, inp, corr, motn, ii, jj, aux):
+            net2, delta, weight = model.update_fn(net, inp, corr, motn, ii, jj, aux)
+            if "id_map" not in aux:  # the motion gate
+                return net2, delta, weight
+            _, d_o, w_o = oracle(net, inp, corr, motn, ii, jj, aux)
+            return net2, d_o + delta.float() * 1e-30, w_o + weight.float() * 1e-30
+
+        self.cfg = cfg
+        self.system = DBAFusion(cfg, device=dev, feat_fn=model.features_only,
+                                ctx_fn=model.context_only, update_fn=update_fn)
+        self.system.graph.aux = {"id_map": torch.clamp(torch.arange(cfg.buffer, device=dev),
+                                                       max=n_scene - 1)}
+        HT, WD = cfg.image_size
+        rng = np.random.default_rng(0)
+        self.base = rng.integers(0, 255, size=(HT + 64, WD + 64, 3)).astype(np.uint8)
+        self.intr = np.asarray([460.0, 460.0, WD / 2, HT / 2], np.float32)
+
+    def track(self, k: int) -> None:
+        HT, WD = self.cfg.image_size
+        ox, oy = (3 * k) % 64, (2 * k) % 64
+        self.system.track(float(k), self.base[oy:oy + HT, ox:ox + WD], intrinsics=self.intr)
+
+
+def buffer_move_ms(dev) -> dict:
+    """Device ms a frame of the steps' rollup moves at phase 7's shapes
+    (tumvi_config(): a 256-slot buffer of 48x64 rows; rollup 40/15), when
+    nothing rolls: the 26 rows that can be live (DepthVideo.rollup_device,
+    which both asynchronous steps run) against a whole-buffer identity
+    gather (torch.roll(buf, -shift) for a device shift), over the six video
+    buffers."""
+    from dbaf_tpu_torch.slam.video import roll_rows
+
+    cfg = visual_config("visual")
+    B, (H8, W8) = cfg.buffer, cfg.feat_size
+    bufs = [torch.zeros(B, 7, device=dev), torch.ones(B, H8, W8, device=dev),
+            torch.ones(B, H8, W8, device=dev)] + [
+        torch.zeros(B, H8, W8, 128, dtype=torch.bfloat16, device=dev) for _ in range(3)]
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    n_live = min(cfg.frontend.rollup_start + 1, B) - cfg.frontend.rollup_shift
+    live = graph_ms(lambda: [roll_rows(b, zero, n_live) for b in bufs], 20)
+    whole = graph_ms(lambda: [roll_rows(b, zero, B) for b in bufs], 20)
+    log(f"[visual_async] rollup moves a frame: {n_live} live rows {live:.4f} ms, whole-buffer "
+        f"gather {whole:.4f} ms")
+    return dict(live_rows_ms=live, whole_buffer_ms=whole)
+
+
+def phase_visual_async(dev, main_kfs: float) -> dict:
+    """Phase 7: bench.py's visual modes through the asynchronous pipeline.
+    Each mode warms until the pipeline is active (and, in "visual" mode,
+    one rollup has run inside it), settles 2 x drain_batch frames, then
+    times N_MEASURED frames, each under torch.cuda.set_sync_debug_mode
+    ("error"); "visual" mode profiles 3 frames more, and its frames run
+    once more through the synchronous flow (the async-equals-sync check)."""
+    from dbaf_tpu_torch.eval.synthetic import make_oracle, scene_from_poses, simulate_imu_and_poses
+    from dbaf_tpu_torch.models.net import DroidNet
+    from dbaf_tpu_torch.ops import corr_cuda as cc
+    from dbaf_tpu_torch.utils import device as devmod
+
+    H8, W8 = visual_config("visual").feat_size
+    n_scene = 128
+    _, poses_at = simulate_imu_and_poses(n_scene / 10.0 + 0.5, fps=10.0)
+    intr8 = np.asarray([2.0 * W8, 2.0 * W8, W8 / 2, H8 / 2], np.float32)
+    gt_cw, gt_disps = scene_from_poses(poses_at, n_scene, intr8, H8, W8)
+    oracle = make_oracle(gt_cw, gt_disps, intr8, device=dev)
+    model = DroidNet(device=dev)
+    model.load_state_dict(seeded_params(20260820))
+    model.eval()
+
+    def run_async(mode: str) -> dict:
+        run = VisualRun(dev, visual_config(mode), model, oracle, n_scene)
+        system = run.system
+        a, fe = system._async, system.frontend
+        cc.reset_launch_counts()
+        k = 0
+        t1_flip = None
+        # warm: the pipeline active (visual: and one rollup inside it)
+        while not (a.active and (mode != "visual" or a.rollups >= 1)):
+            if k >= 90:
+                raise SystemExit(f"visual_async {mode}: not warm after {k} frames")
+            run.track(k)
+            k += 1
+        if mode == "gateonly":
+            run.cfg.frontend.filter_thresh = 1e9  # the step reads it every frame
+            t1_flip = k
+        for _ in range(2 * a.drain_batch):  # settle
+            run.track(k)
+            k += 1
+        k0 = k
+        wall = 0.0
+        reads0, drains0, steps0 = devmod.HOST_READS["count"], a.drains, fe.keyframe_steps
+        mirror0 = a.t1_mirror
+        guarded = 0
+        for _ in range(N_MEASURED):
+            torch.cuda.set_sync_debug_mode("error")
+            t = time.perf_counter()
+            try:
+                run.track(k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            wall += time.perf_counter() - t
+            guarded += a.active
+            k += 1
+        res = dict(mode=mode, frames=k, measured=N_MEASURED, guarded=guarded,
+                   frames_per_s=N_MEASURED / wall, timed_frames=(k0, k),
+                   reads=devmod.HOST_READS["count"] - reads0, drains=a.drains - drains0,
+                   mirror_moved=a.t1_mirror != mirror0)
+        res["reads_per_frame"] = res["reads"] / N_MEASURED
+        if mode == "visual":
+            k1_0 = cc.LAUNCHES["corr_fused_xy"]
+            prof = Profile()
+            for _ in range(N_PROFILED):
+                run.track(k)
+                k += 1
+            pr = prof.stop("visual_async", "profile_visual_async.txt")
+            k1_ms = sum(ms for name, ms in pr["kernels"].items()
+                        if "corr_fused_xy_kernel" in name)
+            res.update(idle_share=pr["idle_share"], frames=k,
+                       k1_ms_per_round=k1_ms / max(cc.LAUNCHES["corr_fused_xy"] - k1_0, 1))
+        traj = system.terminate()  # drains the pipeline
+        st = a.stats()
+        res.update(launches=dict(cc.LAUNCHES), stats=st, t1=fe.t1, keyframe_steps=fe.keyframe_steps,
+                   update_rounds=fe.update_rounds, rollups=fe.rollup_count, culls=fe.culls,
+                   traj=traj, ii=np.asarray(system.graph.ii), jj=np.asarray(system.graph.jj),
+                   poses=system.video.poses[:fe.t1].cpu().numpy(), t1_flip=t1_flip)
+        return res
+
+    def run_sync(n_frames: int, k0: int) -> dict:
+        run = VisualRun(dev, visual_config("visual", async_on=False), model, oracle, n_scene)
+        system, fe = run.system, run.system.frontend
+        wall = 0.0
+        for k in range(n_frames):
+            t = time.perf_counter()
+            run.track(k)
+            if k0 <= k < k0 + N_MEASURED:
+                torch.cuda.synchronize()
+                wall += time.perf_counter() - t
+        traj = system.terminate()
+        return dict(traj=traj, ii=np.asarray(system.graph.ii), jj=np.asarray(system.graph.jj),
+                    poses=system.video.poses[:fe.t1].cpu().numpy(), t1=fe.t1,
+                    kf_per_s=N_MEASURED / wall)
+
+    out = {}
+    for mode in ("visual", "cull", "gateonly"):
+        t = time.perf_counter()
+        r = run_async(mode)
+        n_frames = r["frames"]
+        L = r["launches"]
+        checks = [
+            (r["guarded"] == N_MEASURED, "the pipeline drained in the measured frames"),
+            (L["corr_lookup"] >= n_frames - 1,
+             f"K2 launched {L['corr_lookup']} times for {n_frames - 1} gated frames"),
+            (L["corr_fused_xy"] >= r["update_rounds"] > 0,
+             f"K1 launched {L['corr_fused_xy']} times for {r['update_rounds']} admitted rounds"),
+            (r["traj"].shape[0] > 0 and np.all(np.isfinite(r["traj"])),
+             f"trajectory {r['traj'].shape} not finite"),
+            (r["reads"] <= r["drains"],
+             f"{r['reads']} blocking host reads for {r['drains']} drains"),
+        ]
+        if mode == "visual":
+            checks.append((r["stats"]["rollups"] >= 1, "no rollup inside the pipeline"))
+        if mode == "cull":  # every frame is admitted, every keyframe culls
+            checks.append((r["stats"]["culls"] == r["stats"]["steps"],
+                           f"{r['stats']['culls']} culls in {r['stats']['steps']} async steps"))
+        if mode == "gateonly":  # every frame before the flip was admitted, none after
+            checks.append((not r["mirror_moved"] and r["t1"] == r["t1_flip"],
+                           f"t1 moved: {r['t1']} keyframes for {r['t1_flip']} frames before "
+                           "the flip"))
+        for ok, msg in checks:
+            if not ok:
+                raise SystemExit(f"visual_async {mode}: " + msg)
+        if mode == "visual":
+            # the oracle's targets make the two flows' rounds the same
+            # arithmetic: they ran bit-equal on the card, so 1e-4 (the CPU
+            # scenarios' bound) is room for nothing but a reordered sum
+            s1 = run_sync(n_frames, r["timed_frames"][0])
+            same = (r["t1"] == s1["t1"] and np.array_equal(r["traj"][:, 0], s1["traj"][:, 0])
+                    and np.array_equal(r["ii"], s1["ii"]) and np.array_equal(r["jj"], s1["jj"]))
+            diff = float(np.abs(r["poses"] - s1["poses"]).max()) if same else float("inf")
+            log(f"[visual_async] async against sync: same keyframes and edges {same}, poses "
+                f"{diff:.3e} apart, bound 1e-4; sync kf/s {s1['kf_per_s']:.3f} at the same "
+                "frames")
+            if not (same and diff <= 1e-4):
+                raise SystemExit("visual_async: the asynchronous run differs from the synchronous")
+            r.update(sync_kf_per_s=s1["kf_per_s"], pose_diff_to_sync=diff)
+        st = r["stats"]
+        log(f"[visual_async] {mode}: {r['frames_per_s']:.3f} frames/s over {N_MEASURED} frames "
+            f"({'kf/s' if mode != 'gateonly' else 'all rejected'}), "
+            f"{r['reads_per_frame']:.3f} blocking reads a frame ({r['reads']} in {r['drains']} "
+            f"drains), {st['steps']} async steps, {st['culls']} culls, {st['rollups']} rollups, "
+            f"{st['masked_rounds']} masked rounds, {st['wasted_rounds']} of them on rejected "
+            f"frames or culled keyframes; launches {r['launches']}")
+        log(f"[time] phase 7 {mode} took {time.perf_counter() - t:.1f} s")
+        for key in ("traj", "ii", "jj", "poses"):
+            r.pop(key)
+        out[mode] = r
+    out["buffer_moves"] = buffer_move_ms(dev)
+    v = out["visual"]
+    log(f"[visual_async] kf/s: visual {v['frames_per_s']:.3f} (sync at the same frames "
+        f"{v['sync_kf_per_s']:.3f}; phase 3 {main_kfs:.3f}), cull "
+        f"{out['cull']['frames_per_s']:.3f}; gateonly {out['gateonly']['frames_per_s']:.3f} "
+        f"frames/s; K1 {v['k1_ms_per_round']:.4f} ms a round; idle share {v['idle_share']:.3f}")
+    log("[visual_async] " + json.dumps(out, default=float))
+    return out
+
+
+def phase_int8(dev, main_res: dict, n_frames: int = 20) -> dict:
+    """Phase 7b: phase 3's main path with cfg.graph.corr_int8 for about 12
+    keyframe steps; K1-int8 (with its max pass) in every update round."""
+    from dbaf_tpu_torch.ops import corr_cuda as cc
+    from dbaf_tpu_torch.slam.system import DBAFusion
+    from dbaf_tpu_torch.utils.config import tumvi_config
+
+    cfg = tumvi_config()
+    cfg.frontend.filter_thresh = -1.0
+    cfg.graph.corr_int8 = True
+    HT, WD = cfg.image_size
+    system = DBAFusion(cfg, params=seeded_params(20260820), device=dev)
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, 255, size=(HT + 64, WD + 64, 3)).astype(np.uint8)
+    intr = np.asarray([460.0, 460.0, WD / 2, HT / 2], np.float32)
+    cc.reset_launch_counts()
+    for k in range(n_frames):
+        ox, oy = (3 * k) % 64, (2 * k) % 64
+        system.track(float(k), base[oy:oy + HT, ox:ox + WD], intrinsics=intr)
+    traj = system.terminate()
+    fe = system.frontend
+    L = dict(cc.LAUNCHES)
+    ref = main_res["traj"]
+    common = [(i, np.nonzero(ref[:, 0] == t)[0]) for i, t in enumerate(traj[:, 0])]
+    diff = max((float(np.abs(traj[i, 1:4] - ref[j[0], 1:4]).max()) for i, j in common if len(j)),
+               default=float("nan"))
+    log(f"[int8] {fe.keyframe_steps} keyframe steps, {fe.update_rounds} update rounds, launches "
+        f"{L}; largest position difference from phase 3's bf16 rows at the same stamps "
+        f"{diff:.4e}")
+    if not (L["corr_fused_xy_int8"] == L["corr_int8_vmax"] >= fe.update_rounds > 0
+            and L["corr_fused_xy"] == 0):
+        raise SystemExit(f"int8: K1-int8 launched {L['corr_fused_xy_int8']} times for "
+                         f"{fe.update_rounds} update rounds")
+    if traj.shape[0] < 10 or not np.all(np.isfinite(traj)):
+        raise SystemExit(f"int8: trajectory {traj.shape} too short or not finite")
+    return dict(launches=L, pos_diff_to_bf16=diff)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--root", default=ROOT,
@@ -778,13 +1152,27 @@ def main() -> int:
     t = time.perf_counter()
     async_res = phase_coupled_async(dev, N_COUPLED, coupled_res)
     log(f"[time] phase 6 (coupled_async) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    visual_res = phase_visual_async(dev, main_res["kf_per_s"])
+    log(f"[time] phase 7 (visual_async) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    int8_res = phase_int8(dev, main_res)
+    log(f"[time] phase 7b (int8) took {time.perf_counter() - t:.1f} s")
+    visual_launches = {name: sum(visual_res[m]["launches"][name]
+                                 for m in ("visual", "cull", "gateonly"))
+                       for name in int8_res["launches"]}
     paths = {"main": main_res["launches"], "coupled": coupled_res["launches"],
-             "coupled_async": async_res["launches"]}
+             "coupled_async": async_res["launches"], "visual_async": visual_launches,
+             "int8": int8_res["launches"]}
 
     src = "dbaf_tpu_torch/csrc/"
     kernels = [
         dict(name="corr_fused_xy", route="cuda", source=src + "corr_fused_xy.cu",
              replaces="dbaf_tpu/ops/corr_pallas.py:206", row=rows["corr_fused_xy"]),
+        dict(name="corr_fused_xy_int8", route="cuda", source=src + "corr_fused_xy.cu",
+             replaces="dbaf_tpu/ops/corr_pallas.py:249", row=rows["corr_fused_xy_int8"]),
+        dict(name="corr_int8_vmax", route="cuda", source=src + "corr_fused_xy.cu",
+             replaces="dbaf_tpu/ops/corr_pallas.py:250", row=rows["corr_int8_vmax"]),
         dict(name="corr_lookup", route="cuda", source=src + "corr_lookup.cu",
              replaces="dbaf_tpu/ops/corr_pallas.py:58", row=rows["corr_lookup"]),
     ]
@@ -798,6 +1186,9 @@ def main() -> int:
     log(f"[main] {main_res['kf_per_s']:.3f} kf/s on {card}")
     log(f"[coupled] {coupled_res['kf_per_s']:.3f} kf/s after VI init on {card}")
     log(f"[coupled_async] {async_res['kf_per_s']:.3f} kf/s over the async steps on {card}")
+    log(f"[visual_async] visual {visual_res['visual']['frames_per_s']:.3f} kf/s, cull "
+        f"{visual_res['cull']['frames_per_s']:.3f} kf/s, gateonly "
+        f"{visual_res['gateonly']['frames_per_s']:.3f} frames/s on {card}")
     print(card, flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -46,6 +46,28 @@
 // Limits of this design: W2 <= 128 (a chunk holds whole rows, so images up
 // to 1024 px wide) and C <= 128 (two channel boxes).  The wrapper raises
 // beyond them, and DBAFusion checks its feature grid when it is built.
+//
+// K1-int8: the int8=True branch of the same Pallas kernel
+// (corr_pallas.py:232-259).  The volume rows stay f32; per (edge, tile of
+// `tile` source pixels) q = round(vol * 127 / vmax) with vmax the tile's
+// max |vol| over every target position, and per level the x tents are
+// quantized as qx = round(127 * kx); P2 = bf16(sum_w q * qx * vmax / 127^2).
+// A tile (128 or 256 pixels) spans 2-4 blocks of 64 pixels, so its scale
+// has to exist before any block quantizes: two launches.
+//  * The max pass (kMode kMax): the build above with no lookup; each MMA
+//    thread keeps max |acc| over its chunks, warps reduce, and lane 0
+//    atomicMax-es the f32 bits (non-negative floats order as their bits)
+//    into vmax[e, tile].  Bound: the build's flops, like K1.
+//  * K1 under kMode kInt8: each chunk is quantized from the f32
+//    accumulators straight into the shared volume chunk.  Integers up to
+//    127 are exact in bf16, so the chunk keeps its bf16 layout and the
+//    lookup its code: a block sum is an exact integer in f32, and the x
+//    contraction of a tap is qx0 * S0 + qx1 * S1, exact (below 2^24) as
+//    the int32 dot of the Pallas kernel, then scaled and rounded to bf16
+//    once.  The rounding points are the Pallas kernel's; only the order of
+//    the f32 build sums differs, which can flip a q by one quantum.
+//    Int8 tensor cores are not used: the int8 branch costs the bf16
+//    kernel's time plus the max pass.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -69,6 +91,11 @@ constexpr int kTaps = 2 * kRadius + 1;     // 7
 constexpr int kChannels = 4 * kTaps * kTaps;  // 196
 constexpr int kVolStride = kN + 8;         // bf16 per pixel row of a volume chunk (272 B)
 constexpr int kAccStride = kChannels + 1;  // f32 per pixel of the sums
+
+// kernel variants: K1 (bf16 volume), K1-int8, and K1-int8's max pass
+constexpr int kBf16 = 0, kInt8 = 1, kMax = 2;
+constexpr float kQ = 127.f;                               // int8 steps per unit of the scale
+constexpr float kInvQ2 = static_cast<float>(1.0 / (127.0 * 127.0));
 
 constexpr int kF1Bytes = kMaxKB * kM * 128;          // 16 KB
 constexpr int kStageBytes = kMaxKB * kN * 128;       // 32 KB
@@ -182,6 +209,9 @@ struct Level {
   bool valid;            // finite coordinate and a union that meets the image
 };
 
+// int8: the x weights are the Pallas kernel's qx = round(127 * kx) (kx in
+// f32), the y weights stay bf16.
+template <int kMode>
 __device__ __forceinline__ Level make_level(float x, float y, int l, int H2, int W2) {
   Level L;
   const float inv = 1.f / static_cast<float>(1 << l);
@@ -193,8 +223,13 @@ __device__ __forceinline__ Level make_level(float x, float y, int l, int H2, int
             (ky + 5.f) * s > 0.f && (ky - 3.f) * s < static_cast<float>(H2);
   L.gx0 = L.valid ? static_cast<int>(kx) - kRadius : 0;
   L.gy0 = L.valid ? static_cast<int>(ky) - kRadius : 0;
-  L.wx0 = round_bf16(fmaxf(0.f, 1.f - fabsf(kx - cx)) * inv);
-  L.wx1 = round_bf16(fmaxf(0.f, 1.f - fabsf((kx + 1.f) - cx)) * inv);
+  if (kMode == kInt8) {
+    L.wx0 = rintf((fmaxf(0.f, 1.f - fabsf(kx - cx)) * inv) * kQ);
+    L.wx1 = rintf((fmaxf(0.f, 1.f - fabsf((kx + 1.f) - cx)) * inv) * kQ);
+  } else {
+    L.wx0 = round_bf16(fmaxf(0.f, 1.f - fabsf(kx - cx)) * inv);
+    L.wx1 = round_bf16(fmaxf(0.f, 1.f - fabsf((kx + 1.f) - cx)) * inv);
+  }
   L.wy0 = round_bf16(fmaxf(0.f, 1.f - fabsf(ky - cy)) * inv);
   L.wy1 = round_bf16(fmaxf(0.f, 1.f - fabsf((ky + 1.f) - cy)) * inv);
   return L;
@@ -259,10 +294,12 @@ __device__ __forceinline__ void flush_rows(float* acc, const Level& lv, int a0, 
 // q*nb .. q*nb + nb - 1 (nb = 8 / kLanes) and x taps a = q*nb .. q*nb + nb - 1,
 // and takes block q*nb + nb from lane q + 1.  Rows that fall in the same
 // y block are summed in registers before they reach the shared sums.
-template <int L, int kLanes, bool kVec>
+// int8: the values are quantized volume entries, the x weights int8 tents,
+// so wx0 * S0 + wx1 * S1 is an exact integer; `sc` = vmax / 127^2 scales it.
+template <int L, int kLanes, bool kVec, int kMode>
 __device__ __forceinline__ void lookup_chunk(float* acc, const Level& lv, int q,
                                              const __nv_bfloat16* row0, int h0, int nrows,
-                                             int W2) {
+                                             int W2, float sc) {
   constexpr int nb = 8 / kLanes;
   const int a0 = q * nb;
   float Q[nb];
@@ -295,7 +332,10 @@ __device__ __forceinline__ void lookup_chunk(float* acc, const Level& lv, int q,
       if (jy[k] >= 0) {
 #pragma unroll
         for (int t = 0; t < nb; ++t)
-          if (a0 + t < kTaps) Q[t] += round_bf16(lv.wx0 * S[k][t] + lv.wx1 * S[k][t + 1]);
+          if (a0 + t < kTaps) {
+            const float p = lv.wx0 * S[k][t] + lv.wx1 * S[k][t + 1];
+            Q[t] += round_bf16(kMode == kInt8 ? p * sc : p);
+          }
       }
     }
   }
@@ -304,13 +344,14 @@ __device__ __forceinline__ void lookup_chunk(float* acc, const Level& lv, int q,
 
 // This thread's part of one chunk's lookup: its level, with 4, 2, 2 or 2
 // lanes per pixel at levels 3, 2, 1, 0.
-template <bool kVec>
+template <bool kVec, int kMode>
 __device__ __forceinline__ void lookup_any(float* acc, const Level& lv, int lvl, int q,
-                                           const __nv_bfloat16* row0, int h0, int nrows, int W2) {
-  if (lvl == 3) lookup_chunk<3, 4, kVec>(acc, lv, q, row0, h0, nrows, W2);
-  else if (lvl == 2) lookup_chunk<2, 2, kVec>(acc, lv, q, row0, h0, nrows, W2);
-  else if (lvl == 1) lookup_chunk<1, 2, kVec>(acc, lv, q, row0, h0, nrows, W2);
-  else lookup_chunk<0, 2, kVec>(acc, lv, q, row0, h0, nrows, W2);
+                                           const __nv_bfloat16* row0, int h0, int nrows, int W2,
+                                           float sc) {
+  if (lvl == 3) lookup_chunk<3, 4, kVec, kMode>(acc, lv, q, row0, h0, nrows, W2, sc);
+  else if (lvl == 2) lookup_chunk<2, 2, kVec, kMode>(acc, lv, q, row0, h0, nrows, W2, sc);
+  else if (lvl == 1) lookup_chunk<1, 2, kVec, kMode>(acc, lv, q, row0, h0, nrows, W2, sc);
+  else lookup_chunk<0, 2, kVec, kMode>(acc, lv, q, row0, h0, nrows, W2, sc);
 }
 
 // ---------------------------------------------------------------- the kernel
@@ -336,13 +377,20 @@ __device__ __forceinline__ void issue_chunk(float (&d)[kAcc], int c, uint32_t ba
 }
 
 // Waits for chunk c's wgmma, frees its ring slot and stores the bf16 volume
-// chunk to buffer c & 1.  Accumulator fragment: row 16*warp + lane/4 (+8),
-// column 8j + 2*(lane%4) (+1) of the warpgroup's 32 positions.
+// chunk to buffer c & 1 (int8: round(vol * qs), exact in bf16).
+// Accumulator fragment: row 16*warp + lane/4 (+8), column 8j + 2*(lane%4)
+// (+1) of the warpgroup's 32 positions.
+template <int kMode>
 __device__ __forceinline__ void finish_chunk(float (&d)[kAcc], int c, uint32_t bar_empty,
-                                             __nv_bfloat16* vol, int wg, int warp, int lane) {
+                                             __nv_bfloat16* vol, int wg, int warp, int lane,
+                                             float qs) {
   wgmma_wait0();
   fence_acc(d);
   if (lane == 0) mbar_arrive(bar_empty + 8 * (c % kStages));
+  if (kMode == kInt8) {
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) d[i] = rintf(d[i] * qs);
+  }
   __nv_bfloat16* vbuf = vol + (c & 1) * (kM * kVolStride);
   const int r0 = 16 * warp + lane / 4;
   const int n0 = wg * kWgN + 2 * (lane % 4);
@@ -355,13 +403,16 @@ __device__ __forceinline__ void finish_chunk(float (&d)[kAcc], int c, uint32_t b
   }
 }
 
-template <bool kVec>
+// kMode kBf16: K1; kInt8: K1-int8 (reads vmax); kMax: the max pass
+// (writes vmax, zeroed by the caller; coords and out are unused).
+template <bool kVec, int kMode>
 __global__ void __launch_bounds__(kThreads, 1)
 corr_fused_xy_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf16
                      const __grid_constant__ CUtensorMap map_f2,  // (E, P2, Cpad) bf16
                      const float* __restrict__ coords,           // (E, P, 2)
                      __nv_bfloat16* __restrict__ out,            // (E, P, 196)
-                     int P, int H2, int W2, int nkb) {
+                     float* __restrict__ vmax,                   // (E, P / tile) f32
+                     int P, int H2, int W2, int nkb, int tile) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -417,18 +468,48 @@ corr_fused_xy_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad
   const int pix = lvl == 3 ? tid >> 2 : (tid - 256 - 128 * (2 - lvl)) >> 1;
   const int q = lvl == 3 ? tid & 3 : tid & 1;
   const bool mma = tid < kMmaWarps * 32;
+  // this block's tile of the int8 scale (a tile holds whole blocks)
+  const size_t tile_idx = kMode == kBf16 ? 0 : static_cast<size_t>(e) * (P / tile) + p0 / tile;
+
+  if constexpr (kMode == kMax) {
+    // ---- the max pass: max |vol| of this block's rows over every chunk
+    if (!mma) return;
+    float d[kAcc];
+    float m = 0.f;
+    mbar_wait(bar_f1, 0);
+    for (int c = 0; c < nchunks; ++c) {
+      issue_chunk(d, c, bar_full, s_f1, s_f2, wg, nkb);
+      wgmma_wait0();
+      fence_acc(d);
+      if (lane == 0) mbar_arrive(bar_empty + 8 * (c % kStages));
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) m = fmaxf(m, fabsf(d[i]));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (lane == 0) atomicMax(reinterpret_cast<int*>(vmax + tile_idx), __float_as_int(m));
+    return;
+  }
+
+  // int8: the tile's quantization step and the scale of the integer x sums
+  float qs = 0.f, sc = 0.f;
+  if (kMode == kInt8) {
+    const float vm = vmax[tile_idx];
+    qs = kQ / vm;
+    sc = vm * kInvQ2;
+  }
   for (int i = tid; i < kM * kAccStride; i += kConsumers) acc[i] = 0.f;
   const bool live = p0 + pix < P;
   float2 xy = make_float2(__int_as_float(0x7fc00000), 0.f);  // NaN: no support
   if (live) xy = reinterpret_cast<const float2*>(coords)[static_cast<size_t>(e) * P + p0 + pix];
-  const Level lv = make_level(xy.x, xy.y, lvl, H2, W2);
+  const Level lv = make_level<kMode>(xy.x, xy.y, lvl, H2, W2);
   float* my_acc = acc + pix * kAccStride;
 
   float d[kAcc];
   if (mma) {
     mbar_wait(bar_f1, 0);
     issue_chunk(d, 0, bar_full, s_f1, s_f2, wg, nkb);
-    finish_chunk(d, 0, bar_empty, vol, wg, warp, lane);
+    finish_chunk<kMode>(d, 0, bar_empty, vol, wg, warp, lane, qs);
   }
   consumer_sync();
 
@@ -436,15 +517,17 @@ corr_fused_xy_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad
   // chunk's lookup runs alone
   for (int c = 0; c + 1 < nchunks; ++c) {
     if (mma) issue_chunk(d, c + 1, bar_full, s_f1, s_f2, wg, nkb);
-    lookup_any<kVec>(my_acc, lv, lvl, q, vol + (c & 1) * (kM * kVolStride) + pix * kVolStride,
-                     c * rc, min(rc, H2 - c * rc), W2);
-    if (mma) finish_chunk(d, c + 1, bar_empty, vol, wg, warp, lane);
+    lookup_any<kVec, kMode>(my_acc, lv, lvl, q,
+                            vol + (c & 1) * (kM * kVolStride) + pix * kVolStride, c * rc,
+                            min(rc, H2 - c * rc), W2, sc);
+    if (mma) finish_chunk<kMode>(d, c + 1, bar_empty, vol, wg, warp, lane, qs);
     consumer_sync();
   }
   {
     const int c = nchunks - 1;
-    lookup_any<kVec>(my_acc, lv, lvl, q, vol + (c & 1) * (kM * kVolStride) + pix * kVolStride,
-                     c * rc, min(rc, H2 - c * rc), W2);
+    lookup_any<kVec, kMode>(my_acc, lv, lvl, q,
+                            vol + (c & 1) * (kM * kVolStride) + pix * kVolStride, c * rc,
+                            min(rc, H2 - c * rc), W2, sc);
   }
 
   consumer_sync();
@@ -515,16 +598,21 @@ bool make_map(CUtensorMap* map, const void* base, int E, int rows, int Cpad, int
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool kVec>
+template <bool kVec, int kMode>
 int launch(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords, __nv_bfloat16* out,
-           int E, int P, int H2, int W2, int nkb, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(corr_fused_xy_kernel<kVec>,
+           float* vmax, int E, int P, int H2, int W2, int nkb, int tile, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(corr_fused_xy_kernel<kVec, kMode>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((P + kM - 1) / kM, E);
-  corr_fused_xy_kernel<kVec><<<grid, kThreads, kSmemBytes, stream>>>(m1, m2, coords, out, P, H2,
-                                                                      W2, nkb);
+  corr_fused_xy_kernel<kVec, kMode><<<grid, kThreads, kSmemBytes, stream>>>(
+      m1, m2, coords, out, vmax, P, H2, W2, nkb, tile);
   return static_cast<int>(cudaGetLastError());
+}
+
+bool make_maps(CUtensorMap* m1, CUtensorMap* m2, const void* f1, const void* f2, int E, int P,
+               int H2, int W2, int Cpad) {
+  return make_map(m1, f1, E, P, Cpad, kM) && make_map(m2, f2, E, H2 * W2, Cpad, kN);
 }
 
 }  // namespace
@@ -536,11 +624,39 @@ extern "C" int corr_fused_xy_launch(const void* f1, const void* f2, const void* 
                                     int E, int P, int H2, int W2, int Cpad, void* stream) {
   if (E == 0 || P == 0) return 0;
   CUtensorMap m1, m2;
-  if (!make_map(&m1, f1, E, P, Cpad, kM) || !make_map(&m2, f2, E, H2 * W2, Cpad, kN)) return -1;
+  if (!make_maps(&m1, &m2, f1, f2, E, P, H2, W2, Cpad)) return -1;
   const int nkb = Cpad / kBoxC;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* c = static_cast<const float*>(coords);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-  if (W2 % 8 == 0) return launch<true>(m1, m2, c, o, E, P, H2, W2, nkb, s);
-  return launch<false>(m1, m2, c, o, E, P, H2, W2, nkb, s);
+  if (W2 % 8 == 0) return launch<true, kBf16>(m1, m2, c, o, nullptr, E, P, H2, W2, nkb, 1, s);
+  return launch<false, kBf16>(m1, m2, c, o, nullptr, E, P, H2, W2, nkb, 1, s);
+}
+
+// K1-int8's max pass: vmax (E, P / tile) f32, zeroed by the caller, gets
+// max |vol| of each tile; tile a multiple of 64 that divides P.
+extern "C" int corr_int8_vmax_launch(const void* f1, const void* f2, void* vmax, int E, int P,
+                                     int H2, int W2, int Cpad, int tile, void* stream) {
+  if (E == 0 || P == 0) return 0;
+  CUtensorMap m1, m2;
+  if (!make_maps(&m1, &m2, f1, f2, E, P, H2, W2, Cpad)) return -1;
+  return launch<false, kMax>(m1, m2, nullptr, nullptr, static_cast<float*>(vmax), E, P, H2, W2,
+                             Cpad / kBoxC, tile, static_cast<cudaStream_t>(stream));
+}
+
+// K1-int8: as corr_fused_xy_launch, with each tile's scale from the max
+// pass (vmax, clamped to >= 1e-20 by the caller).
+extern "C" int corr_fused_xy_int8_launch(const void* f1, const void* f2, const void* coords,
+                                         void* vmax, void* out, int E, int P, int H2, int W2,
+                                         int Cpad, int tile, void* stream) {
+  if (E == 0 || P == 0) return 0;
+  CUtensorMap m1, m2;
+  if (!make_maps(&m1, &m2, f1, f2, E, P, H2, W2, Cpad)) return -1;
+  const int nkb = Cpad / kBoxC;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* c = static_cast<const float*>(coords);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  float* v = static_cast<float*>(vmax);
+  if (W2 % 8 == 0) return launch<true, kInt8>(m1, m2, c, o, v, E, P, H2, W2, nkb, tile, s);
+  return launch<false, kInt8>(m1, m2, c, o, v, E, P, H2, W2, nkb, tile, s);
 }

@@ -156,7 +156,7 @@ def assemble_window_system(sys_e: EdgeSystem, ii, jj, P: int, nfixed, nactive, e
 
     pose_active = (slot >= nfixed) & (slot < nactive)
     A = A.permute(0, 2, 1, 3).reshape(P * 6, P * 6)
-    pa6 = pose_active.repeat_interleave(6)
+    pa6 = pose_active[:, None].expand(-1, 6).reshape(-1)
     zero = torch.zeros((), dtype=A.dtype, device=dev)
     A = torch.where(pa6[:, None] & pa6[None, :], A, zero)
     b = torch.where(pa6, b.reshape(P * 6), zero)
@@ -179,7 +179,7 @@ def damped_solve(S, v, pose_active, lm: float, ep: float) -> torch.Tensor:
     it in ``info`` instead of raising, and the step is zeroed by a
     ``where`` on the device, with no host sync."""
     P6 = S.shape[0]
-    pa6 = pose_active.repeat_interleave(6)
+    pa6 = pose_active[:, None].expand(-1, 6).reshape(-1)
     S = S + torch.diag(ep + lm * torch.diagonal(S))
     S = torch.where(pa6[:, None] & pa6[None, :], S, torch.zeros((), dtype=S.dtype, device=S.device))
     S = S + torch.diag((~pa6).to(S.dtype))
@@ -273,7 +273,7 @@ def assemble_pairwise(sys_e: EdgeSystem, ii, jj, P: int, nfixed, nactive, eta,
     EQw = M @ Ev.reshape(E * 12)
 
     pose_active = (slot >= nfixed) & (slot < nactive)
-    pa6 = pose_active.repeat_interleave(6)
+    pa6 = pose_active[:, None].expand(-1, 6).reshape(-1)
     zero = torch.zeros((), dtype=b.dtype, device=dev)
     return PairwiseSystem(S=S, v=torch.where(pa6, b - EQw, zero), C=C, w=w,
                           pose_active=pose_active, A=A, b=torch.where(pa6, b, zero))

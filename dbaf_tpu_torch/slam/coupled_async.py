@@ -56,12 +56,12 @@ from ..fusion import preint_device as pint
 from ..ops import lie
 from ..ops import projective as pj
 from ..utils.config import DBAFusionConfig
-from ..utils.device import (HOST_READS, FlagPoll, device_const, host_wait, rows_at, set_row,
-                            to_host, upload)
+from ..utils.device import (FlagPoll, PendingRead, device_const, rows_at, set_row, to_host,
+                            upload)
 from .coupled_fused import RoundPolls, run_coupled_rounds
 from .edge_select import cull_transition, edge_transition, roll_transition
 from .graph import EdgeArrays, EdgeSets, UpdateStep, _rebuild_edges, _rebuild_inactive
-from .video import DepthVideo
+from .video import DepthVideo, slot_keyed
 
 BAD_CAP = 64  # bad-edge store capacity (the port quarantines no edge: it stays empty)
 
@@ -71,35 +71,12 @@ def _with_row(arr: torch.Tensor, idx: torch.Tensor, row: torch.Tensor) -> torch.
     return arr.index_copy(0, idx.reshape(1), row[None].to(arr.dtype))
 
 
-def _shift2_rows(buf: torch.Tensor, c: torch.Tensor, on: torch.Tensor) -> None:
-    """In place, where ``on``: rows c+1 -> c and c+2 -> c+1, the two rows
-    above a culled slot (video.rm_keyframe)."""
-    B = buf.shape[0]
-    ar = torch.arange(2, device=buf.device)
-    dst = torch.clamp(c + ar, 0, B - 1)
-    src = torch.clamp(c + 1 + ar, 0, B - 1)
-    old = buf.index_select(0, dst)
-    buf.index_copy_(0, dst, torch.where(on, buf.index_select(0, src), old))
-
-
-def _slot_keyed(a, B: int) -> bool:
-    """An aux leaf keyed by video slot (a test oracle's id_map)."""
-    return isinstance(a, torch.Tensor) and a.dim() >= 1 and a.shape[0] == B
-
-
 def _cull_rows(buf: torch.Tensor, c: int, n: int) -> torch.Tensor:
     """A copy of ``buf`` with its ``n`` rows above slot ``c`` moved down
     one (the host-side video.rm_keyframe of a drain)."""
     out = buf.clone()
     out[c:c + n] = buf[c + 1:c + 1 + n]
     return out
-
-
-def _roll_rows(buf: torch.Tensor, shift: torch.Tensor) -> None:
-    """In place: ``torch.roll(buf, -shift, 0)`` for a 0-d device shift, as
-    one gather (the identity when shift is 0)."""
-    B = buf.shape[0]
-    buf.copy_(buf[(torch.arange(B, device=buf.device) + shift) % B])
 
 
 def _inv15(M: torch.Tensor) -> torch.Tensor:
@@ -263,9 +240,6 @@ def _select(on: torch.Tensor, new, old):
     return type(old)(*(torch.where(on, a, b) for a, b in zip(new, old)))
 
 
-_VIDEO_ROWS = ("poses", "disps", "damping", "fmaps", "nets", "inps")
-
-
 def coupled_step(ustep: UpdateStep, cfg: DBAFusionConfig, NW: int, video: DepthVideo,
                  edges: EdgeArrays, t_inac: torch.Tensor, w_inac: torch.Tensor, st: dict,
                  aux: dict, pgf: torch.Tensor, Tbc12: torch.Tensor, A: torch.Tensor,
@@ -314,13 +288,8 @@ def coupled_step(ustep: UpdateStep, cfg: DBAFusionConfig, NW: int, video: DepthV
     # (b) video-row shifts (video.rm_keyframe): exactly two rows sit above
     # the culled slot, the previous keyframe and the just-appended frame;
     # slot-keyed aux leaves (a test oracle's id_map) were uploaded pre-shift
-    for name in _VIDEO_ROWS:
-        _shift2_rows(getattr(video, name), c, pc)
-    aux = dict(aux)
-    for k, a in aux.items():
-        if _slot_keyed(a, B):
-            aux[k] = a.clone()
-            _shift2_rows(aux[k], c, pc)
+    aux = video.move_rows_device(torch.clamp(c + ar(2), 0, B - 1),
+                                 torch.clamp(c + 1 + ar(2), 0, B - 1), pc, aux)
     # (c) edge re-indexing (graph.rm_keyframe)
     ct = cull_transition(st["ii"], st["jj"], st["age"], st["e_valid"], st["ii_i"], st["jj_i"],
                          st["i_valid"], c)
@@ -392,12 +361,7 @@ def coupled_step(ustep: UpdateStep, cfg: DBAFusionConfig, NW: int, video: DepthV
     # decision right after its drain.
     do_roll = t1 > fc.rollup_start
     shift = torch.where(do_roll, fc.rollup_shift, 0)
-    for name in _VIDEO_ROWS:
-        _roll_rows(getattr(video, name), shift)
-    for k, a in aux.items():
-        if _slot_keyed(a, B):
-            aux[k] = a.clone()
-            _roll_rows(aux[k], shift)
+    aux = video.rollup_device(shift, aux)
     # inactive and bad stores: drop negatives, compact, re-index; active
     # edges stay nonnegative by rollup_start - rollup_shift >= active_window
     # (checked at activation)
@@ -495,30 +459,6 @@ _CARRY = (
     "prox_d", "fg_flat", "o_prev", "mgd_mask", "mgd_lin", "mgd_H", "mgd_v",
     "cur_ii", "cur_jj", "cur_mask", "cur_target", "cur_weight", "prev_cull",
 )
-
-
-class _Pending:
-    """A dispatched step's pack on its way to the host: a ``non_blocking``
-    copy into pinned memory behind an event (on the CPU, the pack itself)."""
-
-    def __init__(self, pack: torch.Tensor, t1: int, cur_t: float):
-        self.t1, self.cur_t = t1, cur_t
-        if pack.is_cuda:
-            self.host = torch.empty(pack.shape, dtype=pack.dtype, pin_memory=True)
-            self.host.copy_(pack, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self.host, self.event = pack, None
-
-    def read(self) -> np.ndarray:
-        """Waits for this copy alone (never for a later step) and counts
-        one host read."""
-        HOST_READS["count"] += 1
-        if self.event is not None:
-            with host_wait():
-                self.event.synchronize()
-        return self.host.numpy().copy()
 
 
 class CoupledAsync:
@@ -649,7 +589,7 @@ class CoupledAsync:
         self.steps += 1
         self.total_steps += 1
         fe.keyframe_steps += 1
-        self.pending.append(_Pending(pack, t1, cur_t))
+        self.pending.append(PendingRead(pack, t1))
         if len(self.pending) > 1:
             self._drain_one()
         # replay the step's rollup decision (post-cull count > rollup_start;
@@ -679,7 +619,7 @@ class CoupledAsync:
     def _drain_one(self):
         p = self.pending.pop(0)
         pack = p.read()
-        self._refresh_mirrors_from_pack(pack, p.t1)
+        self._refresh_mirrors_from_pack(pack, *p.meta)
         culled = bool(pack[0] > 0.5)
         fe = self.fe
         fe.update_rounds += fe.iters1 + (0 if culled else fe.iters2)
@@ -835,7 +775,7 @@ class CoupledAsync:
             # slot-keyed aux leaves (a test oracle's id_map) move with the
             # video rows, as the step moves them when it applies a cull; the
             # rounds that follow this drain in the same frame read them
-            g.aux = {k: _cull_rows(a, c, 1 + in_flight) if _slot_keyed(a, self.cfg.buffer) else a
+            g.aux = {k: _cull_rows(a, c, 1 + in_flight) if slot_keyed(a, self.cfg.buffer) else a
                      for k, a in g.aux.items()}
             coupled.state.merge_keyframe(c)
             fe.t1 -= 1

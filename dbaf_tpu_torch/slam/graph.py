@@ -10,7 +10,9 @@ The correlation path is decided by the device of the feature buffers: on
 the card every round runs kernel K1 (``corr_fused_xy``) on operands
 prepared once per step; on the CPU the round builds the bf16 volume once
 and runs ``lookup_fused`` on it, which is the path the JAX package takes on
-the CPU (and that ``tests/data/golden_trace.npz`` recorded).
+the CPU (and that ``tests/data/golden_trace.npz`` recorded).  With
+``cfg.graph.corr_int8`` every round runs K1-int8 (``corr_fused_xy_int8``;
+its plain version on the CPU) where the feature grid holds whole int8 tiles.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from ..ops import corr_cuda
 from ..ops import dba, lie
 from ..ops import projective as pj
 from ..utils.config import DBAFusionConfig
-from ..utils.device import clip, device_const, rows_at, set_row, to_host
+from ..utils.device import FlagPoll, clip, device_const, rows_at, set_row, to_host
 from .video import DepthVideo
 
 
@@ -34,21 +36,29 @@ class UpdateResult(NamedTuple):
     traj_row: Optional[torch.Tensor]  # camera-to-world 7-vec (mega step)
 
 
-def corr_operands(fmaps_buf: torch.Tensor, ii: torch.Tensor, jj: torch.Tensor):
+def corr_operands(cfg: DBAFusionConfig, fmaps_buf: torch.Tensor, ii: torch.Tensor,
+                  jj: torch.Tensor):
     """Round-invariant correlation operands of an edge set: the prepared
-    bf16 features for K1 on the card, the bf16 volume on the CPU."""
+    bf16 features and the int8 tile (None: bf16) for K1 or K1-int8, or the
+    bf16 volume for ``lookup_fused`` on the CPU without int8."""
     f1 = fmaps_buf[ii]
     f2 = fmaps_buf[jj]
-    if f1.is_cuda:
-        return corr_cuda.prepare_corr_fmaps(f1, f2)
+    tile = None
+    if cfg.graph.corr_int8:
+        tile = corr_cuda.int8_tile(f1.shape[1], f1.shape[2], cfg.graph.corr_group)
+    if f1.is_cuda or tile is not None:
+        return corr_cuda.prepare_corr_fmaps(f1, f2) + (tile,)
     return (corr_ops.build_volume_nhwc(f1, f2),)
 
 
 def corr_round(prep, coords1: torch.Tensor) -> torch.Tensor:
     """(E, H, W, 196) correlation features of one round."""
-    if coords1.is_cuda:
-        f1p, f2p = prep
-        return corr_cuda.corr_fused_xy(f1p, f2p, coords1, coords1.shape[1], coords1.shape[2])
+    if len(prep) == 3:
+        f1p, f2p, tile = prep
+        H2, W2 = coords1.shape[1], coords1.shape[2]
+        if tile is None:
+            return corr_cuda.corr_fused_xy(f1p, f2p, coords1, H2, W2)
+        return corr_cuda.corr_fused_xy_int8(f1p, f2p, coords1, H2, W2, tile)
     (vol,) = prep
     return corr_ops.lookup_fused(vol, coords1).permute(0, 2, 3, 1)
 
@@ -62,6 +72,18 @@ class EdgeSets(NamedTuple):
     ii_np: np.ndarray
     jj_np: np.ndarray
     mask_np: np.ndarray
+
+
+class MegaPolls(NamedTuple):
+    """The reads of a fused visual step's gates: the frame's admission
+    (every round) and admission without a cull (rounds_b)."""
+    run: FlagPoll
+    rounds_b: FlagPoll
+
+
+def blocking_mega_polls() -> MegaPolls:
+    """The synchronous flow's polls: each post is one host read."""
+    return MegaPolls(FlagPoll(blocking=True), FlagPoll(blocking=True))
 
 
 class UpdateStep:
@@ -93,6 +115,14 @@ class UpdateStep:
             ii_np, jj_np, m_np = ii, jj, e_mask
         t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
         return EdgeSets(t(ii_np), t(jj_np), t(m_np), ii_np, jj_np, m_np)
+
+    def edge_sets_device(self, ii, jj, e_mask, ii_i, jj_i, i_mask, t0) -> EdgeSets:
+        """:meth:`edge_sets` with ``use_inactive`` on device tensors (``t0``
+        an int or a 0-d tensor), with no host view."""
+        inac = self.cfg.graph.inac_range
+        keep_i = i_mask & (ii_i >= t0 - inac) & (jj_i >= t0 - inac)
+        return EdgeSets(torch.cat([ii_i, ii]), torch.cat([jj_i, jj]), torch.cat([keep_i, e_mask]),
+                        None, None, None)
 
     def update_round(self, video: DepthVideo, edges, ii, jj, e_mask, t_inac, w_inac,
                      sets: EdgeSets, prep, inp_e, aux: dict, use_inactive: bool):
@@ -140,26 +170,26 @@ class UpdateStep:
             w_ba = torch.where(pixmask, w_ba * 1e-3, w_ba)
         return t_all, w_ba
 
-    def window_ba(self, video: DepthVideo, t_all, w_ba, sets: EdgeSets, t0: int, t1: int,
-                  s0: int, iters: int):
-        """Window-local dense BA over [s0, s0 + window), in place."""
+    def window_ba(self, video: DepthVideo, t_all, w_ba, sets: EdgeSets, t0, t1, s0, iters: int):
+        """Window-local dense BA over [s0, s0 + window), in place.  ``t0``,
+        ``t1`` and ``s0`` are ints or 0-d device tensors."""
         cfg = self.cfg
         P = cfg.ba.window
         B = video.poses.shape[0]
         # window start as jax.lax.dynamic_slice clamps it (s0 = t1 - P keeps
         # it inside the buffer)
-        sw = max(0, min(s0, B - P))
-        poses_w = video.poses[sw:sw + P]
-        disps_w = video.disps[sw:sw + P]
-        eta = 0.2 * video.damping[sw:sw + P].reshape(P, -1) + cfg.ba.eps_damping
+        rows = torch.arange(P, device=video.poses.device) + clip(s0, 0, B - P)
+        poses_w, disps_w, damping_w = (b.index_select(0, rows) for b in (
+            video.poses, video.disps, video.damping))
+        eta = 0.2 * damping_w.reshape(P, -1) + cfg.ba.eps_damping
         m_ba = sets.mask & (sets.ii >= s0) & (sets.jj >= s0)
         ii_w = torch.clamp(sets.ii - s0, 0, P - 1)
         jj_w = torch.clamp(sets.jj - s0, 0, P - 1)
         state = dba.ba(poses_w, disps_w, video.intrinsics, t_all, w_ba, eta, ii_w, jj_w, m_ba,
                        t0 - s0, t1 - s0, iterations=iters, lm=cfg.ba.lm, ep=cfg.ba.ep,
                        alpha=cfg.ba.alpha)
-        poses_w.copy_(state.poses)
-        disps_w.copy_(state.disps)
+        video.poses.index_copy_(0, rows, state.poses)
+        video.disps.index_copy_(0, rows, state.disps)
 
     def __call__(self, video: DepthVideo, edges, ii, jj, e_mask, t_inac, w_inac, ii_i, jj_i,
                  i_mask, t0: int, t1: int, s0: int, rounds: int, rounds_b: int, iters: int,
@@ -173,42 +203,91 @@ class UpdateStep:
                                                                        i_mask))
         t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
         ii_t, jj_t, e_mask_t = t(ii), t(jj), t(e_mask)
-        inp_e = video.inps[ii_t]
-        prep = corr_operands(video.fmaps, ii_t, jj_t)
         sets = self.edge_sets(ii, jj, e_mask, ii_i, jj_i, i_mask, t0, use_inactive, dev)
-
-        def one_round():
+        if mega:
+            pack, traj_row, _, _ = self.mega(video, edges, ii_t, jj_t, e_mask_t, t_inac, w_inac,
+                                             sets, t0, t1, s0, rounds, rounds_b, iters, aux)
+            return UpdateResult(host_pack=pack, traj_row=traj_row)
+        inp_e = video.inps[ii_t]
+        prep = corr_operands(self.cfg, video.fmaps, ii_t, jj_t)
+        for _ in range(rounds):
             t_all, w_ba = self.update_round(video, edges, ii_t, jj_t, e_mask_t, t_inac, w_inac,
                                             sets, prep, inp_e, aux, use_inactive)
             self.window_ba(video, t_all, w_ba, sets, t0, t1, s0, iters)
+        return UpdateResult(host_pack=self.host_metrics(video, t1), traj_row=None)
 
-        traj_row = None
-        if not mega:
-            for _ in range(rounds):
-                one_round()
-            pack = self.host_metrics(video, t1)
-        else:
-            # fused keyframe step (dbaf_frontend.py:243-373): rounds, the
-            # cull decision on the state after them (one host read), then
-            # rounds_b more and next-slot seeding unless the keyframe culls
-            for _ in range(rounds):
-                one_round()
-            d_cull = self.cull_metric(video, t1)
-            traj_row = lie.se3_inv(video.poses[t1 - 1])
-            cull = to_host(d_cull) < self.cfg.frontend.keyframe_thresh
-            if not cull:
-                for _ in range(rounds_b):
-                    one_round()
-                video.seed_next(t1)
-            flag = torch.full((1,), 1.0 if cull else 0.0, device=dev)
-            pack = torch.cat([flag, d_cull.reshape(1), self.host_metrics(video, t1)[1:]])
-        return UpdateResult(host_pack=pack, traj_row=traj_row)
+    def mega(self, video: DepthVideo, edges, ii, jj, e_mask, t_inac, w_inac, sets: EdgeSets,
+             t0, t1, s0, rounds_a: int, rounds_b: int, iters: int, aux: dict,
+             run: Optional[torch.Tensor] = None, polls: Optional[MegaPolls] = None):
+        """The fused visual keyframe step (``make_update_kernel(...).raw``
+        with ``mega=True``, dbaf_frontend.py:243-373): ``rounds_a`` rounds,
+        the cull decision on the state after them, ``rounds_b`` more unless
+        the keyframe culls, and the next slot seeded unless it culls; in
+        place on ``video`` and ``edges``.  Index arguments are device
+        tensors over the active edges and ``sets``; ``t0``, ``t1`` and
+        ``s0`` ints or 0-d device tensors.
 
-    def cull_metric(self, video: DepthVideo, t1: int) -> torch.Tensor:
-        """Keyframe-cull flow distance (dbaf_frontend.py:264)."""
-        idx = lambda k: torch.tensor([k], device=video.poses.device)
+        ``run`` (a 0-d device bool, None for always) gates every round: the
+        asynchronous step's frame the motion gate rejected runs none, as the
+        JAX step's zero round counts.  Each gate goes to its poll in
+        ``polls`` (by default :func:`blocking_mega_polls`, one host read
+        each); where the answer is not in yet, the gated rounds run masked
+        and their writes are undone where the gate is off.
+
+        Returns (pack [cull, d, prox...] on the device, the trajectory row
+        after ``rounds_a``, the cull flag, (rounds_a, rounds_b) rounds run
+        masked)."""
+        polls = polls or blocking_mega_polls()
+        B = video.poses.shape[0]
+        inp_e = video.inps[ii]
+        prep = corr_operands(self.cfg, video.fmaps, ii, jj)
+        bufs = (video.poses, video.disps, edges.net, edges.target, edges.weight)
+
+        def rounds(n: int, gate: Optional[torch.Tensor], poll: FlagPoll) -> int:
+            if n == 0:
+                return 0
+            known = True
+            if gate is not None:
+                poll.reset()
+                poll.post(gate)
+                known = poll.value()
+                if known is False:
+                    return 0
+                saved = None if known else [b.clone() for b in bufs]
+            for _ in range(n):
+                t_all, w_ba = self.update_round(video, edges, ii, jj, e_mask, t_inac, w_inac, sets,
+                                                prep, inp_e, aux, True)
+                self.window_ba(video, t_all, w_ba, sets, t0, t1, s0, iters)
+            if known:
+                return 0
+            for buf, old in zip(bufs, saved):
+                buf.copy_(torch.where(gate, buf, old))
+            return n
+
+        masked_a = rounds(rounds_a, run, polls.run)
+        d_cull = self.cull_metric(video, t1)
+        if run is not None:
+            d_cull = torch.where(run, d_cull, torch.full_like(d_cull, float("inf")))
+        traj_row = lie.se3_inv(rows_at(video.poses, clip(t1 - 1, 0, B - 1)))
+        cull = d_cull < self.cfg.frontend.keyframe_thresh
+        masked_b = rounds(rounds_b, ~cull if run is None else run & ~cull, polls.rounds_b)
+        # next-slot seeding unless culled (dbaf_frontend.py:371-373)
+        slot = clip(t1, 0, B - 1)
+        prev = clip(slot - 1, 0, B - 1)
+        for buf, row in ((video.poses, rows_at(video.poses, prev)),
+                         (video.disps, rows_at(video.disps, prev).mean().expand(
+                             video.disps.shape[1:]))):
+            set_row(buf, slot, torch.where(cull, rows_at(buf, slot), row))
+        pack = torch.cat([cull.to(torch.float32).reshape(1), d_cull.reshape(1),
+                          self.host_metrics(video, t1)[1:]])
+        return pack, traj_row, cull, (masked_a, masked_b)
+
+    def cull_metric(self, video: DepthVideo, t1) -> torch.Tensor:
+        """Keyframe-cull flow distance (dbaf_frontend.py:264); ``t1`` an int
+        or a 0-d device tensor."""
+        at = t1 - 3 + torch.arange(2, device=video.poses.device)
         return pj.frame_distance_bidirectional(
-            video.poses, video.disps, video.intrinsics, idx(t1 - 3), idx(t1 - 2),
+            video.poses, video.disps, video.intrinsics, at[:1], at[1:],
             beta=self.cfg.graph.beta)[0]
 
     def host_metrics(self, video: DepthVideo, t1) -> torch.Tensor:
@@ -283,8 +362,6 @@ class CovisibleGraph:
     """Host-side edge manager around the fused update step."""
 
     def __init__(self, video: DepthVideo, update_fn: Callable, cfg: DBAFusionConfig):
-        if cfg.graph.corr_int8:
-            raise NotImplementedError("dbaf_tpu_torch: the int8 correlation variant is not ported")
         self.video = video
         self.cfg = cfg
         self.device = video.device
@@ -539,7 +616,7 @@ class CovisibleGraph:
                               self._pad_np(self.jj_inac, self.i_cap), i_mask, t0, use_inactive,
                               dev)
         ii_t, jj_t = torch.as_tensor(ii, device=dev), torch.as_tensor(jj, device=dev)
-        prep = corr_operands(self.video.fmaps, ii_t, jj_t)
+        prep = corr_operands(self.cfg, self.video.fmaps, ii_t, jj_t)
         inp_e = self.video.inps[ii_t]
         for r in range(rounds):
             t_all, w_ba = step.update_round(self.video, self.edges, ii_t, jj_t,

@@ -4,7 +4,9 @@ Every frame runs the feature encoder; one correlation lookup against the
 last keyframe (kernel K2 on the card) and one update-operator step estimate
 the mean flow, and frames above ``filter_thresh`` become keyframes
 (motion_filter.py:12-93 of the reference).  The gate's scalar is read on
-the host once per frame; the frame's upload does not synchronise.
+the host once per frame; the frame's upload does not synchronise.  The
+gate itself (:func:`gate`) is a function of explicit state, which the
+asynchronous visual step (``slam/async_pipeline.py``) runs without a read.
 """
 
 from __future__ import annotations
@@ -23,6 +25,26 @@ from ..utils.device import host_wait, to_host, upload
 from .video import DepthVideo
 
 
+def gate(feat_fn: Callable, update_fn: Callable, image: torch.Tensor, kf_fmap: torch.Tensor,
+         kf_net: torch.Tensor, kf_inp: torch.Tensor):
+    """Features of ``image`` (1, H, W, 3) and its mean flow magnitude
+    against the last keyframe's features, a 0-d device tensor that is never
+    read here (motion_filter.py:38-53): one 4-level lookup of the
+    keyframe-to-frame volume at the identity (kernel K2 on the card) and
+    one update-operator step on edge 0 -> 0 with an empty aux."""
+    fmap_cur = feat_fn(image)[0]
+    H, W = fmap_cur.shape[0], fmap_cur.shape[1]
+    vol = corr_ops.build_volume_nhwc(kf_fmap[None].to(torch.bfloat16),
+                                     fmap_cur[None].to(torch.bfloat16))
+    coords0 = pj.coords_grid(H, W, device=image.device)[None]
+    corr = corr_cuda.corr_lookup(vol, coords0).permute(0, 2, 3, 1)
+    zero_motn = torch.zeros((1, H, W, 4), dtype=kf_net.dtype, device=image.device)
+    ii = torch.zeros((1,), dtype=torch.int64, device=image.device)
+    _, delta, _ = update_fn(kf_net[None], kf_inp[None], corr.to(kf_net.dtype), zero_motn, ii, ii,
+                            {})
+    return fmap_cur, torch.linalg.norm(delta[0].float(), dim=-1).mean()
+
+
 class MotionFilter:
     def __init__(self, video: DepthVideo, cfg: DBAFusionConfig, feat_fn: Callable,
                  ctx_fn: Callable, update_fn: Callable):
@@ -32,29 +54,12 @@ class MotionFilter:
         gate passes edge 0 -> 0 and an empty aux."""
         self.video = video
         self.cfg = cfg
-        self.thresh = cfg.frontend.filter_thresh
         self.feat = feat_fn
         self.ctx = ctx_fn
         self.update_fn = update_fn
         self._kf_fmap = None
         self._kf_net = None
         self._kf_inp = None
-
-    def gate(self, image: torch.Tensor):
-        """Features of the frame and its mean flow magnitude against the
-        last keyframe (motion_filter.py:38-53)."""
-        fmap_cur = self.feat(image)[0]
-        H, W = fmap_cur.shape[0], fmap_cur.shape[1]
-        vol = corr_ops.build_volume_nhwc(self._kf_fmap[None].to(torch.bfloat16),
-                                         fmap_cur[None].to(torch.bfloat16))
-        coords0 = pj.coords_grid(H, W, device=image.device)[None]
-        corr = corr_cuda.corr_lookup(vol, coords0).permute(0, 2, 3, 1)
-        net_kf = self._kf_net
-        zero_motn = torch.zeros((1, H, W, 4), dtype=net_kf.dtype, device=image.device)
-        ii = torch.zeros((1,), dtype=torch.int64, device=image.device)
-        _, delta, _ = self.update_fn(net_kf[None], self._kf_inp[None], corr.to(net_kf.dtype),
-                                     zero_motn, ii, ii, {})
-        return fmap_cur, torch.linalg.norm(delta[0].float(), dim=-1).mean()
 
     def track(self, tstamp: float, image: np.ndarray, intrinsics: Optional[np.ndarray] = None) -> bool:
         """Process one (H, W, 3) BGR frame; returns True if admitted."""
@@ -69,9 +74,10 @@ class MotionFilter:
             v.append(tstamp, small, lie.se3_identity(device=v.device), 1.0, intr8,
                      fmap, net[0], inp[0])
             return True
-        fmap, delta = self.gate(img)
+        fmap, delta = gate(self.feat, self.update_fn, img, self._kf_fmap, self._kf_net,
+                           self._kf_inp)
         with host_wait():  # the one read a frame makes (motion_filter.py:159)
-            admit = to_host(delta) > self.thresh
+            admit = to_host(delta) > self.cfg.frontend.filter_thresh
         if admit:
             idx = v.counter
             net, inp = self.ctx(img)

@@ -1,6 +1,8 @@
 """System facade (port of ``dbaf_tpu/slam/system.py``): wires the network,
-keyframe store, motion filter, covisibility graph and frontend, and the
-tightly-coupled multi-sensor solve (:meth:`DBAFusion.set_multisensor`).
+keyframe store, motion filter, covisibility graph and frontend, the
+tightly-coupled multi-sensor solve (:meth:`DBAFusion.set_multisensor`) and,
+with ``cfg.frontend.async_pipeline``, the asynchronous visual pipeline
+(``slam/async_pipeline.py``).
 """
 
 from __future__ import annotations
@@ -36,7 +38,10 @@ class DBAFusion:
     On the card the image may be at most 1024 px wide (kernel K1's limit,
     :func:`~dbaf_tpu_torch.ops.corr_cuda.check_k1_shape`); a wider
     ``cfg.image_size`` raises ``ValueError`` here.
-    ``dtype`` is the network's compute type.
+    ``dtype`` is the network's compute type.  With
+    ``cfg.frontend.async_pipeline`` (and no ``monitor_dir``), frames of a
+    visual-only run go through the asynchronous pipeline from the first
+    frame after initialization on.
     """
 
     def __init__(self, cfg: DBAFusionConfig, params: Optional[Mapping[str, torch.Tensor]] = None,
@@ -68,6 +73,12 @@ class DBAFusion:
         self.graph = CovisibleGraph(self.video, update_fn, cfg)
         self.filter = MotionFilter(self.video, cfg, feat_fn, ctx_fn, update_fn)
         self.frontend = Frontend(self.video, self.graph, cfg)
+        self._async = None
+        if cfg.frontend.async_pipeline and not cfg.frontend.monitor_dir:
+            # the monitor needs per-keyframe host state: it stays synchronous
+            from .async_pipeline import AsyncPipeline
+
+            self._async = AsyncPipeline(self)
 
     def set_multisensor(self, all_imu, Tbc, all_gnss=None, all_odo=None, all_stamp=None,
                         tbg=None, ten0=None, imu_noise=None, visual_only: bool = False):
@@ -99,6 +110,12 @@ class DBAFusion:
         """Feed one (H, W, 3) BGR frame (dbaf.py:50-58)."""
         if depth is not None or image_right is not None:
             raise NotImplementedError("dbaf_tpu_torch: RGB-D and stereo input are not ported yet")
+        a = self._async
+        if a is not None and (a.active or a.can_activate()):
+            if not a.active:
+                a.activate()
+            a.track(tstamp, image)
+            return
         self.filter.track(tstamp, image, intrinsics)
         self.frontend()
 
@@ -117,7 +134,9 @@ class DBAFusion:
         (camera-to-world on the visual path, body-to-world on the coupled
         path), the rows still on the device pulled in one transfer.  Once
         georeferenced, rows without an ECEF position get one.  The
-        asynchronous coupled pipeline is drained first."""
+        asynchronous pipelines are drained first."""
+        if self._async is not None and self._async.active:
+            self._async.sync()
         self.frontend.drain_async()
         traj = self.frontend.trajectory
         if not traj:

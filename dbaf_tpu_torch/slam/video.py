@@ -4,8 +4,10 @@ Poses, disparities, damping and the feature/context buffers are
 preallocated tensors on the device, written in place where the JAX package
 donates its buffers; timestamps and thumbnails stay on the host.  The
 visual path's rows: ring buffers, ``append``, ``rm_keyframe``, ``rollup``,
-``distance``, ``seed_next`` and ``normalize``; the initializations of the
-coupled path rewrite poses and rescale disparities in place.  Depth-sensor rows, the
+``distance``, ``seed_next`` and ``normalize``, and the device-index row
+moves of the asynchronous steps (``move_rows_device``, ``rollup_device``);
+the initializations of the coupled path rewrite poses and rescale
+disparities in place.  Depth-sensor rows, the
 stereo feature buffer and the ``.pkl`` archive come with later slices.
 """
 
@@ -19,6 +21,29 @@ import torch
 from ..ops import projective as pj
 from ..utils.config import DBAFusionConfig
 from ..utils.device import resolve_device, to_host
+
+
+def slot_keyed(a, B: int) -> bool:
+    """An aux leaf keyed by video slot (a test oracle's id_map)."""
+    return isinstance(a, torch.Tensor) and a.dim() >= 1 and a.shape[0] == B
+
+
+def move_rows(buf: torch.Tensor, dst: torch.Tensor, src: torch.Tensor, on: torch.Tensor) -> None:
+    """In place, where ``on`` (a 0-d device bool): rows ``src`` -> rows
+    ``dst`` (device indices of one shape; every source row is read before
+    any is written)."""
+    dst, src = dst.reshape(-1), src.reshape(-1)
+    buf.index_copy_(0, dst, torch.where(on, buf.index_select(0, src), buf.index_select(0, dst)))
+
+
+def roll_rows(buf: torch.Tensor, shift: torch.Tensor, n: int) -> None:
+    """In place: rows [shift, shift + n) -> [0, n), wrapping past the
+    buffer's end, for a 0-d device shift (0: every row stays).  With ``n``
+    the buffer's length this is ``torch.roll(buf, -shift, 0)``; with fewer,
+    the rows past ``n`` keep what they held."""
+    if n > 0:
+        idx = (torch.arange(n, device=buf.device) + shift) % buf.shape[0]
+        buf[:n] = buf.index_select(0, idx)
 
 
 class DepthVideo:
@@ -112,6 +137,41 @@ class DepthVideo:
         self.tstamp = np.roll(self.tstamp, -shift)
         self.images_small = np.roll(self.images_small, -shift, axis=0)
         self.counter -= shift
+
+    def _moved_aux(self, aux: Optional[dict], move) -> dict:
+        """``aux`` with ``move`` applied to copies of its slot-keyed leaves."""
+        out = dict(aux or {})
+        for k, a in out.items():
+            if slot_keyed(a, self.poses.shape[0]):
+                out[k] = a.clone()
+                move(out[k])
+        return out
+
+    def move_rows_device(self, dst: torch.Tensor, src: torch.Tensor, on: torch.Tensor,
+                         aux: Optional[dict] = None) -> dict:
+        """:func:`move_rows` on every per-frame buffer and on copies of
+        ``aux``'s slot-keyed leaves (the asynchronous steps' culls, at
+        device indices); returns the new aux.  Host rows are the drain's."""
+        for name in self._SHIFT_BUFFERS:
+            move_rows(getattr(self, name), dst, src, on)
+        return self._moved_aux(aux, lambda a: move_rows(a, dst, src, on))
+
+    def rollup_device(self, shift: torch.Tensor, aux: Optional[dict] = None) -> dict:
+        """:meth:`rollup` by a 0-d device shift (0: nothing moves) on the
+        rows that can be live, for the asynchronous steps: a rollup fires
+        once the keyframe count passes ``rollup_start``, one keyframe a
+        step, so rows at or above ``rollup_start + 1`` hold no keyframe and
+        keep what they held (:meth:`rollup` rolls them around; each is
+        written when a keyframe takes it).  Copies of ``aux``'s slot-keyed
+        leaves roll whole, as the synchronous flow rolls them: a slot ->
+        frame map holds the rows that later keyframes take.  Returns the
+        new aux."""
+        fc = self.cfg.frontend
+        B = self.poses.shape[0]
+        n = min(fc.rollup_start + 1, B) - fc.rollup_shift
+        for name in self._SHIFT_BUFFERS:
+            roll_rows(getattr(self, name), shift, n)
+        return self._moved_aux(aux, lambda a: roll_rows(a, shift, B))
 
     # ------------------------------------------------------------------
     def _idx(self, a) -> torch.Tensor:

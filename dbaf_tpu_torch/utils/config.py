@@ -2,9 +2,10 @@
 
 The port's own copy of ``dbaf_tpu/utils/config.py``: the same dataclasses,
 field names and defaults, so one set of keyword arguments builds the same
-configuration in both packages.  Fields that only the JAX package's later
-paths read (async pipelines, multi-sensor fusion, sharding) are kept so the
-two trees stay interchangeable; the port's visual path ignores them.
+configuration in both packages.  Fields that only the JAX package's
+unported paths read (sharding, the monitor's output) are kept so the two
+trees stay interchangeable; the port ignores them, except that a
+``monitor_dir`` keeps the visual flow synchronous, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,9 +25,12 @@ class GraphConfig:
     edge_capacity: int = 48          # static padded edge-array size
     inactive_capacity: int = 64      # static padded inactive-edge store
     corr_group: int = 16             # pixel packing of the JAX package's
-    # Pallas correlation kernel; unused by the port
-    corr_int8: bool = False          # int8 variant of the fused correlation
-    # kernel; not ported yet (the port raises when it is set)
+    # Pallas correlation kernel; the port reads it only for the int8 tile
+    # (ops/corr_cuda.int8_tile)
+    corr_int8: bool = False          # every update round quantizes the
+    # correlation volume to int8 per (edge, pixel tile) before the x stage
+    # (ops/corr_cuda.corr_fused_xy_int8: kernel K1-int8 on the card, its
+    # plain version on the CPU); off by default
     frontend_window: int = 5         # proximity window (demo:98)
     frontend_radius: int = 2         # forced radius edges (demo:99)
     frontend_nms: int = 1            # NMS suppression radius (demo:100)
@@ -53,9 +57,13 @@ class FrontendConfig:
     rollup_start: int = 65           # window shift trigger (dbaf_frontend.py:254)
     rollup_shift: int = 30           # shift amount (dbaf_frontend.py:255)
     active_window: int = 12          # multi-sensor active window (demo:109)
-    async_pipeline: bool = False     # JAX package's device-resident frame
-    # loop; the port runs the synchronous flow
-    async_drain_batch: int = 8
+    async_pipeline: bool = False     # after initialization, every frame of a
+    # visual-only configuration runs as one device step (gate, admission,
+    # edge transition, cull, rollup, update rounds) with no host read; the
+    # host mirrors follow from packs drained two frames late
+    # (slam/async_pipeline.py)
+    async_drain_batch: int = 8       # packs applied per drain (one blocking
+    # wait per drain)
     monitor_dir: str = ""
     monitor_debug: bool = True
 

@@ -146,6 +146,36 @@ class FlagPoll:
         return self._value
 
 
+class PendingRead:
+    """A device tensor on its way to the host: a ``non_blocking`` copy into
+    pinned memory behind a CUDA event (on the CPU, the tensor itself), with
+    the caller's ``meta`` riding along."""
+
+    def __init__(self, x: torch.Tensor, *meta):
+        self.meta = meta
+        if x.is_cuda:
+            self.host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            self.host.copy_(x, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host, self.event = x, None
+
+    def read(self) -> np.ndarray:
+        """Waits for this copy alone (never for later work) and counts one
+        host read."""
+        HOST_READS["count"] += 1
+        if self.event is not None:
+            with host_wait():
+                self.event.synchronize()
+        return self.landed()
+
+    def landed(self) -> np.ndarray:
+        """The copy, which must have landed: a :meth:`read` waited for it
+        or for a later copy on the same stream.  No wait, no count."""
+        return self.host.numpy().copy()
+
+
 def device_const(values, dtype: torch.dtype, device) -> torch.Tensor:
     """A small constant vector on ``device``, uploaded once per (values,
     dtype, device) with no stream synchronisation and shared by every later

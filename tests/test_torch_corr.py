@@ -8,6 +8,17 @@ Tolerances:
   bf16 ulp of the largest output (``2^-7 * max|out|``); against
   ``lookup_fused`` ``atol 2e-2``, the JAX test's bound (bf16 output,
   rounding at other points);
+* K1-int8 vs ``corr_fused_xy_pallas(..., int8=True)``: the same integer
+  x sums and rounding points; the f32 volume's sums run in another order,
+  which can flip a bf16 rounding of P2 or of the output (one bf16 ulp of
+  the largest output, ``2^-7 * max|out|``, the K1 bound; measured 3.9e-3
+  of a max 1.59) or a quantized entry by one step, so
+  ``corr_cuda.int8_agreement`` holds too: at most ``INT8_OFF_SHARE``
+  (1e-3) of the outputs more than one bf16 ulp apart (measured 5.5e-5 and
+  1.5e-5 at the two tiles), each within its per-output bound; the bf16
+  lookup fails that check (0.38 of the outputs apart); against
+  ``lookup_fused`` 2% of ``max|lookup_fused|``, the JAX test's int8 bound
+  (test_corr.py:141-148);
 * K2 vs ``lookup_pallas``: f32 volumes ``atol 1e-4`` (the JAX test's bound);
   bf16 volumes ``atol 1e-2 * max|out|``: both sides round the tents and the
   y-contracted intermediate to bf16 (corr_pallas.py:66-67,75), so one
@@ -125,7 +136,61 @@ def test_dispatch_sends_cpu_tensors_to_plain_path():
     k1 = tk.corr_fused_xy(f1p, f2p, torch.tensor(co), 6, 8)
     np.testing.assert_array_equal(
         k1.float().numpy(), tk.corr_fused_xy_plain(f1p, f2p, torch.tensor(co), 6, 8).float().numpy())
-    assert tk.LAUNCHES == {"corr_fused_xy": 0, "corr_lookup": 0}
+    q8 = tk.corr_fused_xy_int8(f1p, f2p, torch.tensor(co), 6, 8, 48)
+    np.testing.assert_array_equal(
+        q8.float().numpy(),
+        tk.corr_fused_xy_int8_plain(f1p, f2p, torch.tensor(co), 6, 8, 48).float().numpy())
+    assert all(n == 0 for n in tk.LAUNCHES.values()), tk.LAUNCHES
+
+
+@pytest.mark.parametrize("tile,group", [(128, 8), (256, 16)])
+def test_k1_int8_plain_matches_pallas_int8(tile, group):
+    """test_corr.py:118-148's shape (E=2, 16x32, C=64: P=512, whole tiles
+    of 128 and 256) through the port's int8 plain version and the Pallas
+    kernel's int8 branch in interpret mode."""
+    E, H, W, C = 2, 16, 32, 64
+    f1, f2, co = _feats(10, E, H, W, C)
+    j1, j2 = jnp.asarray(f1, jnp.bfloat16), jnp.asarray(f2, jnp.bfloat16)
+    f1p, f2p = tk.prepare_corr_fmaps(torch.tensor(f1).bfloat16(), torch.tensor(f2).bfloat16())
+    out = tk.corr_fused_xy_int8(f1p, f2p, torch.tensor(co), H, W, tile)
+    assert out.shape == (E, H, W, 196) and out.dtype == torch.bfloat16
+    out = out.float().numpy()
+    ref = np.asarray(jc.lookup_fused(jc.build_volume_nhwc(j1, j2), jnp.asarray(co)))
+    ref = ref.transpose(0, 2, 3, 1)
+    pal = np.asarray(corr_fused_xy_pallas(j1, j2, jnp.asarray(co), tile=tile, group=group,
+                                          interpret=True, int8=True)).astype(np.float32)
+    np.testing.assert_allclose(out, ref, atol=0.02 * np.abs(ref).max())
+    np.testing.assert_allclose(pal, ref, atol=0.02 * np.abs(ref).max())
+    np.testing.assert_allclose(out, pal, atol=2 ** -7 * np.abs(pal).max())
+    # the max pass's plain version is the tile's scale
+    vmax = tk.corr_int8_vmax(f1p, f2p, H, W, tile)
+    vol = np.einsum("epc,eqc->epq", f1p.float().numpy(), f2p.float().numpy())
+    np.testing.assert_allclose(vmax.numpy(), np.abs(vol).reshape(E, -1, tile * H * W).max(-1),
+                               rtol=1e-6)
+    # nearly every output within one bf16 ulp of the Pallas kernel's; the
+    # bf16 lookup (no quantization) on the same inputs is not
+    agree = tk.int8_agreement(torch.tensor(out), torch.tensor(pal), vmax, tile)
+    assert agree.ok, agree
+    bf16 = tk.corr_fused_xy(f1p, f2p, torch.tensor(co), H, W)
+    control = tk.int8_agreement(bf16, torch.tensor(pal), vmax, tile)
+    assert not control.ok and control.off_share > 100 * tk.INT8_OFF_SHARE, control
+
+
+@pytest.mark.parametrize("h8,w8,group,tile", [
+    (48, 64, 16, 256),   # tumvi_config: whole tiles of 16 * group
+    (40, 112, 16, 128),  # kitti360_config: 4480 = 35 x 128, the group-8 fallback
+    (10, 12, 16, None),  # 120 pixels: no whole tile, the bf16 lookup
+    (48, 64, 3, None),   # 128 % 3: no whole group in a tile
+])
+def test_int8_tile_follows_corr_blk_layout(h8, w8, group, tile):
+    """The JAX package's tile, where its Pallas path (and so int8) runs
+    on a TPU; its backend check aside."""
+    from dbaf_tpu.slam.graph import corr_blk_layout
+    from dbaf_tpu.utils.config import DBAFusionConfig, GraphConfig
+
+    _, jgroup, jtile = corr_blk_layout(DBAFusionConfig(graph=GraphConfig(corr_group=group)), h8, w8)
+    tiles = (h8 * w8) % jtile == 0 and jtile % jgroup == 0
+    assert tk.int8_tile(h8, w8, group) == tile == (jtile if tiles else None)
 
 
 
