@@ -83,12 +83,37 @@ Phases, each fatal on failure:
              cfg.graph.corr_int8: fatal unless K1-int8 and its max pass run
              in every round and the trajectory is finite; prints the largest
              position difference from phase 3's bf16 rows at the same stamps.
+  8. export  save_pkl through apps/runner.run at full width, the trajectories
+             written to chiprun_out/export_*.txt and the asynchronous runs'
+             reconstructions to export_*.pkl and export_*_raw.pkl: (a) phase
+             7's "visual" configuration, 99 frames, on the visual pipeline's
+             host-rollup route against the synchronous flow (fatal unless >= 2
+             host rollups ran and the step never rolled, the archived and live
+             stamps are equal, each exported once and in order, poses within
+             1e-4 and disparities within 1e-4 or ten times the synchronous
+             flow's own spread under a 1e-6 perturbation of the scene's
+             disparities, whichever is larger); prints kf/s of both, blocking
+             reads a frame, host rollups and archived keyframes; (b) phase 6's
+             configuration (roll-out archival) against phase 5's, 100 frames
+             (fatal unless the same stamps, positions within 5e-2 m,
+             disparities within 2e-2, a rollup inside the pipeline, no drain
+             but the bias reinitialization's, no archive left pending); (c)
+             both async runs' filtered and raw .pkl read back with one finite
+             point block per exported keyframe, and the ms of the export's
+             device step (_points_and_counts) at (a)'s keyframe count.
 Phase 2 also holds K1-int8 (max pass included) at (E=48, 48x64, C=128, tile
 256), at a tile-128 shape, off the image and with a NaN row, and the max
-pass alone, against their plain versions.
+pass alone, against their plain versions; and K1-raw (raw=True, the whole
+32x32 block per pixel) at (E=48, 48x64, C=128), off the image and with a
+NaN row: within one bf16 ulp of its largest output, rows and columns
+28-31 exactly 0, its diagonal blocks against K1 on the same inputs, and
+its output through the full network's update operator against the
+196-channel route (delta and weight within 4 bf16 ulps of their largest
+value).
 Then one JSON line listing the kernels (launches summed over the main,
-coupled, coupled_async, visual_async and int8 paths, each counted from 0
-just before its run; "launches_by_path" splits them), and last the ok line.
+coupled, coupled_async, visual_async, int8 and export paths, each counted
+from 0 just before its run; "launches_by_path" splits them), and last the
+ok line.
 
 Exits non-zero without a CUDA device, and without the port's package.
 """
@@ -215,6 +240,17 @@ def lookup_flops(coords: torch.Tensor, H2: int, W2: int, x_first: bool) -> float
     return 2.0 * total
 
 
+def raw_lookup_flops(coords: torch.Tensor, H2: int, W2: int) -> float:
+    """K1-raw's tent contraction: the x stage of all 28 columns over the
+    rows that any level's y taps reach, then 28 y sums over each y tap's
+    support."""
+    x, y = coords[..., 0].reshape(-1), coords[..., 1].reshape(-1)
+    nx = sum(_support_sizes(x, W2, lvl).sum(-1) for lvl in range(4))
+    ny = sum(_support_sizes(y, H2, lvl).sum(-1) for lvl in range(4))
+    rows = torch.stack([_union_rows(y, H2, lvl) for lvl in range(4)]).amax(0)
+    return 2.0 * float((nx * rows + 28 * ny).sum())
+
+
 def bound(bytes_moved: float, op_seconds: float):
     t_bytes = bytes_moved / PEAK_BYTES
     if op_seconds > t_bytes:
@@ -337,6 +373,83 @@ def phase_kernels(dev) -> dict:
             # the build's flops once, as for K1: a two-pass design reads 2x
             2.0 * E * P * P * C + lookup_flops(coords, H, W, True), PEAK_BF16, compare)
 
+    def raw_case(name, E, H, W, C, kind="noise", iters=20):
+        """K1-raw against its plain version, within one bf16 ulp of the
+        largest output (2^-7 max|out|: the same rounding points, f32 sums
+        in another order), rows and columns 28-31 exactly 0; off the image
+        exactly 0, a NaN row 0 there.  Its diagonal blocks, gathered by
+        raw_corr_index, against K1 on the same inputs at the same bound."""
+        f1, f2, coords = inputs(E, H, W, C)
+        if kind == "off_image":
+            coords = coords + torch.tensor([2.0 * W + 40.0, -2.0 * H - 40.0], device=dev)
+        if kind == "nan_row":
+            coords[:, H // 2] = float("nan")
+        keep = torch.arange(H, device=dev) != (H // 2 if kind == "nan_row" else -1)
+        f1p, f2p = cc.prepare_corr_fmaps(f1, f2)
+        idx = torch.as_tensor(cc.raw_corr_index(), device=dev).long()
+        live = torch.nonzero(idx >= 0)[:, 0]
+        pos = torch.empty(196, dtype=torch.long, device=dev)
+        pos[idx[live]] = live
+
+        def compare(out, ref):
+            block = out.reshape(E, H, W, 32, 32)
+            if torch.count_nonzero(block[..., 28:, :]) or torch.count_nonzero(block[..., :, 28:]):
+                raise SystemExit(f"{name}: a row or column 28-31 is not 0")
+            if kind == "off_image" and (torch.count_nonzero(out) or torch.count_nonzero(ref)):
+                raise SystemExit(f"{name}: off-image coordinates gave a nonzero output")
+            if kind == "nan_row" and (torch.count_nonzero(out[:, H // 2])
+                                      or not torch.isfinite(out).all()):
+                raise SystemExit(f"{name}: the NaN row is not 0, or an output is not finite")
+            out, ref = out[:, keep].float(), ref[:, keep].float()
+            tol = 2.0 ** -7 * float(ref.abs().max())
+            err = float((out - ref).abs().max())
+            k1 = cc.corr_fused_xy(f1p, f2p, coords, H, W)[:, keep].float()
+            gather = out[..., pos]
+            g_err = float((gather - k1).abs().max())
+            log(f"[kernels] {name}: gather by raw_corr_index against K1: max abs err {g_err}, "
+                f"{int((gather != k1).sum())} of {k1.numel()} outputs differ (bound {tol})")
+            if not g_err <= tol:
+                raise SystemExit(f"{name}: its diagonal blocks disagree with K1: {g_err} > {tol}")
+            if kind == "noise":
+                update_check(name, out, k1)
+            return err, tol
+        P = H * W
+        return case(
+            name, lambda: cc.corr_fused_xy(f1p, f2p, coords, H, W, raw=True),
+            lambda: cc.corr_fused_xy_raw_plain(f1p, f2p, coords, H, W), None, iters, 1,
+            E * P * C * 2 * 2 + E * P * 2 * 4 + E * P * 1024 * 2,
+            # the build once, as for K1 (this design builds it once per y level)
+            2.0 * E * P * P * C + raw_lookup_flops(coords, H, W), PEAK_BF16, compare)
+
+    def update_check(name, raw, k1):
+        """The raw layout through DroidNet's update operator at full width
+        (the seeded network in bf16) against the 196-channel route on K1's
+        output: delta and weight within four bf16 ulps of their largest
+        value (2^-5 max|ref|).  The first corr-encoder conv sums 1024 terms
+        (zeros off the diagonal blocks) where the 196-channel one sums 196,
+        so its f32 sums run in another order and a rare output rounds one
+        bf16 ulp apart; seven more bf16 convolutions carry that on."""
+        from dbaf_tpu_torch.models.net import DroidNet
+
+        model = DroidNet(device=dev)
+        model.load_state_dict(seeded_params(20260820))
+        model.eval()
+        E, H, W = raw.shape[:3]
+        gen = torch.Generator(device="cpu").manual_seed(1)
+        net = torch.tanh(torch.randn(E, H, W, 128, generator=gen)).to(dev)
+        inp = torch.relu(torch.randn(E, H, W, 128, generator=gen)).to(dev)
+        flow = torch.randn(E, H, W, 4, generator=gen).to(dev)
+        o_raw = model.update_step(net, inp, raw, flow)
+        o_196 = model.update_step(net, inp, k1, flow)
+        for label, a, b in (("delta", o_raw[1], o_196[1]), ("weight", o_raw[2], o_196[2])):
+            tol = 2.0 ** -5 * float(b.abs().max())
+            err = float((a - b).abs().max())
+            log(f"[kernels] {name} through the update operator: {label} max abs err {err} "
+                f"(bound {tol}), {int((a != b).sum())} of {b.numel()} differ")
+            if not (err <= tol and torch.isfinite(a).all()):
+                raise SystemExit(f"{name}: the update operator's {label} on the raw layout "
+                                 f"disagrees with the 196-channel route: {err} > {tol}")
+
     def vmax_case(name, E, H, W, C, tile):
         """The max pass alone against its plain version: f32 sums of bf16
         products in another order, rtol 1e-4."""
@@ -382,6 +495,11 @@ def phase_kernels(dev) -> dict:
                                                   64, 128, 256, "off_image"),
         "corr_fused_xy_int8_nan_row": int8_case("K1-int8 NaN row E=8 32x60 C=128", 8, 32, 60,
                                                 128, 128, "nan_row", iters=20),
+        "corr_fused_xy_raw": raw_case("K1-raw E=48 48x64 C=128", 48, 48, 64, 128),
+        "corr_fused_xy_raw_off_image": raw_case("K1-raw off-image E=48 48x64 C=128", 48, 48, 64,
+                                                128, "off_image"),
+        "corr_fused_xy_raw_nan_row": raw_case("K1-raw NaN row E=8 37x45 C=128", 8, 37, 45, 128,
+                                              "nan_row"),
         "corr_lookup": k2_case("K2 E=1 48x64 bf16", torch.bfloat16),
         "corr_lookup_f32": k2_case("K2 E=1 48x64 f32", torch.float32),
     }
@@ -587,19 +705,26 @@ class CoupledRun:
         self.id_map = np.zeros(cfg.buffer, np.int64)
 
     def track(self, k: int, upload) -> None:
-        """Feed frame k.  The oracle's map (video slot -> frame id: the frame
-        takes slot `counter`; culls and rollups move slots, so it is rebuilt
-        after) goes up through ``upload(array, device)``."""
+        """Feed frame k (:meth:`stream`'s frame, tracked directly)."""
+        for t, image, intr in self.stream([k], upload):
+            self.system.track(t, image, intrinsics=intr)
+
+    def stream(self, frames, upload):
+        """(t, image, intrinsics) of each frame in ``frames``, for
+        ``DBAFusion.track`` or ``runner.run``.  The oracle's map (video slot
+        -> frame id: the frame takes slot `counter`; culls and rollups move
+        slots, so it is rebuilt after the frame is tracked) goes up through
+        ``upload(array, device)`` around each yield."""
         v, g = self.system.video, self.system.graph
         HT, WD = self.image_size
-        self.id_map[v.counter] = k
-        g.aux = {"id_map": upload(self.id_map, self.dev)}
-        ox, oy = (3 * k) % 64, (2 * k) % 64
-        self.system.track(k / self.fps, self.base[oy:oy + HT, ox:ox + WD],
-                          intrinsics=self.intr8 * 8.0)
-        n = v.counter
-        self.id_map[:n] = np.round(v.tstamp[:n] * self.fps).astype(np.int64)
-        g.aux = {"id_map": upload(self.id_map, self.dev)}
+        for k in frames:
+            self.id_map[v.counter] = k
+            g.aux = {"id_map": upload(self.id_map, self.dev)}
+            ox, oy = (3 * k) % 64, (2 * k) % 64
+            yield k / self.fps, self.base[oy:oy + HT, ox:ox + WD], self.intr8 * 8.0
+            n = v.counter
+            self.id_map[:n] = np.round(v.tstamp[:n] * self.fps).astype(np.int64)
+            g.aux = {"id_map": upload(self.id_map, self.dev)}
 
     def positions(self) -> np.ndarray:
         """The solved body positions of every keyframe, after terminate."""
@@ -891,10 +1016,34 @@ class VisualRun:
         self.base = rng.integers(0, 255, size=(HT + 64, WD + 64, 3)).astype(np.uint8)
         self.intr = np.asarray([460.0, 460.0, WD / 2, HT / 2], np.float32)
 
-    def track(self, k: int) -> None:
+    def frame(self, k: int):
+        """(t, image, intrinsics) of frame k."""
         HT, WD = self.cfg.image_size
         ox, oy = (3 * k) % 64, (2 * k) % 64
-        self.system.track(float(k), self.base[oy:oy + HT, ox:ox + WD], intrinsics=self.intr)
+        return float(k), self.base[oy:oy + HT, ox:ox + WD], self.intr
+
+    def track(self, k: int) -> None:
+        t, image, intr = self.frame(k)
+        self.system.track(t, image, intrinsics=intr)
+
+
+VISUAL_SCENE = 128  # frames of the visual phases' synthetic scene
+
+
+def visual_oracle(dev, perturb: float = 0.0):
+    """The synthetic-scene oracle of the visual phases at tumvi_config()'s
+    feature grid; ``perturb`` moves the scene's disparities by that much
+    (relative, seeded noise)."""
+    from dbaf_tpu_torch.eval.synthetic import make_oracle, scene_from_poses, simulate_imu_and_poses
+
+    H8, W8 = visual_config("visual").feat_size
+    _, poses_at = simulate_imu_and_poses(VISUAL_SCENE / 10.0 + 0.5, fps=10.0)
+    intr8 = np.asarray([2.0 * W8, 2.0 * W8, W8 / 2, H8 / 2], np.float32)
+    gt_cw, gt_disps = scene_from_poses(poses_at, VISUAL_SCENE, intr8, H8, W8)
+    if perturb:
+        noise = np.random.default_rng(0).normal(size=gt_disps.shape)
+        gt_disps = (gt_disps * (1.0 + perturb * noise)).astype(gt_disps.dtype)
+    return make_oracle(gt_cw, gt_disps, intr8, device=dev)
 
 
 def buffer_move_ms(dev) -> dict:
@@ -927,17 +1076,12 @@ def phase_visual_async(dev, main_kfs: float) -> dict:
     times N_MEASURED frames, each under torch.cuda.set_sync_debug_mode
     ("error"); "visual" mode profiles 3 frames more, and its frames run
     once more through the synchronous flow (the async-equals-sync check)."""
-    from dbaf_tpu_torch.eval.synthetic import make_oracle, scene_from_poses, simulate_imu_and_poses
     from dbaf_tpu_torch.models.net import DroidNet
     from dbaf_tpu_torch.ops import corr_cuda as cc
     from dbaf_tpu_torch.utils import device as devmod
 
-    H8, W8 = visual_config("visual").feat_size
-    n_scene = 128
-    _, poses_at = simulate_imu_and_poses(n_scene / 10.0 + 0.5, fps=10.0)
-    intr8 = np.asarray([2.0 * W8, 2.0 * W8, W8 / 2, H8 / 2], np.float32)
-    gt_cw, gt_disps = scene_from_poses(poses_at, n_scene, intr8, H8, W8)
-    oracle = make_oracle(gt_cw, gt_disps, intr8, device=dev)
+    n_scene = VISUAL_SCENE
+    oracle = visual_oracle(dev)
     model = DroidNet(device=dev)
     model.load_state_dict(seeded_params(20260820))
     model.eval()
@@ -1117,6 +1261,213 @@ def phase_int8(dev, main_res: dict, n_frames: int = 20) -> dict:
     return dict(launches=L, pos_diff_to_bf16=diff)
 
 
+N_EXPORT_VISUAL = 99  # phase 8 (a): phase 7's "visual" run, about four host rollups
+EXPORT_SETTLE = 16    # phase 8 (a): frames before its clock starts
+
+
+def phase_export(dev) -> dict:
+    """Phase 8: save_pkl through runner.run at full width, its outputs in
+    chiprun_out/.  (a) phase 7's "visual" configuration on the host-rollup
+    route against the synchronous flow; (b) phase 6's configuration
+    (roll-out archival) against phase 5's; (c) both exports read back, and
+    the export's device step timed."""
+    from dbaf_tpu_torch.apps import runner
+    from dbaf_tpu_torch.eval import export as ex
+    from dbaf_tpu_torch.eval.visualize import load_reconstruction
+    from dbaf_tpu_torch.models.net import DroidNet
+    from dbaf_tpu_torch.ops import corr_cuda as cc
+    from dbaf_tpu_torch.utils import device as devmod
+
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    launches = {k: 0 for k in cc.LAUNCHES}
+
+    def drive(system, stream, tag, files):
+        """runner.run with the kernels' counts of this run added to the
+        phase's; ``files``: "pkl" writes the trajectory and both
+        reconstructions, "traj" the trajectory only.  Returns runner.run's
+        line."""
+        cc.reset_launch_counts()
+        paths = {}
+        if files:
+            paths["result_path"] = os.path.join(out_dir, f"export_{tag}.txt")
+        if files == "pkl":
+            paths["pkl_path"] = os.path.join(out_dir, f"export_{tag}.pkl")
+        line = runner.run(system, stream, **paths)
+        mine = dict(cc.LAUNCHES)
+        for k, n in mine.items():
+            launches[k] += n
+        fe = system.frontend
+        if mine["corr_lookup"] < line["frames"] - 1 or mine["corr_fused_xy"] < fe.update_rounds:
+            raise SystemExit(f"export {tag}: K2 launched {mine['corr_lookup']} times for "
+                             f"{line['frames']} frames, K1 {mine['corr_fused_xy']} times for "
+                             f"{fe.update_rounds} update rounds")
+        return line
+
+    # ---- (a) the visual pipeline's host-rollup route
+    model = DroidNet(device=dev)
+    model.load_state_dict(seeded_params(20260820))
+    model.eval()
+
+    def visual(async_on: bool, oracle, tag: str, files) -> dict:
+        cfg = visual_config("visual", async_on=async_on)
+        cfg.save_pkl = True
+        run = VisualRun(dev, cfg, model, oracle, VISUAL_SCENE)
+        system = run.system
+        fe, a = system.frontend, system._async
+        clock = {}
+
+        def stream():
+            for k in range(N_EXPORT_VISUAL):
+                if k == EXPORT_SETTLE:
+                    torch.cuda.synchronize()
+                    clock.update(t=time.perf_counter(), steps=fe.keyframe_steps,
+                                 reads=devmod.HOST_READS["count"])
+                yield run.frame(k)
+            torch.cuda.synchronize()
+            clock.update(wall=time.perf_counter() - clock["t"],
+                         steps=fe.keyframe_steps - clock["steps"],
+                         reads=devmod.HOST_READS["count"] - clock["reads"])
+
+        line = drive(system, stream(), tag, files)
+        n_timed = N_EXPORT_VISUAL - EXPORT_SETTLE
+        return dict(line=line, system=system, export=system.video.export_rows(fe.t1),
+                    kf_per_s=clock["steps"] / clock["wall"], reads_per_frame=clock["reads"] / n_timed,
+                    host_rollups=a.host_rollups if a is not None else 0,
+                    rollups=fe.rollup_count, archived=len(system.video.saved_tstamps),
+                    drain_batch=a.drain_batch if a is not None else None)
+
+    t = time.perf_counter()
+    va = visual(True, visual_oracle(dev), "visual_async", "pkl")
+    vs = visual(False, visual_oracle(dev), "visual_sync", "traj")
+    vp = visual(False, visual_oracle(dev, perturb=1e-6), "visual_sync_perturbed", None)
+    (st_a, po_a, di_a, _), (st_s, po_s, di_s, _) = va["export"], vs["export"]
+    same = st_a.shape == st_s.shape and np.array_equal(st_a, st_s)
+    pose_diff = float(np.abs(po_a - po_s).max()) if same else float("inf")
+    disp_diff = float(np.abs(di_a - di_s).max()) if same else float("inf")
+    spread = float(np.abs(vp["export"][2] - di_s).max()) if vp["export"][2].shape == di_s.shape \
+        else float("inf")
+    disp_bound = max(1e-4, 10.0 * spread)
+    res_a = dict(frames=N_EXPORT_VISUAL, kf_per_s=va["kf_per_s"], sync_kf_per_s=vs["kf_per_s"],
+                 reads_per_frame=va["reads_per_frame"], sync_reads_per_frame=vs["reads_per_frame"],
+                 host_rollups=va["host_rollups"], rollups=va["rollups"],
+                 sync_rollups=vs["rollups"], drain_batch=va["drain_batch"],
+                 archived=va["archived"], sync_archived=vs["archived"], exported=len(st_a),
+                 same_stamps=bool(same), pose_diff=pose_diff, disp_diff=disp_diff,
+                 sync_spread_1e6=spread, disp_bound=disp_bound)
+    log("[export] (a) " + json.dumps(res_a))
+    checks = [
+        (va["host_rollups"] >= 2, f"only {va['host_rollups']} host rollups"),
+        (va["system"]._async.rollups == 0, "the step rolled under save_pkl"),
+        (va["archived"] > 0, "nothing archived"),
+        (same, "the archived and live stamps differ from the synchronous flow's"),
+        (len(np.unique(st_a)) == len(st_a) and bool(np.all(np.diff(st_a) > 0)),
+         "a keyframe is exported twice or out of order"),
+        (pose_diff <= 1e-4, f"poses {pose_diff} apart (bound 1e-4)"),
+        (disp_diff <= disp_bound, f"disparities {disp_diff} apart (bound {disp_bound})"),
+    ]
+    for ok, msg in checks:
+        if not ok:
+            raise SystemExit("export (a) visual: " + msg)
+    log(f"[export] (a) visual pipeline with save_pkl: {va['kf_per_s']:.3f} kf/s (synchronous "
+        f"flow {vs['kf_per_s']:.3f}) over frames {EXPORT_SETTLE}-{N_EXPORT_VISUAL - 1}, "
+        f"{va['reads_per_frame']:.3f} blocking reads a frame, {va['host_rollups']} host rollups "
+        f"(drain and re-activate), {va['archived']} keyframes archived, {len(st_a)} exported; "
+        f"poses {pose_diff:.3e} and disparities {disp_diff:.3e} from the synchronous flow's")
+    log(f"[time] phase 8 (a) took {time.perf_counter() - t:.1f} s")
+
+    # ---- (b) the coupled pipeline's roll-out archival
+    t = time.perf_counter()
+
+    def coupled(async_on: bool, tag: str, files) -> dict:
+        cfg = coupled_config(coupled_async=async_on)
+        cfg.save_pkl = True
+        run = CoupledRun(dev, cfg, N_COUPLED)
+        system = run.system
+        fe, g = system.frontend, system.graph
+        drains = []  # (frame, a bias reinitialization's) of each drain of the pipeline
+
+        def stream():
+            for k, item in zip(range(N_COUPLED), run.stream(range(N_COUPLED), devmod.upload)):
+                ca = fe._casync
+                active = ca is not None and ca.active
+                reinit = g.coupled is not None and k / run.fps - g.coupled.vi_init_time > 5.0
+                yield item
+                if active and not fe._casync.active:
+                    drains.append((k, bool(reinit)))
+
+        line = drive(system, stream(), tag, files)
+        return dict(line=line, system=system, export=system.video.export_rows(fe.t1),
+                    drains=drains, archived=len(system.video.saved_tstamps),
+                    rollups=fe.rollup_count)
+
+    ca_run = coupled(True, "coupled_async", "pkl")
+    cs_run = coupled(False, "coupled_sync", "traj")
+    ca = ca_run["system"].frontend._casync
+    (st_a, po_a, di_a, _), (st_s, po_s, di_s, _) = ca_run["export"], cs_run["export"]
+    same = st_a.shape == st_s.shape and np.array_equal(st_a, st_s)
+    pos_diff = float(np.abs(po_a[:, :3] - po_s[:, :3]).max()) if same else float("inf")
+    disp_diff = float(np.abs(di_a - di_s).max()) if same else float("inf")
+    res_b = dict(frames=N_COUPLED, async_steps=ca.total_steps, steps_since_activation=ca.steps,
+                 culls=ca.culls, rollups_in_pipeline=ca.rollups, rollups=ca_run["rollups"],
+                 sync_rollups=cs_run["rollups"], drains=ca_run["drains"],
+                 archived=ca_run["archived"], sync_archived=cs_run["archived"],
+                 exported=len(st_a), same_stamps=bool(same), pos_diff=pos_diff,
+                 disp_diff=disp_diff, pending_archive=len(ca._pending_archive))
+    log("[export] (b) " + json.dumps(res_b))
+    checks = [
+        (same, "the archived and live stamps differ from the synchronous flow's"),
+        (len(np.unique(st_a)) == len(st_a) and bool(np.all(np.diff(st_a) > 0)),
+         "a keyframe is exported twice or out of order"),
+        (pos_diff <= 5e-2, f"positions {pos_diff} m apart (bound 5e-2)"),
+        (disp_diff <= 2e-2, f"disparities {disp_diff} apart (bound 2e-2)"),
+        # steps == total_steps but for the bias reinitialization's drain
+        (all(reinit for _, reinit in ca_run["drains"]),
+         f"the pipeline drained outside a bias reinitialization: {ca_run['drains']}"),
+        (not ca._pending_archive, f"{len(ca._pending_archive)} archives left pending"),
+        (ca.rollups >= 1, "no rollup inside the pipeline"),
+        (ca_run["archived"] > 0, "nothing archived"),
+    ]
+    for ok, msg in checks:
+        if not ok:
+            raise SystemExit("export (b) coupled: " + msg)
+    log(f"[export] (b) coupled pipeline with save_pkl: {ca.total_steps} async steps, "
+        f"{ca.rollups} rollups inside it, drains {ca_run['drains']} (frame, bias reinit), "
+        f"{ca_run['archived']} keyframes archived, {len(st_a)} exported; positions "
+        f"{pos_diff:.3e} m and disparities {disp_diff:.3e} from the synchronous flow's")
+    log(f"[time] phase 8 (b) took {time.perf_counter() - t:.1f} s")
+
+    # ---- (c) both exports, read back; the export's device step timed
+    res_c = {}
+    for tag, r in (("visual_async", va), ("coupled_async", ca_run)):
+        stamps = r["export"][0]
+        for suffix in ("", "_raw"):
+            recon = load_reconstruction(os.path.join(out_dir, f"export_{tag}{suffix}.pkl"))
+            counts = [len(e["pts"]) for e in recon["points"].values()]
+            ok = (len(counts) == len(recon["cameras"]) == len(stamps)
+                  and np.array_equal(list(recon["stamps"].values()), stamps)
+                  and all(np.all(np.isfinite(e["pts"])) for e in recon["points"].values()))
+            log(f"[export] (c) {tag}{suffix}.pkl: {len(counts)} point blocks for "
+                f"{len(stamps)} exported keyframes ({r['archived']} archived), points per "
+                f"block {counts}")
+            if not ok:
+                raise SystemExit(f"export (c): {tag}{suffix}.pkl does not hold one finite point "
+                                 "block per exported keyframe")
+            res_c[tag + suffix] = sum(counts)
+    _, poses, disps, _ = va["export"]
+    N = len(poses)
+    intr = va["system"].video.intrinsics
+    p_dev = torch.as_tensor(poses, device=dev)
+    d_dev = torch.as_tensor(disps, device=dev)
+    th = torch.full((N,), 0.1, device=dev)
+    ms = cuda_ms(lambda: ex._points_and_counts(p_dev, d_dev, intr, th), 10)
+    log(f"[export] (c) _points_and_counts at N={N} keyframes of {disps.shape[1]}x{disps.shape[2]}: "
+        f"{ms:.3f} ms (its device -> host read included)")
+    return dict(visual=res_a, coupled=res_b, points=res_c, points_and_counts_ms=ms,
+                points_and_counts_n=N, launches=launches)
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--root", default=ROOT,
@@ -1158,12 +1509,15 @@ def main() -> int:
     t = time.perf_counter()
     int8_res = phase_int8(dev, main_res)
     log(f"[time] phase 7b (int8) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    export_res = phase_export(dev)
+    log(f"[time] phase 8 (export) took {time.perf_counter() - t:.1f} s")
     visual_launches = {name: sum(visual_res[m]["launches"][name]
                                  for m in ("visual", "cull", "gateonly"))
                        for name in int8_res["launches"]}
     paths = {"main": main_res["launches"], "coupled": coupled_res["launches"],
              "coupled_async": async_res["launches"], "visual_async": visual_launches,
-             "int8": int8_res["launches"]}
+             "int8": int8_res["launches"], "export": export_res["launches"]}
 
     src = "dbaf_tpu_torch/csrc/"
     kernels = [
@@ -1173,6 +1527,8 @@ def main() -> int:
              replaces="dbaf_tpu/ops/corr_pallas.py:249", row=rows["corr_fused_xy_int8"]),
         dict(name="corr_int8_vmax", route="cuda", source=src + "corr_fused_xy.cu",
              replaces="dbaf_tpu/ops/corr_pallas.py:250", row=rows["corr_int8_vmax"]),
+        dict(name="corr_fused_xy_raw", route="cuda", source=src + "corr_fused_xy.cu",
+             replaces="dbaf_tpu/ops/corr_pallas.py:515", row=rows["corr_fused_xy_raw"]),
         dict(name="corr_lookup", route="cuda", source=src + "corr_lookup.cu",
              replaces="dbaf_tpu/ops/corr_pallas.py:58", row=rows["corr_lookup"]),
     ]

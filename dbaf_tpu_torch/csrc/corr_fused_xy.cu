@@ -68,6 +68,22 @@
 //    the f32 build sums differs, which can flip a q by one quantum.
 //    Int8 tensor cores are not used: the int8 branch costs the bf16
 //    kernel's time plus the max pass.
+//
+// K1-raw: the raw=True branch (corr_pallas.py:515-516), the whole per-pixel
+// 32 x 32 block with the diagonal-level extraction skipped.  Row i = l*7+dy
+// is a y tap at level l, column j = l'*7+dx an x tap at level l', rows and
+// columns 28-31 are 0; out (E, P, 1024) bf16, entry i*32 + j:
+//   P2[h, j]  = bf16( sum_w vol[h, w] * bf16(kx_j(w)) )
+//   out[i, j] = bf16( sum_h bf16(ky_i(h)) * P2[h, j] )
+// The off-diagonal pairs (l != l') need the x stage of one level and the y
+// stage of another, so kMode kRaw runs one block per (64 pixels, edge, y
+// level l): the build above, then a lookup in which lane (pixel, x level
+// l') forms the 7 taps of l' from its 8 block sums per row (P2) and adds
+// them, weighted by the y tents of l, into 7 x 28 f32 sums per pixel (the
+// same 196 entries as K1's, one owner each).  A simple design: the build
+// runs once per y level (4 times K1's tensor-core work), and 4 of the 20
+// lookup warps' worth of lanes are busy.  Bound on the H100: the build's
+// flops once, against 302 MB of output at E=48, P=3072.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -93,7 +109,9 @@ constexpr int kVolStride = kN + 8;         // bf16 per pixel row of a volume chu
 constexpr int kAccStride = kChannels + 1;  // f32 per pixel of the sums
 
 // kernel variants: K1 (bf16 volume), K1-int8, and K1-int8's max pass
-constexpr int kBf16 = 0, kInt8 = 1, kMax = 2;
+constexpr int kBf16 = 0, kInt8 = 1, kMax = 2, kRaw = 3;
+constexpr int kRawCols = 4 * kTaps;  // 28 live columns (and rows) of a raw block
+constexpr int kRawBlock = 32 * 32;   // raw outputs per pixel
 constexpr float kQ = 127.f;                               // int8 steps per unit of the scale
 constexpr float kInvQ2 = static_cast<float>(1.0 / (127.0 * 127.0));
 
@@ -209,29 +227,30 @@ struct Level {
   bool valid;            // finite coordinate and a union that meets the image
 };
 
-// int8: the x weights are the Pallas kernel's qx = round(127 * kx) (kx in
-// f32), the y weights stay bf16.
+// The x weights of level lx, the y weights of level ly (the same level but
+// in K1-raw).  int8: the x weights are the Pallas kernel's
+// qx = round(127 * kx) (kx in f32), the y weights stay bf16.
 template <int kMode>
-__device__ __forceinline__ Level make_level(float x, float y, int l, int H2, int W2) {
+__device__ __forceinline__ Level make_level(float x, float y, int lx, int ly, int H2, int W2) {
   Level L;
-  const float inv = 1.f / static_cast<float>(1 << l);
-  const float s = static_cast<float>(1 << l);
-  const float cx = x * inv, cy = y * inv;
+  const float ix = 1.f / static_cast<float>(1 << lx), iy = 1.f / static_cast<float>(1 << ly);
+  const float sx = static_cast<float>(1 << lx), sy = static_cast<float>(1 << ly);
+  const float cx = x * ix, cy = y * iy;
   const float kx = floorf(cx), ky = floorf(cy);
   // union [(k0 - 3) s, (k0 + 5) s) against [0, size); false for NaN
-  L.valid = (kx + 5.f) * s > 0.f && (kx - 3.f) * s < static_cast<float>(W2) &&
-            (ky + 5.f) * s > 0.f && (ky - 3.f) * s < static_cast<float>(H2);
+  L.valid = (kx + 5.f) * sx > 0.f && (kx - 3.f) * sx < static_cast<float>(W2) &&
+            (ky + 5.f) * sy > 0.f && (ky - 3.f) * sy < static_cast<float>(H2);
   L.gx0 = L.valid ? static_cast<int>(kx) - kRadius : 0;
   L.gy0 = L.valid ? static_cast<int>(ky) - kRadius : 0;
   if (kMode == kInt8) {
-    L.wx0 = rintf((fmaxf(0.f, 1.f - fabsf(kx - cx)) * inv) * kQ);
-    L.wx1 = rintf((fmaxf(0.f, 1.f - fabsf((kx + 1.f) - cx)) * inv) * kQ);
+    L.wx0 = rintf((fmaxf(0.f, 1.f - fabsf(kx - cx)) * ix) * kQ);
+    L.wx1 = rintf((fmaxf(0.f, 1.f - fabsf((kx + 1.f) - cx)) * ix) * kQ);
   } else {
-    L.wx0 = round_bf16(fmaxf(0.f, 1.f - fabsf(kx - cx)) * inv);
-    L.wx1 = round_bf16(fmaxf(0.f, 1.f - fabsf((kx + 1.f) - cx)) * inv);
+    L.wx0 = round_bf16(fmaxf(0.f, 1.f - fabsf(kx - cx)) * ix);
+    L.wx1 = round_bf16(fmaxf(0.f, 1.f - fabsf((kx + 1.f) - cx)) * ix);
   }
-  L.wy0 = round_bf16(fmaxf(0.f, 1.f - fabsf(ky - cy)) * inv);
-  L.wy1 = round_bf16(fmaxf(0.f, 1.f - fabsf((ky + 1.f) - cy)) * inv);
+  L.wy0 = round_bf16(fmaxf(0.f, 1.f - fabsf(ky - cy)) * iy);
+  L.wy1 = round_bf16(fmaxf(0.f, 1.f - fabsf((ky + 1.f) - cy)) * iy);
   return L;
 }
 
@@ -342,16 +361,69 @@ __device__ __forceinline__ void lookup_chunk(float* acc, const Level& lv, int q,
   if (jq >= 0) flush_rows<L, nb>(acc, lv, a0, jq, Q);
 }
 
-// This thread's part of one chunk's lookup: its level, with 4, 2, 2 or 2
-// lanes per pixel at levels 3, 2, 1, 0.
+// K1-raw: one lane per (pixel, x level L); y level ly.  Each row in the y
+// union gives the 7 taps of L, P2 = bf16(wx0 * S[a] + wx1 * S[a + 1]);
+// rows in the same y block are summed in registers, then added with wy0 to
+// y tap dy = jy and with wy1 to dy = jy - 1 of columns L*7 .. L*7 + 6 of the
+// pixel's 7 x 28 sums.
+template <int L>
+__device__ __forceinline__ void flush_raw(float* acc, const Level& lv, int jy,
+                                          const float (&Q)[kTaps]) {
+  float* col = acc + L * kTaps;
+#pragma unroll
+  for (int t = 0; t < kTaps; ++t) {
+    if (jy <= kTaps - 1) col[jy * kRawCols + t] += lv.wy0 * Q[t];
+    if (jy >= 1) col[(jy - 1) * kRawCols + t] += lv.wy1 * Q[t];
+  }
+}
+
+template <int L, bool kVec>
+__device__ __forceinline__ void lookup_chunk_raw(float* acc, const Level& lv, int ly,
+                                                 const __nv_bfloat16* row0, int h0, int nrows,
+                                                 int W2) {
+  float Q[kTaps];
+#pragma unroll
+  for (int t = 0; t < kTaps; ++t) Q[t] = 0.f;
+  int jq = -1;
+  for (int r = 0; r < nrows; ++r) {
+    int jy = lv.valid ? ((h0 + r) >> ly) - lv.gy0 : -1;
+    if (jy > 7) jy = -1;
+    if (jy != jq) {
+      if (jq >= 0) flush_raw<L>(acc, lv, jq, Q);
+#pragma unroll
+      for (int t = 0; t < kTaps; ++t) Q[t] = 0.f;
+      jq = jy;
+    }
+    if (jy >= 0) {
+      const __nv_bfloat16* row = row0 + r * W2;
+      float S[8];
+#pragma unroll
+      for (int t = 0; t < 8; ++t) S[t] = block_sum<kVec>(row, lv.gx0 + t, L, W2);
+#pragma unroll
+      for (int t = 0; t < kTaps; ++t) Q[t] += round_bf16(lv.wx0 * S[t] + lv.wx1 * S[t + 1]);
+    }
+  }
+  if (jq >= 0) flush_raw<L>(acc, lv, jq, Q);
+}
+
+// This thread's part of one chunk's lookup.  K1 and K1-int8: its level, with
+// 4, 2, 2 or 2 lanes per pixel at levels 3, 2, 1, 0.  K1-raw: its x level
+// (lvl, -1 for a thread with no lookup role) at the block's y level ly.
 template <bool kVec, int kMode>
-__device__ __forceinline__ void lookup_any(float* acc, const Level& lv, int lvl, int q,
+__device__ __forceinline__ void lookup_any(float* acc, const Level& lv, int lvl, int q, int ly,
                                            const __nv_bfloat16* row0, int h0, int nrows, int W2,
                                            float sc) {
-  if (lvl == 3) lookup_chunk<3, 4, kVec, kMode>(acc, lv, q, row0, h0, nrows, W2, sc);
-  else if (lvl == 2) lookup_chunk<2, 2, kVec, kMode>(acc, lv, q, row0, h0, nrows, W2, sc);
-  else if (lvl == 1) lookup_chunk<1, 2, kVec, kMode>(acc, lv, q, row0, h0, nrows, W2, sc);
-  else lookup_chunk<0, 2, kVec, kMode>(acc, lv, q, row0, h0, nrows, W2, sc);
+  if constexpr (kMode == kRaw) {
+    if (lvl == 3) lookup_chunk_raw<3, kVec>(acc, lv, ly, row0, h0, nrows, W2);
+    else if (lvl == 2) lookup_chunk_raw<2, kVec>(acc, lv, ly, row0, h0, nrows, W2);
+    else if (lvl == 1) lookup_chunk_raw<1, kVec>(acc, lv, ly, row0, h0, nrows, W2);
+    else if (lvl == 0) lookup_chunk_raw<0, kVec>(acc, lv, ly, row0, h0, nrows, W2);
+  } else {
+    if (lvl == 3) lookup_chunk<3, 4, kVec, kMode>(acc, lv, q, row0, h0, nrows, W2, sc);
+    else if (lvl == 2) lookup_chunk<2, 2, kVec, kMode>(acc, lv, q, row0, h0, nrows, W2, sc);
+    else if (lvl == 1) lookup_chunk<1, 2, kVec, kMode>(acc, lv, q, row0, h0, nrows, W2, sc);
+    else lookup_chunk<0, 2, kVec, kMode>(acc, lv, q, row0, h0, nrows, W2, sc);
+  }
 }
 
 // ---------------------------------------------------------------- the kernel
@@ -404,13 +476,14 @@ __device__ __forceinline__ void finish_chunk(float (&d)[kAcc], int c, uint32_t b
 }
 
 // kMode kBf16: K1; kInt8: K1-int8 (reads vmax); kMax: the max pass
-// (writes vmax, zeroed by the caller; coords and out are unused).
+// (writes vmax, zeroed by the caller; coords and out are unused); kRaw:
+// K1-raw (out (E, P, 1024), blockIdx.z the y level).
 template <bool kVec, int kMode>
 __global__ void __launch_bounds__(kThreads, 1)
 corr_fused_xy_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf16
                      const __grid_constant__ CUtensorMap map_f2,  // (E, P2, Cpad) bf16
                      const float* __restrict__ coords,           // (E, P, 2)
-                     __nv_bfloat16* __restrict__ out,            // (E, P, 196)
+                     __nv_bfloat16* __restrict__ out,            // (E, P, 196 or 1024)
                      float* __restrict__ vmax,                   // (E, P / tile) f32
                      int P, int H2, int W2, int nkb, int tile) {
   extern __shared__ unsigned char smem_raw[];
@@ -463,10 +536,19 @@ corr_fused_xy_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad
   const int wtid = tid % 128;
   const int warp = wtid / 32, lane = tid % 32;
 
-  // lookup role of this thread (see the header): level, pixel, lane of the pixel
-  const int lvl = tid < 256 ? 3 : tid < 384 ? 2 : tid < 512 ? 1 : 0;
-  const int pix = lvl == 3 ? tid >> 2 : (tid - 256 - 128 * (2 - lvl)) >> 1;
-  const int q = lvl == 3 ? tid & 3 : tid & 1;
+  // lookup role of this thread (see the header): level, pixel, lane of the
+  // pixel; K1-raw: x level (threads 0-255) and pixel, at the block's y level
+  const int ly = kMode == kRaw ? static_cast<int>(blockIdx.z) : 0;
+  int lvl, pix, q;
+  if (kMode == kRaw) {
+    lvl = tid < 4 * kM ? tid / kM : -1;
+    pix = tid % kM;
+    q = 0;
+  } else {
+    lvl = tid < 256 ? 3 : tid < 384 ? 2 : tid < 512 ? 1 : 0;
+    pix = lvl == 3 ? tid >> 2 : (tid - 256 - 128 * (2 - lvl)) >> 1;
+    q = lvl == 3 ? tid & 3 : tid & 1;
+  }
   const bool mma = tid < kMmaWarps * 32;
   // this block's tile of the int8 scale (a tile holds whole blocks)
   const size_t tile_idx = kMode == kBf16 ? 0 : static_cast<size_t>(e) * (P / tile) + p0 / tile;
@@ -502,7 +584,8 @@ corr_fused_xy_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad
   const bool live = p0 + pix < P;
   float2 xy = make_float2(__int_as_float(0x7fc00000), 0.f);  // NaN: no support
   if (live) xy = reinterpret_cast<const float2*>(coords)[static_cast<size_t>(e) * P + p0 + pix];
-  const Level lv = make_level<kMode>(xy.x, xy.y, lvl, H2, W2);
+  const Level lv = make_level<kMode>(xy.x, xy.y, max(lvl, 0), kMode == kRaw ? ly : max(lvl, 0),
+                                     H2, W2);
   float* my_acc = acc + pix * kAccStride;
 
   float d[kAcc];
@@ -517,7 +600,7 @@ corr_fused_xy_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad
   // chunk's lookup runs alone
   for (int c = 0; c + 1 < nchunks; ++c) {
     if (mma) issue_chunk(d, c + 1, bar_full, s_f1, s_f2, wg, nkb);
-    lookup_any<kVec, kMode>(my_acc, lv, lvl, q,
+    lookup_any<kVec, kMode>(my_acc, lv, lvl, q, ly,
                             vol + (c & 1) * (kM * kVolStride) + pix * kVolStride, c * rc,
                             min(rc, H2 - c * rc), W2, sc);
     if (mma) finish_chunk<kMode>(d, c + 1, bar_empty, vol, wg, warp, lane, qs);
@@ -525,15 +608,36 @@ corr_fused_xy_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad
   }
   {
     const int c = nchunks - 1;
-    lookup_any<kVec, kMode>(my_acc, lv, lvl, q,
+    lookup_any<kVec, kMode>(my_acc, lv, lvl, q, ly,
                             vol + (c & 1) * (kM * kVolStride) + pix * kVolStride, c * rc,
                             min(rc, H2 - c * rc), W2, sc);
   }
 
   consumer_sync();
 
-  // ---- epilogue: bf16, 16-byte stores where the block's output is aligned
   const int np = min(kM, P - p0);
+  if constexpr (kMode == kRaw) {
+    // ---- K1-raw epilogue: this y level's 7 rows of each pixel's block (the
+    // last level also the zero rows 28-31), 16-byte stores: a segment starts
+    // at a multiple of 7 * 32 bf16 (448 bytes) and holds whole 8-value runs
+    const int nrow = ly == 3 ? 32 - 3 * kTaps : kTaps;
+    const int seg = nrow * 32;
+    for (int i = tid * 8; i < np * seg; i += kConsumers * 8) {
+      const int p = i / seg, o = i % seg;
+      __align__(16) __nv_bfloat16 v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int r = (o + k) / 32, j = (o + k) % 32;
+        v[k] = __float2bfloat16(r < kTaps && j < kRawCols ? acc[p * kAccStride + r * kRawCols + j]
+                                                          : 0.f);
+      }
+      *reinterpret_cast<uint4*>(out + (static_cast<size_t>(e) * P + p0 + p) * kRawBlock +
+                                ly * kTaps * 32 + o) = *reinterpret_cast<const uint4*>(v);
+    }
+    return;
+  }
+
+  // ---- epilogue: bf16, 16-byte stores where the block's output is aligned
   const int n = np * kChannels;
   __nv_bfloat16* dst = out + (static_cast<size_t>(e) * P + p0) * kChannels;
   if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
@@ -604,7 +708,7 @@ int launch(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords, __
   cudaError_t err = cudaFuncSetAttribute(corr_fused_xy_kernel<kVec, kMode>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((P + kM - 1) / kM, E);
+  dim3 grid((P + kM - 1) / kM, E, kMode == kRaw ? 4 : 1);
   corr_fused_xy_kernel<kVec, kMode><<<grid, kThreads, kSmemBytes, stream>>>(
       m1, m2, coords, out, vmax, P, H2, W2, nkb, tile);
   return static_cast<int>(cudaGetLastError());
@@ -659,4 +763,19 @@ extern "C" int corr_fused_xy_int8_launch(const void* f1, const void* f2, const v
   float* v = static_cast<float*>(vmax);
   if (W2 % 8 == 0) return launch<true, kInt8>(m1, m2, c, o, v, E, P, H2, W2, nkb, tile, s);
   return launch<false, kInt8>(m1, m2, c, o, v, E, P, H2, W2, nkb, tile, s);
+}
+
+// K1-raw: as corr_fused_xy_launch, out (E, P, 1024) bf16 (16-byte aligned).
+extern "C" int corr_fused_xy_raw_launch(const void* f1, const void* f2, const void* coords,
+                                        void* out, int E, int P, int H2, int W2, int Cpad,
+                                        void* stream) {
+  if (E == 0 || P == 0) return 0;
+  CUtensorMap m1, m2;
+  if (!make_maps(&m1, &m2, f1, f2, E, P, H2, W2, Cpad)) return -1;
+  const int nkb = Cpad / kBoxC;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* c = static_cast<const float*>(coords);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  if (W2 % 8 == 0) return launch<true, kRaw>(m1, m2, c, o, nullptr, E, P, H2, W2, nkb, 1, s);
+  return launch<false, kRaw>(m1, m2, c, o, nullptr, E, P, H2, W2, nkb, 1, s);
 }

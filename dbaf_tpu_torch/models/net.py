@@ -24,7 +24,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..utils.device import resolve_device
+from ..ops.corr_cuda import RAW_CHANNELS, raw_corr_index
+from ..utils.device import device_const, resolve_device
 
 IMAGE_MEAN = (0.485, 0.456, 0.406)
 IMAGE_STD = (0.229, 0.224, 0.225)
@@ -57,10 +58,14 @@ def _sigmoid(x: torch.Tensor) -> torch.Tensor:
 class Conv(nn.Conv2d):
     """Conv2d that computes in the network's dtype (see the module doc)."""
 
-    def run(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def run(self, x: torch.Tensor, dtype: torch.dtype,
+            weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``weight`` replaces the layer's own (the corr encoder's raw
+        layout)."""
+        weight = self.weight if weight is None else weight
         if dtype == torch.float32:
-            return F.conv2d(x.float(), self.weight, self.bias, self.stride, self.padding)
-        w = self.weight.to(dtype)
+            return F.conv2d(x.float(), weight, self.bias, self.stride, self.padding)
+        w = weight.to(dtype)
         if x.is_cuda:
             y = F.conv2d(x.to(dtype), w, None, self.stride, self.padding)
         else:
@@ -148,7 +153,17 @@ class ConvGRU(nn.Module):
 
 class UpdateModule(nn.Module):
     """RAFT-style update operator (droid_net.py:74-142) with 2-channel
-    delta/weight heads."""
+    delta/weight heads.
+
+    The correlation input has the reference's 196 channels or kernel
+    K1-raw's 1024 (its per-pixel 32 x 32 block, ``corr_fused_xy(...,
+    raw=True)``).  For the raw layout the first corr-encoder conv's
+    (128, 196) kernel -- still the only parameter, so checkpoints convert
+    unchanged -- is scattered to the block positions by
+    :func:`~dbaf_tpu_torch.ops.corr_cuda.raw_corr_index`, with zero rows
+    off the diagonal blocks, as the JAX package's ``_CorrEnc0`` does
+    (``dbaf_tpu/models/net.py:214-257``).  No update round passes the raw
+    layout: the JAX package's do not either."""
 
     def __init__(self, corr_channels: int = 196):
         super().__init__()
@@ -162,9 +177,10 @@ class UpdateModule(nn.Module):
         self.weight_2 = Conv(128, 2, 3, padding=1)
 
     def forward(self, net, inp, corr, flow, dtype):
-        """NCHW-shaped net (E,128,H,W), inp (E,128,H,W), corr (E,196,H,W),
-        flow (E,4,H,W).  Returns (net, delta f32, weight f32), NCHW."""
-        c = F.relu(self.corr_encoder_0.run(corr, dtype))
+        """NCHW-shaped net (E,128,H,W), inp (E,128,H,W), corr (E,196,H,W)
+        or (E,1024,H,W) (the raw layout), flow (E,4,H,W).  Returns (net,
+        delta f32, weight f32), NCHW."""
+        c = F.relu(self.corr_encoder_0.run(corr, dtype, self._corr_weight(corr.shape[1])))
         c = F.relu(self.corr_encoder_2.run(c, dtype))
         f = F.relu(self.flow_encoder_0.run(flow, dtype))
         f = F.relu(self.flow_encoder_2.run(f, dtype))
@@ -173,6 +189,19 @@ class UpdateModule(nn.Module):
         delta = gradient_clip(self.delta_2.run(dw[:, :128], dtype))
         weight = _sigmoid(gradient_clip(self.weight_2.run(dw[:, 128:], dtype)))
         return net, delta.float(), weight.float()
+
+    def _corr_weight(self, channels: int) -> Optional[torch.Tensor]:
+        """The first corr-encoder kernel for ``channels`` input channels:
+        None (the layer's own) for 196, the raw-layout scatter for 1024."""
+        enc = self.corr_encoder_0
+        if channels == enc.in_channels:
+            return None
+        if channels != RAW_CHANNELS:
+            raise ValueError(f"corr input has {channels} channels: expected "
+                             f"{enc.in_channels} or the raw layout's {RAW_CHANNELS}")
+        idx = device_const(raw_corr_index().tolist(), torch.int64, enc.weight.device)
+        w = enc.weight.index_select(1, torch.clamp(idx, min=0))
+        return torch.where((idx >= 0)[None, :, None, None], w, torch.zeros_like(w))
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -223,8 +252,8 @@ class DroidNet(nn.Module):
     def update_step(self, net: torch.Tensor, inp: torch.Tensor, corr: torch.Tensor,
                     flow: Optional[torch.Tensor] = None):
         """One update: NHWC net (E,H,W,128), inp (E,H,W,128), corr
-        (E,H,W,196), flow (E,H,W,4).  Returns (net in dtype, delta f32,
-        weight f32), NHWC."""
+        (E,H,W,196) or the raw layout's (E,H,W,1024), flow (E,H,W,4).
+        Returns (net in dtype, delta f32, weight f32), NHWC."""
         if flow is None:
             flow = torch.zeros(net.shape[:3] + (4,), dtype=net.dtype, device=net.device)
         dt = self.dtype

@@ -16,6 +16,14 @@ The scale must exist before any block quantizes, so a max pass
 place of the lookup) runs first; both are hand kernels in
 ``csrc/corr_fused_xy.cu``.
 
+K1-raw ``corr_fused_xy(..., raw=True)`` replaces the ``raw=True`` branch of
+the same Pallas kernel (``corr_pallas.py:515-516``): the whole per-pixel
+32 x 32 block of tap products, every pair of levels, with the
+diagonal-level extraction skipped (:func:`raw_corr_index` maps it to the
+reference channels).  No path of either package passes ``raw=True``; its
+one consumer is the corr encoder's 1024-channel branch
+(``models/net.py``).
+
 K2 ``corr_lookup`` replaces ``_lookup_kernel`` (``corr_pallas.py:58``,
 driven by ``lookup_pallas``): the same 4-level lookup, y first, on a
 prebuilt volume.  It runs in the motion-filter gate on every frame.
@@ -29,20 +37,22 @@ them with ``nvcc`` on first use.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
-
-from typing import NamedTuple, Optional
 
 from .corr import DEFAULT_LEVELS, DEFAULT_RADIUS, _round, lookup_fused
 
 NUM_CHANNELS = DEFAULT_LEVELS * (2 * DEFAULT_RADIUS + 1) ** 2  # 196
+RAW_CHANNELS = 32 * 32  # K1-raw: the per-pixel 32 x 32 block
 K1_CHUNK = 128  # f2 positions per K1 chunk: whole rows, so W2 <= 128
 K1_BOX_C = 64  # channels per K1 TMA box (128-byte rows)
 
 # launches of each kernel; a plain integer per wrapper, reset by the caller
-LAUNCHES = {"corr_fused_xy": 0, "corr_int8_vmax": 0, "corr_fused_xy_int8": 0, "corr_lookup": 0}
+LAUNCHES = {"corr_fused_xy": 0, "corr_int8_vmax": 0, "corr_fused_xy_int8": 0,
+            "corr_fused_xy_raw": 0, "corr_lookup": 0}
 
 
 def reset_launch_counts() -> None:
@@ -170,28 +180,76 @@ def _k1_operands(name: str, f1p: torch.Tensor, f2p: torch.Tensor, coords: Option
 
 
 def corr_fused_xy(f1p: torch.Tensor, f2p: torch.Tensor, coords: torch.Tensor,
-                  H2: int, W2: int) -> torch.Tensor:
+                  H2: int, W2: int, raw: bool = False) -> torch.Tensor:
     """Fused correlation build + 4-level lookup, channels-last bf16.
 
-    Same contract as :func:`corr_fused_xy_plain`.  A CUDA input launches
-    kernel K1, within the limits of :func:`check_k1_shape`, and raises
-    beyond them; a CPU input takes the plain version.
+    Same contract as :func:`corr_fused_xy_plain`, or with ``raw=True`` as
+    :func:`corr_fused_xy_raw_plain`.  A CUDA input launches kernel K1 (or
+    K1-raw), within the limits of :func:`check_k1_shape`, and raises beyond
+    them; a CPU input takes the plain version.
     """
     if not f1p.is_cuda:
-        return corr_fused_xy_plain(f1p, f2p, coords, H2, W2)
-    f1p, f2p, coords = _k1_operands("corr_fused_xy", f1p, f2p, coords, H2, W2)
+        plain = corr_fused_xy_raw_plain if raw else corr_fused_xy_plain
+        return plain(f1p, f2p, coords, H2, W2)
+    name = "corr_fused_xy_raw" if raw else "corr_fused_xy"
+    f1p, f2p, coords = _k1_operands(name, f1p, f2p, coords, H2, W2)
     E, P, Cpad = f1p.shape
     from ..utils.cuda_build import load_kernel_library
 
     lib = load_kernel_library("corr_fused_xy")
-    out = torch.empty((E, coords.shape[1], coords.shape[2], NUM_CHANNELS),
+    out = torch.empty((E, coords.shape[1], coords.shape[2], RAW_CHANNELS if raw else NUM_CHANNELS),
                       dtype=torch.bfloat16, device=f1p.device)
-    rc = lib.corr_fused_xy_launch(
-        _ptr(f1p), _ptr(f2p), _ptr(coords), _ptr(out), E, P, H2, W2, Cpad, _stream(),
-    )
-    _raise_on(rc, "corr_fused_xy")
-    LAUNCHES["corr_fused_xy"] += 1
+    launch = lib.corr_fused_xy_raw_launch if raw else lib.corr_fused_xy_launch
+    rc = launch(_ptr(f1p), _ptr(f2p), _ptr(coords), _ptr(out), E, P, H2, W2, Cpad, _stream())
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K1-raw: the raw 32 x 32 block layout
+# ---------------------------------------------------------------------------
+
+def raw_corr_index(radius: int = DEFAULT_RADIUS, num_levels: int = DEFAULT_LEVELS) -> np.ndarray:
+    """The reference channel of each raw block position
+    (``corr_pallas.py:393-420``): position (l*R + dy) * 32 + (l*R + dx), a
+    y tap and an x tap of the same level l, holds channel l*R*R + dx*R + dy;
+    every other position (the products of two levels, and rows and columns
+    28-31) gets -1.  Returns (1024,) int32."""
+    R = 2 * radius + 1
+    idx = np.full(RAW_CHANNELS, -1, np.int32)
+    for lvl in range(num_levels):
+        for dy in range(R):
+            for dx in range(R):
+                idx[(lvl * R + dy) * 32 + (lvl * R + dx)] = lvl * R * R + dx * R + dy
+    return idx
+
+
+def corr_fused_xy_raw_plain(f1p: torch.Tensor, f2p: torch.Tensor, coords: torch.Tensor,
+                            H2: int, W2: int) -> torch.Tensor:
+    """Plain version of K1-raw: what ``corr_fused_xy_prepared(...,
+    raw=True)`` computes.  Row i = l*7 + dy of a pixel's block is a y tap
+    at level l, column j = l'*7 + dx an x tap at level l', over every pair
+    of levels: P2[h, j] = bf16(sum_w vol[h, w] * bf16(kx_j(w))) and
+    out[i, j] = bf16(sum_h bf16(ky_i(h)) * P2[h, j]); rows and columns
+    28-31 are 0.  Inputs as :func:`corr_fused_xy_plain`; returns
+    (E, H, W, 1024) bf16."""
+    E, P, C = f1p.shape
+    _, H, W, _ = coords.shape
+    R = 2 * DEFAULT_RADIUS + 1
+    LR = DEFAULT_LEVELS * R
+    dt = torch.bfloat16
+    vol = torch.bmm(f1p.float(), f2p.float().transpose(1, 2)).to(dt).float()
+    vol = vol.reshape(E, P, H2, W2)
+    flat = coords.reshape(E, P, 2).float()
+    kx = torch.cat([_round(_xy_tent(flat[..., 0], W2, lvl), dt)
+                    for lvl in range(DEFAULT_LEVELS)], dim=2)  # (E, P, 28, W2)
+    ky = torch.cat([_round(_xy_tent(flat[..., 1], H2, lvl), dt)
+                    for lvl in range(DEFAULT_LEVELS)], dim=2)  # (E, P, 28, H2)
+    p2 = _round(torch.einsum("ephw,epjw->ephj", vol, kx), dt)
+    out = torch.zeros((E, P, 32, 32), dtype=torch.float32, device=f1p.device)
+    out[:, :, :LR, :LR] = torch.einsum("epih,ephj->epij", ky, p2)
+    return out.to(dt).reshape(E, H, W, RAW_CHANNELS)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Projective camera operations: inverse projection, reprojection, flow.
 
-Port of ``dbaf_tpu/ops/projective.py`` (SE3 paths).  Poses are
+Port of ``dbaf_tpu/ops/projective.py`` (SE3 paths, and the export's
+back-projection and depth vote).  Poses are
 world->camera 7-vectors, disparities are inverse depths at 1/8 resolution
 and intrinsics are ``[fx, fy, cx, cy]`` already divided by 8.  Edge-indexed
 functions take integer index tensors ``ii, jj`` and gather from the
@@ -173,3 +174,55 @@ def frame_distance_bidirectional(poses, disps, intrinsics, ii, jj, beta: float =
     d1 = frame_distance(poses, disps, intrinsics, ii, jj, beta)
     d2 = frame_distance(poses, disps, intrinsics, jj, ii, beta)
     return 0.5 * (d1 + d2)
+
+
+def iproj_points(poses: torch.Tensor, disps: torch.Tensor, intrinsics: torch.Tensor) -> torch.Tensor:
+    """Back-project every keyframe pixel to a 3-D point for the export.
+    ``poses`` are camera->world here (the caller inverts), as for the
+    reference's ``iproj_kernel`` (droid_kernels.cu:824-895).  Returns
+    (N, H, W, 3)."""
+    X0 = iproj(disps, intrinsics.expand(disps.shape[:-2] + (4,)))
+    X1 = lie.se3_act4(poses[:, None, None, :], X0)
+    return X1[..., :3] / torch.clamp(X1[..., 3:4], min=1e-8)
+
+
+# the neighbour frames of the depth vote, as the reference's
+# depth_filter_kernel offsets them (droid_kernels.cu:740)
+_VOTE_OFFSETS = (-1, -2, -3, 3, 4, 5)
+
+
+def depth_consistency_count(poses: torch.Tensor, disps: torch.Tensor, intrinsics: torch.Tensor,
+                            ix: torch.Tensor, thresh: torch.Tensor) -> torch.Tensor:
+    """Multi-view depth-consistency votes that mask the exported points.
+
+    Every pixel of keyframe ``ix[k]`` is reprojected into the six
+    neighbours ``ix[k] + {-1, -2, -3, 3, 4, 5}`` that exist; a neighbour
+    votes where the full 2x2 bilinear window lies in the image and any of
+    its four taps agrees in inverse depth, ``|1/d_proj - 1/d_tap| <
+    thresh[k]`` (droid_kernels.cu:706-820).  Returns (K, H, W) counts in
+    the disparities' dtype."""
+    offs = device_const(_VOTE_OFFSETS, torch.int64, disps.device)
+    num = disps.shape[0]
+    neighbors = ix[:, None] + offs[None, :]
+    nvalid = (neighbors >= 0) & (neighbors < num)
+    neighbors_c = torch.clamp(neighbors, 0, num - 1)
+    K, J = neighbors.shape
+    ht, wd = disps.shape[-2:]
+    coords, _ = projective_transform(poses, disps, intrinsics, ix[:, None].expand(K, J).reshape(-1),
+                                     neighbors_c.reshape(-1), return_depth=True)
+    coords = coords.reshape(K, J, ht, wd, 3)
+    x, y, dj = coords.unbind(-1)
+    u0, v0 = torch.floor(x), torch.floor(y)
+    inb = (u0 >= 0) & (v0 >= 0) & (u0 < wd - 1) & (v0 < ht - 1)
+    u0i = torch.clamp(u0, 0, wd - 2).long()
+    v0i = torch.clamp(v0, 0, ht - 2).long()
+    nb = neighbors_c[:, :, None, None].expand_as(u0i)
+    inv_dj = 1.0 / torch.clamp(dj, min=1e-8)
+    th = thresh[:, None, None, None]
+    agree = torch.zeros(dj.shape, dtype=torch.bool, device=disps.device)
+    for dv in (0, 1):
+        for du in (0, 1):
+            d_tap = disps[nb, v0i + dv, u0i + du]
+            agree = agree | (torch.abs(inv_dj - 1.0 / torch.clamp(d_tap, min=1e-8)) < th)
+    vote = inb & agree & nvalid[:, :, None, None]
+    return vote.sum(1).to(disps.dtype)

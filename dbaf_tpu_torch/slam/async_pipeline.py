@@ -21,9 +21,16 @@ graph.MegaPolls`): rounds whose gate is not known yet run masked, their
 writes undone where it is off.  A steady-state :meth:`AsyncPipeline.track`
 makes no synchronising CUDA call but the drain's one event wait.
 
+With ``cfg.save_pkl`` the rows a rollup retires must reach the host
+archive, so the step never rolls (``host_rollup``): the host watches its
+lagged keyframe count and, once it passes ``rollup_start``, drains the
+pipeline (:meth:`AsyncPipeline.sync`), runs the synchronous flow's rollup
+with its archival and re-enters.  The drain batch is clamped so that the
+count the host sees lags the device's by no more than the buffer's
+headroom above ``rollup_start``.
+
 Scope: visual-only configurations after initialization (no IMU; the port
-refuses stereo and depth input).  Not ported: the ``save_pkl`` host-rollup
-route (``DepthVideo`` refuses ``save_pkl``) and the monitor feed.
+refuses stereo and depth input).  Not ported: the monitor feed.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ import numpy as np
 import torch
 
 from ..utils.config import DBAFusionConfig
-from ..utils.device import FlagPoll, PendingRead, rows_at, set_row, to_host, upload
+from ..utils.device import FlagPoll, PendingRead, host_wait, rows_at, set_row, to_host, upload
 from .coupled_async import BAD_CAP
 from .edge_select import cull_transition, edge_transition, roll_transition
 from .graph import MegaPolls, UpdateStep, _rebuild_edges, _rebuild_inactive
@@ -50,14 +57,15 @@ _ADM, _CULL, _ROLL, _TRAJ = 0, 2, 4, slice(5, 12)
 
 def visual_step(ustep: UpdateStep, cfg: DBAFusionConfig, video: DepthVideo, edges, t_inac,
                 w_inac, st: dict, image: torch.Tensor, feat_fn, ctx_fn, aux: dict,
-                polls: MegaPolls):
+                polls: MegaPolls, host_rollup: bool = False):
     """One frame with no host read (``make_step_kernel``'s step).
 
     The video rows, edge stores and inactive store are updated in place;
     ``st`` is the carried state (device tensors, see :data:`_CARRY`),
-    ``image`` the (1, H, W, 3) uint8 frame on the device.  Returns (new
-    carried state, pack, aux, rounds run masked as (rounds_a, rounds_b),
-    masked rounds whose gate was off, a 0-d device count)."""
+    ``image`` the (1, H, W, 3) uint8 frame on the device.  With
+    ``host_rollup`` the step never rolls (the host does, between steps).
+    Returns (new carried state, pack, aux, rounds run masked as (rounds_a,
+    rounds_b), masked rounds whose gate was off, a 0-d device count)."""
     gc, fc = cfg.graph, cfg.frontend
     B = video.poses.shape[0]
     dev = video.poses.device
@@ -70,10 +78,11 @@ def visual_step(ustep: UpdateStep, cfg: DBAFusionConfig, video: DepthVideo, edge
     zero_i = torch.zeros(I, dtype=torch.int64, device=dev)
 
     # ---- 0. the cull decided by the previous step (frontend.resolve_pending:
-    # rm_keyframe, seed_next, fresh proximity distances on the shifted state)
+    # rm_keyframe, seed_next, fresh proximity distances on the shifted state);
+    # slot-keyed aux leaves (a test oracle's id_map) move with the row
     pc = st["prev_cull"]
     ixc = torch.clamp(st["t1"] - 2, 0, B - 1)
-    video.move_rows_device(ixc, torch.clamp(ixc + 1, 0, B - 1), pc)
+    aux = video.move_rows_device(ixc, torch.clamp(ixc + 1, 0, B - 1), pc, aux)
     t1 = st["t1"] - pc.long()
     slot = torch.clamp(t1, 0, B - 1)
     prev = torch.clamp(slot - 1, 0, B - 1)
@@ -131,24 +140,27 @@ def visual_step(ustep: UpdateStep, cfg: DBAFusionConfig, video: DepthVideo, edge
     # ---- 4. rollup (dbaf_frontend.py:253-257), in the synchronous flow's
     # place: after the edge selection, before the rounds
     r = fc.rollup_shift
-    do_roll = t1 > fc.rollup_start
-    shift = torch.where(do_roll, r, 0)
-    # slot-keyed aux leaves (a test oracle's id_map) roll with the video, as
-    # the synchronous flow's _roll_aux rolls them
-    aux = video.rollup_device(shift, aux)
-    rt = roll_transition(ii_i2, jj_i2, i_valid2, st["bad_ii"], st["bad_jj"], st["bad_valid"], r)
-    ii_i2, jj_i2, i_valid2, bad_ii, bad_jj, bad_valid = (
-        torch.where(do_roll, rt[k], old) for k, old in (
-            ("ii_i", ii_i2), ("jj_i", jj_i2), ("i_valid", i_valid2), ("bad_ii", st["bad_ii"]),
-            ("bad_jj", st["bad_jj"]), ("bad_valid", st["bad_valid"])))
-    t_new, w_new = _rebuild_inactive(t_inac, w_inac,
-                                     torch.where(do_roll, rt["inact_perm_old"], ar(I)),
-                                     no_act_i, zero_i, edges.target, edges.weight)
-    t_inac.copy_(t_new)
-    w_inac.copy_(w_new)
-    # active edges only re-index: the visual stale rule lets negative
-    # indices survive, and the rounds clip them (graph.shift_indices)
-    ii2, jj2, t1 = ii2 - shift, jj2 - shift, t1 - shift
+    do_roll = torch.zeros((), dtype=torch.bool, device=dev)
+    bad_ii, bad_jj, bad_valid = st["bad_ii"], st["bad_jj"], st["bad_valid"]
+    if not host_rollup:
+        do_roll = t1 > fc.rollup_start
+        shift = torch.where(do_roll, r, 0)
+        # slot-keyed aux leaves (a test oracle's id_map) roll with the video,
+        # as the synchronous flow's _roll_aux rolls them
+        aux = video.rollup_device(shift, aux)
+        rt = roll_transition(ii_i2, jj_i2, i_valid2, bad_ii, bad_jj, bad_valid, r)
+        ii_i2, jj_i2, i_valid2, bad_ii, bad_jj, bad_valid = (
+            torch.where(do_roll, rt[k], old) for k, old in (
+                ("ii_i", ii_i2), ("jj_i", jj_i2), ("i_valid", i_valid2), ("bad_ii", bad_ii),
+                ("bad_jj", bad_jj), ("bad_valid", bad_valid)))
+        t_new, w_new = _rebuild_inactive(t_inac, w_inac,
+                                         torch.where(do_roll, rt["inact_perm_old"], ar(I)),
+                                         no_act_i, zero_i, edges.target, edges.weight)
+        t_inac.copy_(t_new)
+        w_inac.copy_(w_new)
+        # active edges only re-index: the visual stale rule lets negative
+        # indices survive, and the rounds clip them (graph.shift_indices)
+        ii2, jj2, t1 = ii2 - shift, jj2 - shift, t1 - shift
 
     # ---- 5. the fused keyframe step, every round gated on the admission
     big = 10 ** 6
@@ -182,7 +194,15 @@ class AsyncPipeline:
     def __init__(self, system):
         self.sys = system
         self.cfg = system.cfg
-        self.drain_batch = max(1, int(self.cfg.frontend.async_drain_batch))
+        fc = self.cfg.frontend
+        # save_pkl: the host rolls (and archives) between steps, watching its
+        # lagged count, which trails the device's by up to LAG + drain_batch
+        # frames: keep that inside the buffer's headroom above rollup_start
+        self.host_rollup = self.cfg.save_pkl
+        batch = int(fc.async_drain_batch)
+        if self.host_rollup:
+            batch = min(batch, self.cfg.buffer - fc.rollup_start - LAG - 3)
+        self.drain_batch = max(1, batch)
         self.state = None
         self.pending: deque = deque()  # PendingRead(pack, tstamp, thumbnail), oldest first
         self.t1_mirror = 0
@@ -190,6 +210,7 @@ class AsyncPipeline:
         self.polls = MegaPolls(FlagPoll(), FlagPoll())
         self.steps = 0          # lifetime frames through the pipeline
         self.rollups = 0        # lifetime rollups inside the pipeline
+        self.host_rollups = 0   # lifetime rollups on the host (save_pkl): drain, roll, re-enter
         self.culls = 0          # lifetime culls inside the pipeline
         self.drains = 0         # lifetime drains (one blocking wait each)
         self.masked_rounds = 0  # rounds run before their gate was known
@@ -248,7 +269,7 @@ class AsyncPipeline:
         img = upload(image, v.device)[None]
         state, pack, aux, masked, wasted = visual_step(
             g._step, self.cfg, v, g.edges, g.t_inac, g.w_inac, self.state, img, flt.feat,
-            flt.ctx, g.aux, self.polls)
+            flt.ctx, g.aux, self.polls, self.host_rollup)
         self.state = state
         g.aux = aux
         self._wasted += wasted
@@ -257,6 +278,14 @@ class AsyncPipeline:
         self.pending.append(PendingRead(pack, tstamp, image[::8, ::8].copy()))
         if len(self.pending) >= LAG + self.drain_batch:
             self._drain(self.drain_batch)
+        if self.host_rollup and self.t1_mirror > self.cfg.frontend.rollup_start:
+            # the synchronous flow's rollup with its archival, between steps:
+            # a deliberate drain, so its reads are waits that belong here
+            with host_wait():
+                self.sync()
+                sysm.frontend._rollup()
+                self.host_rollups += 1
+                self.activate()
 
     def _drain(self, k: int):
         """Apply the ``k`` oldest packs, waiting once: on the newest of
@@ -308,6 +337,7 @@ class AsyncPipeline:
         """Counters over the pipeline's life (one host read for the wasted
         rounds)."""
         return dict(steps=self.steps, culls=self.culls, rollups=self.rollups,
+                    host_rollups=self.host_rollups,
                     masked_rounds=self.masked_rounds,
                     wasted_rounds=0 if self._wasted is None else int(to_host(self._wasted)))
 
@@ -340,9 +370,11 @@ class AsyncPipeline:
         if h["prev_cull"][0]:
             # the last step's cull never reached the device (the next step
             # would have applied it): finish it here, as resolve_pending
-            # does.  The drain already shifted the timestamps; rm_keyframe's
-            # copy of the same host row changes nothing.
+            # does, slot-keyed aux leaves moving with the row as the step
+            # moves them.  The drain already shifted the timestamps;
+            # rm_keyframe's copy of the same host row changes nothing.
             g.rm_keyframe(fe.t1 - 2)
+            g.aux = v.rm_keyframe_aux(g.aux, fe.t1 - 2)
             fe.t1 -= 1
             v.seed_next(fe.t1)
             g._host_pack_t1 = -(10 ** 6)  # the proximity distances predate the shift

@@ -243,8 +243,10 @@ class MultiSensorBA:
             return False
         fgf = dg.pack_state_flat(self, self.last_t0, self.last_t1, NW)
 
-        # bookkeeping identical to the host path (the reference also archives
-        # the marginalized keyframes for save_pkl, which the port refuses)
+        # bookkeeping identical to the host path: the marginalized keyframes
+        # go to the save_pkl archive
+        if len(marg_ii) > 0:
+            self.video.archive(self.video.archive_mark, t0)
         self.prior_factor_map.clear()
 
         if self.cur_target is not None:
@@ -283,6 +285,12 @@ class MultiSensorBA:
             marg_t1 = int(marg_jj.max()) + 1
             for i in range(self.last_t0, t0):
                 marg_paras.append(X(i))
+            # every row below the new origin not archived yet: from the
+            # archive mark, which is last_t0 unless an advance without
+            # marginalized edges, or the asynchronous pipeline's device
+            # marginalization, left rows below it (the JAX package archives
+            # from last_t0, and those rows then miss the archive)
+            self.video.archive(self.video.archive_mark, t0)
             sel = np.nonzero(marg_idx)[0]
             tgt = self._gather_rows(self.cur_target, sel)
             wgt = self._gather_rows(self.cur_weight, sel)

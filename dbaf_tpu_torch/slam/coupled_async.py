@@ -39,9 +39,14 @@ decision poll their flags without waiting
 while the answer is not in.  A steady-state :meth:`CoupledAsync.step` makes
 no synchronising CUDA call besides the drain's event wait.
 
+With ``cfg.save_pkl`` the step also returns the rows a rollup retires,
+captured before the roll (``roll_out``: pose and disparity), copied to
+pinned memory ahead of the pack; the host replays the roll with their
+timestamps and thumbnails and archives them at the next drain, whose wait
+on the pack covers the copy, so archival adds no read and no drain.
+
 Scope: the post-VI-init steady state; reinitialization drains back to the
-synchronous flow.  Not ported: the file-dump monitor feed and the save_pkl
-``roll_out`` archival (``DepthVideo`` refuses ``save_pkl``).
+synchronous flow.  Not ported: the file-dump monitor feed.
 """
 
 from __future__ import annotations
@@ -251,9 +256,11 @@ def coupled_step(ustep: UpdateStep, cfg: DBAFusionConfig, NW: int, video: DepthV
     ``st`` is the carried index/solve state (device tensors, see
     ``_CARRY``); ``pgf`` the uploaded blob [packed factor graph | h0 | t1].
     Returns (new carried state, pack, trajectory 7-vec, aux, device
-    counters, rounds run masked), with the pack laid out as the fused step's
-    host pack plus the window origin: [cull, d, prox..., hyst(7), window
-    state(NW*21), pose(12), t0_c]."""
+    counters, rounds run masked, roll_out), with the pack laid out as the
+    fused step's host pack plus the window origin: [cull, d, prox...,
+    hyst(7), window state(NW*21), pose(12), t0_c]; ``roll_out`` (with
+    ``cfg.save_pkl``, else None) holds rows [0, rollup_shift) as [pose |
+    disparity] before a rollup could move them."""
     gc, fc = cfg.graph, cfg.frontend
     P = cfg.ba.window
     wf = gc.frontend_window
@@ -361,6 +368,10 @@ def coupled_step(ustep: UpdateStep, cfg: DBAFusionConfig, NW: int, video: DepthV
     # decision right after its drain.
     do_roll = t1 > fc.rollup_start
     shift = torch.where(do_roll, fc.rollup_shift, 0)
+    roll_out = None
+    if cfg.save_pkl:  # the rows a roll retires, for the host archive
+        r = fc.rollup_shift
+        roll_out = torch.cat([video.poses[:r], video.disps[:r].reshape(r, -1)], 1)
     aux = video.rollup_device(shift, aux)
     # inactive and bad stores: drop negatives, compact, re-index; active
     # edges stay nonnegative by rollup_start - rollup_shift >= active_window
@@ -451,7 +462,7 @@ def coupled_step(ustep: UpdateStep, cfg: DBAFusionConfig, NW: int, video: DepthV
     # [realized LM iterations, LM passes, rounds undone by this cull]
     stats = torch.stack([res.lm_stats.sum(), torch.count_nonzero(res.lm_stats),
                          cull.long() * res.masked])
-    return state, pack, traj7, aux, stats, res.masked
+    return state, pack, traj7, aux, stats, res.masked, roll_out
 
 
 _CARRY = (
@@ -478,6 +489,9 @@ class CoupledAsync:
         self.polls = RoundPolls(FlagPoll(), FlagPoll())
         self.masked_rounds = 0   # rounds_b run before the cull decision was in
         self._stats = None       # device [realized LM iterations, LM passes, wasted rounds]
+        # save_pkl: rows retired by in-step rollups, awaiting the host archive:
+        # (tstamps, thumbnails, PendingRead of roll_out, archive_mark at the roll)
+        self._pending_archive = []
 
     # ------------------------------------------------------------------
     def can_activate(self) -> bool:
@@ -579,9 +593,11 @@ class CoupledAsync:
         if pgf is None:
             raise RuntimeError("coupled async: the factor pack exceeds its capacity")
         blob = upload(np.concatenate([pgf, np.asarray([h0, t1], np.float32)]), v.device)
-        state, pack, traj7, aux, stats, masked = coupled_step(
+        state, pack, traj7, aux, stats, masked, roll_out = coupled_step(
             g._step, cfg, NW, v, g.edges, g.t_inac, g.w_inac, self.state, g.aux, blob,
             coupled._Tbc12_dev(), coupled._A_block(), fe.iters1, fe.iters2, self.polls)
+        # enqueued ahead of the pack's copy, so the drain's wait covers it
+        retired = PendingRead(roll_out) if roll_out is not None else None
         self.state = state
         g.aux = aux
         self._stats += stats
@@ -595,7 +611,7 @@ class CoupledAsync:
         # replay the step's rollup decision (post-cull count > rollup_start;
         # fe.t1 reflects the drained cull) before the next pack is built
         if fe.t1 > cfg.frontend.rollup_start:
-            self._host_roll(cfg.frontend.rollup_shift)
+            self._host_roll(cfg.frontend.rollup_shift, retired)
         # the keyframe count the carried state is numbered at
         self._last_t1 = fe.t1
         # the pack stays on the device, laid out as the fused step's, so a
@@ -616,9 +632,21 @@ class CoupledAsync:
         return dict(lm_iters=lm, lm_passes=passes, lm_launched=self.polls.lm.posted,
                     masked_rounds=self.masked_rounds, wasted_rounds=wasted)
 
+    def _resolve_archives(self, wait: bool):
+        """Archive the rows of the replayed rollups (``_host_roll``), each
+        past the archive mark it had at its roll.  Their copies landed
+        before the pack a drain waited for; ``wait`` (a sync, whose last
+        roll's pack is never drained) waits for each."""
+        v = self.fe.video
+        while self._pending_archive:
+            tstamps, images, retired, mark0 = self._pending_archive.pop(0)
+            rows = retired.read() if wait else retired.landed()
+            v.append_saved(tstamps[mark0:], rows[mark0:], images[mark0:])
+
     def _drain_one(self):
         p = self.pending.pop(0)
         pack = p.read()
+        self._resolve_archives(wait=False)
         self._refresh_mirrors_from_pack(pack, *p.meta)
         culled = bool(pack[0] > 0.5)
         fe = self.fe
@@ -670,12 +698,18 @@ class CoupledAsync:
             ms.vs[i] = prop.vel
             ms.bs[i] = ms.bs[i - 1].copy()
 
-    def _host_roll(self, roll: int):
+    def _host_roll(self, roll: int, retired: Optional[PendingRead]):
         """Mirror the step's rollup into the host-only state: timestamps,
         thumbnails, the MultiSensorState window and the frontend counters
-        (the device rows, stores and aux were rolled by the step)."""
+        (the device rows, stores and aux were rolled by the step).  With
+        save_pkl the retired rows' timestamps and thumbnails are kept with
+        their device half (``retired``) for the next drain's archive."""
         fe = self.fe
         v = fe.video
+        if retired is not None:
+            self._pending_archive.append((v.tstamp[:roll].copy(), v.images_small[:roll].copy(),
+                                          retired, v.archive_mark))
+            v.archive_mark = max(v.archive_mark - roll, 0)
         v.tstamp = np.roll(v.tstamp, -roll)
         v.images_small = np.roll(v.images_small, -roll, axis=0)
         fe.coupled.state.rollup(roll)
@@ -718,6 +752,7 @@ class CoupledAsync:
         # the one pending pack is the last step's: its cull is the carried
         # prev_cull, finished below
         self.pending.clear()
+        self._resolve_archives(wait=True)
         names = ("prev_cull", "e_valid", "i_valid", "ii", "jj", "age", "ii_i", "jj_i", "o_prev",
                  "cur_mask", "cur_ii", "cur_jj")
         flat = to_host(torch.cat([st[k].reshape(-1).to(torch.int64) for k in names]))

@@ -378,7 +378,11 @@ class Frontend:
         self.keyframe_steps += 1
         self.update_rounds += self.iters1 + (0 if culled else self.iters2)
         if culled:
+            ix = self.t1 - 2
             self._cull()
+            # slot-keyed aux leaves move with the culled row, as the
+            # asynchronous visual step moves them
+            g.aux = v.rm_keyframe_aux(g.aux, ix)
             v.seed_next(self.t1)
 
     # ------------------------------------------------------------------

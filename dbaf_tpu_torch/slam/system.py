@@ -39,9 +39,12 @@ class DBAFusion:
     :func:`~dbaf_tpu_torch.ops.corr_cuda.check_k1_shape`); a wider
     ``cfg.image_size`` raises ``ValueError`` here.
     ``dtype`` is the network's compute type.  With
-    ``cfg.frontend.async_pipeline`` (and no ``monitor_dir``), frames of a
-    visual-only run go through the asynchronous pipeline from the first
-    frame after initialization on.
+    ``cfg.frontend.async_pipeline``, frames of a visual-only run go through
+    the asynchronous pipeline from the first frame after initialization on.
+    With ``cfg.save_pkl`` the keyframes that leave the buffer are archived
+    for the dense export (:func:`dbaf_tpu_torch.eval.export.save_reconstruction`).
+    ``cfg.frontend.monitor_dir`` (the per-keyframe panel dump) is not ported
+    and raises ``NotImplementedError``.
     """
 
     def __init__(self, cfg: DBAFusionConfig, params: Optional[Mapping[str, torch.Tensor]] = None,
@@ -49,6 +52,10 @@ class DBAFusion:
                  feat_fn: Optional[Callable] = None, ctx_fn: Optional[Callable] = None,
                  update_fn: Optional[Callable] = None, dtype: torch.dtype = torch.bfloat16):
         self.cfg = cfg
+        if cfg.frontend.monitor_dir:
+            raise NotImplementedError(
+                "dbaf_tpu_torch: cfg.frontend.monitor_dir (the keyframe monitor's panel dump) "
+                "is not ported yet")
         if torch.device("cuda" if device is None else device).type == "cuda":
             # K1 runs in every update round: refuse a feature grid it does
             # not take here rather than in the first round (fnet's 128 channels)
@@ -74,8 +81,7 @@ class DBAFusion:
         self.filter = MotionFilter(self.video, cfg, feat_fn, ctx_fn, update_fn)
         self.frontend = Frontend(self.video, self.graph, cfg)
         self._async = None
-        if cfg.frontend.async_pipeline and not cfg.frontend.monitor_dir:
-            # the monitor needs per-keyframe host state: it stays synchronous
+        if cfg.frontend.async_pipeline:
             from .async_pipeline import AsyncPipeline
 
             self._async = AsyncPipeline(self)

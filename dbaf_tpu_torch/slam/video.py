@@ -7,13 +7,16 @@ visual path's rows: ring buffers, ``append``, ``rm_keyframe``, ``rollup``,
 ``distance``, ``seed_next`` and ``normalize``, and the device-index row
 moves of the asynchronous steps (``move_rows_device``, ``rollup_device``);
 the initializations of the coupled path rewrite poses and rescale
-disparities in place.  Depth-sensor rows, the
-stereo feature buffer and the ``.pkl`` archive come with later slices.
+disparities in place.  With ``cfg.save_pkl`` the rows that leave the
+buffer are archived on the host (``saved_*``, the dense export's input):
+at a rollup, and at the coupled path's window advance (``archive_mark``
+keeps the two from archiving a row twice).  Depth-sensor rows and the
+stereo feature buffer come with later slices.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -53,10 +56,10 @@ class DepthVideo:
     _SHIFT_BUFFERS = ("poses", "disps", "damping", "fmaps", "nets", "inps")
 
     def __init__(self, cfg: DBAFusionConfig, device: Optional[Union[str, torch.device]] = None):
-        if cfg.stereo or cfg.upsample or cfg.save_pkl:
+        if cfg.stereo or cfg.upsample:
             raise NotImplementedError(
-                "dbaf_tpu_torch: stereo, upsample and save_pkl are not ported yet "
-                "(the port's first slice is the monocular visual path)")
+                "dbaf_tpu_torch: stereo and upsample are not ported yet "
+                "(the port runs the monocular path)")
         self.cfg = cfg
         self.device = device = resolve_device(device)
         ht, wd = cfg.image_size
@@ -76,6 +79,13 @@ class DepthVideo:
         self.intrinsics = torch.zeros((4,), dtype=torch.float32, **kw)  # at 1/8 scale
         self.images_small = np.zeros((B, h8, w8, 3), dtype=np.uint8)
         self.imu_enabled = False
+        # host archive of the keyframes that left the buffer (save_pkl);
+        # live rows [0, archive_mark) are in it already
+        self.saved_tstamps: List[float] = []
+        self.saved_poses: List[np.ndarray] = []
+        self.saved_disps: List[np.ndarray] = []
+        self.saved_images: List[np.ndarray] = []
+        self.archive_mark = 0
 
     # ------------------------------------------------------------------
     def append(self, tstamp: float, image_small: Optional[np.ndarray], pose: Optional[torch.Tensor],
@@ -129,14 +139,55 @@ class DepthVideo:
         self.copy_row(ix, ix + 1)
         self.counter -= 1
 
+    def archive(self, lo: int, hi: Optional[int] = None):
+        """With ``cfg.save_pkl``, append rows [lo, hi) (row ``lo`` alone by
+        default) to the save buffers, their poses and disparities in one
+        device read (depth_video.py:336-343)."""
+        hi = lo + 1 if hi is None else hi
+        if not self.cfg.save_pkl or hi <= lo:
+            return
+        n = hi - lo
+        rows = to_host(torch.cat([self.poses[lo:hi], self.disps[lo:hi].reshape(n, -1)], 1))
+        self.append_saved(self.tstamp[lo:hi], rows, self.images_small[lo:hi])
+        self.archive_mark = max(self.archive_mark, hi)
+
+    def append_saved(self, tstamps, rows: np.ndarray, images) -> None:
+        """Append archived rows: ``rows`` (n, 7 + H8*W8) as [pose | disparity]."""
+        for t, r, im in zip(tstamps, rows, images):
+            self.saved_tstamps.append(float(t))
+            self.saved_poses.append(r[:7].copy())
+            self.saved_disps.append(r[7:].reshape(self.h8, self.w8).copy())
+            self.saved_images.append(np.array(im, copy=True))
+
+    def export_rows(self, n_live: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """The dense export's keyframes in order: the archive, then the live
+        rows [archive_mark, n_live) (one device read).  Returns (tstamps (N,),
+        poses (N, 7), disparities (N, H8, W8), thumbnails (N, H8, W8, 3))."""
+        lo = min(self.archive_mark, n_live)
+        n = n_live - lo
+        live = to_host(torch.cat([self.poses[lo:n_live],
+                                  self.disps[lo:n_live].reshape(n, -1)], 1)).reshape(n, -1)
+        H8, W8 = self.h8, self.w8
+        stamps = np.asarray(self.saved_tstamps + list(self.tstamp[lo:n_live]), np.float64)
+        poses = np.concatenate([np.asarray(self.saved_poses, np.float32).reshape(-1, 7),
+                                live[:, :7]])
+        disps = np.concatenate([np.asarray(self.saved_disps, np.float32).reshape(-1, H8, W8),
+                                live[:, 7:].reshape(n, H8, W8)])
+        images = np.concatenate([np.asarray(self.saved_images, np.uint8).reshape(-1, H8, W8, 3),
+                                 self.images_small[lo:n_live]])
+        return stamps, poses, disps, images
+
     def rollup(self, shift: int):
-        """Shift the whole buffer down by ``shift`` slots (dbaf_frontend.py:89-151)."""
+        """Shift the whole buffer down by ``shift`` slots (dbaf_frontend.py:89-151),
+        archiving the rows it retires that are not archived yet."""
+        self.archive(self.archive_mark, shift)
         for name in self._SHIFT_BUFFERS:
             buf = getattr(self, name)
             buf.copy_(torch.roll(buf, -shift, dims=0))
         self.tstamp = np.roll(self.tstamp, -shift)
         self.images_small = np.roll(self.images_small, -shift, axis=0)
         self.counter -= shift
+        self.archive_mark = max(self.archive_mark - shift, 0)
 
     def _moved_aux(self, aux: Optional[dict], move) -> dict:
         """``aux`` with ``move`` applied to copies of its slot-keyed leaves."""
@@ -146,6 +197,13 @@ class DepthVideo:
                 out[k] = a.clone()
                 move(out[k])
         return out
+
+    def rm_keyframe_aux(self, aux: Optional[dict], ix: int) -> dict:
+        """``aux`` with :meth:`rm_keyframe`'s row move (ix + 1 -> ix) applied
+        to copies of its slot-keyed leaves."""
+        def move(a):
+            a[ix] = a[ix + 1]
+        return self._moved_aux(aux, move)
 
     def move_rows_device(self, dst: torch.Tensor, src: torch.Tensor, on: torch.Tensor,
                          aux: Optional[dict] = None) -> dict:

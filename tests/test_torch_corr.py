@@ -19,6 +19,12 @@ Tolerances:
   lookup fails that check (0.38 of the outputs apart); against
   ``lookup_fused`` 2% of ``max|lookup_fused|``, the JAX test's int8 bound
   (test_corr.py:141-148);
+* K1-raw vs ``corr_fused_xy_pallas(..., raw=True)``: all 1024 positions
+  of each pixel's block within one bf16 ulp of the largest output
+  (``2^-7 * max|out|``, the K1 bound); rows and columns 28-31 exactly 0;
+  its diagonal blocks gathered by ``raw_corr_index`` exactly equal to the
+  196-channel plain output (the same arithmetic in the same order), as
+  ``test_corr.py:156-168`` holds the Pallas kernel's;
 * K2 vs ``lookup_pallas``: f32 volumes ``atol 1e-4`` (the JAX test's bound);
   bf16 volumes ``atol 1e-2 * max|out|``: both sides round the tents and the
   y-contracted intermediate to bf16 (corr_pallas.py:66-67,75), so one
@@ -174,6 +180,49 @@ def test_k1_int8_plain_matches_pallas_int8(tile, group):
     bf16 = tk.corr_fused_xy(f1p, f2p, torch.tensor(co), H, W)
     control = tk.int8_agreement(bf16, torch.tensor(pal), vmax, tile)
     assert not control.ok and control.off_share > 100 * tk.INT8_OFF_SHARE, control
+
+
+def test_raw_corr_index_matches_the_jax_index():
+    from dbaf_tpu.ops.corr_pallas import raw_corr_index
+
+    np.testing.assert_array_equal(tk.raw_corr_index(), np.asarray(raw_corr_index()))
+    assert tk.raw_corr_index().dtype == np.int32
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 32, 64), (2, 10, 12, 32)],
+                         ids=["tiled", "ragged"])
+def test_k1_raw_plain_matches_pallas_raw(shape):
+    """The raw layout's plain version against the Pallas kernel's
+    ``raw=True`` branch in interpret mode at test_corr.py's shape and the
+    ragged one of the K1 test; its gather equals the 196-channel plain
+    output exactly."""
+    E, H, W, C = shape
+    f1, f2, co = _feats(12, E, H, W, C)
+    j1, j2 = jnp.asarray(f1, jnp.bfloat16), jnp.asarray(f2, jnp.bfloat16)
+    f1p, f2p = tk.prepare_corr_fmaps(torch.tensor(f1).bfloat16(), torch.tensor(f2).bfloat16())
+    tk.reset_launch_counts()
+    out = tk.corr_fused_xy(f1p, f2p, torch.tensor(co), H, W, raw=True)
+    assert out.shape == (E, H, W, 1024) and out.dtype == torch.bfloat16
+    assert all(n == 0 for n in tk.LAUNCHES.values()), tk.LAUNCHES
+    out = out.float().numpy()
+    pal = np.asarray(corr_fused_xy_pallas(j1, j2, jnp.asarray(co), tile=_pallas_tile(H * W),
+                                          group=8, interpret=True, raw=True)).astype(np.float32)
+    assert pal.shape == out.shape
+    np.testing.assert_allclose(out, pal, atol=2 ** -7 * np.abs(pal).max(), rtol=0)
+    block = out.reshape(E, H, W, 32, 32)
+    assert not block[..., 28:, :].any() and not block[..., :, 28:].any()
+    assert np.abs(block[..., :7, 7:14]).max() > 0  # a cross-level block holds products
+    idx = tk.raw_corr_index()
+    pos = np.full(idx.max() + 1, -1, np.int64)
+    pos[idx[idx >= 0]] = np.where(idx >= 0)[0]
+    k1 = tk.corr_fused_xy_plain(f1p, f2p, torch.tensor(co), H, W).float().numpy()
+    np.testing.assert_array_equal(out[..., pos], k1)
+
+
+def _pallas_tile(P):
+    """The Pallas tile of test_k1_plain_matches_pallas_and_lookup_fused:
+    128, or the whole grid where it holds no multiple of 128."""
+    return 128 if P % 128 == 0 else P
 
 
 @pytest.mark.parametrize("h8,w8,group,tile", [

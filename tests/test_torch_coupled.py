@@ -22,7 +22,8 @@ threads.  Against JAX the port measured 1.44e-2 m with one thread, as the
 tests here run it (6e-3 m at 2 to 8 threads), span 2.3 m.  The JAX test's
 own accuracy asserts (SE3-aligned ATE under 8% of the span, every |bias|
 under 0.2, plane disparity within 0.8-1.25 of truth) must hold on the port,
-and on its host f64 solver (``device_solver=False``) too.
+and on its host f64 solver (``device_solver=False``) too; that case, which
+needs no JAX run, is in ``test_torch_coupled_host_solver.py``.
 """
 
 import types
@@ -192,12 +193,6 @@ def test_coupled_e2e_matches_jax(scene, jax_run):
     np.testing.assert_allclose(got["est"], ref["est"], atol=3e-2)
     np.testing.assert_allclose(got["bs"], ref["bs"], atol=1e-4)
     _accuracy_asserts(ref, scene[3])
-    _accuracy_asserts(got, scene[3])
-
-
-def test_coupled_e2e_host_solver(scene):
-    got = _port_run(scene, device_solver=False)
-    assert got["megas"] == 0  # the host f64 path never takes the fused step
     _accuracy_asserts(got, scene[3])
 
 

@@ -14,6 +14,9 @@ rounding of a quantized entry only near a half step), each within one int8
 quantum of its tile's scale per tap plus a bf16 ulp of P2 and of the
 output, and K1 (bf16, no quantization) on the same inputs must fail it; its
 max pass ``rtol 1e-4`` (f32 sums of bf16 products in another order);
+K1-raw one bf16 ulp of its largest output, ``2^-7 * max|out|`` (the same
+rounding points as its plain version, f32 sums in another order), rows and
+columns 28-31 exactly 0;
 K2 ``atol 1e-5`` for f32 and bf16 volumes (the kernel rounds tents and the
 y-contracted intermediate where the plain version does, and the two differ
 only in the order of f32 sums; a skipped bf16 rounding would show at about
@@ -123,6 +126,53 @@ def test_corr_fused_xy_int8_matches_plain(dev, case):
         control = cc.int8_agreement(cc.corr_fused_xy(f1p, f2p, coords, H, W), want, vmax_ref,
                                     tile)
         assert not control.ok, control
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (48, 48, 64, 128, "noise"), (3, 10, 13, 128, "noise"), (2, 37, 45, 40, "noise"),
+    (2, 40, 112, 128, "noise"), (2, 48, 64, 128, "off_image"), (2, 37, 45, 128, "nan_row"),
+], ids=["e48", "ragged", "ragged_channels", "one_row_chunks", "off_image", "nan_row"])
+def test_corr_fused_xy_raw_matches_plain(dev, case):
+    """K1-raw against its plain version at the main shape, ragged pixel
+    counts and widths (P = 130 and 1665 are no multiples of 64, W2 = 13
+    and 45 no multiples of 8), one row per chunk; off the image exactly 0,
+    a NaN coordinate row 0 there.  Its diagonal blocks gathered by
+    raw_corr_index equal K1's output on the same inputs, up to the same
+    one-ulp bound (the two kernels sum in different orders)."""
+    from dbaf_tpu_torch.ops import corr_cuda as cc
+
+    E, H, W, C, kind = case
+    f1, f2, coords = _inputs(dev, E, H, W, C, 5)
+    if kind == "off_image":
+        coords = coords + torch.tensor([2.0 * W + 40.0, -2.0 * H - 40.0], device=dev)
+    if kind == "nan_row":
+        coords[:, H // 2] = float("nan")
+    f1p, f2p = cc.prepare_corr_fmaps(f1, f2)
+    before = cc.LAUNCHES["corr_fused_xy_raw"]
+    got = cc.corr_fused_xy(f1p, f2p, coords, H, W, raw=True)
+    torch.cuda.synchronize()
+    assert cc.LAUNCHES["corr_fused_xy_raw"] == before + 1
+    want = cc.corr_fused_xy_raw_plain(f1p, f2p, coords, H, W)
+    assert got.shape == want.shape == (E, H, W, 1024) and got.dtype == torch.bfloat16
+    block = got.reshape(E, H, W, 32, 32)
+    assert torch.count_nonzero(block[..., 28:, :]) == 0
+    assert torch.count_nonzero(block[..., :, 28:]) == 0
+    k1 = cc.corr_fused_xy(f1p, f2p, coords, H, W)
+    if kind == "off_image":
+        assert torch.count_nonzero(got) == 0 and torch.count_nonzero(want) == 0
+    if kind == "nan_row":
+        assert torch.count_nonzero(got[:, H // 2]) == 0
+        assert torch.isfinite(got).all()
+        keep = torch.arange(H, device=dev) != H // 2
+        got, want, k1 = got[:, keep], want[:, keep], k1[:, keep]
+    tol = 2.0 ** -7 * float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    idx = torch.as_tensor(cc.raw_corr_index(), device=dev).long()
+    pos = torch.empty(196, dtype=torch.long, device=dev)
+    live = torch.nonzero(idx >= 0)[:, 0]
+    pos[idx[live]] = live
+    torch.testing.assert_close(got[..., pos].float(), k1.float(), atol=tol, rtol=0)
 
 
 @pytest.mark.cuda

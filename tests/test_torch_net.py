@@ -101,3 +101,46 @@ def test_gradient_clip_backward():
     y = gradient_clip(x)
     y.backward(torch.tensor([0.005, 0.02, float("nan"), -0.001]))
     np.testing.assert_array_equal(x.grad.numpy(), np.asarray([0.005, 0.0, 0.0, -0.001], np.float32))
+
+
+def _raw_layout(corr, seed=1):
+    """corr (E,H,W,196) placed at its raw block positions
+    (corr_cuda.raw_corr_index), random values everywhere else: the
+    cross-level products the encoder must give zero weight."""
+    from dbaf_tpu_torch.ops.corr_cuda import raw_corr_index
+
+    idx = raw_corr_index()
+    raw = np.random.default_rng(seed).normal(size=corr.shape[:3] + (1024,)).astype(np.float32)
+    pos = np.where(idx >= 0)[0]
+    raw[..., pos] = corr[..., idx[pos]]
+    return raw
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_update_accepts_raw_corr_layout(weights, dtype):
+    """test_net.py::test_update_accepts_raw_corr_layout through the port:
+    the update operator on the raw 1024-channel layout against the
+    196-channel input, and against the JAX UpdateModule on the same raw
+    input.  f32 ``atol 1e-4`` (test_net.py's bound: the zero rows change
+    only the order of the sums); bf16 one ulp of the largest value, as
+    above."""
+    _, params, tsd = weights
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    tm = DroidNet(dtype=tdt, device="cpu")
+    tm.load_state_dict(tsd)
+    _, net, inp, corr, flow = _inputs(2)
+    raw = _raw_layout(corr)
+    t = lambda x: torch.tensor(x).to(tdt)  # noqa: E731
+    o196 = tm.update_step(t(net), t(inp), t(corr), t(flow))
+    oraw = tm.update_step(t(net), t(inp), t(raw), t(flow))
+    jm = JNet(dtype=jdt)
+    jraw = jm.apply({"params": params}, None, jnp.asarray(net, jdt), jnp.asarray(inp, jdt),
+                    jnp.asarray(raw, jdt), jnp.asarray(flow, jdt))
+    assert tsd["update.corr_encoder_0.weight"].shape == (128, 196, 1, 1)
+    for a, b, j, name in zip(o196, oraw, jraw[:3], ("net", "delta", "weight")):
+        a, b, j = a.float().numpy(), b.float().numpy(), np.asarray(j).astype(np.float32)
+        atol = 1e-4 if dtype == "float32" else 2 ** -7 * np.abs(j).max()
+        np.testing.assert_allclose(b, a, atol=atol, err_msg=name)
+        np.testing.assert_allclose(b, j, atol=atol, err_msg=name)
+    with pytest.raises(ValueError, match="1024"):
+        tm.update_step(t(net), t(inp), t(raw[..., :500]), t(flow))

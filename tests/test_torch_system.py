@@ -1,45 +1,21 @@
-"""The port's DBAFusion end to end on the CPU: the 16-frame golden trace of
-``test_golden_trace.py`` (same config, weights and frames), and a source
-scan that keeps the port free of JAX.
-
-Bounds.  ``test_golden_trace.py:129-143`` holds the JAX package to its own
-recorded trace: fmap0_slice atol 1e-4, fmap0_absmean rtol 1e-4, traj /
-disp_mean / disp_std atol 5e-3.  Those bounds need bit-equal bf16 rounding,
-and a bf16 network cannot give that across frameworks: every convolution,
-norm and activation rounds to bf16, and a sum taken in another order flips
-a rounding now and then; the flips compound through the encoder's layers
-and the random-weight BA chain.  The JAX package shows the same thing on
-its own: rerun with XLA's excess bf16 precision turned off
-(``XLA_FLAGS=--xla_allow_excess_precision=false``, a pure change of rounding
-points), it misses its recorded trace by fmap0_slice 0.043, fmap0_absmean
-3.0e-4 (relative), traj 7.8e-3, disp_mean 0.165 and disp_std 0.139.  The
-port's bf16 trace misses it by 0.067, 2.2e-4, 7.5e-3 to 7.8e-3, 0.23 to 0.27
-and 0.15 to 0.27 (torch on 1, 3 and 8 CPU threads: the thread count changes
-the order of the CPU sums too).
-
-So the bf16 trace is held to bounds that cover that spread about twice
-(traj atol 2e-2; disp_mean / disp_std atol 0.6, against values up to 18;
-fmap0_slice 16 bf16 ulps of its largest entry; fmap0_absmean rtol 1e-3),
-and the whole trace is also
-held against the JAX DBAFusion with an f32 network injected through
-feat_fn / ctx_fn / update_fn on both sides, where the network adds no
-rounding of its own: traj atol 1e-3 (measured 2.3e-4), disp_mean atol
-5e-2 (measured 0.017), disp_std atol 3e-2 (measured 8.4e-3).  The
-remaining f32 spread comes from the bf16 correlation volume and bf16 state
-buffers that both sides keep, whose f32 sums run in another order.
+"""The port's DBAFusion entry points on the CPU, a source scan that keeps the
+port free of JAX, and the shared pieces of the 16-frame golden trace of
+``test_golden_trace.py`` (same config, weights and frames), whose two runs
+have files of their own: ``test_torch_system_bf16_trace.py`` (the bf16
+trace against the recorded one) and ``test_torch_system_f32_trace.py``
+(the f32 network's trace against the JAX DBAFusion).
 """
 
 import os
 import re
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from dbaf_tpu.models.convert import convert_state_dict
-from tests.test_golden_trace import DATA, H, W, frame, synth_state_dict
+from tests.test_golden_trace import H, W, frame, synth_state_dict
+from tests.test_torch_coupled import one_torch_thread  # noqa: F401  (autouse)
 
 N_FRAMES = 16
 INTR = np.asarray([70.0, 70.0, W / 2, H / 2], np.float32)
@@ -90,43 +66,6 @@ def _port(params, dtype):
 
     return DBAFusion(golden_cfg(config), params=from_jax_params(params), device="cpu",
                      dtype=dtype)
-
-
-def test_bf16_trace_against_golden(params):
-    got = _summary(_port(params, torch.bfloat16))
-    ref = np.load(os.path.join(DATA, "golden_trace.npz"))
-    assert got["traj"].shape == ref["traj"].shape
-    assert np.all(np.isfinite(got["traj"]))
-    ulp = 2.0 ** (np.floor(np.log2(np.abs(ref["fmap0_slice"]).max())) - 7)
-    np.testing.assert_allclose(got["fmap0_slice"], ref["fmap0_slice"], atol=16 * ulp)
-    np.testing.assert_allclose(got["fmap0_absmean"], ref["fmap0_absmean"], rtol=1e-3)
-    np.testing.assert_allclose(got["traj"], ref["traj"], atol=2e-2)
-    np.testing.assert_allclose(got["disp_mean"], ref["disp_mean"], atol=0.6)
-    np.testing.assert_allclose(got["disp_std"], ref["disp_std"], atol=0.6)
-
-
-def test_f32_network_trace_against_jax(params):
-    from dbaf_tpu.models.net import DroidNet as JNet
-    from dbaf_tpu.slam.system import DBAFusion as JSystem
-    from dbaf_tpu.utils import config as jconfig
-
-    jm = JNet(dtype=jnp.float32)
-    feat = jax.jit(lambda im: jm.apply({"params": params}, im, method=jm.features_only))
-    ctx = jax.jit(lambda im: jm.apply({"params": params}, im, method=jm.context_only))
-
-    @jax.jit
-    def update(net, inp, corr, motn):
-        n, d, w, _, _ = jm.apply({"params": params}, None, net, inp, corr, motn)
-        return n.astype(net.dtype), d, w  # the edge state stays bf16
-
-    ref = _summary(JSystem(golden_cfg(jconfig), feat_fn=feat, ctx_fn=ctx,
-                           update_fn=lambda n, i, c, m, ii, jj, aux: update(n, i, c, m)))
-    got = _summary(_port(params, torch.float32))
-    assert got["traj"].shape == ref["traj"].shape
-    np.testing.assert_allclose(got["fmap0_slice"], ref["fmap0_slice"], atol=1e-4)
-    np.testing.assert_allclose(got["traj"], ref["traj"], atol=1e-3)
-    np.testing.assert_allclose(got["disp_mean"], ref["disp_mean"], atol=5e-2)
-    np.testing.assert_allclose(got["disp_std"], ref["disp_std"], atol=3e-2)
 
 
 def test_port_imports_no_jax():
