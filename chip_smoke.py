@@ -80,9 +80,10 @@ Phases, each fatal on failure:
              share of 3 more "visual" frames under torch.profiler (table in
              chiprun_out/profile_visual_async.txt);
   7b. int8   phase 3's main path for 12 keyframe steps with
-             cfg.graph.corr_int8: fatal unless K1-int8 and its max pass run
-             in every round and the trajectory is finite; prints the largest
-             position difference from phase 3's bf16 rows at the same stamps.
+             cfg.graph.corr_int8: fatal unless K1-int8 runs once in every
+             round, the max pass alone never, and the trajectory is finite;
+             prints the largest position difference from phase 3's bf16
+             rows at the same stamps.
   8. export  save_pkl through apps/runner.run at full width, the trajectories
              written to chiprun_out/export_*.txt and the asynchronous runs'
              reconstructions to export_*.pkl and export_*_raw.pkl: (a) phase
@@ -101,15 +102,18 @@ Phases, each fatal on failure:
              both async runs' filtered and raw .pkl read back with one finite
              point block per exported keyframe, and the ms of the export's
              device step (_points_and_counts) at (a)'s keyframe count.
-Phase 2 also holds K1-int8 (max pass included) at (E=48, 48x64, C=128, tile
-256), at a tile-128 shape, off the image and with a NaN row, and the max
-pass alone, against their plain versions; and K1-raw (raw=True, the whole
+Phase 2 also holds K1-int8 (one launch, its tile scales inside it) at
+(E=48, 48x64, C=128, tile 256), at a tile-128 shape, off the image and with
+a NaN row, its returned scales, and its first pass alone (a diagnostic that
+no path launches), against their plain versions; and K1-raw (raw=True, the whole
 32x32 block per pixel) at (E=48, 48x64, C=128), off the image and with a
 NaN row: within one bf16 ulp of its largest output, rows and columns
 28-31 exactly 0, its diagonal blocks against K1 on the same inputs, and
 its output through the full network's update operator against the
 196-channel route (delta and weight within 4 bf16 ulps of their largest
 value).
+Phase 2 prints a digest of every case's kernel output ("[digest]" lines):
+with --root, two packages' digests show whether a kernel's outputs changed.
 Then one JSON line listing the kernels (launches summed over the main,
 coupled, coupled_async, visual_async, int8 and export paths, each counted
 from 0 just before its run; "launches_by_path" splits them), and last the
@@ -121,6 +125,7 @@ Exits non-zero without a CUDA device, and without the port's package.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -251,6 +256,15 @@ def raw_lookup_flops(coords: torch.Tensor, H2: int, W2: int) -> float:
     return 2.0 * float((nx * rows + 28 * ny).sum())
 
 
+def digest(t: torch.Tensor) -> str:
+    """sha1 of a tensor's bytes, shape and dtype: equal digests, equal outputs."""
+    import hashlib
+
+    h = hashlib.sha1(f"{tuple(t.shape)} {t.dtype}".encode())
+    h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def bound(bytes_moved: float, op_seconds: float):
     t_bytes = bytes_moved / PEAK_BYTES
     if op_seconds > t_bytes:
@@ -287,6 +301,7 @@ def phase_kernels(dev) -> dict:
             err, tol = err
         if not err <= tol:
             raise SystemExit(f"{name} disagrees with its plain version: {err} > {tol}")
+        log(f"[digest] {name}: {digest(out)}")
         ms = graph_ms(kernel, iters)
         eager_ms = cuda_ms(kernel, iters)
         plain_ms = cuda_ms(plain, plain_iters, warmup=1)
@@ -329,14 +344,16 @@ def phase_kernels(dev) -> dict:
             2.0 * E * P * P * C + lookup_flops(coords, H, W, True), PEAK_BF16, compare)
 
     def int8_case(name, E, H, W, C, tile, kind="noise", iters=50):
-        """K1-int8 (its max pass included) against its plain version, by
+        """K1-int8 (one launch) against its plain version, by
         corr_cuda.int8_agreement: at most INT8_OFF_SHARE of the outputs
         more than one bf16 ulp apart (an f32 sum in another order flips the
         rounding of a quantized entry only near a half step), each within
         one int8 quantum of its tile's scale per tap, vmax * 1.07 / 127,
         plus one bf16 ulp of P2 (2^-7 vmax) and of the output (2^-7 |out|).
         The control: K1 (bf16, no quantization) on the same inputs must
-        fail the check, unless every output is 0 (off the image)."""
+        fail the check, unless every output is 0 (off the image).  Its
+        tile scales against corr_int8_vmax_plain at rtol 1e-4 (a package
+        from before the one-launch design returns none)."""
         f1, f2, coords = inputs(E, H, W, C)
         if kind == "off_image":
             coords = coords + torch.tensor([2.0 * W + 40.0, -2.0 * H - 40.0], device=dev)
@@ -352,6 +369,13 @@ def phase_kernels(dev) -> dict:
             if kind == "nan_row" and (torch.count_nonzero(out[:, H // 2])
                                       or not torch.isfinite(out).all()):
                 raise SystemExit(f"{name}: the NaN row is not 0, or an output is not finite")
+            if "return_vmax" in inspect.signature(cc.corr_fused_xy_int8).parameters:
+                _, scales = cc.corr_fused_xy_int8(f1p, f2p, coords, H, W, tile, return_vmax=True)
+                s_err = float(((scales - vmax).abs() / vmax).max())
+                log(f"[kernels] {name}: tile scales against the plain max, largest relative "
+                    f"error {s_err} (bound 1e-4)")
+                if not s_err <= 1e-4:
+                    raise SystemExit(f"{name}: a tile's scale is off by {s_err}")
             agree = cc.int8_agreement(out, ref, vmax, tile, keep)
             log(f"[kernels] {name}: {agree}")
             if not agree.ok:
@@ -370,7 +394,7 @@ def phase_kernels(dev) -> dict:
             lambda: cc.corr_fused_xy_int8_plain(f1p, f2p, coords, H, W, tile),
             None, iters, 2,
             E * P * C * 2 * 2 + E * P * 2 * 4 + E * P * 196 * 2,
-            # the build's flops once, as for K1: a two-pass design reads 2x
+            # the build's flops once, as for K1 (this design builds it twice)
             2.0 * E * P * P * C + lookup_flops(coords, H, W, True), PEAK_BF16, compare)
 
     def raw_case(name, E, H, W, C, kind="noise", iters=20):
@@ -418,7 +442,7 @@ def phase_kernels(dev) -> dict:
             name, lambda: cc.corr_fused_xy(f1p, f2p, coords, H, W, raw=True),
             lambda: cc.corr_fused_xy_raw_plain(f1p, f2p, coords, H, W), None, iters, 1,
             E * P * C * 2 * 2 + E * P * 2 * 4 + E * P * 1024 * 2,
-            # the build once, as for K1 (this design builds it once per y level)
+            # the build once, as for K1
             2.0 * E * P * P * C + raw_lookup_flops(coords, H, W), PEAK_BF16, compare)
 
     def update_check(name, raw, k1):
@@ -451,8 +475,9 @@ def phase_kernels(dev) -> dict:
                                  f"disagrees with the 196-channel route: {err} > {tol}")
 
     def vmax_case(name, E, H, W, C, tile):
-        """The max pass alone against its plain version: f32 sums of bf16
-        products in another order, rtol 1e-4."""
+        """K1-int8's first pass alone (a diagnostic: no path launches it)
+        against its plain version: f32 sums of bf16 products in another
+        order, rtol 1e-4."""
         f1, f2, _ = inputs(E, H, W, C)
         f1p, f2p = cc.prepare_corr_fmaps(f1, f2)
         P = H * W
@@ -485,8 +510,8 @@ def phase_kernels(dev) -> dict:
                                            "off_image"),
         "corr_fused_xy_nan_row": k1_case("K1 NaN row E=8 37x45 C=128", 8, 37, 45, 128,
                                          "nan_row", iters=20),
-        "corr_int8_vmax": vmax_case("K1-int8 max pass E=48 48x64 C=128 tile 256", 48, 48, 64,
-                                    128, 256),
+        "corr_int8_vmax": vmax_case("K1-int8 first pass alone E=48 48x64 C=128 tile 256", 48,
+                                    48, 64, 128, 256),
         "corr_fused_xy_int8": int8_case("K1-int8 E=48 48x64 C=128 tile 256", 48, 48, 64, 128,
                                         256),
         "corr_fused_xy_int8_tile128": int8_case("K1-int8 E=8 32x60 C=128 tile 128", 8, 32, 60,
@@ -1225,7 +1250,8 @@ def phase_visual_async(dev, main_kfs: float) -> dict:
 
 def phase_int8(dev, main_res: dict, n_frames: int = 20) -> dict:
     """Phase 7b: phase 3's main path with cfg.graph.corr_int8 for about 12
-    keyframe steps; K1-int8 (with its max pass) in every update round."""
+    keyframe steps; one K1-int8 launch in every update round and no
+    separate max pass."""
     from dbaf_tpu_torch.ops import corr_cuda as cc
     from dbaf_tpu_torch.slam.system import DBAFusion
     from dbaf_tpu_torch.utils.config import tumvi_config
@@ -1252,10 +1278,11 @@ def phase_int8(dev, main_res: dict, n_frames: int = 20) -> dict:
     log(f"[int8] {fe.keyframe_steps} keyframe steps, {fe.update_rounds} update rounds, launches "
         f"{L}; largest position difference from phase 3's bf16 rows at the same stamps "
         f"{diff:.4e}")
-    if not (L["corr_fused_xy_int8"] == L["corr_int8_vmax"] >= fe.update_rounds > 0
+    if not (L["corr_fused_xy_int8"] >= fe.update_rounds > 0 and L["corr_int8_vmax"] == 0
             and L["corr_fused_xy"] == 0):
-        raise SystemExit(f"int8: K1-int8 launched {L['corr_fused_xy_int8']} times for "
-                         f"{fe.update_rounds} update rounds")
+        raise SystemExit(f"int8: K1-int8 launched {L['corr_fused_xy_int8']} times and the max "
+                         f"pass alone {L['corr_int8_vmax']} times for {fe.update_rounds} update "
+                         "rounds")
     if traj.shape[0] < 10 or not np.all(np.isfinite(traj)):
         raise SystemExit(f"int8: trajectory {traj.shape} too short or not finite")
     return dict(launches=L, pos_diff_to_bf16=diff)

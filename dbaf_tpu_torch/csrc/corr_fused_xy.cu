@@ -47,27 +47,50 @@
 // to 1024 px wide) and C <= 128 (two channel boxes).  The wrapper raises
 // beyond them, and DBAFusion checks its feature grid when it is built.
 //
+// Clusters (K1-int8 and K1-raw; K1 runs without).  The blocks of a thread-
+// block cluster stream the same edge's f2, so each producer loads 1/kCS of
+// every chunk's rows and multicasts them to all kCS blocks (TMA
+// .multicast::cluster): the L2 -> SM traffic of f2 falls by kCS.  A block's
+// "full" barrier expects the whole chunk's bytes, whichever producer sent
+// them; its "empty" barrier counts the MMA warps of every block of the
+// cluster (each warp arrives on every block's barrier), so no producer
+// refills a slot that a block of the cluster still reads.  The blocks meet
+// at a cluster barrier after the barriers' initialization and before they
+// exit, so nothing arrives on, or lands in, a block that is gone.
+//
 // K1-int8: the int8=True branch of the same Pallas kernel
 // (corr_pallas.py:232-259).  The volume rows stay f32; per (edge, tile of
 // `tile` source pixels) q = round(vol * 127 / vmax) with vmax the tile's
 // max |vol| over every target position, and per level the x tents are
 // quantized as qx = round(127 * kx); P2 = bf16(sum_w q * qx * vmax / 127^2).
-// A tile (128 or 256 pixels) spans 2-4 blocks of 64 pixels, so its scale
-// has to exist before any block quantizes: two launches.
-//  * The max pass (kMode kMax): the build above with no lookup; each MMA
-//    thread keeps max |acc| over its chunks, warps reduce, and lane 0
-//    atomicMax-es the f32 bits (non-negative floats order as their bits)
-//    into vmax[e, tile].  Bound: the build's flops, like K1.
-//  * K1 under kMode kInt8: each chunk is quantized from the f32
-//    accumulators straight into the shared volume chunk.  Integers up to
-//    127 are exact in bf16, so the chunk keeps its bf16 layout and the
-//    lookup its code: a block sum is an exact integer in f32, and the x
-//    contraction of a tap is qx0 * S0 + qx1 * S1, exact (below 2^24) as
-//    the int32 dot of the Pallas kernel, then scaled and rounded to bf16
-//    once.  The rounding points are the Pallas kernel's; only the order of
-//    the f32 build sums differs, which can flip a q by one quantum.
-//    Int8 tensor cores are not used: the int8 branch costs the bf16
-//    kernel's time plus the max pass.
+// It replaces PR 5's two launches (a max pass that built the volume and
+// atomicMax-ed into a zeroed vmax, then K1 in int8 mode that built it
+// again), whose bound was the f2 traffic of two builds from L2 and the
+// second launch.  The scale has to exist before any block quantizes, and a
+// tile (128, 256 or 512 pixels) spans 2, 4 or 8 of K1's 64-pixel blocks,
+// which run in no order.  So one launch, one cluster per (tile, edge):
+//  * Pass 1: every block builds its rows of the volume (K1's build) and
+//    keeps max |vol| in the MMA threads (f32 accumulators); warps reduce,
+//    the block's maximum goes to shared memory, the cluster meets at a
+//    barrier and each block reads the others' maxima through distributed
+//    shared memory (mapa + ld.shared::cluster).  Block 0 of the cluster
+//    writes the tile's scale, max(vmax, 1e-20), to vmax[e, tile].  No
+//    atomics, no memset, no second launch.
+//  * Pass 2: K1 with each chunk quantized from the f32 accumulators
+//    straight into the shared volume chunk.  Integers up to 127 are exact
+//    in bf16, so the chunk keeps its bf16 layout and the lookup its code: a
+//    block sum is an exact integer in f32, and the x contraction of a tap is
+//    qx0 * S0 + qx1 * S1, exact (below 2^24) as the int32 dot of the Pallas
+//    kernel, then scaled and rounded to bf16 once.  The rounding points are
+//    the Pallas kernel's; only the order of the f32 build sums differs,
+//    which can flip a q by one quantum.
+//  The producer streams f2 twice through one ring (2 * nchunks chunks), so
+//  pass 2's first chunks load while pass 1 reduces.  Bound on the H100: the
+//  build's flops twice (the volume cannot be kept between the passes:
+//  786 KB of f32 per block).  Int8 tensor cores are not used: the port's x
+//  stage is two block sums per tap, not a product, and the build feeds the
+//  quantization from f32.  The max pass alone (kMax: pass 1 and the scale)
+//  stays as a diagnostic that no path launches.
 //
 // K1-raw: the raw=True branch (corr_pallas.py:515-516), the whole per-pixel
 // 32 x 32 block with the diagonal-level extraction skipped.  Row i = l*7+dy
@@ -75,15 +98,28 @@
 // columns 28-31 are 0; out (E, P, 1024) bf16, entry i*32 + j:
 //   P2[h, j]  = bf16( sum_w vol[h, w] * bf16(kx_j(w)) )
 //   out[i, j] = bf16( sum_h bf16(ky_i(h)) * P2[h, j] )
-// The off-diagonal pairs (l != l') need the x stage of one level and the y
-// stage of another, so kMode kRaw runs one block per (64 pixels, edge, y
-// level l): the build above, then a lookup in which lane (pixel, x level
-// l') forms the 7 taps of l' from its 8 block sums per row (P2) and adds
-// them, weighted by the y tents of l, into 7 x 28 f32 sums per pixel (the
-// same 196 entries as K1's, one owner each).  A simple design: the build
-// runs once per y level (4 times K1's tensor-core work), and 4 of the 20
-// lookup warps' worth of lanes are busy.  Bound on the H100: the build's
-// flops once, against 302 MB of output at E=48, P=3072.
+// It replaces PR 6's design (one block per (64 pixels, edge, y level): the
+// build four times, 256 of 640 lookup lanes busy, the x stage formed once
+// per y level).  What bounds it: 784 f32 sums a pixel (K1 has 196), which
+// for 64 pixels (200 KB) do not fit in shared memory beside the ring.  So
+// one block per (32 source pixels, edge), built once, in clusters of
+// kRawCS = 4 blocks (128 pixels) that share each f2 chunk by multicast:
+//  * Build with the wgmma operands swapped: A is the f2 chunk from the ring
+//    (64 target positions a warpgroup), B the block's f1 tile (16 pixels a
+//    warpgroup), so the four warpgroups of 16 warps cover 128 x 32; each
+//    stores its tile transposed into the [pixel][position] volume chunk.
+//  * Lookup: every one of the 512 consumer lanes works.  Lane (x level l',
+//    pixel, q) (a warp holds one l' and 8 pixels) owns x taps 2q and 2q + 1
+//    of l' (q = 3: tap 6): per row it forms their P2 once from two block
+//    sums and one shuffle, and adds them to the 4 y levels' sums of its two
+//    columns, rows of one y block summed first.  Its 4 x 7 x 2 sums live in
+//    registers (56 f32 a lane; 25K registers a block), not shared memory.
+//  * Epilogue: the lanes round their sums into a staging copy of the
+//    block's output in the ring (free by then), and the block writes its
+//    64 KB of contiguous output with 16-byte stores, rows and columns 28-31
+//    as 0.
+// Bound on the H100: the build's flops once and the raw lookup's, against
+// 302 MB of output at E=48, P=3072 (0.090 ms at 3.35 TB/s).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -108,10 +144,8 @@ constexpr int kChannels = 4 * kTaps * kTaps;  // 196
 constexpr int kVolStride = kN + 8;         // bf16 per pixel row of a volume chunk (272 B)
 constexpr int kAccStride = kChannels + 1;  // f32 per pixel of the sums
 
-// kernel variants: K1 (bf16 volume), K1-int8, and K1-int8's max pass
-constexpr int kBf16 = 0, kInt8 = 1, kMax = 2, kRaw = 3;
-constexpr int kRawCols = 4 * kTaps;  // 28 live columns (and rows) of a raw block
-constexpr int kRawBlock = 32 * 32;   // raw outputs per pixel
+// kernel variants: K1 (bf16 volume), K1-int8, and K1-int8's max pass alone
+constexpr int kBf16 = 0, kInt8 = 1, kMax = 2;
 constexpr float kQ = 127.f;                               // int8 steps per unit of the scale
 constexpr float kInvQ2 = static_cast<float>(1.0 / (127.0 * 127.0));
 
@@ -122,7 +156,25 @@ constexpr int kOffF2 = kF1Bytes;
 constexpr int kOffVol = kOffF2 + kStages * kStageBytes;
 constexpr int kOffAcc = kOffVol + 2 * kVolBytes;
 constexpr int kOffBar = kOffAcc + kM * kAccStride * 4;
-constexpr int kSmemBytes = kOffBar + 64 + 1024;      // + room to align the base to 1024
+constexpr int kOffRed = kOffBar + 64;                // int8: 16 warp maxima, then the block's
+constexpr int kSmemBytes = kOffRed + 128 + 1024;     // + room to align the base to 1024
+
+// K1-raw
+constexpr int kRawM = 32;                  // source pixels per block
+constexpr int kRawCS = 4;                  // blocks per cluster (128 pixels share each f2 chunk)
+constexpr int kRawConsumers = 512;         // 16 warps: the build and the lookup
+constexpr int kRawThreads = kRawConsumers + 32;
+constexpr int kRawCols = 4 * kTaps;        // 28 live columns (and rows) of a raw block
+constexpr int kRawBlock = 32 * 32;         // raw outputs per pixel
+constexpr int kRawOutStride = kRawBlock + 8;  // bf16 per pixel of the staged output (16-byte rows)
+constexpr int kRawOffF2 = kMaxKB * kRawM * 128;  // after the 8 KB f1 tile
+constexpr int kRawOffVol = kRawOffF2 + kStages * kStageBytes;
+constexpr int kRawOffBar = kRawOffVol + 2 * kRawM * kVolStride * 2;
+constexpr int kRawSmemBytes = kRawOffBar + 64 + 1024;
+static_assert(kRawM * kRawOutStride * 2 <= kStages * kStageBytes, "the staged output fits the ring");
+
+constexpr int kNoBlock = -(1 << 20);       // first block of an axis with no support
+constexpr long long kWaitCycles = 1LL << 35;  // a cluster's ring wait traps after ~17 s
 
 // ---------------------------------------------------------------- PTX helpers
 
@@ -143,8 +195,22 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
 }
 
+// arrives on the barrier at the same offset in block `cta` of the cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n .reg .b32 ra;\n mapa.shared::cluster.u32 ra, %0, %1;\n"
+      " mbarrier.arrive.shared::cluster.b64 _, [ra];\n}" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
+// kBounded (the cluster kernels): a wait that a fault in the cluster's
+// handshake would never end traps instead, so the launch fails and raises
+template <bool kBounded = false>
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done = 0;
+  long long t0 = 0;
+  if (kBounded) t0 = clock64();
   while (!done) {
     asm volatile(
         "{\n .reg .pred p;\n"
@@ -153,6 +219,7 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "=r"(done)
         : "r"(bar), "r"(parity)
         : "memory");
+    if (kBounded && !done && clock64() - t0 > kWaitCycles) __trap();
   }
 }
 
@@ -163,6 +230,47 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// the same box to the same offset in every block of `mask`, each block's
+// barrier at `bar` credited with the bytes it received
+__device__ __forceinline__ void tma_load_3d_multicast(uint32_t dst, const CUtensorMap* map,
+                                                      uint32_t bar, int c0, int c1, int c2,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "h"(mask)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// the f32 at shared offset `addr` of block `cta` of the cluster
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr, uint32_t cta) {
+  float v;
+  asm volatile(
+      "{\n .reg .b32 ra;\n mapa.shared::cluster.u32 ra, %1, %2;\n"
+      " ld.shared::cluster.f32 %0, [ra];\n}"
+      : "=f"(v)
+      : "r"(addr), "r"(cta)
+      : "memory");
+  return v;
 }
 
 // wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:
@@ -186,9 +294,10 @@ __device__ __forceinline__ void wgmma_wait0() {
 }
 
 // keeps the compiler from moving accumulator registers across an async wgmma
-__device__ __forceinline__ void fence_acc(float (&d)[kAcc]) {
+template <int kR>
+__device__ __forceinline__ void fence_acc(float (&d)[kR]) {
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < kR; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t da, uint64_t db,
@@ -204,8 +313,62 @@ __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t da, uin
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int kCount>
 __device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+  asm volatile("bar.sync 1, %0;" ::"n"(kCount) : "memory");
+}
+
+// A warp frees ring slot `bar` (its "empty" barrier) in every block of the
+// cluster: lane r arrives on block r's, so the arrivals run side by side.
+template <int kCS>
+__device__ __forceinline__ void release_slot(uint32_t bar, int lane) {
+  if constexpr (kCS == 1) {
+    if (lane == 0) mbar_arrive(bar);
+  } else {
+    if (lane < kCS) mbar_arrive_cluster(bar, lane);
+  }
+}
+
+// One lane of the producer warp: the block's f1 tile (kF1Rows pixels from
+// p_load), then `npass` passes over the edge's f2 in chunks of kN positions
+// (`span` = whole rows of them) through the ring.  In a cluster each block
+// loads rows rank*kN/kCS .. of a chunk and multicasts them.
+template <int kCS, int kF1Rows>
+__device__ __forceinline__ void produce(const CUtensorMap* map_f1, const CUtensorMap* map_f2,
+                                        uint32_t s_f1, uint32_t s_f2, uint32_t bar_f1,
+                                        uint32_t bar_full, uint32_t bar_empty, int p_load, int e,
+                                        int nchunks, int npass, int span, int nkb) {
+  constexpr int kSlice = kN / kCS;
+  const int rank = kCS > 1 ? static_cast<int>(cluster_rank()) : 0;
+  mbar_expect_tx(bar_f1, nkb * kF1Rows * 128);
+  for (int kb = 0; kb < nkb; ++kb)
+    tma_load_3d(s_f1 + kb * kF1Rows * 128, map_f1, bar_f1, kb * kBoxC, p_load, e);
+  for (int c = 0; c < npass * nchunks; ++c) {
+    const int st = c % kStages;
+    mbar_wait<(kCS > 1)>(bar_empty + 8 * st, ((c / kStages) & 1) ^ 1);
+    mbar_expect_tx(bar_full + 8 * st, nkb * kN * 128);
+    const int pos = (c % nchunks) * span;
+    for (int kb = 0; kb < nkb; ++kb) {
+      const uint32_t dst = s_f2 + st * kStageBytes + kb * kN * 128;
+      if constexpr (kCS == 1) {
+        tma_load_3d(dst, map_f2, bar_full + 8 * st, kb * kBoxC, pos, e);
+      } else {
+        tma_load_3d_multicast(dst + rank * kSlice * 128, map_f2, bar_full + 8 * st, kb * kBoxC,
+                              pos + rank * kSlice, e, static_cast<uint16_t>((1 << kCS) - 1));
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------- lookup helpers
@@ -227,30 +390,29 @@ struct Level {
   bool valid;            // finite coordinate and a union that meets the image
 };
 
-// The x weights of level lx, the y weights of level ly (the same level but
-// in K1-raw).  int8: the x weights are the Pallas kernel's
-// qx = round(127 * kx) (kx in f32), the y weights stay bf16.
+// The x and y weights of level l.  int8: the x weights are the Pallas
+// kernel's qx = round(127 * kx) (kx in f32), the y weights stay bf16.
 template <int kMode>
-__device__ __forceinline__ Level make_level(float x, float y, int lx, int ly, int H2, int W2) {
+__device__ __forceinline__ Level make_level(float x, float y, int l, int H2, int W2) {
   Level L;
-  const float ix = 1.f / static_cast<float>(1 << lx), iy = 1.f / static_cast<float>(1 << ly);
-  const float sx = static_cast<float>(1 << lx), sy = static_cast<float>(1 << ly);
-  const float cx = x * ix, cy = y * iy;
+  const float inv = 1.f / static_cast<float>(1 << l);
+  const float s = static_cast<float>(1 << l);
+  const float cx = x * inv, cy = y * inv;
   const float kx = floorf(cx), ky = floorf(cy);
   // union [(k0 - 3) s, (k0 + 5) s) against [0, size); false for NaN
-  L.valid = (kx + 5.f) * sx > 0.f && (kx - 3.f) * sx < static_cast<float>(W2) &&
-            (ky + 5.f) * sy > 0.f && (ky - 3.f) * sy < static_cast<float>(H2);
+  L.valid = (kx + 5.f) * s > 0.f && (kx - 3.f) * s < static_cast<float>(W2) &&
+            (ky + 5.f) * s > 0.f && (ky - 3.f) * s < static_cast<float>(H2);
   L.gx0 = L.valid ? static_cast<int>(kx) - kRadius : 0;
   L.gy0 = L.valid ? static_cast<int>(ky) - kRadius : 0;
   if (kMode == kInt8) {
-    L.wx0 = rintf((fmaxf(0.f, 1.f - fabsf(kx - cx)) * ix) * kQ);
-    L.wx1 = rintf((fmaxf(0.f, 1.f - fabsf((kx + 1.f) - cx)) * ix) * kQ);
+    L.wx0 = rintf((fmaxf(0.f, 1.f - fabsf(kx - cx)) * inv) * kQ);
+    L.wx1 = rintf((fmaxf(0.f, 1.f - fabsf((kx + 1.f) - cx)) * inv) * kQ);
   } else {
-    L.wx0 = round_bf16(fmaxf(0.f, 1.f - fabsf(kx - cx)) * ix);
-    L.wx1 = round_bf16(fmaxf(0.f, 1.f - fabsf((kx + 1.f) - cx)) * ix);
+    L.wx0 = round_bf16(fmaxf(0.f, 1.f - fabsf(kx - cx)) * inv);
+    L.wx1 = round_bf16(fmaxf(0.f, 1.f - fabsf((kx + 1.f) - cx)) * inv);
   }
-  L.wy0 = round_bf16(fmaxf(0.f, 1.f - fabsf(ky - cy)) * iy);
-  L.wy1 = round_bf16(fmaxf(0.f, 1.f - fabsf((ky + 1.f) - cy)) * iy);
+  L.wy0 = round_bf16(fmaxf(0.f, 1.f - fabsf(ky - cy)) * inv);
+  L.wy1 = round_bf16(fmaxf(0.f, 1.f - fabsf((ky + 1.f) - cy)) * inv);
   return L;
 }
 
@@ -361,79 +523,27 @@ __device__ __forceinline__ void lookup_chunk(float* acc, const Level& lv, int q,
   if (jq >= 0) flush_rows<L, nb>(acc, lv, a0, jq, Q);
 }
 
-// K1-raw: one lane per (pixel, x level L); y level ly.  Each row in the y
-// union gives the 7 taps of L, P2 = bf16(wx0 * S[a] + wx1 * S[a + 1]);
-// rows in the same y block are summed in registers, then added with wy0 to
-// y tap dy = jy and with wy1 to dy = jy - 1 of columns L*7 .. L*7 + 6 of the
-// pixel's 7 x 28 sums.
-template <int L>
-__device__ __forceinline__ void flush_raw(float* acc, const Level& lv, int jy,
-                                          const float (&Q)[kTaps]) {
-  float* col = acc + L * kTaps;
-#pragma unroll
-  for (int t = 0; t < kTaps; ++t) {
-    if (jy <= kTaps - 1) col[jy * kRawCols + t] += lv.wy0 * Q[t];
-    if (jy >= 1) col[(jy - 1) * kRawCols + t] += lv.wy1 * Q[t];
-  }
-}
-
-template <int L, bool kVec>
-__device__ __forceinline__ void lookup_chunk_raw(float* acc, const Level& lv, int ly,
-                                                 const __nv_bfloat16* row0, int h0, int nrows,
-                                                 int W2) {
-  float Q[kTaps];
-#pragma unroll
-  for (int t = 0; t < kTaps; ++t) Q[t] = 0.f;
-  int jq = -1;
-  for (int r = 0; r < nrows; ++r) {
-    int jy = lv.valid ? ((h0 + r) >> ly) - lv.gy0 : -1;
-    if (jy > 7) jy = -1;
-    if (jy != jq) {
-      if (jq >= 0) flush_raw<L>(acc, lv, jq, Q);
-#pragma unroll
-      for (int t = 0; t < kTaps; ++t) Q[t] = 0.f;
-      jq = jy;
-    }
-    if (jy >= 0) {
-      const __nv_bfloat16* row = row0 + r * W2;
-      float S[8];
-#pragma unroll
-      for (int t = 0; t < 8; ++t) S[t] = block_sum<kVec>(row, lv.gx0 + t, L, W2);
-#pragma unroll
-      for (int t = 0; t < kTaps; ++t) Q[t] += round_bf16(lv.wx0 * S[t] + lv.wx1 * S[t + 1]);
-    }
-  }
-  if (jq >= 0) flush_raw<L>(acc, lv, jq, Q);
-}
-
-// This thread's part of one chunk's lookup.  K1 and K1-int8: its level, with
-// 4, 2, 2 or 2 lanes per pixel at levels 3, 2, 1, 0.  K1-raw: its x level
-// (lvl, -1 for a thread with no lookup role) at the block's y level ly.
+// This thread's part of one chunk's lookup: its level, with 4, 2, 2 or 2
+// lanes per pixel at levels 3, 2, 1, 0.
 template <bool kVec, int kMode>
-__device__ __forceinline__ void lookup_any(float* acc, const Level& lv, int lvl, int q, int ly,
+__device__ __forceinline__ void lookup_any(float* acc, const Level& lv, int lvl, int q,
                                            const __nv_bfloat16* row0, int h0, int nrows, int W2,
                                            float sc) {
-  if constexpr (kMode == kRaw) {
-    if (lvl == 3) lookup_chunk_raw<3, kVec>(acc, lv, ly, row0, h0, nrows, W2);
-    else if (lvl == 2) lookup_chunk_raw<2, kVec>(acc, lv, ly, row0, h0, nrows, W2);
-    else if (lvl == 1) lookup_chunk_raw<1, kVec>(acc, lv, ly, row0, h0, nrows, W2);
-    else if (lvl == 0) lookup_chunk_raw<0, kVec>(acc, lv, ly, row0, h0, nrows, W2);
-  } else {
-    if (lvl == 3) lookup_chunk<3, 4, kVec, kMode>(acc, lv, q, row0, h0, nrows, W2, sc);
-    else if (lvl == 2) lookup_chunk<2, 2, kVec, kMode>(acc, lv, q, row0, h0, nrows, W2, sc);
-    else if (lvl == 1) lookup_chunk<1, 2, kVec, kMode>(acc, lv, q, row0, h0, nrows, W2, sc);
-    else lookup_chunk<0, 2, kVec, kMode>(acc, lv, q, row0, h0, nrows, W2, sc);
-  }
+  if (lvl == 3) lookup_chunk<3, 4, kVec, kMode>(acc, lv, q, row0, h0, nrows, W2, sc);
+  else if (lvl == 2) lookup_chunk<2, 2, kVec, kMode>(acc, lv, q, row0, h0, nrows, W2, sc);
+  else if (lvl == 1) lookup_chunk<1, 2, kVec, kMode>(acc, lv, q, row0, h0, nrows, W2, sc);
+  else lookup_chunk<0, 2, kVec, kMode>(acc, lv, q, row0, h0, nrows, W2, sc);
 }
 
 // ---------------------------------------------------------------- the kernel
 
-// Waits for chunk c's f2 tile and issues this warpgroup's wgmma on its
+// Waits for ring chunk c's f2 tile and issues this warpgroup's wgmma on its
 // quarter of the positions (64 x 32, K = Cpad), without waiting for it.
+template <int kCS>
 __device__ __forceinline__ void issue_chunk(float (&d)[kAcc], int c, uint32_t bar_full,
                                             uint32_t s_f1, uint32_t s_f2, int wg, int nkb) {
   const int st = c % kStages;
-  mbar_wait(bar_full + 8 * st, (c / kStages) & 1);
+  mbar_wait<(kCS > 1)>(bar_full + 8 * st, (c / kStages) & 1);
   wgmma_fence();
   const uint32_t b_base = s_f2 + st * kStageBytes + wg * kWgN * 128;
 #pragma unroll
@@ -448,22 +558,22 @@ __device__ __forceinline__ void issue_chunk(float (&d)[kAcc], int c, uint32_t ba
   wgmma_commit();
 }
 
-// Waits for chunk c's wgmma, frees its ring slot and stores the bf16 volume
-// chunk to buffer c & 1 (int8: round(vol * qs), exact in bf16).
+// Waits for ring chunk c's wgmma, frees its ring slot and stores the bf16
+// volume chunk to buffer `buf` (int8: round(vol * qs), exact in bf16).
 // Accumulator fragment: row 16*warp + lane/4 (+8), column 8j + 2*(lane%4)
 // (+1) of the warpgroup's 32 positions.
-template <int kMode>
-__device__ __forceinline__ void finish_chunk(float (&d)[kAcc], int c, uint32_t bar_empty,
-                                             __nv_bfloat16* vol, int wg, int warp, int lane,
-                                             float qs) {
+template <int kMode, int kCS>
+__device__ __forceinline__ void finish_chunk(float (&d)[kAcc], int c, int buf,
+                                             uint32_t bar_empty, __nv_bfloat16* vol, int wg,
+                                             int warp, int lane, float qs) {
   wgmma_wait0();
   fence_acc(d);
-  if (lane == 0) mbar_arrive(bar_empty + 8 * (c % kStages));
+  release_slot<kCS>(bar_empty + 8 * (c % kStages), lane);
   if (kMode == kInt8) {
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) d[i] = rintf(d[i] * qs);
   }
-  __nv_bfloat16* vbuf = vol + (c & 1) * (kM * kVolStride);
+  __nv_bfloat16* vbuf = vol + buf * (kM * kVolStride);
   const int r0 = 16 * warp + lane / 4;
   const int n0 = wg * kWgN + 2 * (lane % 4);
 #pragma unroll
@@ -475,17 +585,19 @@ __device__ __forceinline__ void finish_chunk(float (&d)[kAcc], int c, uint32_t b
   }
 }
 
-// kMode kBf16: K1; kInt8: K1-int8 (reads vmax); kMax: the max pass
-// (writes vmax, zeroed by the caller; coords and out are unused); kRaw:
-// K1-raw (out (E, P, 1024), blockIdx.z the y level).
-template <bool kVec, int kMode>
+// kMode kBf16: K1 (kCS 1); kInt8: K1-int8, one cluster of kCS blocks per
+// (tile, edge), writes vmax; kMax: K1-int8's first pass alone (writes vmax;
+// coords and out are unused).
+template <bool kVec, int kMode, int kCS>
 __global__ void __launch_bounds__(kThreads, 1)
 corr_fused_xy_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf16
                      const __grid_constant__ CUtensorMap map_f2,  // (E, P2, Cpad) bf16
                      const float* __restrict__ coords,           // (E, P, 2)
-                     __nv_bfloat16* __restrict__ out,            // (E, P, 196 or 1024)
+                     __nv_bfloat16* __restrict__ out,            // (E, P, 196)
                      float* __restrict__ vmax,                   // (E, P / tile) f32
                      int P, int H2, int W2, int nkb, int tile) {
+  constexpr bool kScale = kMode != kBf16;          // the int8 tile scale: pass 1
+  constexpr int kPasses = kMode == kInt8 ? 2 : 1;  // f2 streamed once per pass
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -493,6 +605,7 @@ corr_fused_xy_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad
   const uint32_t s_f2 = s_f1 + kOffF2;
   __nv_bfloat16* vol = reinterpret_cast<__nv_bfloat16*>(smem + kOffVol);
   float* acc = reinterpret_cast<float*>(smem + kOffAcc);
+  float* red = reinterpret_cast<float*>(smem + kOffRed);
   const uint32_t bar_full = s_f1 + kOffBar;  // kStages barriers
   const uint32_t bar_empty = bar_full + 8 * kStages;
   const uint32_t bar_f1 = bar_empty + 8 * kStages;
@@ -506,27 +619,25 @@ corr_fused_xy_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad
   if (tid == 0) {
     for (int i = 0; i < kStages; ++i) {
       mbar_init(bar_full + 8 * i, 1);
-      mbar_init(bar_empty + 8 * i, kMmaWarps);
+      mbar_init(bar_empty + 8 * i, kMmaWarps * kCS);
     }
     mbar_init(bar_f1, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  __syncthreads();
+  if constexpr (kCS > 1) cluster_sync();
+  else __syncthreads();
 
   if (tid >= kConsumers) {
-    // ---- producer warp: one lane issues every TMA load
-    if (tid == kConsumers) {
-      mbar_expect_tx(bar_f1, nkb * kM * 128);
-      for (int kb = 0; kb < nkb; ++kb)
-        tma_load_3d(s_f1 + kb * kM * 128, &map_f1, bar_f1, kb * kBoxC, p0, e);
-      for (int c = 0; c < nchunks; ++c) {
-        const int st = c % kStages;
-        mbar_wait(bar_empty + 8 * st, ((c / kStages) & 1) ^ 1);
-        mbar_expect_tx(bar_full + 8 * st, nkb * kN * 128);
-        for (int kb = 0; kb < nkb; ++kb)
-          tma_load_3d(s_f2 + st * kStageBytes + kb * kN * 128, &map_f2, bar_full + 8 * st,
-                      kb * kBoxC, c * rc * W2, e);
-      }
+    // ---- producer warp: one lane issues every TMA load.  In a cluster the
+    // warp arrives at the tile-max exchange at once (it has nothing to
+    // give) and stays until the cluster's last barrier.
+    if constexpr (kScale && kCS > 1) cluster_arrive();
+    if (tid == kConsumers)
+      produce<kCS, kM>(&map_f1, &map_f2, s_f1, s_f2, bar_f1, bar_full, bar_empty, p0, e,
+                       nchunks, kPasses, rc * W2, nkb);
+    if constexpr (kCS > 1) {
+      if constexpr (kScale) cluster_wait();
+      cluster_sync();
     }
     return;
   }
@@ -535,109 +646,97 @@ corr_fused_xy_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad
   const int wg = tid / 128;       // wgmma warpgroup (0-3): its quarter of the chunk's positions
   const int wtid = tid % 128;
   const int warp = wtid / 32, lane = tid % 32;
-
-  // lookup role of this thread (see the header): level, pixel, lane of the
-  // pixel; K1-raw: x level (threads 0-255) and pixel, at the block's y level
-  const int ly = kMode == kRaw ? static_cast<int>(blockIdx.z) : 0;
-  int lvl, pix, q;
-  if (kMode == kRaw) {
-    lvl = tid < 4 * kM ? tid / kM : -1;
-    pix = tid % kM;
-    q = 0;
-  } else {
-    lvl = tid < 256 ? 3 : tid < 384 ? 2 : tid < 512 ? 1 : 0;
-    pix = lvl == 3 ? tid >> 2 : (tid - 256 - 128 * (2 - lvl)) >> 1;
-    q = lvl == 3 ? tid & 3 : tid & 1;
-  }
   const bool mma = tid < kMmaWarps * 32;
-  // this block's tile of the int8 scale (a tile holds whole blocks)
-  const size_t tile_idx = kMode == kBf16 ? 0 : static_cast<size_t>(e) * (P / tile) + p0 / tile;
-
-  if constexpr (kMode == kMax) {
-    // ---- the max pass: max |vol| of this block's rows over every chunk
-    if (!mma) return;
-    float d[kAcc];
-    float m = 0.f;
-    mbar_wait(bar_f1, 0);
-    for (int c = 0; c < nchunks; ++c) {
-      issue_chunk(d, c, bar_full, s_f1, s_f2, wg, nkb);
-      wgmma_wait0();
-      fence_acc(d);
-      if (lane == 0) mbar_arrive(bar_empty + 8 * (c % kStages));
-#pragma unroll
-      for (int i = 0; i < kAcc; ++i) m = fmaxf(m, fabsf(d[i]));
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    if (lane == 0) atomicMax(reinterpret_cast<int*>(vmax + tile_idx), __float_as_int(m));
-    return;
-  }
+  float d[kAcc];
 
   // int8: the tile's quantization step and the scale of the integer x sums
   float qs = 0.f, sc = 0.f;
-  if (kMode == kInt8) {
-    const float vm = vmax[tile_idx];
+  if constexpr (kScale) {
+    // ---- pass 1: max |vol| of this block's rows over every chunk
+    float m = 0.f;
+    if (mma) {
+      mbar_wait<(kCS > 1)>(bar_f1, 0);
+      for (int c = 0; c < nchunks; ++c) {
+        issue_chunk<kCS>(d, c, bar_full, s_f1, s_f2, wg, nkb);
+        wgmma_wait0();
+        fence_acc(d);
+        release_slot<kCS>(bar_empty + 8 * (c % kStages), lane);
+#pragma unroll
+        for (int i = 0; i < kAcc; ++i) m = fmaxf(m, fabsf(d[i]));
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      if (lane == 0) red[tid / 32] = m;
+    }
+    consumer_sync<kConsumers>();
+    if (tid == 0) {
+      float b = 0.f;
+      for (int w = 0; w < kMmaWarps; ++w) b = fmaxf(b, red[w]);
+      red[kMmaWarps] = b;
+    }
+    // the tile's maximum: every block's, read through distributed shared memory
+    float vm = 0.f;
+    if constexpr (kCS > 1) {
+      cluster_sync();
+#pragma unroll
+      for (int r = 0; r < kCS; ++r) vm = fmaxf(vm, ld_cluster_f32(smem_u32(red + kMmaWarps), r));
+    } else {
+      consumer_sync<kConsumers>();
+      vm = red[kMmaWarps];
+    }
+    vm = fmaxf(vm, 1e-20f);
+    if (tid == 0 && (kCS == 1 || cluster_rank() == 0))
+      vmax[static_cast<size_t>(e) * (P / tile) + p0 / tile] = vm;
+    if constexpr (kMode == kMax) {
+      if constexpr (kCS > 1) cluster_sync();
+      return;
+    }
     qs = kQ / vm;
     sc = vm * kInvQ2;
   }
+
+  // lookup role of this thread (see the header): level, pixel, lane of the pixel
+  const int lvl = tid < 256 ? 3 : tid < 384 ? 2 : tid < 512 ? 1 : 0;
+  const int pix = lvl == 3 ? tid >> 2 : (tid - 256 - 128 * (2 - lvl)) >> 1;
+  const int q = lvl == 3 ? tid & 3 : tid & 1;
+  const int ring = kPasses == 2 ? nchunks : 0;  // ring index of this pass's first chunk
+
   for (int i = tid; i < kM * kAccStride; i += kConsumers) acc[i] = 0.f;
   const bool live = p0 + pix < P;
   float2 xy = make_float2(__int_as_float(0x7fc00000), 0.f);  // NaN: no support
   if (live) xy = reinterpret_cast<const float2*>(coords)[static_cast<size_t>(e) * P + p0 + pix];
-  const Level lv = make_level<kMode>(xy.x, xy.y, max(lvl, 0), kMode == kRaw ? ly : max(lvl, 0),
-                                     H2, W2);
+  const Level lv = make_level<kMode>(xy.x, xy.y, lvl, H2, W2);
   float* my_acc = acc + pix * kAccStride;
 
-  float d[kAcc];
   if (mma) {
-    mbar_wait(bar_f1, 0);
-    issue_chunk(d, 0, bar_full, s_f1, s_f2, wg, nkb);
-    finish_chunk<kMode>(d, 0, bar_empty, vol, wg, warp, lane, qs);
+    mbar_wait<(kCS > 1)>(bar_f1, 0);
+    issue_chunk<kCS>(d, ring, bar_full, s_f1, s_f2, wg, nkb);
+    finish_chunk<kMode, kCS>(d, ring, 0, bar_empty, vol, wg, warp, lane, qs);
   }
-  consumer_sync();
+  consumer_sync<kConsumers>();
 
   // chunk c + 1 runs on the tensor cores under chunk c's lookup; the last
   // chunk's lookup runs alone
   for (int c = 0; c + 1 < nchunks; ++c) {
-    if (mma) issue_chunk(d, c + 1, bar_full, s_f1, s_f2, wg, nkb);
-    lookup_any<kVec, kMode>(my_acc, lv, lvl, q, ly,
+    if (mma) issue_chunk<kCS>(d, ring + c + 1, bar_full, s_f1, s_f2, wg, nkb);
+    lookup_any<kVec, kMode>(my_acc, lv, lvl, q,
                             vol + (c & 1) * (kM * kVolStride) + pix * kVolStride, c * rc,
                             min(rc, H2 - c * rc), W2, sc);
-    if (mma) finish_chunk<kMode>(d, c + 1, bar_empty, vol, wg, warp, lane, qs);
-    consumer_sync();
+    if (mma)
+      finish_chunk<kMode, kCS>(d, ring + c + 1, (c + 1) & 1, bar_empty, vol, wg, warp, lane, qs);
+    consumer_sync<kConsumers>();
   }
   {
     const int c = nchunks - 1;
-    lookup_any<kVec, kMode>(my_acc, lv, lvl, q, ly,
+    lookup_any<kVec, kMode>(my_acc, lv, lvl, q,
                             vol + (c & 1) * (kM * kVolStride) + pix * kVolStride, c * rc,
                             min(rc, H2 - c * rc), W2, sc);
   }
 
-  consumer_sync();
-
-  const int np = min(kM, P - p0);
-  if constexpr (kMode == kRaw) {
-    // ---- K1-raw epilogue: this y level's 7 rows of each pixel's block (the
-    // last level also the zero rows 28-31), 16-byte stores: a segment starts
-    // at a multiple of 7 * 32 bf16 (448 bytes) and holds whole 8-value runs
-    const int nrow = ly == 3 ? 32 - 3 * kTaps : kTaps;
-    const int seg = nrow * 32;
-    for (int i = tid * 8; i < np * seg; i += kConsumers * 8) {
-      const int p = i / seg, o = i % seg;
-      __align__(16) __nv_bfloat16 v[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int r = (o + k) / 32, j = (o + k) % 32;
-        v[k] = __float2bfloat16(r < kTaps && j < kRawCols ? acc[p * kAccStride + r * kRawCols + j]
-                                                          : 0.f);
-      }
-      *reinterpret_cast<uint4*>(out + (static_cast<size_t>(e) * P + p0 + p) * kRawBlock +
-                                ly * kTaps * 32 + o) = *reinterpret_cast<const uint4*>(v);
-    }
-    return;
-  }
+  consumer_sync<kConsumers>();
 
   // ---- epilogue: bf16, 16-byte stores where the block's output is aligned
+  const int np = min(kM, P - p0);
   const int n = np * kChannels;
   __nv_bfloat16* dst = out + (static_cast<size_t>(e) * P + p0) * kChannels;
   if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
@@ -658,6 +757,255 @@ corr_fused_xy_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad
     for (int i = tid; i < n; i += kConsumers)
       dst[i] = __float2bfloat16(acc[(i / kChannels) * kAccStride + i % kChannels]);
   }
+  if constexpr (kCS > 1) cluster_sync();
+}
+
+// ---------------------------------------------------------------- K1-raw
+
+// One axis of one level for K1-raw: the union's first block and the two
+// bf16 tent weights; an axis whose union misses the image (or a NaN
+// coordinate) gets no block in range and zero weights.
+struct Axis {
+  int g0;
+  float w0, w1;
+};
+
+__device__ __forceinline__ Axis make_axis(float c, int l, int size) {
+  const float inv = 1.f / static_cast<float>(1 << l);
+  const float s = static_cast<float>(1 << l);
+  const float cm = c * inv, k = floorf(cm);
+  const bool ok = (k + 5.f) * s > 0.f && (k - 3.f) * s < static_cast<float>(size);
+  Axis a;
+  a.g0 = ok ? static_cast<int>(k) - kRadius : kNoBlock;
+  a.w0 = ok ? round_bf16(fmaxf(0.f, 1.f - fabsf(k - cm)) * inv) : 0.f;
+  a.w1 = ok ? round_bf16(fmaxf(0.f, 1.f - fabsf((k + 1.f) - cm)) * inv) : 0.f;
+  return a;
+}
+
+// A lookup lane's state across chunks: A[ly][dy][t] the sums of y tap dy of
+// level ly at its x tap t; Q[ly][t] the P2 of the rows of the current y
+// block of level ly; h the last row added.
+struct RawSums {
+  float A[4][kTaps][2];
+  float Q[4][2];
+  int h;
+};
+
+// Adds level ly's current y block (that of row s.h) to its taps: wy0 into
+// tap dy = jy, wy1 into dy = jy - 1, and starts a new block.
+template <int ly>
+__device__ __forceinline__ void raw_flush(RawSums& s, const Axis& ay) {
+  const int jq = (s.h >> ly) - ay.g0;
+  if (jq >= 0 && jq <= 7) {
+#pragma unroll
+    for (int dy = 0; dy < kTaps; ++dy) {
+      const float w = dy == jq ? ay.w0 : (dy == jq - 1 ? ay.w1 : 0.f);
+      s.A[ly][dy][0] += w * s.Q[ly][0];
+      s.A[ly][dy][1] += w * s.Q[ly][1];
+    }
+  }
+  s.Q[ly][0] = 0.f;
+  s.Q[ly][1] = 0.f;
+}
+
+template <int ly>
+__device__ __forceinline__ void raw_add(RawSums& s, const Axis& ay, int h, float P0, float P1) {
+  if ((h >> ly) != (s.h >> ly)) raw_flush<ly>(s, ay);
+  const int jy = (h >> ly) - ay.g0;
+  if (jy >= 0 && jy <= 7) {
+    s.Q[ly][0] += P0;
+    s.Q[ly][1] += P1;
+  }
+}
+
+// Rows h0 .. h0 + nrows - 1 of the pixel's volume at x level L: this lane's
+// taps 2q and 2q + 1 from block sums 2q, 2q + 1 and lane q + 1's 2q + 2.
+template <int L, bool kVec>
+__device__ __forceinline__ void raw_rows(RawSums& s, const Axis& ax, const Axis (&ay)[4], int q,
+                                         const __nv_bfloat16* row0, int h0, int nrows, int W2) {
+  for (int r = 0; r < nrows; ++r) {
+    const int h = h0 + r;
+    const __nv_bfloat16* row = row0 + r * W2;
+    const float S0 = block_sum<kVec>(row, ax.g0 + 2 * q, L, W2);
+    const float S1 = block_sum<kVec>(row, ax.g0 + 2 * q + 1, L, W2);
+    const float S2 = __shfl_down_sync(0xffffffffu, S0, 1);
+    const float P0 = round_bf16(ax.w0 * S0 + ax.w1 * S1);
+    const float P1 = round_bf16(ax.w0 * S1 + ax.w1 * S2);
+    raw_add<0>(s, ay[0], h, P0, P1);
+    raw_add<1>(s, ay[1], h, P0, P1);
+    raw_add<2>(s, ay[2], h, P0, P1);
+    raw_add<3>(s, ay[3], h, P0, P1);
+    s.h = h;
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void raw_lookup(RawSums& s, int L, const Axis& ax, const Axis (&ay)[4],
+                                           int q, const __nv_bfloat16* row0, int h0, int nrows,
+                                           int W2) {
+  if (L == 0) raw_rows<0, kVec>(s, ax, ay, q, row0, h0, nrows, W2);
+  else if (L == 1) raw_rows<1, kVec>(s, ax, ay, q, row0, h0, nrows, W2);
+  else if (L == 2) raw_rows<2, kVec>(s, ax, ay, q, row0, h0, nrows, W2);
+  else raw_rows<3, kVec>(s, ax, ay, q, row0, h0, nrows, W2);
+}
+
+// Waits for chunk c's f2 tile and issues this warpgroup's wgmma: A the
+// chunk's positions 64 * (wg & 1) .. + 63, B the block's pixels
+// 16 * (wg >> 1) .. + 15, K = Cpad.
+__device__ __forceinline__ void raw_issue(float (&d)[8], int c, uint32_t bar_full, uint32_t s_f1,
+                                          uint32_t s_f2, int wg, int nkb) {
+  const int st = c % kStages;
+  mbar_wait<true>(bar_full + 8 * st, (c / kStages) & 1);
+  wgmma_fence();
+  const uint32_t a_base = s_f2 + st * kStageBytes + (wg & 1) * 64 * 128;
+  const uint32_t b_base = s_f1 + (wg >> 1) * 16 * 128;
+#pragma unroll
+  for (int kb = 0; kb < kMaxKB; ++kb) {
+    if (kb >= nkb) break;
+    const uint64_t da = desc_sw128(a_base + kb * kN * 128);
+    const uint64_t db = desc_sw128(b_base + kb * kRawM * 128);
+#pragma unroll
+    for (int k = 0; k < kBoxC / 16; ++k)
+      wgmma_m64n16k16(d, da + 2 * k, db + 2 * k, (kb | k) != 0);
+  }
+  wgmma_commit();
+}
+
+// Waits for chunk c's wgmma, frees its slot in every block of the cluster
+// and stores the tile transposed, bf16, to volume buffer `buf`
+// ([pixel][position]).  Fragment: position 16*warp + lane/4 (+8), pixel
+// 8j + 2*(lane%4) (+1) of the warpgroup's 64 x 16.
+__device__ __forceinline__ void raw_finish(float (&d)[8], int c, int buf, uint32_t bar_empty,
+                                           __nv_bfloat16* vol, int wg, int warp, int lane) {
+  wgmma_wait0();
+  fence_acc(d);
+  release_slot<kRawCS>(bar_empty + 8 * (c % kStages), lane);
+  __nv_bfloat16* vbuf = vol + buf * (kRawM * kVolStride);
+  const int n = 64 * (wg & 1) + 16 * warp + lane / 4;
+  const int p = 16 * (wg >> 1) + 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    __nv_bfloat16* col = vbuf + (p + 8 * j) * kVolStride + n;
+    col[0] = __float2bfloat16(d[4 * j]);
+    col[kVolStride] = __float2bfloat16(d[4 * j + 1]);
+    col[8] = __float2bfloat16(d[4 * j + 2]);
+    col[kVolStride + 8] = __float2bfloat16(d[4 * j + 3]);
+  }
+}
+
+// K1-raw: one block per (32 source pixels, edge), clusters of kRawCS blocks
+// along the pixels (the grid's x is padded to whole clusters; a block past
+// P builds and streams for its cluster and writes nothing).
+template <bool kVec>
+__global__ void __launch_bounds__(kRawThreads, 1)
+corr_fused_xy_raw_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad), 32-row boxes
+                         const __grid_constant__ CUtensorMap map_f2,  // (E, P2, Cpad), 32-row boxes
+                         const float* __restrict__ coords,           // (E, P, 2)
+                         __nv_bfloat16* __restrict__ out,            // (E, P, 1024)
+                         int P, int H2, int W2, int nkb) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t s_f1 = smem_u32(smem);
+  const uint32_t s_f2 = s_f1 + kRawOffF2;
+  __nv_bfloat16* vol = reinterpret_cast<__nv_bfloat16*>(smem + kRawOffVol);
+  const uint32_t bar_full = s_f1 + kRawOffBar;
+  const uint32_t bar_empty = bar_full + 8 * kStages;
+  const uint32_t bar_f1 = bar_empty + 8 * kStages;
+
+  const int e = blockIdx.y;
+  const int p0 = blockIdx.x * kRawM;
+  const int tid = threadIdx.x;
+  const int rc = kN / W2;
+  const int nchunks = (H2 + rc - 1) / rc;
+
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(bar_full + 8 * i, 1);
+      mbar_init(bar_empty + 8 * i, kMmaWarps * kRawCS);
+    }
+    mbar_init(bar_f1, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster_sync();
+
+  if (tid >= kRawConsumers) {
+    if (tid == kRawConsumers)
+      produce<kRawCS, kRawM>(&map_f1, &map_f2, s_f1, s_f2, bar_f1, bar_full, bar_empty,
+                             p0 < P ? p0 : 0, e, nchunks, 1, rc * W2, nkb);
+    cluster_sync();
+    return;
+  }
+
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  // lookup role: x level L (warps 4L .. 4L + 3), pixel, q (taps 2q, 2q + 1)
+  const int L = tid / 128;
+  const int pix = ((tid / 32) & 3) * 8 + lane / 4;
+  const int q = lane & 3;
+  float2 xy = make_float2(__int_as_float(0x7fc00000), __int_as_float(0x7fc00000));
+  if (p0 + pix < P) xy = reinterpret_cast<const float2*>(coords)[static_cast<size_t>(e) * P + p0 + pix];
+  const Axis ax = make_axis(xy.x, L, W2);
+  Axis ay[4];
+#pragma unroll
+  for (int l = 0; l < 4; ++l) ay[l] = make_axis(xy.y, l, H2);
+
+  RawSums s;
+#pragma unroll
+  for (int l = 0; l < 4; ++l) {
+#pragma unroll
+    for (int dy = 0; dy < kTaps; ++dy) s.A[l][dy][0] = s.A[l][dy][1] = 0.f;
+    s.Q[l][0] = s.Q[l][1] = 0.f;
+  }
+  s.h = -(1 << 24);  // before every row: no y block of any level in range
+
+  float d[8];
+  mbar_wait<true>(bar_f1, 0);
+  raw_issue(d, 0, bar_full, s_f1, s_f2, wg, nkb);
+  raw_finish(d, 0, 0, bar_empty, vol, wg, warp, lane);
+  consumer_sync<kRawConsumers>();
+  for (int c = 0; c + 1 < nchunks; ++c) {
+    raw_issue(d, c + 1, bar_full, s_f1, s_f2, wg, nkb);
+    raw_lookup<kVec>(s, L, ax, ay, q, vol + (c & 1) * (kRawM * kVolStride) + pix * kVolStride,
+                     c * rc, min(rc, H2 - c * rc), W2);
+    raw_finish(d, c + 1, (c + 1) & 1, bar_empty, vol, wg, warp, lane);
+    consumer_sync<kRawConsumers>();
+  }
+  {
+    const int c = nchunks - 1;
+    raw_lookup<kVec>(s, L, ax, ay, q, vol + (c & 1) * (kRawM * kVolStride) + pix * kVolStride,
+                     c * rc, min(rc, H2 - c * rc), W2);
+  }
+  raw_flush<0>(s, ay[0]);
+  raw_flush<1>(s, ay[1]);
+  raw_flush<2>(s, ay[2]);
+  raw_flush<3>(s, ay[3]);
+  consumer_sync<kRawConsumers>();  // every chunk consumed: the ring is free
+
+  // ---- epilogue: stage the block's output in the ring, then 16-byte stores
+  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(smem + kRawOffF2);
+  {
+    __nv_bfloat16* my = stage + pix * kRawOutStride + L * kTaps + 2 * q;
+#pragma unroll
+    for (int l = 0; l < 4; ++l) {
+#pragma unroll
+      for (int dy = 0; dy < kTaps; ++dy) {
+        my[(l * kTaps + dy) * 32] = __float2bfloat16(s.A[l][dy][0]);
+        if (q < 3) my[(l * kTaps + dy) * 32 + 1] = __float2bfloat16(s.A[l][dy][1]);
+      }
+    }
+  }
+  consumer_sync<kRawConsumers>();
+  const int np = min(kRawM, P - p0);
+  for (int i = tid; i < np * (kRawBlock / 8); i += kRawConsumers) {
+    const int p = i / (kRawBlock / 8), o = (i % (kRawBlock / 8)) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (o / 32 < kRawCols) {
+      v = *reinterpret_cast<const uint4*>(stage + p * kRawOutStride + o);
+      if (o % 32 == 24) v.z = v.w = 0u;  // columns 28-31
+    }
+    *reinterpret_cast<uint4*>(out + (static_cast<size_t>(e) * P + p0 + p) * kRawBlock + o) = v;
+  }
+  cluster_sync();
 }
 
 // ---------------------------------------------------------------- host side
@@ -702,67 +1050,138 @@ bool make_map(CUtensorMap* map, const void* base, int E, int rows, int Cpad, int
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool kVec, int kMode>
-int launch(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords, __nv_bfloat16* out,
-           float* vmax, int E, int P, int H2, int W2, int nkb, int tile, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(corr_fused_xy_kernel<kVec, kMode>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+// f1 in boxes of f1_rows pixels, f2 in boxes of kN / cs positions (a
+// cluster's producers load one slice of a chunk each)
+bool make_maps(CUtensorMap* m1, CUtensorMap* m2, const void* f1, const void* f2, int E, int P,
+               int H2, int W2, int Cpad, int f1_rows, int cs) {
+  return make_map(m1, f1, E, P, Cpad, f1_rows) && make_map(m2, f2, E, H2 * W2, Cpad, kN / cs);
+}
+
+constexpr int kNoCluster = -2;  // returned when no cluster of the kernel fits on the card
+
+// Launches `kernel` (its arguments in `args`) in clusters of `cs` blocks.
+// Refuses, with kNoCluster, a launch of which cudaOccupancyMaxActiveClusters
+// finds no cluster that fits (checked once per kernel, in `*fits`).
+int launch_cluster(const void* kernel, dim3 grid, int threads, int smem, int cs,
+                   cudaStream_t stream, void** args, int* fits) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((P + kM - 1) / kM, E, kMode == kRaw ? 4 : 1);
-  corr_fused_xy_kernel<kVec, kMode><<<grid, kThreads, kSmemBytes, stream>>>(
-      m1, m2, coords, out, vmax, P, H2, W2, nkb, tile);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (*fits < 0) {
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    *fits = n;
+  }
+  if (*fits == 0) return kNoCluster;
+  err = cudaLaunchKernelExC(&cfg, kernel, args);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool make_maps(CUtensorMap* m1, CUtensorMap* m2, const void* f1, const void* f2, int E, int P,
-               int H2, int W2, int Cpad) {
-  return make_map(m1, f1, E, P, Cpad, kM) && make_map(m2, f2, E, H2 * W2, Cpad, kN);
+template <bool kVec, int kMode, int kCS>
+int launch(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords, __nv_bfloat16* out,
+           float* vmax, int E, int P, int H2, int W2, int nkb, int tile, cudaStream_t stream) {
+  const auto kernel = corr_fused_xy_kernel<kVec, kMode, kCS>;
+  const dim3 grid((P + kM - 1) / kM, E);
+  if constexpr (kCS == 1) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, kThreads, kSmemBytes, stream>>>(m1, m2, coords, out, vmax, P, H2, W2, nkb,
+                                                   tile);
+    return static_cast<int>(cudaGetLastError());
+  } else {
+    static int fits = -1;
+    void* args[] = {const_cast<CUtensorMap*>(&m1), const_cast<CUtensorMap*>(&m2), &coords, &out,
+                    &vmax, &P, &H2, &W2, &nkb, &tile};
+    return launch_cluster(reinterpret_cast<const void*>(kernel), grid, kThreads, kSmemBytes, kCS,
+                          stream, args, &fits);
+  }
+}
+
+// K1-int8 (kInt8) or its first pass alone (kMax) at tile = 64 * cs pixels
+template <bool kVec, int kMode>
+int launch_int8(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords,
+                __nv_bfloat16* out, float* vmax, int E, int P, int H2, int W2, int nkb, int tile,
+                cudaStream_t s) {
+  switch (tile / kM) {
+    case 2: return launch<kVec, kMode, 2>(m1, m2, coords, out, vmax, E, P, H2, W2, nkb, tile, s);
+    case 4: return launch<kVec, kMode, 4>(m1, m2, coords, out, vmax, E, P, H2, W2, nkb, tile, s);
+    case 8: return launch<kVec, kMode, 8>(m1, m2, coords, out, vmax, E, P, H2, W2, nkb, tile, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <bool kVec>
+int launch_raw(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords,
+               __nv_bfloat16* out, int E, int P, int H2, int W2, int nkb, cudaStream_t stream) {
+  static int fits = -1;
+  const int nblk = (P + kRawM - 1) / kRawM;
+  const dim3 grid((nblk + kRawCS - 1) / kRawCS * kRawCS, E);
+  void* args[] = {const_cast<CUtensorMap*>(&m1), const_cast<CUtensorMap*>(&m2), &coords, &out,
+                  &P, &H2, &W2, &nkb};
+  return launch_cluster(reinterpret_cast<const void*>(corr_fused_xy_raw_kernel<kVec>), grid,
+                        kRawThreads, kRawSmemBytes, kRawCS, stream, args, &fits);
 }
 
 }  // namespace
 
 // f1 (E, P, Cpad) and f2 (E, H2*W2, Cpad) bf16, 16-byte aligned, Cpad in
 // {64, 128}; W2 <= 128.  Launch on `stream`; returns cudaGetLastError() of
-// the launch (0 = ok), or -1 if a tensor map could not be encoded.
+// the launch (0 = ok), -1 if a tensor map could not be encoded, -2 if no
+// cluster of the kernel fits on the card.
 extern "C" int corr_fused_xy_launch(const void* f1, const void* f2, const void* coords, void* out,
                                     int E, int P, int H2, int W2, int Cpad, void* stream) {
   if (E == 0 || P == 0) return 0;
   CUtensorMap m1, m2;
-  if (!make_maps(&m1, &m2, f1, f2, E, P, H2, W2, Cpad)) return -1;
+  if (!make_maps(&m1, &m2, f1, f2, E, P, H2, W2, Cpad, kM, 1)) return -1;
   const int nkb = Cpad / kBoxC;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* c = static_cast<const float*>(coords);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-  if (W2 % 8 == 0) return launch<true, kBf16>(m1, m2, c, o, nullptr, E, P, H2, W2, nkb, 1, s);
-  return launch<false, kBf16>(m1, m2, c, o, nullptr, E, P, H2, W2, nkb, 1, s);
+  if (W2 % 8 == 0) return launch<true, kBf16, 1>(m1, m2, c, o, nullptr, E, P, H2, W2, nkb, 1, s);
+  return launch<false, kBf16, 1>(m1, m2, c, o, nullptr, E, P, H2, W2, nkb, 1, s);
 }
 
-// K1-int8's max pass: vmax (E, P / tile) f32, zeroed by the caller, gets
-// max |vol| of each tile; tile a multiple of 64 that divides P.
+// K1-int8's first pass alone: vmax (E, P / tile) f32 gets max(max |vol|,
+// 1e-20) of each tile; tile 128, 256 or 512, dividing P.
 extern "C" int corr_int8_vmax_launch(const void* f1, const void* f2, void* vmax, int E, int P,
                                      int H2, int W2, int Cpad, int tile, void* stream) {
   if (E == 0 || P == 0) return 0;
   CUtensorMap m1, m2;
-  if (!make_maps(&m1, &m2, f1, f2, E, P, H2, W2, Cpad)) return -1;
-  return launch<false, kMax>(m1, m2, nullptr, nullptr, static_cast<float*>(vmax), E, P, H2, W2,
-                             Cpad / kBoxC, tile, static_cast<cudaStream_t>(stream));
+  if (!make_maps(&m1, &m2, f1, f2, E, P, H2, W2, Cpad, kM, tile / kM)) return -1;
+  return launch_int8<false, kMax>(m1, m2, nullptr, nullptr, static_cast<float*>(vmax), E, P, H2,
+                                  W2, Cpad / kBoxC, tile, static_cast<cudaStream_t>(stream));
 }
 
-// K1-int8: as corr_fused_xy_launch, with each tile's scale from the max
-// pass (vmax, clamped to >= 1e-20 by the caller).
+// K1-int8 in one launch: as corr_fused_xy_launch, and vmax (E, P / tile)
+// f32 gets each tile's scale, as corr_int8_vmax_launch.
 extern "C" int corr_fused_xy_int8_launch(const void* f1, const void* f2, const void* coords,
                                          void* vmax, void* out, int E, int P, int H2, int W2,
                                          int Cpad, int tile, void* stream) {
   if (E == 0 || P == 0) return 0;
   CUtensorMap m1, m2;
-  if (!make_maps(&m1, &m2, f1, f2, E, P, H2, W2, Cpad)) return -1;
+  if (!make_maps(&m1, &m2, f1, f2, E, P, H2, W2, Cpad, kM, tile / kM)) return -1;
   const int nkb = Cpad / kBoxC;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* c = static_cast<const float*>(coords);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
   float* v = static_cast<float*>(vmax);
-  if (W2 % 8 == 0) return launch<true, kInt8>(m1, m2, c, o, v, E, P, H2, W2, nkb, tile, s);
-  return launch<false, kInt8>(m1, m2, c, o, v, E, P, H2, W2, nkb, tile, s);
+  if (W2 % 8 == 0) return launch_int8<true, kInt8>(m1, m2, c, o, v, E, P, H2, W2, nkb, tile, s);
+  return launch_int8<false, kInt8>(m1, m2, c, o, v, E, P, H2, W2, nkb, tile, s);
 }
 
 // K1-raw: as corr_fused_xy_launch, out (E, P, 1024) bf16 (16-byte aligned).
@@ -771,11 +1190,11 @@ extern "C" int corr_fused_xy_raw_launch(const void* f1, const void* f2, const vo
                                         void* stream) {
   if (E == 0 || P == 0) return 0;
   CUtensorMap m1, m2;
-  if (!make_maps(&m1, &m2, f1, f2, E, P, H2, W2, Cpad)) return -1;
+  if (!make_maps(&m1, &m2, f1, f2, E, P, H2, W2, Cpad, kRawM, kRawCS)) return -1;
   const int nkb = Cpad / kBoxC;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* c = static_cast<const float*>(coords);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-  if (W2 % 8 == 0) return launch<true, kRaw>(m1, m2, c, o, nullptr, E, P, H2, W2, nkb, 1, s);
-  return launch<false, kRaw>(m1, m2, c, o, nullptr, E, P, H2, W2, nkb, 1, s);
+  if (W2 % 8 == 0) return launch_raw<true>(m1, m2, c, o, E, P, H2, W2, nkb, s);
+  return launch_raw<false>(m1, m2, c, o, E, P, H2, W2, nkb, s);
 }

@@ -11,17 +11,22 @@ K1-int8 ``corr_fused_xy_int8`` replaces the ``int8=True`` branch of the
 same Pallas kernel (``corr_pallas.py:232-259``, ``cfg.graph.corr_int8``):
 the volume rows are built in f32, quantized to int8 per (edge, pixel tile)
 at the tile's max |vol|, and the x stage contracts them with int8 tents.
-The scale must exist before any block quantizes, so a max pass
-(``corr_int8_vmax``, the same TMA/``wgmma`` build with a max reduction in
-place of the lookup) runs first; both are hand kernels in
-``csrc/corr_fused_xy.cu``.
+The scale must exist before any block quantizes, and a tile spans 2-8 of
+the kernel's 64-pixel blocks: one launch runs a thread-block cluster per
+(tile, edge) that builds the volume twice, first for the tile's maximum
+(exchanged through distributed shared memory), then to quantize and look
+up, with f2 multicast to the cluster.  The tile scales come back on
+request (``return_vmax``).  ``corr_int8_vmax`` runs the first pass alone,
+a diagnostic that no path launches.
 
 K1-raw ``corr_fused_xy(..., raw=True)`` replaces the ``raw=True`` branch of
 the same Pallas kernel (``corr_pallas.py:515-516``): the whole per-pixel
 32 x 32 block of tap products, every pair of levels, with the
 diagonal-level extraction skipped (:func:`raw_corr_index` maps it to the
-reference channels).  No path of either package passes ``raw=True``; its
-one consumer is the corr encoder's 1024-channel branch
+reference channels).  One block per (32 pixels, edge), in clusters of four
+that share f2 by multicast, builds the volume once; each lookup lane keeps
+its 56 sums in registers.  No path of either package passes ``raw=True``;
+its one consumer is the corr encoder's 1024-channel branch
 (``models/net.py``).
 
 K2 ``corr_lookup`` replaces ``_lookup_kernel`` (``corr_pallas.py:58``,
@@ -73,7 +78,13 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+NO_CLUSTER = -2  # a launch's return code: no cluster of the kernel fits on the card
+
+
 def _raise_on(rc: int, name: str) -> None:
+    if rc == NO_CLUSTER:
+        raise RuntimeError(f"{name}: cudaOccupancyMaxActiveClusters finds no cluster of the "
+                           "kernel that fits on this card")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
 
@@ -357,16 +368,21 @@ def int8_agreement(out: torch.Tensor, ref: torch.Tensor, vmax: torch.Tensor, til
     return Int8Agreement(float(err.max()), float(bnd.max()), share, ok)
 
 
+INT8_TILES = (128, 256, 512)  # K1-int8's clusters: 2, 4 or 8 blocks of 64 pixels a tile
+
+
 def _check_tile(name: str, P: int, tile: int) -> None:
-    _check(tile % 64 == 0 and P % tile == 0,
-           f"{name}: tile {tile} must be a multiple of 64 that divides P={P}")
+    _check(tile in INT8_TILES and P % tile == 0,
+           f"{name}: tile {tile} must be one of {INT8_TILES} and divide P={P}")
 
 
 def corr_int8_vmax(f1p: torch.Tensor, f2p: torch.Tensor, H2: int, W2: int,
                    tile: int) -> torch.Tensor:
-    """The max pass of K1-int8: (E, P // tile) f32, the contract of
-    :func:`corr_int8_vmax_plain`.  A CUDA input launches the kernel (K1's
-    limits), a CPU input takes the plain version."""
+    """K1-int8's first pass alone: (E, P // tile) f32, the contract of
+    :func:`corr_int8_vmax_plain`.  A diagnostic (K1-int8 computes the
+    scales inside its own launch); no path calls it.  A CUDA input
+    launches the pass (K1's limits, ``tile`` in :data:`INT8_TILES`), a CPU
+    input takes the plain version."""
     if not f1p.is_cuda:
         return corr_int8_vmax_plain(f1p, f2p, tile)
     f1p, f2p, _ = _k1_operands("corr_int8_vmax", f1p, f2p, None, H2, W2)
@@ -375,36 +391,39 @@ def corr_int8_vmax(f1p: torch.Tensor, f2p: torch.Tensor, H2: int, W2: int,
     from ..utils.cuda_build import load_kernel_library
 
     lib = load_kernel_library("corr_fused_xy")
-    vmax = torch.zeros((E, P // tile), dtype=torch.float32, device=f1p.device)
+    vmax = torch.empty((E, P // tile), dtype=torch.float32, device=f1p.device)
     rc = lib.corr_int8_vmax_launch(_ptr(f1p), _ptr(f2p), _ptr(vmax), E, P, H2, W2, Cpad, tile,
                                    _stream())
     _raise_on(rc, "corr_int8_vmax")
     LAUNCHES["corr_int8_vmax"] += 1
-    return torch.clamp(vmax, min=1e-20)
+    return vmax
 
 
 def corr_fused_xy_int8(f1p: torch.Tensor, f2p: torch.Tensor, coords: torch.Tensor,
-                       H2: int, W2: int, tile: int) -> torch.Tensor:
+                       H2: int, W2: int, tile: int, return_vmax: bool = False):
     """Fused correlation build + int8 x stage + 4-level lookup, the
-    contract of :func:`corr_fused_xy_int8_plain`.  A CUDA input launches
-    the max pass, then kernel K1-int8 (K1's limits; ``tile`` a multiple of
-    64 that divides P), and raises where either does; a CPU input takes the
-    plain version."""
+    contract of :func:`corr_fused_xy_int8_plain`; with ``return_vmax`` also
+    the tile scales, (E, P // tile) f32 as :func:`corr_int8_vmax_plain`.
+    A CUDA input launches kernel K1-int8 once (K1's limits; ``tile`` in
+    :data:`INT8_TILES`, dividing P), and raises where it does not launch; a
+    CPU input takes the plain versions."""
     if not f1p.is_cuda:
-        return corr_fused_xy_int8_plain(f1p, f2p, coords, H2, W2, tile)
-    vmax = corr_int8_vmax(f1p, f2p, H2, W2, tile)
+        out = corr_fused_xy_int8_plain(f1p, f2p, coords, H2, W2, tile)
+        return (out, corr_int8_vmax_plain(f1p, f2p, tile)) if return_vmax else out
     f1p, f2p, coords = _k1_operands("corr_fused_xy_int8", f1p, f2p, coords, H2, W2)
     E, P, Cpad = f1p.shape
+    _check_tile("corr_fused_xy_int8", P, tile)
     from ..utils.cuda_build import load_kernel_library
 
     lib = load_kernel_library("corr_fused_xy")
     out = torch.empty((E, coords.shape[1], coords.shape[2], NUM_CHANNELS),
                       dtype=torch.bfloat16, device=f1p.device)
+    vmax = torch.empty((E, P // tile), dtype=torch.float32, device=f1p.device)
     rc = lib.corr_fused_xy_int8_launch(_ptr(f1p), _ptr(f2p), _ptr(coords), _ptr(vmax), _ptr(out),
                                        E, P, H2, W2, Cpad, tile, _stream())
     _raise_on(rc, "corr_fused_xy_int8")
     LAUNCHES["corr_fused_xy_int8"] += 1
-    return out
+    return (out, vmax) if return_vmax else out
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,7 @@ outputs more than one bf16 ulp apart (an f32 sum in another order flips the
 rounding of a quantized entry only near a half step), each within one int8
 quantum of its tile's scale per tap plus a bf16 ulp of P2 and of the
 output, and K1 (bf16, no quantization) on the same inputs must fail it; its
-max pass ``rtol 1e-4`` (f32 sums of bf16 products in another order);
+tile scales ``rtol 1e-4`` (f32 sums of bf16 products in another order);
 K1-raw one bf16 ulp of its largest output, ``2^-7 * max|out|`` (the same
 rounding points as its plain version, f32 sums in another order), rows and
 columns 28-31 exactly 0;
@@ -89,11 +89,13 @@ def test_corr_fused_xy_matches_plain(dev, case):
     (2, 48, 64, 128, 256, "off_image"), (4, 32, 60, 128, 128, "nan_row"),
 ], ids=["main", "tile128", "tile128_ragged_rows", "channels64", "off_image", "nan_row"])
 def test_corr_fused_xy_int8_matches_plain(dev, case):
-    """K1-int8 and its max pass against their plain versions: tumvi's tile
-    of 256, the group-8 tile of 128 (40 x 48 and 32 x 60 hold 15 of them;
+    """K1-int8 against its plain version in one launch, no separate max
+    pass, its tile scales against corr_int8_vmax_plain: tumvi's tile of
+    256, the group-8 tile of 128 (40 x 48 and 32 x 60 hold 15 of them;
     W2 = 60 is no multiple of 8), C = 64 (one TMA box); off-image
     coordinates give exactly 0, a NaN coordinate row 0 there.  K1 (bf16)
-    on the noise cases' inputs is the control that the check can fail."""
+    on the noise cases' inputs is the control that the check can fail.
+    The max pass alone (a diagnostic) gives the same scales."""
     from dbaf_tpu_torch.ops import corr_cuda as cc
 
     E, H, W, C, tile, kind = case
@@ -103,14 +105,15 @@ def test_corr_fused_xy_int8_matches_plain(dev, case):
     if kind == "nan_row":
         coords[:, H // 2] = float("nan")
     f1p, f2p = cc.prepare_corr_fmaps(f1, f2)
-    vmax = cc.corr_int8_vmax(f1p, f2p, H, W, tile)
     before = dict(cc.LAUNCHES)
-    got = cc.corr_fused_xy_int8(f1p, f2p, coords, H, W, tile)
+    got, vmax = cc.corr_fused_xy_int8(f1p, f2p, coords, H, W, tile, return_vmax=True)
     torch.cuda.synchronize()
     assert cc.LAUNCHES["corr_fused_xy_int8"] == before["corr_fused_xy_int8"] + 1
-    assert cc.LAUNCHES["corr_int8_vmax"] == before["corr_int8_vmax"] + 1
+    assert cc.LAUNCHES["corr_int8_vmax"] == before["corr_int8_vmax"]
     vmax_ref = cc.corr_int8_vmax_plain(f1p, f2p, tile)
     torch.testing.assert_close(vmax, vmax_ref, rtol=1e-4, atol=0)
+    torch.testing.assert_close(cc.corr_int8_vmax(f1p, f2p, H, W, tile), vmax_ref, rtol=1e-4,
+                               atol=0)
     want = cc.corr_fused_xy_int8_plain(f1p, f2p, coords, H, W, tile)
     assert got.shape == want.shape == (E, H, W, 196) and got.dtype == torch.bfloat16
     if kind == "off_image":
@@ -132,12 +135,16 @@ def test_corr_fused_xy_int8_matches_plain(dev, case):
 @pytest.mark.parametrize("case", [
     (48, 48, 64, 128, "noise"), (3, 10, 13, 128, "noise"), (2, 37, 45, 40, "noise"),
     (2, 40, 112, 128, "noise"), (2, 48, 64, 128, "off_image"), (2, 37, 45, 128, "nan_row"),
-], ids=["e48", "ragged", "ragged_channels", "one_row_chunks", "off_image", "nan_row"])
+    (3, 4, 40, 128, "noise"),
+], ids=["e48", "ragged", "ragged_channels", "one_row_chunks", "off_image", "nan_row",
+        "cluster_tail"])
 def test_corr_fused_xy_raw_matches_plain(dev, case):
     """K1-raw against its plain version at the main shape, ragged pixel
-    counts and widths (P = 130 and 1665 are no multiples of 64, W2 = 13
-    and 45 no multiples of 8), one row per chunk; off the image exactly 0,
-    a NaN coordinate row 0 there.  Its diagonal blocks gathered by
+    counts and widths (P = 130 and 1665 are no multiples of its 32-pixel
+    block, W2 = 13 and 45 no multiples of 8), one row per chunk; off the
+    image exactly 0, a NaN coordinate row 0 there.  P = 160 is 5 blocks,
+    no whole number of 4-block clusters: the last cluster has 3 blocks
+    past P that build and write nothing.  Its diagonal blocks gathered by
     raw_corr_index equal K1's output on the same inputs, up to the same
     one-ulp bound (the two kernels sum in different orders)."""
     from dbaf_tpu_torch.ops import corr_cuda as cc
@@ -237,7 +244,7 @@ def test_visual_async_entry_points_on_the_card(dev):
     the seeded full-width network, rollup 14/4 and int8 correlation): five
     steady-state frames under ``set_sync_debug_mode("error")``, so no call
     of the step synchronises; K2 on every gated frame, K1-int8 in every
-    round, and a finite trajectory."""
+    round and no separate max pass, and a finite trajectory."""
     import json
     import os
 
@@ -280,5 +287,5 @@ def test_visual_async_entry_points_on_the_card(dev):
     assert a.stats()["steps"] == n_frames - 8 and fe.rollup_count >= 1
     assert cc.LAUNCHES["corr_lookup"] == n_frames - 1
     assert cc.LAUNCHES["corr_fused_xy_int8"] >= fe.update_rounds > 0
-    assert cc.LAUNCHES["corr_fused_xy"] == 0
+    assert cc.LAUNCHES["corr_fused_xy"] == 0 and cc.LAUNCHES["corr_int8_vmax"] == 0
     assert traj.shape == (fe.keyframe_steps, 8) and np.all(np.isfinite(traj))
