@@ -156,25 +156,23 @@ constexpr int kOffF2 = kF1Bytes;
 constexpr int kOffVol = kOffF2 + kStages * kStageBytes;
 constexpr int kOffAcc = kOffVol + 2 * kVolBytes;
 constexpr int kOffBar = kOffAcc + kM * kAccStride * 4;
-constexpr int kOffRed = kOffBar + 64;                // int8: 16 warp maxima, then the block's
-constexpr int kSmemBytes = kOffRed + 128 + 1024;     // + room to align the base to 1024
+constexpr int kOffRed = kOffBar + 64;                // K1-int8: 16 warp maxima, 8 block maxima
+constexpr int kSmemBytes = kOffRed + 96 + 1024;      // + room to align the base to 1024
 
 // K1-raw
 constexpr int kRawM = 32;                  // source pixels per block
-constexpr int kRawCS = 4;                  // blocks per cluster (128 pixels share each f2 chunk)
-constexpr int kRawConsumers = 512;         // 16 warps: the build and the lookup
-constexpr int kRawThreads = kRawConsumers + 32;
-constexpr int kRawCols = 4 * kTaps;        // 28 live columns (and rows) of a raw block
+constexpr int kRawThreads = 512;           // 16 warps: the build and the lookup
+constexpr int kRawStages = 4;              // f2 ring depth
 constexpr int kRawBlock = 32 * 32;         // raw outputs per pixel
 constexpr int kRawOutStride = kRawBlock + 8;  // bf16 per pixel of the staged output (16-byte rows)
 constexpr int kRawOffF2 = kMaxKB * kRawM * 128;  // after the 8 KB f1 tile
-constexpr int kRawOffVol = kRawOffF2 + kStages * kStageBytes;
-constexpr int kRawOffBar = kRawOffVol + 2 * kRawM * kVolStride * 2;
+constexpr int kRawOffVol = kRawOffF2 + kRawStages * kStageBytes;
+constexpr int kRawOffStage = kRawOffVol + 2 * kRawM * kVolStride * 2;
+constexpr int kRawOffBar = kRawOffStage + kRawM * kRawOutStride * 2;
 constexpr int kRawSmemBytes = kRawOffBar + 64 + 1024;
-static_assert(kRawM * kRawOutStride * 2 <= kStages * kStageBytes, "the staged output fits the ring");
+static_assert(kRawSmemBytes <= 232448, "K1-raw's shared memory fits a block");
 
 constexpr int kNoBlock = -(1 << 20);       // first block of an axis with no support
-constexpr long long kWaitCycles = 1LL << 35;  // a cluster's ring wait traps after ~17 s
 
 // ---------------------------------------------------------------- PTX helpers
 
@@ -195,22 +193,8 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
 }
 
-// arrives on the barrier at the same offset in block `cta` of the cluster
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
-  asm volatile(
-      "{\n .reg .b32 ra;\n mapa.shared::cluster.u32 ra, %0, %1;\n"
-      " mbarrier.arrive.shared::cluster.b64 _, [ra];\n}" ::"r"(bar),
-      "r"(cta)
-      : "memory");
-}
-
-// kBounded (the cluster kernels): a wait that a fault in the cluster's
-// handshake would never end traps instead, so the launch fails and raises
-template <bool kBounded = false>
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done = 0;
-  long long t0 = 0;
-  if (kBounded) t0 = clock64();
   while (!done) {
     asm volatile(
         "{\n .reg .pred p;\n"
@@ -219,7 +203,6 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "=r"(done)
         : "r"(bar), "r"(parity)
         : "memory");
-    if (kBounded && !done && clock64() - t0 > kWaitCycles) __trap();
   }
 }
 
@@ -229,18 +212,6 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// the same box to the same offset in every block of `mask`, each block's
-// barrier at `bar` credited with the bytes it received
-__device__ __forceinline__ void tma_load_3d_multicast(uint32_t dst, const CUtensorMap* map,
-                                                      uint32_t bar, int c0, int c1, int c2,
-                                                      uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "h"(mask)
       : "memory");
 }
 
@@ -261,16 +232,31 @@ __device__ __forceinline__ void cluster_sync() {
   cluster_wait();
 }
 
-// the f32 at shared offset `addr` of block `cta` of the cluster
-__device__ __forceinline__ float ld_cluster_f32(uint32_t addr, uint32_t cta) {
-  float v;
+// Stores v at shared offset `addr` of block `cta` of the cluster, then
+// arrives on its barrier at offset `bar` (release: the store is seen first).
+__device__ __forceinline__ void st_cluster_arrive(uint32_t addr, float v, uint32_t bar,
+                                                  uint32_t cta) {
   asm volatile(
-      "{\n .reg .b32 ra;\n mapa.shared::cluster.u32 ra, %1, %2;\n"
-      " ld.shared::cluster.f32 %0, [ra];\n}"
-      : "=f"(v)
-      : "r"(addr), "r"(cta)
+      "{\n .reg .b32 ra, rb;\n mapa.shared::cluster.u32 ra, %0, %2;\n"
+      " mapa.shared::cluster.u32 rb, %1, %2;\n st.shared::cluster.f32 [ra], %3;\n"
+      " mbarrier.arrive.release.cluster.shared::cluster.b64 _, [rb];\n}" ::"r"(addr),
+      "r"(bar), "r"(cta), "f"(v)
       : "memory");
-  return v;
+}
+
+// mbar_wait for a barrier that other blocks of the cluster arrive on
+// (acquire: their stores before the arrive are seen after it)
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
 }
 
 // wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:
@@ -329,45 +315,26 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(kCount) : "memory");
 }
 
-// A warp frees ring slot `bar` (its "empty" barrier) in every block of the
-// cluster: lane r arrives on block r's, so the arrivals run side by side.
-template <int kCS>
-__device__ __forceinline__ void release_slot(uint32_t bar, int lane) {
-  if constexpr (kCS == 1) {
-    if (lane == 0) mbar_arrive(bar);
-  } else {
-    if (lane < kCS) mbar_arrive_cluster(bar, lane);
-  }
+// The producer lane: the block's f1 tile (64 pixels from p0 of edge e) ...
+__device__ __forceinline__ void produce_f1(const CUtensorMap* map_f1, uint32_t s_f1,
+                                           uint32_t bar_f1, int p0, int e, int nkb) {
+  mbar_expect_tx(bar_f1, nkb * kM * 128);
+  for (int kb = 0; kb < nkb; ++kb)
+    tma_load_3d(s_f1 + kb * kM * 128, map_f1, bar_f1, kb * kBoxC, p0, e);
 }
 
-// One lane of the producer warp: the block's f1 tile (kF1Rows pixels from
-// p_load), then `npass` passes over the edge's f2 in chunks of kN positions
-// (`span` = whole rows of them) through the ring.  In a cluster each block
-// loads rows rank*kN/kCS .. of a chunk and multicasts them.
-template <int kCS, int kF1Rows>
-__device__ __forceinline__ void produce(const CUtensorMap* map_f1, const CUtensorMap* map_f2,
-                                        uint32_t s_f1, uint32_t s_f2, uint32_t bar_f1,
-                                        uint32_t bar_full, uint32_t bar_empty, int p_load, int e,
-                                        int nchunks, int npass, int span, int nkb) {
-  constexpr int kSlice = kN / kCS;
-  const int rank = kCS > 1 ? static_cast<int>(cluster_rank()) : 0;
-  mbar_expect_tx(bar_f1, nkb * kF1Rows * 128);
-  for (int kb = 0; kb < nkb; ++kb)
-    tma_load_3d(s_f1 + kb * kF1Rows * 128, map_f1, bar_f1, kb * kBoxC, p_load, e);
-  for (int c = 0; c < npass * nchunks; ++c) {
-    const int st = c % kStages;
-    mbar_wait<(kCS > 1)>(bar_empty + 8 * st, ((c / kStages) & 1) ^ 1);
+// ... and ring chunks ring0 .. ring0 + n - 1: chunk j of them holds f2
+// positions of chunk j % nchunks of edge e (`span` = whole rows of them).
+__device__ __forceinline__ void produce_f2(const CUtensorMap* map_f2, uint32_t s_f2,
+                                           uint32_t bar_full, uint32_t bar_empty, int ring0, int n,
+                                           int nchunks, int span, int e, int nkb) {
+  for (int j = 0; j < n; ++j) {
+    const int c = ring0 + j, st = c % kStages;
+    mbar_wait(bar_empty + 8 * st, ((c / kStages) & 1) ^ 1);
     mbar_expect_tx(bar_full + 8 * st, nkb * kN * 128);
-    const int pos = (c % nchunks) * span;
-    for (int kb = 0; kb < nkb; ++kb) {
-      const uint32_t dst = s_f2 + st * kStageBytes + kb * kN * 128;
-      if constexpr (kCS == 1) {
-        tma_load_3d(dst, map_f2, bar_full + 8 * st, kb * kBoxC, pos, e);
-      } else {
-        tma_load_3d_multicast(dst + rank * kSlice * 128, map_f2, bar_full + 8 * st, kb * kBoxC,
-                              pos + rank * kSlice, e, static_cast<uint16_t>((1 << kCS) - 1));
-      }
-    }
+    for (int kb = 0; kb < nkb; ++kb)
+      tma_load_3d(s_f2 + st * kStageBytes + kb * kN * 128, map_f2, bar_full + 8 * st, kb * kBoxC,
+                  (j % nchunks) * span, e);
   }
 }
 
@@ -539,11 +506,10 @@ __device__ __forceinline__ void lookup_any(float* acc, const Level& lv, int lvl,
 
 // Waits for ring chunk c's f2 tile and issues this warpgroup's wgmma on its
 // quarter of the positions (64 x 32, K = Cpad), without waiting for it.
-template <int kCS>
 __device__ __forceinline__ void issue_chunk(float (&d)[kAcc], int c, uint32_t bar_full,
                                             uint32_t s_f1, uint32_t s_f2, int wg, int nkb) {
   const int st = c % kStages;
-  mbar_wait<(kCS > 1)>(bar_full + 8 * st, (c / kStages) & 1);
+  mbar_wait(bar_full + 8 * st, (c / kStages) & 1);
   wgmma_fence();
   const uint32_t b_base = s_f2 + st * kStageBytes + wg * kWgN * 128;
 #pragma unroll
@@ -562,13 +528,13 @@ __device__ __forceinline__ void issue_chunk(float (&d)[kAcc], int c, uint32_t ba
 // volume chunk to buffer `buf` (int8: round(vol * qs), exact in bf16).
 // Accumulator fragment: row 16*warp + lane/4 (+8), column 8j + 2*(lane%4)
 // (+1) of the warpgroup's 32 positions.
-template <int kMode, int kCS>
+template <int kMode>
 __device__ __forceinline__ void finish_chunk(float (&d)[kAcc], int c, int buf,
                                              uint32_t bar_empty, __nv_bfloat16* vol, int wg,
                                              int warp, int lane, float qs) {
   wgmma_wait0();
   fence_acc(d);
-  release_slot<kCS>(bar_empty + 8 * (c % kStages), lane);
+  if (lane == 0) mbar_arrive(bar_empty + 8 * (c % kStages));
   if (kMode == kInt8) {
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) d[i] = rintf(d[i] * qs);
@@ -585,151 +551,83 @@ __device__ __forceinline__ void finish_chunk(float (&d)[kAcc], int c, int buf,
   }
 }
 
-// kMode kBf16: K1 (kCS 1); kInt8: K1-int8, one cluster of kCS blocks per
-// (tile, edge), writes vmax; kMax: K1-int8's first pass alone (writes vmax;
-// coords and out are unused).
-template <bool kVec, int kMode, int kCS>
-__global__ void __launch_bounds__(kThreads, 1)
-corr_fused_xy_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf16
-                     const __grid_constant__ CUtensorMap map_f2,  // (E, P2, Cpad) bf16
-                     const float* __restrict__ coords,           // (E, P, 2)
-                     __nv_bfloat16* __restrict__ out,            // (E, P, 196)
-                     float* __restrict__ vmax,                   // (E, P / tile) f32
-                     int P, int H2, int W2, int nkb, int tile) {
-  constexpr bool kScale = kMode != kBf16;          // the int8 tile scale: pass 1
-  constexpr int kPasses = kMode == kInt8 ? 2 : 1;  // f2 streamed once per pass
-  extern __shared__ unsigned char smem_raw[];
+// Shared memory of K1 and K1-int8 (base aligned to 1024 for the swizzle).
+struct K1Smem {
+  uint32_t s_f1, s_f2;           // f1 tile, f2 ring
+  __nv_bfloat16* vol;            // two volume chunks
+  float* acc;                    // the sums, kAccStride per pixel
+  float* red;                    // K1-int8: 16 warp maxima, then the cluster's block maxima
+  uint32_t bar_full, bar_empty;  // kStages each
+  uint32_t bar_f1;               // the f1 tile landed
+  uint32_t bar_xchg;             // K1-int8: every block's maximum arrived
+};
+
+__device__ __forceinline__ K1Smem k1_smem(unsigned char* smem_raw) {
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  const uint32_t s_f1 = smem_u32(smem);
-  const uint32_t s_f2 = s_f1 + kOffF2;
-  __nv_bfloat16* vol = reinterpret_cast<__nv_bfloat16*>(smem + kOffVol);
-  float* acc = reinterpret_cast<float*>(smem + kOffAcc);
-  float* red = reinterpret_cast<float*>(smem + kOffRed);
-  const uint32_t bar_full = s_f1 + kOffBar;  // kStages barriers
-  const uint32_t bar_empty = bar_full + 8 * kStages;
-  const uint32_t bar_f1 = bar_empty + 8 * kStages;
+  K1Smem m;
+  m.s_f1 = smem_u32(smem);
+  m.s_f2 = m.s_f1 + kOffF2;
+  m.vol = reinterpret_cast<__nv_bfloat16*>(smem + kOffVol);
+  m.acc = reinterpret_cast<float*>(smem + kOffAcc);
+  m.red = reinterpret_cast<float*>(smem + kOffRed);
+  m.bar_full = m.s_f1 + kOffBar;
+  m.bar_empty = m.bar_full + 8 * kStages;
+  m.bar_f1 = m.bar_empty + 8 * kStages;
+  m.bar_xchg = m.bar_f1 + 8;
+  return m;
+}
 
-  const int e = blockIdx.y;
-  const int p0 = blockIdx.x * kM;
-  const int tid = threadIdx.x;
+// The consumers' build + lookup of one block (64 pixels from p0, edge e)
+// from ring chunks ring .. ring + nchunks - 1; int8 (kMode kInt8): the
+// tile's step qs and scale sc.
+template <bool kVec, int kMode>
+__device__ __forceinline__ void k1_block(const K1Smem& m, const float* __restrict__ coords,
+                                         __nv_bfloat16* __restrict__ out, int tid, int e, int p0,
+                                         int ring, int P, int H2, int W2, int nkb, float qs,
+                                         float sc) {
   const int rc = kN / W2;                   // whole rows per chunk
   const int nchunks = (H2 + rc - 1) / rc;
-
-  if (tid == 0) {
-    for (int i = 0; i < kStages; ++i) {
-      mbar_init(bar_full + 8 * i, 1);
-      mbar_init(bar_empty + 8 * i, kMmaWarps * kCS);
-    }
-    mbar_init(bar_f1, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  if constexpr (kCS > 1) cluster_sync();
-  else __syncthreads();
-
-  if (tid >= kConsumers) {
-    // ---- producer warp: one lane issues every TMA load.  In a cluster the
-    // warp arrives at the tile-max exchange at once (it has nothing to
-    // give) and stays until the cluster's last barrier.
-    if constexpr (kScale && kCS > 1) cluster_arrive();
-    if (tid == kConsumers)
-      produce<kCS, kM>(&map_f1, &map_f2, s_f1, s_f2, bar_f1, bar_full, bar_empty, p0, e,
-                       nchunks, kPasses, rc * W2, nkb);
-    if constexpr (kCS > 1) {
-      if constexpr (kScale) cluster_wait();
-      cluster_sync();
-    }
-    return;
-  }
-
-  // ---- consumers
   const int wg = tid / 128;       // wgmma warpgroup (0-3): its quarter of the chunk's positions
   const int wtid = tid % 128;
   const int warp = wtid / 32, lane = tid % 32;
   const bool mma = tid < kMmaWarps * 32;
-  float d[kAcc];
-
-  // int8: the tile's quantization step and the scale of the integer x sums
-  float qs = 0.f, sc = 0.f;
-  if constexpr (kScale) {
-    // ---- pass 1: max |vol| of this block's rows over every chunk
-    float m = 0.f;
-    if (mma) {
-      mbar_wait<(kCS > 1)>(bar_f1, 0);
-      for (int c = 0; c < nchunks; ++c) {
-        issue_chunk<kCS>(d, c, bar_full, s_f1, s_f2, wg, nkb);
-        wgmma_wait0();
-        fence_acc(d);
-        release_slot<kCS>(bar_empty + 8 * (c % kStages), lane);
-#pragma unroll
-        for (int i = 0; i < kAcc; ++i) m = fmaxf(m, fabsf(d[i]));
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      if (lane == 0) red[tid / 32] = m;
-    }
-    consumer_sync<kConsumers>();
-    if (tid == 0) {
-      float b = 0.f;
-      for (int w = 0; w < kMmaWarps; ++w) b = fmaxf(b, red[w]);
-      red[kMmaWarps] = b;
-    }
-    // the tile's maximum: every block's, read through distributed shared memory
-    float vm = 0.f;
-    if constexpr (kCS > 1) {
-      cluster_sync();
-#pragma unroll
-      for (int r = 0; r < kCS; ++r) vm = fmaxf(vm, ld_cluster_f32(smem_u32(red + kMmaWarps), r));
-    } else {
-      consumer_sync<kConsumers>();
-      vm = red[kMmaWarps];
-    }
-    vm = fmaxf(vm, 1e-20f);
-    if (tid == 0 && (kCS == 1 || cluster_rank() == 0))
-      vmax[static_cast<size_t>(e) * (P / tile) + p0 / tile] = vm;
-    if constexpr (kMode == kMax) {
-      if constexpr (kCS > 1) cluster_sync();
-      return;
-    }
-    qs = kQ / vm;
-    sc = vm * kInvQ2;
-  }
 
   // lookup role of this thread (see the header): level, pixel, lane of the pixel
   const int lvl = tid < 256 ? 3 : tid < 384 ? 2 : tid < 512 ? 1 : 0;
   const int pix = lvl == 3 ? tid >> 2 : (tid - 256 - 128 * (2 - lvl)) >> 1;
   const int q = lvl == 3 ? tid & 3 : tid & 1;
-  const int ring = kPasses == 2 ? nchunks : 0;  // ring index of this pass's first chunk
 
-  for (int i = tid; i < kM * kAccStride; i += kConsumers) acc[i] = 0.f;
+  for (int i = tid; i < kM * kAccStride; i += kConsumers) m.acc[i] = 0.f;
   const bool live = p0 + pix < P;
   float2 xy = make_float2(__int_as_float(0x7fc00000), 0.f);  // NaN: no support
   if (live) xy = reinterpret_cast<const float2*>(coords)[static_cast<size_t>(e) * P + p0 + pix];
   const Level lv = make_level<kMode>(xy.x, xy.y, lvl, H2, W2);
-  float* my_acc = acc + pix * kAccStride;
+  float* my_acc = m.acc + pix * kAccStride;
 
+  float d[kAcc];
   if (mma) {
-    mbar_wait<(kCS > 1)>(bar_f1, 0);
-    issue_chunk<kCS>(d, ring, bar_full, s_f1, s_f2, wg, nkb);
-    finish_chunk<kMode, kCS>(d, ring, 0, bar_empty, vol, wg, warp, lane, qs);
+    mbar_wait(m.bar_f1, 0);
+    issue_chunk(d, ring, m.bar_full, m.s_f1, m.s_f2, wg, nkb);
+    finish_chunk<kMode>(d, ring, 0, m.bar_empty, m.vol, wg, warp, lane, qs);
   }
   consumer_sync<kConsumers>();
 
   // chunk c + 1 runs on the tensor cores under chunk c's lookup; the last
   // chunk's lookup runs alone
   for (int c = 0; c + 1 < nchunks; ++c) {
-    if (mma) issue_chunk<kCS>(d, ring + c + 1, bar_full, s_f1, s_f2, wg, nkb);
+    if (mma) issue_chunk(d, ring + c + 1, m.bar_full, m.s_f1, m.s_f2, wg, nkb);
     lookup_any<kVec, kMode>(my_acc, lv, lvl, q,
-                            vol + (c & 1) * (kM * kVolStride) + pix * kVolStride, c * rc,
+                            m.vol + (c & 1) * (kM * kVolStride) + pix * kVolStride, c * rc,
                             min(rc, H2 - c * rc), W2, sc);
     if (mma)
-      finish_chunk<kMode, kCS>(d, ring + c + 1, (c + 1) & 1, bar_empty, vol, wg, warp, lane, qs);
+      finish_chunk<kMode>(d, ring + c + 1, (c + 1) & 1, m.bar_empty, m.vol, wg, warp, lane, qs);
     consumer_sync<kConsumers>();
   }
   {
     const int c = nchunks - 1;
     lookup_any<kVec, kMode>(my_acc, lv, lvl, q,
-                            vol + (c & 1) * (kM * kVolStride) + pix * kVolStride, c * rc,
+                            m.vol + (c & 1) * (kM * kVolStride) + pix * kVolStride, c * rc,
                             min(rc, H2 - c * rc), W2, sc);
   }
 
@@ -745,7 +643,7 @@ corr_fused_xy_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
         const int idx = min(i + k, n - 1);
-        v[k] = __float2bfloat16(acc[(idx / kChannels) * kAccStride + idx % kChannels]);
+        v[k] = __float2bfloat16(m.acc[(idx / kChannels) * kAccStride + idx % kChannels]);
       }
       if (i + 8 <= n) {
         *reinterpret_cast<uint4*>(dst + i) = *reinterpret_cast<const uint4*>(v);
@@ -755,9 +653,130 @@ corr_fused_xy_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad
     }
   } else {
     for (int i = tid; i < n; i += kConsumers)
-      dst[i] = __float2bfloat16(acc[(i / kChannels) * kAccStride + i % kChannels]);
+      dst[i] = __float2bfloat16(m.acc[(i / kChannels) * kAccStride + i % kChannels]);
   }
-  if constexpr (kCS > 1) cluster_sync();
+}
+
+// K1: one block per (64 source pixels, edge).
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 1)
+corr_fused_xy_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf16
+                     const __grid_constant__ CUtensorMap map_f2,  // (E, P2, Cpad) bf16
+                     const float* __restrict__ coords,           // (E, P, 2)
+                     __nv_bfloat16* __restrict__ out,            // (E, P, 196)
+                     int P, int H2, int W2, int nkb) {
+  extern __shared__ unsigned char smem_raw[];
+  const K1Smem m = k1_smem(smem_raw);
+  const int e = blockIdx.y;
+  const int p0 = blockIdx.x * kM;
+  const int tid = threadIdx.x;
+  const int rc = kN / W2;
+  const int nchunks = (H2 + rc - 1) / rc;
+
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(m.bar_full + 8 * i, 1);
+      mbar_init(m.bar_empty + 8 * i, kMmaWarps);
+    }
+    mbar_init(m.bar_f1, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // ---- producer warp: one lane issues every TMA load
+    if (tid == kConsumers) {
+      produce_f1(&map_f1, m.s_f1, m.bar_f1, p0, e, nkb);
+      produce_f2(&map_f2, m.s_f2, m.bar_full, m.bar_empty, 0, nchunks, nchunks, rc * W2, e, nkb);
+    }
+    return;
+  }
+  k1_block<kVec, kBf16>(m, coords, out, tid, e, p0, 0, P, H2, W2, nkb, 0.f, 0.f);
+}
+
+// K1-int8 (kInt8), or its first pass alone (kMax; coords and out unused):
+// one cluster of kCS blocks per (tile, edge), a block per 64 pixels of the
+// tile.  Each block builds its rows for max |vol| (pass 1), sends its
+// maximum to every block of the cluster (a store to distributed shared
+// memory and a remote arrive on its "xchg" barrier), takes the tile's
+// maximum from its own copy, and runs K1 on its rows with the volume
+// quantized at that scale (pass 2).  The ring runs on across the passes,
+// so the producer loads pass 2's first chunks while pass 1 ends.  A block
+// reads no other block's memory, so the blocks of a cluster part after the
+// exchange: none waits for another to finish.
+template <bool kVec, int kMode, int kCS>
+__global__ void __launch_bounds__(kThreads, 1)
+corr_int8_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf16
+                 const __grid_constant__ CUtensorMap map_f2,  // (E, P2, Cpad) bf16
+                 const float* __restrict__ coords,           // (E, P, 2)
+                 __nv_bfloat16* __restrict__ out,            // (E, P, 196)
+                 float* __restrict__ vmax,                   // (E, P / tile) f32
+                 int P, int H2, int W2, int nkb) {
+  constexpr int kPasses = kMode == kInt8 ? 2 : 1;  // f2 streamed once per pass
+  extern __shared__ unsigned char smem_raw[];
+  const K1Smem m = k1_smem(smem_raw);
+  const int tid = threadIdx.x;
+  const int rank = static_cast<int>(cluster_rank());
+  const int e = blockIdx.y, t = blockIdx.x / kCS;
+  const int p0 = blockIdx.x * kM;
+  const int rc = kN / W2;
+  const int nchunks = (H2 + rc - 1) / rc;
+
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(m.bar_full + 8 * i, 1);
+      mbar_init(m.bar_empty + 8 * i, kMmaWarps);
+    }
+    mbar_init(m.bar_f1, 1);
+    mbar_init(m.bar_xchg, kCS);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster_sync();  // every block's barriers exist before any remote arrive
+
+  if (tid >= kConsumers) {
+    if (tid == kConsumers) {
+      produce_f1(&map_f1, m.s_f1, m.bar_f1, p0, e, nkb);
+      produce_f2(&map_f2, m.s_f2, m.bar_full, m.bar_empty, 0, kPasses * nchunks, nchunks, rc * W2,
+                 e, nkb);
+    }
+    return;
+  }
+
+  // ---- pass 1: max |vol| of this block's rows over every chunk
+  const int wg = tid / 128, lane = tid % 32;
+  if (tid < kMmaWarps * 32) {
+    float d[kAcc];
+    float mx = 0.f;
+    mbar_wait(m.bar_f1, 0);
+    for (int c = 0; c < nchunks; ++c) {
+      issue_chunk(d, c, m.bar_full, m.s_f1, m.s_f2, wg, nkb);
+      wgmma_wait0();
+      fence_acc(d);
+      if (lane == 0) mbar_arrive(m.bar_empty + 8 * (c % kStages));
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) mx = fmaxf(mx, fabsf(d[i]));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    if (lane == 0) m.red[tid / 32] = mx;
+  }
+  consumer_sync<kConsumers>();
+  // the block's maximum to slot `rank` of every block's copy
+  float* slots = m.red + kMmaWarps;
+  if (tid == 0) {
+    float b = 0.f;
+    for (int w = 0; w < kMmaWarps; ++w) b = fmaxf(b, m.red[w]);
+    for (int r = 0; r < kCS; ++r) st_cluster_arrive(smem_u32(slots + rank), b, m.bar_xchg, r);
+  }
+  mbar_wait_cluster(m.bar_xchg, 0);
+  float vm = 0.f;
+#pragma unroll
+  for (int r = 0; r < kCS; ++r) vm = fmaxf(vm, slots[r]);
+  vm = fmaxf(vm, 1e-20f);
+  if (tid == 0 && rank == 0) vmax[static_cast<size_t>(e) * (gridDim.x / kCS) + t] = vm;
+  if constexpr (kMode == kInt8)
+    k1_block<kVec, kInt8>(m, coords, out, tid, e, p0, nchunks, P, H2, W2, nkb, kQ / vm,
+                          vm * kInvQ2);
 }
 
 // ---------------------------------------------------------------- K1-raw
@@ -782,35 +801,58 @@ __device__ __forceinline__ Axis make_axis(float c, int l, int size) {
   return a;
 }
 
-// A lookup lane's state across chunks: A[ly][dy][t] the sums of y tap dy of
-// level ly at its x tap t; Q[ly][t] the P2 of the rows of the current y
-// block of level ly; h the last row added.
+// A lookup lane's state across chunks, per y level ly: Q[ly][t] the P2 of
+// the rows of the current y block at its x tap t, pend[ly][t] the w0 part
+// of the y tap that block starts (its w1 part comes from the next block);
+// h the last row added.  A y tap is complete once the block after its own
+// is summed: it is rounded to bf16 then and written to the block's staged
+// output, `out` (this lane's first entry: the pixel's row, column
+// L*7 + 2q; `two`: the lane has a second x tap).
 struct RawSums {
-  float A[4][kTaps][2];
   float Q[4][2];
+  float pend[4][2];
   int h;
 };
 
-// Adds level ly's current y block (that of row s.h) to its taps: wy0 into
-// tap dy = jy, wy1 into dy = jy - 1, and starts a new block.
+// Ends level ly's current y block jq (that of row s.h): y tap jq - 1 is
+// complete, tap jq gets its w0 part, and a new block starts.
 template <int ly>
-__device__ __forceinline__ void raw_flush(RawSums& s, const Axis& ay) {
+__device__ __forceinline__ void raw_flush(RawSums& s, const Axis& ay, __nv_bfloat16* out,
+                                          bool two) {
   const int jq = (s.h >> ly) - ay.g0;
   if (jq >= 0 && jq <= 7) {
-#pragma unroll
-    for (int dy = 0; dy < kTaps; ++dy) {
-      const float w = dy == jq ? ay.w0 : (dy == jq - 1 ? ay.w1 : 0.f);
-      s.A[ly][dy][0] += w * s.Q[ly][0];
-      s.A[ly][dy][1] += w * s.Q[ly][1];
+    if (jq >= 1) {
+      __nv_bfloat16* o = out + (ly * kTaps + jq - 1) * 32;
+      o[0] = __float2bfloat16(s.pend[ly][0] + ay.w1 * s.Q[ly][0]);
+      if (two) o[1] = __float2bfloat16(s.pend[ly][1] + ay.w1 * s.Q[ly][1]);
     }
+    s.pend[ly][0] = ay.w0 * s.Q[ly][0];
+    s.pend[ly][1] = ay.w0 * s.Q[ly][1];
   }
   s.Q[ly][0] = 0.f;
   s.Q[ly][1] = 0.f;
 }
 
+// After the last row: the last block's flush, and its own y tap (whose next
+// block lies past the image) is complete with its w0 part alone.
 template <int ly>
-__device__ __forceinline__ void raw_add(RawSums& s, const Axis& ay, int h, float P0, float P1) {
-  if ((h >> ly) != (s.h >> ly)) raw_flush<ly>(s, ay);
+__device__ __forceinline__ void raw_close(RawSums& s, const Axis& ay, __nv_bfloat16* out,
+                                          bool two) {
+  raw_flush<ly>(s, ay, out, two);
+  const int jq = (s.h >> ly) - ay.g0;
+  if (jq >= 0 && jq <= kTaps - 1) {
+    __nv_bfloat16* o = out + (ly * kTaps + jq) * 32;
+    o[0] = __float2bfloat16(s.pend[ly][0]);
+    if (two) o[1] = __float2bfloat16(s.pend[ly][1]);
+  }
+}
+
+// Row h into level ly: a row that starts a y block (rows come in order, one
+// after the other) ends the previous one.
+template <int ly>
+__device__ __forceinline__ void raw_add(RawSums& s, const Axis& ay, int h, float P0, float P1,
+                                        __nv_bfloat16* out, bool two) {
+  if ((h & ((1 << ly) - 1)) == 0) raw_flush<ly>(s, ay, out, two);
   const int jy = (h >> ly) - ay.g0;
   if (jy >= 0 && jy <= 7) {
     s.Q[ly][0] += P0;
@@ -819,34 +861,56 @@ __device__ __forceinline__ void raw_add(RawSums& s, const Axis& ay, int h, float
 }
 
 // Rows h0 .. h0 + nrows - 1 of the pixel's volume at x level L: this lane's
-// taps 2q and 2q + 1 from block sums 2q, 2q + 1 and lane q + 1's 2q + 2.
+// taps 2q and 2q + 1 from block sums 2q, 2q + 1 and lane q + 1's 2q + 2, two
+// rows at a time so that both rows' loads are in flight together.
 template <int L, bool kVec>
 __device__ __forceinline__ void raw_rows(RawSums& s, const Axis& ax, const Axis (&ay)[4], int q,
-                                         const __nv_bfloat16* row0, int h0, int nrows, int W2) {
-  for (int r = 0; r < nrows; ++r) {
-    const int h = h0 + r;
-    const __nv_bfloat16* row = row0 + r * W2;
-    const float S0 = block_sum<kVec>(row, ax.g0 + 2 * q, L, W2);
-    const float S1 = block_sum<kVec>(row, ax.g0 + 2 * q + 1, L, W2);
-    const float S2 = __shfl_down_sync(0xffffffffu, S0, 1);
-    const float P0 = round_bf16(ax.w0 * S0 + ax.w1 * S1);
-    const float P1 = round_bf16(ax.w0 * S1 + ax.w1 * S2);
-    raw_add<0>(s, ay[0], h, P0, P1);
-    raw_add<1>(s, ay[1], h, P0, P1);
-    raw_add<2>(s, ay[2], h, P0, P1);
-    raw_add<3>(s, ay[3], h, P0, P1);
-    s.h = h;
+                                         const __nv_bfloat16* row0, int h0, int nrows, int W2,
+                                         __nv_bfloat16* out) {
+  for (int r = 0; r < nrows; r += 2) {
+    float S[2][3];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const __nv_bfloat16* row = row0 + (r + k) * W2;
+      const bool in = r + k < nrows;
+      S[k][0] = in ? block_sum<kVec>(row, ax.g0 + 2 * q, L, W2) : 0.f;
+      S[k][1] = in ? block_sum<kVec>(row, ax.g0 + 2 * q + 1, L, W2) : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) S[k][2] = __shfl_down_sync(0xffffffffu, S[k][0], 1);
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (r + k >= nrows) break;
+      const int h = h0 + r + k;
+      const float P0 = round_bf16(ax.w0 * S[k][0] + ax.w1 * S[k][1]);
+      const float P1 = round_bf16(ax.w0 * S[k][1] + ax.w1 * S[k][2]);
+      raw_add<0>(s, ay[0], h, P0, P1, out, q < 3);
+      raw_add<1>(s, ay[1], h, P0, P1, out, q < 3);
+      raw_add<2>(s, ay[2], h, P0, P1, out, q < 3);
+      raw_add<3>(s, ay[3], h, P0, P1, out, q < 3);
+      s.h = h;
+    }
   }
 }
 
 template <bool kVec>
 __device__ __forceinline__ void raw_lookup(RawSums& s, int L, const Axis& ax, const Axis (&ay)[4],
                                            int q, const __nv_bfloat16* row0, int h0, int nrows,
-                                           int W2) {
-  if (L == 0) raw_rows<0, kVec>(s, ax, ay, q, row0, h0, nrows, W2);
-  else if (L == 1) raw_rows<1, kVec>(s, ax, ay, q, row0, h0, nrows, W2);
-  else if (L == 2) raw_rows<2, kVec>(s, ax, ay, q, row0, h0, nrows, W2);
-  else raw_rows<3, kVec>(s, ax, ay, q, row0, h0, nrows, W2);
+                                           int W2, __nv_bfloat16* out) {
+  if (L == 0) raw_rows<0, kVec>(s, ax, ay, q, row0, h0, nrows, W2, out);
+  else if (L == 1) raw_rows<1, kVec>(s, ax, ay, q, row0, h0, nrows, W2, out);
+  else if (L == 2) raw_rows<2, kVec>(s, ax, ay, q, row0, h0, nrows, W2, out);
+  else raw_rows<3, kVec>(s, ax, ay, q, row0, h0, nrows, W2, out);
+}
+
+// Thread 0: chunk c of the edge's f2 into ring slot c % kRawStages.
+__device__ __forceinline__ void raw_load(const CUtensorMap* map_f2, uint32_t s_f2,
+                                         uint32_t bar_full, int c, int span, int e, int nkb) {
+  const int st = c % kRawStages;
+  mbar_expect_tx(bar_full + 8 * st, nkb * kN * 128);
+  for (int kb = 0; kb < nkb; ++kb)
+    tma_load_3d(s_f2 + st * kStageBytes + kb * kN * 128, map_f2, bar_full + 8 * st, kb * kBoxC,
+                c * span, e);
 }
 
 // Waits for chunk c's f2 tile and issues this warpgroup's wgmma: A the
@@ -854,8 +918,8 @@ __device__ __forceinline__ void raw_lookup(RawSums& s, int L, const Axis& ax, co
 // 16 * (wg >> 1) .. + 15, K = Cpad.
 __device__ __forceinline__ void raw_issue(float (&d)[8], int c, uint32_t bar_full, uint32_t s_f1,
                                           uint32_t s_f2, int wg, int nkb) {
-  const int st = c % kStages;
-  mbar_wait<true>(bar_full + 8 * st, (c / kStages) & 1);
+  const int st = c % kRawStages;
+  mbar_wait(bar_full + 8 * st, (c / kRawStages) & 1);
   wgmma_fence();
   const uint32_t a_base = s_f2 + st * kStageBytes + (wg & 1) * 64 * 128;
   const uint32_t b_base = s_f1 + (wg >> 1) * 16 * 128;
@@ -871,15 +935,13 @@ __device__ __forceinline__ void raw_issue(float (&d)[8], int c, uint32_t bar_ful
   wgmma_commit();
 }
 
-// Waits for chunk c's wgmma, frees its slot in every block of the cluster
-// and stores the tile transposed, bf16, to volume buffer `buf`
-// ([pixel][position]).  Fragment: position 16*warp + lane/4 (+8), pixel
-// 8j + 2*(lane%4) (+1) of the warpgroup's 64 x 16.
-__device__ __forceinline__ void raw_finish(float (&d)[8], int c, int buf, uint32_t bar_empty,
-                                           __nv_bfloat16* vol, int wg, int warp, int lane) {
+// Waits for the wgmma and stores the tile transposed, bf16, to volume
+// buffer `buf` ([pixel][position]).  Fragment: position 16*warp + lane/4
+// (+8), pixel 8j + 2*(lane%4) (+1) of the warpgroup's 64 x 16.
+__device__ __forceinline__ void raw_finish(float (&d)[8], int buf, __nv_bfloat16* vol, int wg,
+                                           int warp, int lane) {
   wgmma_wait0();
   fence_acc(d);
-  release_slot<kRawCS>(bar_empty + 8 * (c % kStages), lane);
   __nv_bfloat16* vbuf = vol + buf * (kRawM * kVolStride);
   const int n = 64 * (wg & 1) + 16 * warp + lane / 4;
   const int p = 16 * (wg >> 1) + 2 * (lane % 4);
@@ -893,13 +955,12 @@ __device__ __forceinline__ void raw_finish(float (&d)[8], int c, int buf, uint32
   }
 }
 
-// K1-raw: one block per (32 source pixels, edge), clusters of kRawCS blocks
-// along the pixels (the grid's x is padded to whole clusters; a block past
-// P builds and streams for its cluster and writes nothing).
+// K1-raw: one block per (32 source pixels, edge), 16 warps that build and
+// look up; thread 0 refills a ring slot once the block is past it.
 template <bool kVec>
 __global__ void __launch_bounds__(kRawThreads, 1)
 corr_fused_xy_raw_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad), 32-row boxes
-                         const __grid_constant__ CUtensorMap map_f2,  // (E, P2, Cpad), 32-row boxes
+                         const __grid_constant__ CUtensorMap map_f2,  // (E, P2, Cpad)
                          const float* __restrict__ coords,           // (E, P, 2)
                          __nv_bfloat16* __restrict__ out,            // (E, P, 1024)
                          int P, int H2, int W2, int nkb) {
@@ -909,9 +970,9 @@ corr_fused_xy_raw_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, 
   const uint32_t s_f1 = smem_u32(smem);
   const uint32_t s_f2 = s_f1 + kRawOffF2;
   __nv_bfloat16* vol = reinterpret_cast<__nv_bfloat16*>(smem + kRawOffVol);
-  const uint32_t bar_full = s_f1 + kRawOffBar;
-  const uint32_t bar_empty = bar_full + 8 * kStages;
-  const uint32_t bar_f1 = bar_empty + 8 * kStages;
+  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(smem + kRawOffStage);
+  const uint32_t bar_full = s_f1 + kRawOffBar;  // kRawStages barriers
+  const uint32_t bar_f1 = bar_full + 8 * kRawStages;
 
   const int e = blockIdx.y;
   const int p0 = blockIdx.x * kRawM;
@@ -920,22 +981,20 @@ corr_fused_xy_raw_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, 
   const int nchunks = (H2 + rc - 1) / rc;
 
   if (tid == 0) {
-    for (int i = 0; i < kStages; ++i) {
-      mbar_init(bar_full + 8 * i, 1);
-      mbar_init(bar_empty + 8 * i, kMmaWarps * kRawCS);
-    }
+    for (int i = 0; i < kRawStages; ++i) mbar_init(bar_full + 8 * i, 1);
     mbar_init(bar_f1, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_expect_tx(bar_f1, nkb * kRawM * 128);
+    for (int kb = 0; kb < nkb; ++kb)
+      tma_load_3d(s_f1 + kb * kRawM * 128, &map_f1, bar_f1, kb * kBoxC, p0, e);
+    for (int c = 0; c < min(kRawStages, nchunks); ++c)
+      raw_load(&map_f2, s_f2, bar_full, c, rc * W2, e, nkb);
   }
-  cluster_sync();
-
-  if (tid >= kRawConsumers) {
-    if (tid == kRawConsumers)
-      produce<kRawCS, kRawM>(&map_f1, &map_f2, s_f1, s_f2, bar_f1, bar_full, bar_empty,
-                             p0 < P ? p0 : 0, e, nchunks, 1, rc * W2, nkb);
-    cluster_sync();
-    return;
-  }
+  // the staged output starts at 0: taps whose blocks miss the image, and
+  // rows and columns 28-31
+  for (int i = tid; i < kRawM * kRawOutStride / 8; i += kRawThreads)
+    reinterpret_cast<uint4*>(stage)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
 
   const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
   // lookup role: x level L (warps 4L .. 4L + 3), pixel, q (taps 2q, 2q + 1)
@@ -951,61 +1010,46 @@ corr_fused_xy_raw_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, 
 
   RawSums s;
 #pragma unroll
-  for (int l = 0; l < 4; ++l) {
-#pragma unroll
-    for (int dy = 0; dy < kTaps; ++dy) s.A[l][dy][0] = s.A[l][dy][1] = 0.f;
-    s.Q[l][0] = s.Q[l][1] = 0.f;
-  }
+  for (int l = 0; l < 4; ++l) s.Q[l][0] = s.Q[l][1] = s.pend[l][0] = s.pend[l][1] = 0.f;
   s.h = -(1 << 24);  // before every row: no y block of any level in range
+  __nv_bfloat16* my_out = stage + pix * kRawOutStride + L * kTaps + 2 * q;
 
+  // chunk c + 1 runs on the tensor cores under chunk c's lookup; after the
+  // block's barrier every warpgroup is past chunk c + 1's slot, which takes
+  // chunk c + 1 + kRawStages
   float d[8];
-  mbar_wait<true>(bar_f1, 0);
+  mbar_wait(bar_f1, 0);
   raw_issue(d, 0, bar_full, s_f1, s_f2, wg, nkb);
-  raw_finish(d, 0, 0, bar_empty, vol, wg, warp, lane);
-  consumer_sync<kRawConsumers>();
+  raw_finish(d, 0, vol, wg, warp, lane);
+  __syncthreads();
+  if (tid == 0 && kRawStages < nchunks) raw_load(&map_f2, s_f2, bar_full, kRawStages, rc * W2, e, nkb);
   for (int c = 0; c + 1 < nchunks; ++c) {
     raw_issue(d, c + 1, bar_full, s_f1, s_f2, wg, nkb);
     raw_lookup<kVec>(s, L, ax, ay, q, vol + (c & 1) * (kRawM * kVolStride) + pix * kVolStride,
-                     c * rc, min(rc, H2 - c * rc), W2);
-    raw_finish(d, c + 1, (c + 1) & 1, bar_empty, vol, wg, warp, lane);
-    consumer_sync<kRawConsumers>();
+                     c * rc, min(rc, H2 - c * rc), W2, my_out);
+    raw_finish(d, (c + 1) & 1, vol, wg, warp, lane);
+    __syncthreads();
+    if (tid == 0 && c + 1 + kRawStages < nchunks)
+      raw_load(&map_f2, s_f2, bar_full, c + 1 + kRawStages, rc * W2, e, nkb);
   }
   {
     const int c = nchunks - 1;
     raw_lookup<kVec>(s, L, ax, ay, q, vol + (c & 1) * (kRawM * kVolStride) + pix * kVolStride,
-                     c * rc, min(rc, H2 - c * rc), W2);
+                     c * rc, min(rc, H2 - c * rc), W2, my_out);
   }
-  raw_flush<0>(s, ay[0]);
-  raw_flush<1>(s, ay[1]);
-  raw_flush<2>(s, ay[2]);
-  raw_flush<3>(s, ay[3]);
-  consumer_sync<kRawConsumers>();  // every chunk consumed: the ring is free
+  raw_close<0>(s, ay[0], my_out, q < 3);
+  raw_close<1>(s, ay[1], my_out, q < 3);
+  raw_close<2>(s, ay[2], my_out, q < 3);
+  raw_close<3>(s, ay[3], my_out, q < 3);
+  __syncthreads();
 
-  // ---- epilogue: stage the block's output in the ring, then 16-byte stores
-  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(smem + kRawOffF2);
-  {
-    __nv_bfloat16* my = stage + pix * kRawOutStride + L * kTaps + 2 * q;
-#pragma unroll
-    for (int l = 0; l < 4; ++l) {
-#pragma unroll
-      for (int dy = 0; dy < kTaps; ++dy) {
-        my[(l * kTaps + dy) * 32] = __float2bfloat16(s.A[l][dy][0]);
-        if (q < 3) my[(l * kTaps + dy) * 32 + 1] = __float2bfloat16(s.A[l][dy][1]);
-      }
-    }
-  }
-  consumer_sync<kRawConsumers>();
+  // ---- epilogue: the staged output with 16-byte stores
   const int np = min(kRawM, P - p0);
-  for (int i = tid; i < np * (kRawBlock / 8); i += kRawConsumers) {
+  for (int i = tid; i < np * (kRawBlock / 8); i += kRawThreads) {
     const int p = i / (kRawBlock / 8), o = (i % (kRawBlock / 8)) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (o / 32 < kRawCols) {
-      v = *reinterpret_cast<const uint4*>(stage + p * kRawOutStride + o);
-      if (o % 32 == 24) v.z = v.w = 0u;  // columns 28-31
-    }
-    *reinterpret_cast<uint4*>(out + (static_cast<size_t>(e) * P + p0 + p) * kRawBlock + o) = v;
+    *reinterpret_cast<uint4*>(out + (static_cast<size_t>(e) * P + p0 + p) * kRawBlock + o) =
+        *reinterpret_cast<const uint4*>(stage + p * kRawOutStride + o);
   }
-  cluster_sync();
 }
 
 // ---------------------------------------------------------------- host side
@@ -1050,77 +1094,72 @@ bool make_map(CUtensorMap* map, const void* base, int E, int rows, int Cpad, int
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// f1 in boxes of f1_rows pixels, f2 in boxes of kN / cs positions (a
-// cluster's producers load one slice of a chunk each)
+// f1 in boxes of f1_rows pixels, f2 in boxes of a chunk's kN positions
 bool make_maps(CUtensorMap* m1, CUtensorMap* m2, const void* f1, const void* f2, int E, int P,
-               int H2, int W2, int Cpad, int f1_rows, int cs) {
-  return make_map(m1, f1, E, P, Cpad, f1_rows) && make_map(m2, f2, E, H2 * W2, Cpad, kN / cs);
+               int H2, int W2, int Cpad, int f1_rows) {
+  return make_map(m1, f1, E, P, Cpad, f1_rows) && make_map(m2, f2, E, H2 * W2, Cpad, kN);
 }
 
 constexpr int kNoCluster = -2;  // returned when no cluster of the kernel fits on the card
 
-// Launches `kernel` (its arguments in `args`) in clusters of `cs` blocks.
-// Refuses, with kNoCluster, a launch of which cudaOccupancyMaxActiveClusters
-// finds no cluster that fits (checked once per kernel, in `*fits`).
-int launch_cluster(const void* kernel, dim3 grid, int threads, int smem, int cs,
-                   cudaStream_t stream, void** args, int* fits) {
+template <bool kVec>
+int launch_k1(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords,
+              __nv_bfloat16* out, int E, int P, int H2, int W2, int nkb, cudaStream_t stream) {
+  const auto kernel = corr_fused_xy_kernel<kVec>;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((P + kM - 1) / kM, E);
+  kernel<<<grid, kThreads, kSmemBytes, stream>>>(m1, m2, coords, out, P, H2, W2, nkb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1-int8 (kInt8) or its first pass alone (kMax) in clusters of kCS blocks
+// (tile = 64 * kCS pixels); refused when cudaOccupancyMaxActiveClusters
+// (asked once) finds no cluster that fits on the card.
+template <bool kVec, int kMode, int kCS>
+int launch_int8_cs(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords,
+                   __nv_bfloat16* out, float* vmax, int E, int P, int H2, int W2, int nkb,
+                   cudaStream_t stream) {
+  static int fits = -1;
+  const auto kernel = corr_int8_kernel<kVec, kMode, kCS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
+  cfg.gridDim = dim3(P / kM, E);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmemBytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.x = kCS;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  if (*fits < 0) {
+  if (fits < 0) {
     int n = 0;
-    err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(kernel), &cfg);
     if (err != cudaSuccess) return static_cast<int>(err);
-    *fits = n;
+    fits = n;
   }
-  if (*fits == 0) return kNoCluster;
-  err = cudaLaunchKernelExC(&cfg, kernel, args);
+  if (fits == 0) return kNoCluster;
+  void* args[] = {const_cast<CUtensorMap*>(&m1), const_cast<CUtensorMap*>(&m2), &coords, &out,
+                  &vmax, &P, &H2, &W2, &nkb};
+  err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kVec, int kMode, int kCS>
-int launch(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords, __nv_bfloat16* out,
-           float* vmax, int E, int P, int H2, int W2, int nkb, int tile, cudaStream_t stream) {
-  const auto kernel = corr_fused_xy_kernel<kVec, kMode, kCS>;
-  const dim3 grid((P + kM - 1) / kM, E);
-  if constexpr (kCS == 1) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<grid, kThreads, kSmemBytes, stream>>>(m1, m2, coords, out, vmax, P, H2, W2, nkb,
-                                                   tile);
-    return static_cast<int>(cudaGetLastError());
-  } else {
-    static int fits = -1;
-    void* args[] = {const_cast<CUtensorMap*>(&m1), const_cast<CUtensorMap*>(&m2), &coords, &out,
-                    &vmax, &P, &H2, &W2, &nkb, &tile};
-    return launch_cluster(reinterpret_cast<const void*>(kernel), grid, kThreads, kSmemBytes, kCS,
-                          stream, args, &fits);
-  }
-}
-
-// K1-int8 (kInt8) or its first pass alone (kMax) at tile = 64 * cs pixels
 template <bool kVec, int kMode>
 int launch_int8(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords,
                 __nv_bfloat16* out, float* vmax, int E, int P, int H2, int W2, int nkb, int tile,
                 cudaStream_t s) {
   switch (tile / kM) {
-    case 2: return launch<kVec, kMode, 2>(m1, m2, coords, out, vmax, E, P, H2, W2, nkb, tile, s);
-    case 4: return launch<kVec, kMode, 4>(m1, m2, coords, out, vmax, E, P, H2, W2, nkb, tile, s);
-    case 8: return launch<kVec, kMode, 8>(m1, m2, coords, out, vmax, E, P, H2, W2, nkb, tile, s);
+    case 2: return launch_int8_cs<kVec, kMode, 2>(m1, m2, coords, out, vmax, E, P, H2, W2, nkb, s);
+    case 4: return launch_int8_cs<kVec, kMode, 4>(m1, m2, coords, out, vmax, E, P, H2, W2, nkb, s);
+    case 8: return launch_int8_cs<kVec, kMode, 8>(m1, m2, coords, out, vmax, E, P, H2, W2, nkb, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1128,13 +1167,13 @@ int launch_int8(const CUtensorMap& m1, const CUtensorMap& m2, const float* coord
 template <bool kVec>
 int launch_raw(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords,
                __nv_bfloat16* out, int E, int P, int H2, int W2, int nkb, cudaStream_t stream) {
-  static int fits = -1;
-  const int nblk = (P + kRawM - 1) / kRawM;
-  const dim3 grid((nblk + kRawCS - 1) / kRawCS * kRawCS, E);
-  void* args[] = {const_cast<CUtensorMap*>(&m1), const_cast<CUtensorMap*>(&m2), &coords, &out,
-                  &P, &H2, &W2, &nkb};
-  return launch_cluster(reinterpret_cast<const void*>(corr_fused_xy_raw_kernel<kVec>), grid,
-                        kRawThreads, kRawSmemBytes, kRawCS, stream, args, &fits);
+  const auto kernel = corr_fused_xy_raw_kernel<kVec>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kRawSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((P + kRawM - 1) / kRawM, E);
+  kernel<<<grid, kRawThreads, kRawSmemBytes, stream>>>(m1, m2, coords, out, P, H2, W2, nkb);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1147,13 +1186,13 @@ extern "C" int corr_fused_xy_launch(const void* f1, const void* f2, const void* 
                                     int E, int P, int H2, int W2, int Cpad, void* stream) {
   if (E == 0 || P == 0) return 0;
   CUtensorMap m1, m2;
-  if (!make_maps(&m1, &m2, f1, f2, E, P, H2, W2, Cpad, kM, 1)) return -1;
+  if (!make_maps(&m1, &m2, f1, f2, E, P, H2, W2, Cpad, kM)) return -1;
   const int nkb = Cpad / kBoxC;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* c = static_cast<const float*>(coords);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-  if (W2 % 8 == 0) return launch<true, kBf16, 1>(m1, m2, c, o, nullptr, E, P, H2, W2, nkb, 1, s);
-  return launch<false, kBf16, 1>(m1, m2, c, o, nullptr, E, P, H2, W2, nkb, 1, s);
+  if (W2 % 8 == 0) return launch_k1<true>(m1, m2, c, o, E, P, H2, W2, nkb, s);
+  return launch_k1<false>(m1, m2, c, o, E, P, H2, W2, nkb, s);
 }
 
 // K1-int8's first pass alone: vmax (E, P / tile) f32 gets max(max |vol|,
@@ -1162,7 +1201,7 @@ extern "C" int corr_int8_vmax_launch(const void* f1, const void* f2, void* vmax,
                                      int H2, int W2, int Cpad, int tile, void* stream) {
   if (E == 0 || P == 0) return 0;
   CUtensorMap m1, m2;
-  if (!make_maps(&m1, &m2, f1, f2, E, P, H2, W2, Cpad, kM, tile / kM)) return -1;
+  if (!make_maps(&m1, &m2, f1, f2, E, P, H2, W2, Cpad, kM)) return -1;
   return launch_int8<false, kMax>(m1, m2, nullptr, nullptr, static_cast<float*>(vmax), E, P, H2,
                                   W2, Cpad / kBoxC, tile, static_cast<cudaStream_t>(stream));
 }
@@ -1174,7 +1213,7 @@ extern "C" int corr_fused_xy_int8_launch(const void* f1, const void* f2, const v
                                          int Cpad, int tile, void* stream) {
   if (E == 0 || P == 0) return 0;
   CUtensorMap m1, m2;
-  if (!make_maps(&m1, &m2, f1, f2, E, P, H2, W2, Cpad, kM, tile / kM)) return -1;
+  if (!make_maps(&m1, &m2, f1, f2, E, P, H2, W2, Cpad, kM)) return -1;
   const int nkb = Cpad / kBoxC;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* c = static_cast<const float*>(coords);
@@ -1190,7 +1229,7 @@ extern "C" int corr_fused_xy_raw_launch(const void* f1, const void* f2, const vo
                                         void* stream) {
   if (E == 0 || P == 0) return 0;
   CUtensorMap m1, m2;
-  if (!make_maps(&m1, &m2, f1, f2, E, P, H2, W2, Cpad, kRawM, kRawCS)) return -1;
+  if (!make_maps(&m1, &m2, f1, f2, E, P, H2, W2, Cpad, kRawM)) return -1;
   const int nkb = Cpad / kBoxC;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* c = static_cast<const float*>(coords);

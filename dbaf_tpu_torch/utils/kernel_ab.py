@@ -28,30 +28,17 @@ from . import cuda_build
 # name -> [(old, new), ...] applied to the shipped source
 VARIANTS = {
     "shipped": [],
-    # each block loads whole chunks itself: clusters stay (the int8 tile
-    # exchange), f2 is not multicast and the ring's handshake is the block's
-    "no_multicast": [
-        ("      if constexpr (kCS == 1) {\n        tma_load_3d(dst,",
-         "      if constexpr (true) {\n        tma_load_3d(dst,"),
-        ("  if constexpr (kCS == 1) {\n    if (lane == 0) mbar_arrive(bar);",
-         "  if constexpr (true) {\n    if (lane == 0) mbar_arrive(bar);"),
-        ("mbar_init(bar_empty + 8 * i, kMmaWarps * kCS);", "mbar_init(bar_empty + 8 * i, kMmaWarps);"),
-        ("mbar_init(bar_empty + 8 * i, kMmaWarps * kRawCS);",
-         "mbar_init(bar_empty + 8 * i, kMmaWarps);"),
-        ("make_map(m2, f2, E, H2 * W2, Cpad, kN / cs)", "make_map(m2, f2, E, H2 * W2, Cpad, kN)"),
+    # K1-int8 at tile 256 in clusters of one block: each block takes its own
+    # maximum as the tile's (wrong scales; for the time the clusters cost)
+    "int8_no_cluster": [
+        ("    case 4: return launch_int8_cs<kVec, kMode, 4>(",
+         "    case 4: return launch_int8_cs<kVec, kMode, 1>("),
     ],
-    # the remote "empty" arrivals with release semantics at cluster scope
-    "release_cluster": [
-        (" mbarrier.arrive.shared::cluster.b64 _, [ra];",
-         " mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];"),
-    ],
+    # K1-raw with K1's ring depth
+    "raw_3_stages": [("constexpr int kRawStages = 4;", "constexpr int kRawStages = 3;")],
     # K1-raw's build, ring and epilogue with no lookup (its output is wrong)
     "raw_no_lookup": [
         ("  if (L == 0) raw_rows<0, kVec>", "  if (W2 > 0) return;\n  if (L == 0) raw_rows<0, kVec>"),
-    ],
-    # the ring's waits without the clock that traps a wait that never ends
-    "unbounded_wait": [
-        ("    if (kBounded && !done && clock64() - t0 > kWaitCycles) __trap();\n", ""),
     ],
 }
 
