@@ -47,35 +47,26 @@
 // to 1024 px wide) and C <= 128 (two channel boxes).  The wrapper raises
 // beyond them, and DBAFusion checks its feature grid when it is built.
 //
-// Clusters (K1-int8 and K1-raw; K1 runs without).  The blocks of a thread-
-// block cluster stream the same edge's f2, so each producer loads 1/kCS of
-// every chunk's rows and multicasts them to all kCS blocks (TMA
-// .multicast::cluster): the L2 -> SM traffic of f2 falls by kCS.  A block's
-// "full" barrier expects the whole chunk's bytes, whichever producer sent
-// them; its "empty" barrier counts the MMA warps of every block of the
-// cluster (each warp arrives on every block's barrier), so no producer
-// refills a slot that a block of the cluster still reads.  The blocks meet
-// at a cluster barrier after the barriers' initialization and before they
-// exit, so nothing arrives on, or lands in, a block that is gone.
-//
 // K1-int8: the int8=True branch of the same Pallas kernel
 // (corr_pallas.py:232-259).  The volume rows stay f32; per (edge, tile of
 // `tile` source pixels) q = round(vol * 127 / vmax) with vmax the tile's
 // max |vol| over every target position, and per level the x tents are
 // quantized as qx = round(127 * kx); P2 = bf16(sum_w q * qx * vmax / 127^2).
-// It replaces PR 5's two launches (a max pass that built the volume and
-// atomicMax-ed into a zeroed vmax, then K1 in int8 mode that built it
-// again), whose bound was the f2 traffic of two builds from L2 and the
-// second launch.  The scale has to exist before any block quantizes, and a
-// tile (128, 256 or 512 pixels) spans 2, 4 or 8 of K1's 64-pixel blocks,
-// which run in no order.  So one launch, one cluster per (tile, edge):
-//  * Pass 1: every block builds its rows of the volume (K1's build) and
-//    keeps max |vol| in the MMA threads (f32 accumulators); warps reduce,
-//    the block's maximum goes to shared memory, the cluster meets at a
-//    barrier and each block reads the others' maxima through distributed
-//    shared memory (mapa + ld.shared::cluster).  Block 0 of the cluster
-//    writes the tile's scale, max(vmax, 1e-20), to vmax[e, tile].  No
-//    atomics, no memset, no second launch.
+// It replaces a design of two launches (a max pass that built the volume
+// and atomicMax-ed into a zeroed vmax, then K1 in int8 mode that built it
+// again).  The scale has to exist before any block quantizes, and a tile
+// (128, 256 or 512 pixels) spans 2, 4 or 8 of K1's 64-pixel blocks, which
+// run in no order.  So one launch, one thread-block cluster per (tile,
+// edge), one block per 64 pixels (corr_int8_kernel):
+//  * Pass 1: each block builds its rows of the volume (K1's build) and
+//    keeps max |vol| of the f32 accumulators; warps reduce, and the block
+//    stores its maximum into every block of the cluster
+//    (st.shared::cluster) and arrives on that block's "xchg" barrier
+//    (release at cluster scope).  A block waits on its own barrier and
+//    takes the tile's scale, max(vmax, 1e-20), from its own copy; block 0
+//    writes it to vmax[e, tile].  No atomics, no memset, no second launch,
+//    and no block reads another's memory, so the blocks of a cluster part
+//    after the exchange (none waits for another to end).
 //  * Pass 2: K1 with each chunk quantized from the f32 accumulators
 //    straight into the shared volume chunk.  Integers up to 127 are exact
 //    in bf16, so the chunk keeps its bf16 layout and the lookup its code: a
@@ -84,13 +75,17 @@
 //    kernel, then scaled and rounded to bf16 once.  The rounding points are
 //    the Pallas kernel's; only the order of the f32 build sums differs,
 //    which can flip a q by one quantum.
-//  The producer streams f2 twice through one ring (2 * nchunks chunks), so
-//  pass 2's first chunks load while pass 1 reduces.  Bound on the H100: the
-//  build's flops twice (the volume cannot be kept between the passes:
-//  786 KB of f32 per block).  Int8 tensor cores are not used: the port's x
-//  stage is two block sums per tap, not a product, and the build feeds the
-//  quantization from f32.  The max pass alone (kMax: pass 1 and the scale)
-//  stays as a diagnostic that no path launches.
+//  The producer streams f2 twice through one ring, so pass 2's first chunks
+//  load while pass 1 ends.  Bound on the H100: the build's flops twice
+//  (the f32 volume of a block, 786 KB, cannot wait between the passes);
+//  pass 1 streams each block's f2 from L2 like K1 and is held by that
+//  stream, pass 2 by K1's lookup.  Int8 tensor cores are not used: the
+//  port's x stage is two block sums per tap, not a product, and the
+//  quantization needs the f32 build.  Measured on the card and left out
+//  (PERF.md): multicasting f2 to the cluster (no gain), a persistent grid
+//  of clusters (its item loop pushed the lookup's registers to the stack).
+//  The first pass alone (kMax) stays as a diagnostic that no path
+//  launches.
 //
 // K1-raw: the raw=True branch (corr_pallas.py:515-516), the whole per-pixel
 // 32 x 32 block with the diagonal-level extraction skipped.  Row i = l*7+dy
@@ -98,26 +93,28 @@
 // columns 28-31 are 0; out (E, P, 1024) bf16, entry i*32 + j:
 //   P2[h, j]  = bf16( sum_w vol[h, w] * bf16(kx_j(w)) )
 //   out[i, j] = bf16( sum_h bf16(ky_i(h)) * P2[h, j] )
-// It replaces PR 6's design (one block per (64 pixels, edge, y level): the
+// It replaces a first design (one block per (64 pixels, edge, y level): the
 // build four times, 256 of 640 lookup lanes busy, the x stage formed once
-// per y level).  What bounds it: 784 f32 sums a pixel (K1 has 196), which
-// for 64 pixels (200 KB) do not fit in shared memory beside the ring.  So
-// one block per (32 source pixels, edge), built once, in clusters of
-// kRawCS = 4 blocks (128 pixels) that share each f2 chunk by multicast:
+// per y level).  What bounds it: 784 sums a pixel (K1 has 196), 200 KB of
+// f32 for 64 pixels, which do not fit in shared memory beside the ring.  So
+// one block per (32 source pixels, edge), built once
+// (corr_fused_xy_raw_kernel):
 //  * Build with the wgmma operands swapped: A is the f2 chunk from the ring
 //    (64 target positions a warpgroup), B the block's f1 tile (16 pixels a
-//    warpgroup), so the four warpgroups of 16 warps cover 128 x 32; each
-//    stores its tile transposed into the [pixel][position] volume chunk.
-//  * Lookup: every one of the 512 consumer lanes works.  Lane (x level l',
-//    pixel, q) (a warp holds one l' and 8 pixels) owns x taps 2q and 2q + 1
-//    of l' (q = 3: tap 6): per row it forms their P2 once from two block
-//    sums and one shuffle, and adds them to the 4 y levels' sums of its two
-//    columns, rows of one y block summed first.  Its 4 x 7 x 2 sums live in
-//    registers (56 f32 a lane; 25K registers a block), not shared memory.
-//  * Epilogue: the lanes round their sums into a staging copy of the
-//    block's output in the ring (free by then), and the block writes its
-//    64 KB of contiguous output with 16-byte stores, rows and columns 28-31
-//    as 0.
+//    warpgroup), so four warpgroups cover 128 x 32; each stores its tile
+//    transposed into the [pixel][position] volume chunk.  No producer warp
+//    (16 warps keep 128 registers each): thread 0 refills a slot of the
+//    4-deep ring after the block's barrier past it.
+//  * Lookup: every one of the 512 lanes works.  Lane (x level l', pixel, q)
+//    (a warp holds one l' and 8 pixels) owns x taps 2q and 2q + 1 of l'
+//    (q = 3: tap 6): per row it forms their P2 once from two block sums and
+//    one shuffle, and adds them to each y level's sum of the current y
+//    block in registers.  When a y block ends, the y tap before it is
+//    complete: it is rounded and written to the block's staged output in
+//    shared memory (66 KB, zeroed first: taps off the image and rows and
+//    columns 28-31 stay 0).
+//  * Epilogue: the staged output, 64 KB of contiguous output a block, with
+//    16-byte stores.
 // Bound on the H100: the build's flops once and the raw lookup's, against
 // 302 MB of output at E=48, P=3072 (0.090 ms at 3.35 TB/s).
 

@@ -13,20 +13,20 @@ the volume rows are built in f32, quantized to int8 per (edge, pixel tile)
 at the tile's max |vol|, and the x stage contracts them with int8 tents.
 The scale must exist before any block quantizes, and a tile spans 2-8 of
 the kernel's 64-pixel blocks: one launch runs a thread-block cluster per
-(tile, edge) that builds the volume twice, first for the tile's maximum
-(exchanged through distributed shared memory), then to quantize and look
-up, with f2 multicast to the cluster.  The tile scales come back on
-request (``return_vmax``).  ``corr_int8_vmax`` runs the first pass alone,
-a diagnostic that no path launches.
+(tile, edge) whose blocks build the volume twice, first for the tile's
+maximum (each block stores its own into every block of the cluster through
+distributed shared memory), then to quantize and look up.  The tile scales
+come back on request (``return_vmax``).  ``corr_int8_vmax`` runs the first
+pass alone, a diagnostic that no path launches.
 
 K1-raw ``corr_fused_xy(..., raw=True)`` replaces the ``raw=True`` branch of
 the same Pallas kernel (``corr_pallas.py:515-516``): the whole per-pixel
 32 x 32 block of tap products, every pair of levels, with the
 diagonal-level extraction skipped (:func:`raw_corr_index` maps it to the
-reference channels).  One block per (32 pixels, edge), in clusters of four
-that share f2 by multicast, builds the volume once; each lookup lane keeps
-its 56 sums in registers.  No path of either package passes ``raw=True``;
-its one consumer is the corr encoder's 1024-channel branch
+reference channels).  One block per (32 pixels, edge) builds the volume
+once; its 512 lanes form each x tap once per row and write each y tap to a
+staged output when its rows are summed.  No path of either package passes
+``raw=True``; its one consumer is the corr encoder's 1024-channel branch
 (``models/net.py``).
 
 K2 ``corr_lookup`` replaces ``_lookup_kernel`` (``corr_pallas.py:58``,

@@ -25,7 +25,8 @@ import torch
 
 from . import cuda_build
 
-# name -> [(old, new), ...] applied to the shipped source
+# name -> [(old, new[, times]), ...] applied to the shipped source; `old`
+# must occur `times` (default 1) times
 VARIANTS = {
     "shipped": [],
     # K1-int8 at tile 256 in clusters of one block: each block takes its own
@@ -33,6 +34,15 @@ VARIANTS = {
     "int8_no_cluster": [
         ("    case 4: return launch_int8_cs<kVec, kMode, 4>(",
          "    case 4: return launch_int8_cs<kVec, kMode, 1>("),
+    ],
+    # K1-int8 launched in clusters whose blocks take their own maximum as
+    # the tile's and never wait for one another (wrong scales; for the time
+    # the exchange's wait costs beside the clusters' scheduling)
+    "int8_cluster_no_exchange": [
+        ("    for (int r = 0; r < kCS; ++r) st_cluster_arrive(smem_u32(slots + rank), b, m.bar_xchg, r);\n",
+         "    slots[rank] = b;\n"),
+        ("  mbar_wait_cluster(m.bar_xchg, 0);\n", "  consumer_sync<kConsumers>();\n"),
+        ("  for (int r = 0; r < kCS; ++r) vm = fmaxf(vm, slots[r]);", "  vm = slots[rank];"),
     ],
     # K1-raw with K1's ring depth
     "raw_3_stages": [("constexpr int kRawStages = 4;", "constexpr int kRawStages = 3;")],
@@ -51,9 +61,10 @@ def build(names):
     procs = {}
     for name in names:
         patched = text
-        for old, new in VARIANTS[name]:
-            if patched.count(old) != 1:
-                raise RuntimeError(f"variant {name}: {old!r} is not in the source exactly once")
+        for old, new, *times in VARIANTS[name]:
+            n = times[0] if times else 1
+            if patched.count(old) != n:
+                raise RuntimeError(f"variant {name}: {old!r} is not in the source {n} times")
             patched = patched.replace(old, new)
         vsrc = os.path.join(out_dir, f"corr_fused_xy_{name}.cu")
         with open(vsrc, "w") as f:

@@ -87,12 +87,15 @@ def test_corr_fused_xy_matches_plain(dev, case):
     (48, 48, 64, 128, 256, "noise"), (4, 40, 48, 128, 128, "noise"),
     (4, 32, 60, 128, 128, "noise"), (2, 16, 32, 64, 128, "noise"),
     (2, 48, 64, 128, 256, "off_image"), (4, 32, 60, 128, 128, "nan_row"),
-], ids=["main", "tile128", "tile128_ragged_rows", "channels64", "off_image", "nan_row"])
+    (2, 32, 64, 128, 512, "noise"),
+], ids=["main", "tile128", "tile128_ragged_rows", "channels64", "off_image", "nan_row",
+        "tile512"])
 def test_corr_fused_xy_int8_matches_plain(dev, case):
     """K1-int8 against its plain version in one launch, no separate max
     pass, its tile scales against corr_int8_vmax_plain: tumvi's tile of
     256, the group-8 tile of 128 (40 x 48 and 32 x 60 hold 15 of them;
-    W2 = 60 is no multiple of 8), C = 64 (one TMA box); off-image
+    W2 = 60 is no multiple of 8), the group-32 tile of 512 (clusters of
+    8 blocks), C = 64 (one TMA box); off-image
     coordinates give exactly 0, a NaN coordinate row 0 there.  K1 (bf16)
     on the noise cases' inputs is the control that the check can fail.
     The max pass alone (a diagnostic) gives the same scales."""
@@ -137,14 +140,14 @@ def test_corr_fused_xy_int8_matches_plain(dev, case):
     (2, 40, 112, 128, "noise"), (2, 48, 64, 128, "off_image"), (2, 37, 45, 128, "nan_row"),
     (3, 4, 40, 128, "noise"),
 ], ids=["e48", "ragged", "ragged_channels", "one_row_chunks", "off_image", "nan_row",
-        "cluster_tail"])
+        "few_rows"])
 def test_corr_fused_xy_raw_matches_plain(dev, case):
     """K1-raw against its plain version at the main shape, ragged pixel
     counts and widths (P = 130 and 1665 are no multiples of its 32-pixel
     block, W2 = 13 and 45 no multiples of 8), one row per chunk; off the
-    image exactly 0, a NaN coordinate row 0 there.  P = 160 is 5 blocks,
-    no whole number of 4-block clusters: the last cluster has 3 blocks
-    past P that build and write nothing.  Its diagonal blocks gathered by
+    image exactly 0, a NaN coordinate row 0 there.  H2 = 4 rows (P = 160,
+    5 blocks) is fewer than a level-3 y block: each pixel's y taps there
+    meet at most one row block.  Its diagonal blocks gathered by
     raw_corr_index equal K1's output on the same inputs, up to the same
     one-ulp bound (the two kernels sum in different orders)."""
     from dbaf_tpu_torch.ops import corr_cuda as cc
