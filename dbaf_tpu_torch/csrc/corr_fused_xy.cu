@@ -218,15 +218,8 @@ __device__ __forceinline__ uint32_t cluster_rank() {
   return r;
 }
 
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
-}
 __device__ __forceinline__ void cluster_sync() {
-  cluster_arrive();
-  cluster_wait();
+  asm volatile("barrier.cluster.arrive.release;\n barrier.cluster.wait.acquire;" ::: "memory");
 }
 
 // Stores v at shared offset `addr` of block `cta` of the cluster, then
