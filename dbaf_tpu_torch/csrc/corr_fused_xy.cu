@@ -75,8 +75,9 @@
 //    kernel, then scaled and rounded to bf16 once.  The rounding points are
 //    the Pallas kernel's; only the order of the f32 build sums differs,
 //    which can flip a q by one quantum.
-//  The producer streams f2 twice through one ring, so pass 2's first chunks
-//  load while pass 1 ends.  Bound on the H100: the build's flops twice
+//  Pass 1 streams f2 through a ring of five slots (three of the ring's,
+//  two where pass 2 keeps its volume chunks and sums), pass 2 through the
+//  ring of three once pass 1 is done.  Bound on the H100: the build's flops twice
 //  (the f32 volume of a block, 786 KB, cannot wait between the passes);
 //  pass 1 streams each block's f2 from L2 like K1 and is held by that
 //  stream, pass 2 by K1's lookup.  Int8 tensor cores are not used: the
@@ -153,8 +154,12 @@ constexpr int kOffF2 = kF1Bytes;
 constexpr int kOffVol = kOffF2 + kStages * kStageBytes;
 constexpr int kOffAcc = kOffVol + 2 * kVolBytes;
 constexpr int kOffBar = kOffAcc + kM * kAccStride * 4;
-constexpr int kOffRed = kOffBar + 64;                // K1-int8: 16 warp maxima, 8 block maxima
+constexpr int kOffRed = kOffBar + 192;               // K1-int8: 16 warp maxima, 8 block maxima
 constexpr int kSmemBytes = kOffRed + 96 + 1024;      // + room to align the base to 1024
+// K1-int8's first pass needs no volume chunks and sums: its ring takes two
+// more slots there
+constexpr int kStages1 = kStages + 2;
+static_assert(2 * kStageBytes <= kOffBar - kOffVol, "K1-int8's pass-1 slots fit");
 
 // K1-raw
 constexpr int kRawM = 32;                  // source pixels per block
@@ -313,18 +318,18 @@ __device__ __forceinline__ void produce_f1(const CUtensorMap* map_f1, uint32_t s
     tma_load_3d(s_f1 + kb * kM * 128, map_f1, bar_f1, kb * kBoxC, p0, e);
 }
 
-// ... and ring chunks ring0 .. ring0 + n - 1: chunk j of them holds f2
-// positions of chunk j % nchunks of edge e (`span` = whole rows of them).
+// ... and the edge's f2 in nchunks chunks of kN positions (`span` = whole
+// rows of them) through the ring.
 __device__ __forceinline__ void produce_f2(const CUtensorMap* map_f2, uint32_t s_f2,
-                                           uint32_t bar_full, uint32_t bar_empty, int ring0, int n,
-                                           int nchunks, int span, int e, int nkb) {
-  for (int j = 0; j < n; ++j) {
-    const int c = ring0 + j, st = c % kStages;
+                                           uint32_t bar_full, uint32_t bar_empty, int nchunks,
+                                           int span, int e, int nkb) {
+  for (int c = 0; c < nchunks; ++c) {
+    const int st = c % kStages;
     mbar_wait(bar_empty + 8 * st, ((c / kStages) & 1) ^ 1);
     mbar_expect_tx(bar_full + 8 * st, nkb * kN * 128);
     for (int kb = 0; kb < nkb; ++kb)
       tma_load_3d(s_f2 + st * kStageBytes + kb * kN * 128, map_f2, bar_full + 8 * st, kb * kBoxC,
-                  (j % nchunks) * span, e);
+                  c * span, e);
   }
 }
 
@@ -494,14 +499,13 @@ __device__ __forceinline__ void lookup_any(float* acc, const Level& lv, int lvl,
 
 // ---------------------------------------------------------------- the kernel
 
-// Waits for ring chunk c's f2 tile and issues this warpgroup's wgmma on its
-// quarter of the positions (64 x 32, K = Cpad), without waiting for it.
-__device__ __forceinline__ void issue_chunk(float (&d)[kAcc], int c, uint32_t bar_full,
-                                            uint32_t s_f1, uint32_t s_f2, int wg, int nkb) {
-  const int st = c % kStages;
-  mbar_wait(bar_full + 8 * st, (c / kStages) & 1);
+// Issues this warpgroup's wgmma on its quarter of the positions of the f2
+// tile at `tile` (64 x 32, K = Cpad), without waiting for it; issue_chunk
+// first waits for ring chunk c to land.
+__device__ __forceinline__ void issue_tile(float (&d)[kAcc], uint32_t tile, uint32_t s_f1, int wg,
+                                           int nkb) {
   wgmma_fence();
-  const uint32_t b_base = s_f2 + st * kStageBytes + wg * kWgN * 128;
+  const uint32_t b_base = tile + wg * kWgN * 128;
 #pragma unroll
   for (int kb = 0; kb < kMaxKB; ++kb) {
     if (kb >= nkb) break;
@@ -512,6 +516,13 @@ __device__ __forceinline__ void issue_chunk(float (&d)[kAcc], int c, uint32_t ba
       wgmma_m64n32k16(d, da + 2 * k, db + 2 * k, (kb | k) != 0);
   }
   wgmma_commit();
+}
+
+__device__ __forceinline__ void issue_chunk(float (&d)[kAcc], int c, uint32_t bar_full,
+                                            uint32_t s_f1, uint32_t s_f2, int wg, int nkb) {
+  const int st = c % kStages;
+  mbar_wait(bar_full + 8 * st, (c / kStages) & 1);
+  issue_tile(d, s_f2 + st * kStageBytes, s_f1, wg, nkb);
 }
 
 // Waits for ring chunk c's wgmma, frees its ring slot and stores the bf16
@@ -550,6 +561,8 @@ struct K1Smem {
   uint32_t bar_full, bar_empty;  // kStages each
   uint32_t bar_f1;               // the f1 tile landed
   uint32_t bar_xchg;             // K1-int8: every block's maximum arrived
+  uint32_t bar_full1, bar_empty1;  // K1-int8's pass-1 ring, kStages1 each
+  uint32_t bar_pass1;            // K1-int8: the MMA warps are past pass 1
 };
 
 __device__ __forceinline__ K1Smem k1_smem(unsigned char* smem_raw) {
@@ -565,7 +578,17 @@ __device__ __forceinline__ K1Smem k1_smem(unsigned char* smem_raw) {
   m.bar_empty = m.bar_full + 8 * kStages;
   m.bar_f1 = m.bar_empty + 8 * kStages;
   m.bar_xchg = m.bar_f1 + 8;
+  m.bar_full1 = m.bar_xchg + 8;
+  m.bar_empty1 = m.bar_full1 + 8 * kStages1;
+  m.bar_pass1 = m.bar_empty1 + 8 * kStages1;
   return m;
+}
+
+// Slot st of K1-int8's pass-1 ring: the ring's kStages, then two in the
+// volume chunks' and sums' place.
+__device__ __forceinline__ uint32_t pass1_slot(const K1Smem& m, int st) {
+  return st < kStages ? m.s_f2 + st * kStageBytes
+                      : m.s_f1 + kOffVol + (st - kStages) * kStageBytes;
 }
 
 // The consumers' build + lookup of one block (64 pixels from p0, edge e)
@@ -677,7 +700,7 @@ corr_fused_xy_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad
     // ---- producer warp: one lane issues every TMA load
     if (tid == kConsumers) {
       produce_f1(&map_f1, m.s_f1, m.bar_f1, p0, e, nkb);
-      produce_f2(&map_f2, m.s_f2, m.bar_full, m.bar_empty, 0, nchunks, nchunks, rc * W2, e, nkb);
+      produce_f2(&map_f2, m.s_f2, m.bar_full, m.bar_empty, nchunks, rc * W2, e, nkb);
     }
     return;
   }
@@ -690,10 +713,11 @@ corr_fused_xy_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad
 // maximum to every block of the cluster (a store to distributed shared
 // memory and a remote arrive on its "xchg" barrier), takes the tile's
 // maximum from its own copy, and runs K1 on its rows with the volume
-// quantized at that scale (pass 2).  The ring runs on across the passes,
-// so the producer loads pass 2's first chunks while pass 1 ends.  A block
-// reads no other block's memory, so the blocks of a cluster part after the
-// exchange: none waits for another to finish.
+// quantized at that scale (pass 2).  Pass 1 needs no volume chunks or
+// sums, so its ring has two more slots in their place; pass 2's ring
+// starts when pass 1 is done.  A block reads no other block's memory, so
+// the blocks of a cluster part after the exchange: none waits for another
+// to finish.
 template <bool kVec, int kMode, int kCS>
 __global__ void __launch_bounds__(kThreads, 1)
 corr_int8_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf16
@@ -702,7 +726,6 @@ corr_int8_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf
                  __nv_bfloat16* __restrict__ out,            // (E, P, 196)
                  float* __restrict__ vmax,                   // (E, P / tile) f32
                  int P, int H2, int W2, int nkb) {
-  constexpr int kPasses = kMode == kInt8 ? 2 : 1;  // f2 streamed once per pass
   extern __shared__ unsigned char smem_raw[];
   const K1Smem m = k1_smem(smem_raw);
   const int tid = threadIdx.x;
@@ -719,6 +742,11 @@ corr_int8_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf
     }
     mbar_init(m.bar_f1, 1);
     mbar_init(m.bar_xchg, kCS);
+    for (int i = 0; i < kStages1; ++i) {
+      mbar_init(m.bar_full1 + 8 * i, 1);
+      mbar_init(m.bar_empty1 + 8 * i, kMmaWarps);
+    }
+    mbar_init(m.bar_pass1, kMmaWarps);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   cluster_sync();  // every block's barriers exist before any remote arrive
@@ -726,8 +754,19 @@ corr_int8_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf
   if (tid >= kConsumers) {
     if (tid == kConsumers) {
       produce_f1(&map_f1, m.s_f1, m.bar_f1, p0, e, nkb);
-      produce_f2(&map_f2, m.s_f2, m.bar_full, m.bar_empty, 0, kPasses * nchunks, nchunks, rc * W2,
-                 e, nkb);
+      for (int c = 0; c < nchunks; ++c) {
+        const int st = c % kStages1;
+        mbar_wait(m.bar_empty1 + 8 * st, ((c / kStages1) & 1) ^ 1);
+        mbar_expect_tx(m.bar_full1 + 8 * st, nkb * kN * 128);
+        for (int kb = 0; kb < nkb; ++kb)
+          tma_load_3d(pass1_slot(m, st) + kb * kN * 128, &map_f2, m.bar_full1 + 8 * st,
+                      kb * kBoxC, c * rc * W2, e);
+      }
+      if (kMode == kInt8) {
+        // pass 2's ring overlaps pass 1's: it starts once pass 1 is done
+        mbar_wait(m.bar_pass1, 0);
+        produce_f2(&map_f2, m.s_f2, m.bar_full, m.bar_empty, nchunks, rc * W2, e, nkb);
+      }
     }
     return;
   }
@@ -739,13 +778,16 @@ corr_int8_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf
     float mx = 0.f;
     mbar_wait(m.bar_f1, 0);
     for (int c = 0; c < nchunks; ++c) {
-      issue_chunk(d, c, m.bar_full, m.s_f1, m.s_f2, wg, nkb);
+      const int st = c % kStages1;
+      mbar_wait(m.bar_full1 + 8 * st, (c / kStages1) & 1);
+      issue_tile(d, pass1_slot(m, st), m.s_f1, wg, nkb);
       wgmma_wait0();
       fence_acc(d);
-      if (lane == 0) mbar_arrive(m.bar_empty + 8 * (c % kStages));
+      if (lane == 0) mbar_arrive(m.bar_empty1 + 8 * st);
 #pragma unroll
       for (int i = 0; i < kAcc; ++i) mx = fmaxf(mx, fabsf(d[i]));
     }
+    if (lane == 0) mbar_arrive(m.bar_pass1);
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
     if (lane == 0) m.red[tid / 32] = mx;
@@ -765,8 +807,7 @@ corr_int8_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf
   vm = fmaxf(vm, 1e-20f);
   if (tid == 0 && rank == 0) vmax[static_cast<size_t>(e) * (gridDim.x / kCS) + t] = vm;
   if constexpr (kMode == kInt8)
-    k1_block<kVec, kInt8>(m, coords, out, tid, e, p0, nchunks, P, H2, W2, nkb, kQ / vm,
-                          vm * kInvQ2);
+    k1_block<kVec, kInt8>(m, coords, out, tid, e, p0, 0, P, H2, W2, nkb, kQ / vm, vm * kInvQ2);
 }
 
 // ---------------------------------------------------------------- K1-raw
