@@ -305,6 +305,21 @@ __device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], uint64_t da, uint
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 template <int kCount>
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(kCount) : "memory");
@@ -744,7 +759,7 @@ corr_int8_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf
     mbar_init(m.bar_xchg, kCS);
     for (int i = 0; i < kStages1; ++i) {
       mbar_init(m.bar_full1 + 8 * i, 1);
-      mbar_init(m.bar_empty1 + 8 * i, kMmaWarps);
+      mbar_init(m.bar_empty1 + 8 * i, 4);  // one warpgroup takes a chunk
     }
     mbar_init(m.bar_pass1, kMmaWarps);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -771,21 +786,37 @@ corr_int8_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf
     return;
   }
 
-  // ---- pass 1: max |vol| of this block's rows over every chunk
+  // ---- pass 1: max |vol| of this block's rows over every chunk.  Each
+  // warpgroup takes whole chunks (wg, wg + 4, ...), in two 64 x 64 halves:
+  // quartering a chunk among the warpgroups, as the lookup pass does, reads
+  // f1 from shared memory twice as often, and shared memory, not the
+  // tensor cores, would set the pace.
   const int wg = tid / 128, lane = tid % 32;
   if (tid < kMmaWarps * 32) {
-    float d[kAcc];
+    float d[32];
     float mx = 0.f;
     mbar_wait(m.bar_f1, 0);
-    for (int c = 0; c < nchunks; ++c) {
+    for (int c = wg; c < nchunks; c += kMmaWarps / 4) {
       const int st = c % kStages1;
       mbar_wait(m.bar_full1 + 8 * st, (c / kStages1) & 1);
-      issue_tile(d, pass1_slot(m, st), m.s_f1, wg, nkb);
-      wgmma_wait0();
-      fence_acc(d);
-      if (lane == 0) mbar_arrive(m.bar_empty1 + 8 * st);
+      for (int half = 0; half < 2; ++half) {
+        wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < kAcc; ++i) mx = fmaxf(mx, fabsf(d[i]));
+        for (int kb = 0; kb < kMaxKB; ++kb) {
+          if (kb >= nkb) break;
+          const uint64_t da = desc_sw128(m.s_f1 + kb * kM * 128);
+          const uint64_t db = desc_sw128(pass1_slot(m, st) + kb * kN * 128 + half * 64 * 128);
+#pragma unroll
+          for (int k = 0; k < kBoxC / 16; ++k)
+            wgmma_m64n64k16(d, da + 2 * k, db + 2 * k, (kb | k) != 0);
+        }
+        wgmma_commit();
+        wgmma_wait0();
+        fence_acc(d);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) mx = fmaxf(mx, fabsf(d[i]));
+      }
+      if (lane == 0) mbar_arrive(m.bar_empty1 + 8 * st);
     }
     if (lane == 0) mbar_arrive(m.bar_pass1);
 #pragma unroll
