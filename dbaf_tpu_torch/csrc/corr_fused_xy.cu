@@ -55,18 +55,18 @@
 // It replaces a design of two launches (a max pass that built the volume
 // and atomicMax-ed into a zeroed vmax, then K1 in int8 mode that built it
 // again).  The scale has to exist before any block quantizes, and a tile
-// (128 or 256 pixels; any multiple of 64 up to 256) spans 2-4 of K1's
-// 64-pixel blocks, which run in no order.  So one launch, one block per
-// (tile, edge) that walks the tile's sub-blocks (corr_int8_kernel):
-//  * Pass 1: the whole tile's volume once, for max |vol| of the f32
-//    accumulators.  f2 streams once for the tile, and warpgroup w takes
-//    sub-block w against each chunk in two 64 x 64 wgmma halves (its f1
-//    read once a half, not once a quarter, which would make shared memory
-//    and not the tensor cores set the pace).  Pass 1 uses no volume chunks
-//    or sums, so the other sub-blocks' f1 tiles and a fourth ring slot
-//    take their place.  Warps reduce, and the block writes the tile's scale,
-//    max(vmax, 1e-20), to vmax[e, tile].  No atomics, no memset, no second
-//    launch.
+// (128, 256 or 512 pixels) spans 2, 4 or 8 of K1's 64-pixel blocks, which
+// run in no order.  So one launch, one thread-block cluster per (tile,
+// edge), one block per 64 pixels (corr_int8_kernel):
+//  * Pass 1: each block builds its rows of the volume (K1's build) and
+//    keeps max |vol| of the f32 accumulators; warps reduce, and the block
+//    stores its maximum into every block of the cluster
+//    (st.shared::cluster) and arrives on that block's "xchg" barrier
+//    (release at cluster scope).  A block waits on its own barrier and
+//    takes the tile's scale, max(vmax, 1e-20), from its own copy; block 0
+//    writes it to vmax[e, tile].  No atomics, no memset, no second launch,
+//    and no block reads another's memory, so the blocks of a cluster part
+//    after the exchange (none waits for another to end).
 //  * Pass 2: K1 with each chunk quantized from the f32 accumulators
 //    straight into the shared volume chunk.  Integers up to 127 are exact
 //    in bf16, so the chunk keeps its bf16 layout and the lookup its code: a
@@ -75,18 +75,18 @@
 //    kernel, then scaled and rounded to bf16 once.  The rounding points are
 //    the Pallas kernel's; only the order of the f32 build sums differs,
 //    which can flip a q by one quantum.
-//  Pass 2 walks the sub-blocks; the producer reloads the f1 slot as soon as
-//  the MMA warps are done with the last sub-block's.  Bound on the H100: the
-//  build's flops twice (the f32 volume, 786 KB a sub-block, cannot wait
-//  between the passes), at most 576 blocks at E=48 (4.4 rounds of the
-//  132 SMs, so the last round runs part-full); pass 2 is held by K1's lookup.
-//  Int8 tensor cores are not used: the port's x stage is two block sums per
-//  tap, not a product, and the quantization needs the f32 build.  Measured
-//  on the card and left out (PERF.md): a cluster of blocks per tile that
-//  trade their maxima through distributed shared memory (the clusters'
-//  scheduling cost more than the second launch it saves), with f2
-//  multicast to the cluster (no gain).  The first pass alone (kMax) stays
-//  as a diagnostic that no path launches.
+//  Pass 1 streams f2 through a ring of five slots (three of the ring's,
+//  two where pass 2 keeps its volume chunks and sums), pass 2 through the
+//  ring of three once pass 1 is done.  Bound on the H100: the build's flops twice
+//  (the f32 volume of a block, 786 KB, cannot wait between the passes);
+//  pass 1 streams each block's f2 from L2 like K1 and is held by that
+//  stream, pass 2 by K1's lookup.  Int8 tensor cores are not used: the
+//  port's x stage is two block sums per tap, not a product, and the
+//  quantization needs the f32 build.  Measured on the card and left out
+//  (PERF.md): multicasting f2 to the cluster (no gain), a persistent grid
+//  of clusters (its item loop pushed the lookup's registers to the stack).
+//  The first pass alone (kMax) stays as a diagnostic that no path
+//  launches.
 //
 // K1-raw: the raw=True branch (corr_pallas.py:515-516), the whole per-pixel
 // 32 x 32 block with the diagonal-level extraction skipped.  Row i = l*7+dy
@@ -154,22 +154,12 @@ constexpr int kOffF2 = kF1Bytes;
 constexpr int kOffVol = kOffF2 + kStages * kStageBytes;
 constexpr int kOffAcc = kOffVol + 2 * kVolBytes;
 constexpr int kOffBar = kOffAcc + kM * kAccStride * 4;
-constexpr int kOffRed = kOffBar + 192;               // K1-int8: 16 warp maxima, the tile's
-constexpr int kSmemBytes = kOffRed + 80 + 1024;      // + room to align the base to 1024
-// K1-int8's first pass needs no volume chunks and sums: the f1 tiles of up
-// to three more 64-pixel blocks and one more ring slot take their place
-constexpr int kMaxSub = 4;  // 64-pixel blocks of a K1-int8 tile
-// K1-int8's producer is a whole warpgroup, so that it can hand registers
-// to the consumers (setmaxnreg works by warpgroup): 768 threads start with
-// 80 registers each; the producer keeps 24, the consumers take 88
-constexpr int kInt8Threads = kConsumers + 128;
-constexpr int kProducerRegs = 24;
-constexpr int kInt8ConsumerRegs = 88;
-static_assert(kConsumers * kInt8ConsumerRegs + 128 * kProducerRegs <= kInt8Threads * 80,
-              "the registers handed over fit the block's");
-constexpr int kStages1 = kStages + 1;
-static_assert((kMaxSub - 1) * kF1Bytes + kStageBytes <= kOffBar - kOffVol,
-              "K1-int8's pass-1 tiles fit");
+constexpr int kOffRed = kOffBar + 192;               // K1-int8: 16 warp maxima, 8 block maxima
+constexpr int kSmemBytes = kOffRed + 96 + 1024;      // + room to align the base to 1024
+// K1-int8's first pass needs no volume chunks and sums: its ring takes two
+// more slots there
+constexpr int kStages1 = kStages + 2;
+static_assert(2 * kStageBytes <= kOffBar - kOffVol, "K1-int8's pass-1 slots fit");
 
 // K1-raw
 constexpr int kRawM = 32;                  // source pixels per block
@@ -225,6 +215,43 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// Stores v at shared offset `addr` of block `cta` of the cluster, then
+// arrives on its barrier at offset `bar` (release: the store is seen first).
+__device__ __forceinline__ void st_cluster_arrive(uint32_t addr, float v, uint32_t bar,
+                                                  uint32_t cta) {
+  asm volatile(
+      "{\n .reg .b32 ra, rb;\n mapa.shared::cluster.u32 ra, %0, %2;\n"
+      " mapa.shared::cluster.u32 rb, %1, %2;\n st.shared::cluster.f32 [ra], %3;\n"
+      " mbarrier.arrive.release.cluster.shared::cluster.b64 _, [rb];\n}" ::"r"(addr),
+      "r"(bar), "r"(cta), "f"(v)
+      : "memory");
+}
+
+// mbar_wait for a barrier that other blocks of the cluster arrive on
+// (acquire: their stores before the arrive are seen after it)
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
 }
 
 // wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:
@@ -307,17 +334,17 @@ __device__ __forceinline__ void produce_f1(const CUtensorMap* map_f1, uint32_t s
 }
 
 // ... and the edge's f2 in nchunks chunks of kN positions (`span` = whole
-// rows of them) as ring chunks ring0 .. ring0 + nchunks - 1.
+// rows of them) through the ring.
 __device__ __forceinline__ void produce_f2(const CUtensorMap* map_f2, uint32_t s_f2,
-                                           uint32_t bar_full, uint32_t bar_empty, int ring0,
-                                           int nchunks, int span, int e, int nkb) {
-  for (int j = 0; j < nchunks; ++j) {
-    const int c = ring0 + j, st = c % kStages;
+                                           uint32_t bar_full, uint32_t bar_empty, int nchunks,
+                                           int span, int e, int nkb) {
+  for (int c = 0; c < nchunks; ++c) {
+    const int st = c % kStages;
     mbar_wait(bar_empty + 8 * st, ((c / kStages) & 1) ^ 1);
     mbar_expect_tx(bar_full + 8 * st, nkb * kN * 128);
     for (int kb = 0; kb < nkb; ++kb)
       tma_load_3d(s_f2 + st * kStageBytes + kb * kN * 128, map_f2, bar_full + 8 * st, kb * kBoxC,
-                  j * span, e);
+                  c * span, e);
   }
 }
 
@@ -545,10 +572,10 @@ struct K1Smem {
   uint32_t s_f1, s_f2;           // f1 tile, f2 ring
   __nv_bfloat16* vol;            // two volume chunks
   float* acc;                    // the sums, kAccStride per pixel
-  float* red;                    // K1-int8: 16 warp maxima, then the tile's
+  float* red;                    // K1-int8: 16 warp maxima, then the cluster's block maxima
   uint32_t bar_full, bar_empty;  // kStages each
   uint32_t bar_f1;               // the f1 tile landed
-  uint32_t bar_f1_free;          // K1-int8: the MMA warps are done with the f1 tile
+  uint32_t bar_xchg;             // K1-int8: every block's maximum arrived
   uint32_t bar_full1, bar_empty1;  // K1-int8's pass-1 ring, kStages1 each
   uint32_t bar_pass1;            // K1-int8: the MMA warps are past pass 1
 };
@@ -565,34 +592,28 @@ __device__ __forceinline__ K1Smem k1_smem(unsigned char* smem_raw) {
   m.bar_full = m.s_f1 + kOffBar;
   m.bar_empty = m.bar_full + 8 * kStages;
   m.bar_f1 = m.bar_empty + 8 * kStages;
-  m.bar_f1_free = m.bar_f1 + 8;
-  m.bar_full1 = m.bar_f1_free + 8;
+  m.bar_xchg = m.bar_f1 + 8;
+  m.bar_full1 = m.bar_xchg + 8;
   m.bar_empty1 = m.bar_full1 + 8 * kStages1;
   m.bar_pass1 = m.bar_empty1 + 8 * kStages1;
   return m;
 }
 
-// K1-int8's pass 1: the f1 tile of sub-block w (the f1 slot, then the
-// volume chunks' and sums' place) and slot st of its ring (the ring's
-// kStages, then one after the tiles).
-__device__ __forceinline__ uint32_t pass1_f1(const K1Smem& m, int w) {
-  return w == 0 ? m.s_f1 : m.s_f1 + kOffVol + (w - 1) * kF1Bytes;
-}
-
+// Slot st of K1-int8's pass-1 ring: the ring's kStages, then two in the
+// volume chunks' and sums' place.
 __device__ __forceinline__ uint32_t pass1_slot(const K1Smem& m, int st) {
   return st < kStages ? m.s_f2 + st * kStageBytes
-                      : m.s_f1 + kOffVol + (kMaxSub - 1) * kF1Bytes;
+                      : m.s_f1 + kOffVol + (st - kStages) * kStageBytes;
 }
 
 // The consumers' build + lookup of one block (64 pixels from p0, edge e)
-// from ring chunks ring .. ring + nchunks - 1, the f1 tile in phase f1_par
-// of its barrier; int8 (kMode kInt8): the tile's step qs and scale sc.
-// kF1Free: the MMA warps free the f1 tile after their last wgmma.
-template <bool kVec, int kMode, bool kF1Free>
+// from ring chunks ring .. ring + nchunks - 1; int8 (kMode kInt8): the
+// tile's step qs and scale sc.
+template <bool kVec, int kMode>
 __device__ __forceinline__ void k1_block(const K1Smem& m, const float* __restrict__ coords,
                                          __nv_bfloat16* __restrict__ out, int tid, int e, int p0,
-                                         int ring, uint32_t f1_par, int P, int H2, int W2,
-                                         int nkb, float qs, float sc) {
+                                         int ring, int P, int H2, int W2, int nkb, float qs,
+                                         float sc) {
   const int rc = kN / W2;                   // whole rows per chunk
   const int nchunks = (H2 + rc - 1) / rc;
   const int wg = tid / 128;       // wgmma warpgroup (0-3): its quarter of the chunk's positions
@@ -614,10 +635,9 @@ __device__ __forceinline__ void k1_block(const K1Smem& m, const float* __restric
 
   float d[kAcc];
   if (mma) {
-    mbar_wait(m.bar_f1, f1_par);
+    mbar_wait(m.bar_f1, 0);
     issue_chunk(d, ring, m.bar_full, m.s_f1, m.s_f2, wg, nkb);
     finish_chunk<kMode>(d, ring, 0, m.bar_empty, m.vol, wg, warp, lane, qs);
-    if (kF1Free && nchunks == 1 && lane == 0) mbar_arrive(m.bar_f1_free);
   }
   consumer_sync<kConsumers>();
 
@@ -628,10 +648,8 @@ __device__ __forceinline__ void k1_block(const K1Smem& m, const float* __restric
     lookup_any<kVec, kMode>(my_acc, lv, lvl, q,
                             m.vol + (c & 1) * (kM * kVolStride) + pix * kVolStride, c * rc,
                             min(rc, H2 - c * rc), W2, sc);
-    if (mma) {
+    if (mma)
       finish_chunk<kMode>(d, ring + c + 1, (c + 1) & 1, m.bar_empty, m.vol, wg, warp, lane, qs);
-      if (kF1Free && c + 2 == nchunks && lane == 0) mbar_arrive(m.bar_f1_free);
-    }
     consumer_sync<kConsumers>();
   }
   {
@@ -697,39 +715,38 @@ corr_fused_xy_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad
     // ---- producer warp: one lane issues every TMA load
     if (tid == kConsumers) {
       produce_f1(&map_f1, m.s_f1, m.bar_f1, p0, e, nkb);
-      produce_f2(&map_f2, m.s_f2, m.bar_full, m.bar_empty, 0, nchunks, rc * W2, e, nkb);
+      produce_f2(&map_f2, m.s_f2, m.bar_full, m.bar_empty, nchunks, rc * W2, e, nkb);
     }
     return;
   }
-  k1_block<kVec, kBf16, false>(m, coords, out, tid, e, p0, 0, 0, P, H2, W2, nkb, 0.f, 0.f);
+  k1_block<kVec, kBf16>(m, coords, out, tid, e, p0, 0, P, H2, W2, nkb, 0.f, 0.f);
 }
 
 // K1-int8 (kInt8), or its first pass alone (kMax; coords and out unused):
-// one block per (tile, edge), walking the tile's nsub = tile / 64 blocks of
-// K1.  Pass 1 builds the whole tile's volume for max |vol|: f2 streams
-// once, warpgroup w < nsub takes sub-block w's 64 pixels against every
-// chunk (in two 64 x 64 halves: quartering a chunk among the warpgroups, as
-// the lookup does, reads f1 from shared memory twice as often, and shared
-// memory, not the tensor cores, would set the pace).  The sub-blocks' f1
-// tiles and one more ring slot take the place of the volume chunks and sums,
-// which pass 1 does not use.  The warps' maxima reduce to the tile's scale
-// in shared memory.  Pass 2 runs K1 on each sub-block in turn, each chunk
-// quantized at that scale; the producer reloads the f1 slot once the MMA
-// warps are done with the last sub-block's.
-template <bool kVec, int kMode, int kSub>
-__global__ void __launch_bounds__(kInt8Threads, 1)
+// one cluster of kCS blocks per (tile, edge), a block per 64 pixels of the
+// tile.  Each block builds its rows for max |vol| (pass 1), sends its
+// maximum to every block of the cluster (a store to distributed shared
+// memory and a remote arrive on its "xchg" barrier), takes the tile's
+// maximum from its own copy, and runs K1 on its rows with the volume
+// quantized at that scale (pass 2).  Pass 1 needs no volume chunks or
+// sums, so its ring has two more slots in their place; pass 2's ring
+// starts when pass 1 is done.  A block reads no other block's memory, so
+// the blocks of a cluster part after the exchange: none waits for another
+// to finish.
+template <bool kVec, int kMode, int kCS>
+__global__ void __launch_bounds__(kThreads, 1)
 corr_int8_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf16
                  const __grid_constant__ CUtensorMap map_f2,  // (E, P2, Cpad) bf16
                  const float* __restrict__ coords,           // (E, P, 2)
                  __nv_bfloat16* __restrict__ out,            // (E, P, 196)
                  float* __restrict__ vmax,                   // (E, P / tile) f32
-                 int P, int H2, int W2, int nkb, int tile) {
+                 int P, int H2, int W2, int nkb) {
   extern __shared__ unsigned char smem_raw[];
   const K1Smem m = k1_smem(smem_raw);
   const int tid = threadIdx.x;
-  const int e = blockIdx.y, t = blockIdx.x;
-  constexpr int nsub = kSub;
-  const int p_tile = t * tile;
+  const int rank = static_cast<int>(cluster_rank());
+  const int e = blockIdx.y, t = blockIdx.x / kCS;
+  const int p0 = blockIdx.x * kM;
   const int rc = kN / W2;
   const int nchunks = (H2 + rc - 1) / rc;
 
@@ -739,24 +756,19 @@ corr_int8_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf
       mbar_init(m.bar_empty + 8 * i, kMmaWarps);
     }
     mbar_init(m.bar_f1, 1);
-    mbar_init(m.bar_f1_free, kMmaWarps);
+    mbar_init(m.bar_xchg, kCS);
     for (int i = 0; i < kStages1; ++i) {
       mbar_init(m.bar_full1 + 8 * i, 1);
-      mbar_init(m.bar_empty1 + 8 * i, 4 * nsub);  // the warps of nsub warpgroups
+      mbar_init(m.bar_empty1 + 8 * i, 4);  // one warpgroup takes a chunk
     }
     mbar_init(m.bar_pass1, kMmaWarps);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  __syncthreads();
+  cluster_sync();  // every block's barriers exist before any remote arrive
 
   if (tid >= kConsumers) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
     if (tid == kConsumers) {
-      mbar_expect_tx(m.bar_f1, nsub * nkb * kM * 128);
-      for (int w = 0; w < nsub; ++w)
-        for (int kb = 0; kb < nkb; ++kb)
-          tma_load_3d(pass1_f1(m, w) + kb * kM * 128, &map_f1, m.bar_f1, kb * kBoxC,
-                      p_tile + w * kM, e);
+      produce_f1(&map_f1, m.s_f1, m.bar_f1, p0, e, nkb);
       for (int c = 0; c < nchunks; ++c) {
         const int st = c % kStages1;
         mbar_wait(m.bar_empty1 + 8 * st, ((c / kStages1) & 1) ^ 1);
@@ -766,53 +778,45 @@ corr_int8_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf
                       kb * kBoxC, c * rc * W2, e);
       }
       if (kMode == kInt8) {
-        // pass 2 reuses pass 1's space: it starts once pass 1 is done
+        // pass 2's ring overlaps pass 1's: it starts once pass 1 is done
         mbar_wait(m.bar_pass1, 0);
-        for (int sb = 0; sb < nsub; ++sb) {
-          if (sb > 0) {
-            mbar_wait(m.bar_f1_free, (sb - 1) & 1);
-            produce_f1(&map_f1, m.s_f1, m.bar_f1, p_tile + sb * kM, e, nkb);
-          }
-          produce_f2(&map_f2, m.s_f2, m.bar_full, m.bar_empty, sb * nchunks, nchunks, rc * W2, e,
-                     nkb);
-        }
+        produce_f2(&map_f2, m.s_f2, m.bar_full, m.bar_empty, nchunks, rc * W2, e, nkb);
       }
     }
     return;
   }
 
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kInt8ConsumerRegs));
-
-  // ---- pass 1: max |vol| of the tile's rows over every chunk
+  // ---- pass 1: max |vol| of this block's rows over every chunk.  Each
+  // warpgroup takes whole chunks (wg, wg + 4, ...), in two 64 x 64 halves:
+  // quartering a chunk among the warpgroups, as the lookup pass does, reads
+  // f1 from shared memory twice as often, and shared memory, not the
+  // tensor cores, would set the pace.
   const int wg = tid / 128, lane = tid % 32;
   if (tid < kMmaWarps * 32) {
+    float d[32];
     float mx = 0.f;
-    if (wg < nsub) {
-      float d[32];
-      mbar_wait(m.bar_f1, 0);
-      const uint32_t f1 = pass1_f1(m, wg);
-      for (int c = 0; c < nchunks; ++c) {
-        const int st = c % kStages1;
-        mbar_wait(m.bar_full1 + 8 * st, (c / kStages1) & 1);
-        for (int half = 0; half < 2; ++half) {
-          wgmma_fence();
+    mbar_wait(m.bar_f1, 0);
+    for (int c = wg; c < nchunks; c += kMmaWarps / 4) {
+      const int st = c % kStages1;
+      mbar_wait(m.bar_full1 + 8 * st, (c / kStages1) & 1);
+      for (int half = 0; half < 2; ++half) {
+        wgmma_fence();
 #pragma unroll
-          for (int kb = 0; kb < kMaxKB; ++kb) {
-            if (kb >= nkb) break;
-            const uint64_t da = desc_sw128(f1 + kb * kM * 128);
-            const uint64_t db = desc_sw128(pass1_slot(m, st) + kb * kN * 128 + half * 64 * 128);
+        for (int kb = 0; kb < kMaxKB; ++kb) {
+          if (kb >= nkb) break;
+          const uint64_t da = desc_sw128(m.s_f1 + kb * kM * 128);
+          const uint64_t db = desc_sw128(pass1_slot(m, st) + kb * kN * 128 + half * 64 * 128);
 #pragma unroll
-            for (int k = 0; k < kBoxC / 16; ++k)
-              wgmma_m64n64k16(d, da + 2 * k, db + 2 * k, (kb | k) != 0);
-          }
-          wgmma_commit();
-          wgmma_wait0();
-          fence_acc(d);
-#pragma unroll
-          for (int i = 0; i < 32; ++i) mx = fmaxf(mx, fabsf(d[i]));
+          for (int k = 0; k < kBoxC / 16; ++k)
+            wgmma_m64n64k16(d, da + 2 * k, db + 2 * k, (kb | k) != 0);
         }
-        if (lane == 0) mbar_arrive(m.bar_empty1 + 8 * st);
+        wgmma_commit();
+        wgmma_wait0();
+        fence_acc(d);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) mx = fmaxf(mx, fabsf(d[i]));
       }
+      if (lane == 0) mbar_arrive(m.bar_empty1 + 8 * st);
     }
     if (lane == 0) mbar_arrive(m.bar_pass1);
 #pragma unroll
@@ -820,28 +824,21 @@ corr_int8_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf
     if (lane == 0) m.red[tid / 32] = mx;
   }
   consumer_sync<kConsumers>();
+  // the block's maximum to slot `rank` of every block's copy
+  float* slots = m.red + kMmaWarps;
   if (tid == 0) {
     float b = 0.f;
     for (int w = 0; w < kMmaWarps; ++w) b = fmaxf(b, m.red[w]);
-    b = fmaxf(b, 1e-20f);
-    m.red[kMmaWarps] = b;
-    vmax[static_cast<size_t>(e) * (P / tile) + t] = b;
+    for (int r = 0; r < kCS; ++r) st_cluster_arrive(smem_u32(slots + rank), b, m.bar_xchg, r);
   }
-  consumer_sync<kConsumers>();
-  if constexpr (kMode == kInt8) {
-    const float vm = m.red[kMmaWarps];
-    // unrolled, and the thread index read anew for each block, so that each
-    // block's lookup is compiled as K1's is, with nothing of the one before
-    // kept in registers (they are at their cap)
+  mbar_wait_cluster(m.bar_xchg, 0);
+  float vm = 0.f;
 #pragma unroll
-    for (int sb = 0; sb < nsub; ++sb) {
-      int tid_sb;
-      asm volatile("mov.u32 %0, %%tid.x;" : "=r"(tid_sb));
-      k1_block<kVec, kInt8, true>(m, coords, out, tid_sb, e, p_tile + sb * kM, sb * nchunks,
-                                  sb & 1, P, H2, W2, nkb, kQ / vm, vm * kInvQ2);
-      consumer_sync<kConsumers>();  // the sums are read out before the next block clears them
-    }
-  }
+  for (int r = 0; r < kCS; ++r) vm = fmaxf(vm, slots[r]);
+  vm = fmaxf(vm, 1e-20f);
+  if (tid == 0 && rank == 0) vmax[static_cast<size_t>(e) * (gridDim.x / kCS) + t] = vm;
+  if constexpr (kMode == kInt8)
+    k1_block<kVec, kInt8>(m, coords, out, tid, e, p0, 0, P, H2, W2, nkb, kQ / vm, vm * kInvQ2);
 }
 
 // ---------------------------------------------------------------- K1-raw
@@ -1165,6 +1162,8 @@ bool make_maps(CUtensorMap* m1, CUtensorMap* m2, const void* f1, const void* f2,
   return make_map(m1, f1, E, P, Cpad, f1_rows) && make_map(m2, f2, E, H2 * W2, Cpad, kN);
 }
 
+constexpr int kNoCluster = -2;  // returned when no cluster of the kernel fits on the card
+
 template <bool kVec>
 int launch_k1(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords,
               __nv_bfloat16* out, int E, int P, int H2, int W2, int nkb, cudaStream_t stream) {
@@ -1177,32 +1176,54 @@ int launch_k1(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K1-int8 (kInt8) or its first pass alone (kMax): a block per (tile, edge)
-template <bool kVec, int kMode, int kSub>
-int launch_int8_sub(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords,
-                    __nv_bfloat16* out, float* vmax, int E, int P, int H2, int W2, int nkb,
-                    int tile, cudaStream_t stream) {
-  const auto kernel = corr_int8_kernel<kVec, kMode, kSub>;
+// K1-int8 (kInt8) or its first pass alone (kMax) in clusters of kCS blocks
+// (tile = 64 * kCS pixels); refused when cudaOccupancyMaxActiveClusters
+// (asked once) finds no cluster that fits on the card.
+template <bool kVec, int kMode, int kCS>
+int launch_int8_cs(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords,
+                   __nv_bfloat16* out, float* vmax, int E, int P, int H2, int W2, int nkb,
+                   cudaStream_t stream) {
+  static int fits = -1;
+  const auto kernel = corr_int8_kernel<kVec, kMode, kCS>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(P / tile, E);
-  kernel<<<grid, kInt8Threads, kSmemBytes, stream>>>(m1, m2, coords, out, vmax, P, H2, W2, nkb,
-                                                     tile);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(P / kM, E);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (fits < 0) {
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(kernel), &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fits = n;
+  }
+  if (fits == 0) return kNoCluster;
+  void* args[] = {const_cast<CUtensorMap*>(&m1), const_cast<CUtensorMap*>(&m2), &coords, &out,
+                  &vmax, &P, &H2, &W2, &nkb};
+  err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// tile 128 or 256: 2 or 4 blocks of 64 pixels
 template <bool kVec, int kMode>
 int launch_int8(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords,
                 __nv_bfloat16* out, float* vmax, int E, int P, int H2, int W2, int nkb, int tile,
                 cudaStream_t s) {
-  if (P % tile != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (tile == 2 * kM)
-    return launch_int8_sub<kVec, kMode, 2>(m1, m2, coords, out, vmax, E, P, H2, W2, nkb, tile, s);
-  if (tile == 4 * kM)
-    return launch_int8_sub<kVec, kMode, 4>(m1, m2, coords, out, vmax, E, P, H2, W2, nkb, tile, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (tile / kM) {
+    case 2: return launch_int8_cs<kVec, kMode, 2>(m1, m2, coords, out, vmax, E, P, H2, W2, nkb, s);
+    case 4: return launch_int8_cs<kVec, kMode, 4>(m1, m2, coords, out, vmax, E, P, H2, W2, nkb, s);
+    case 8: return launch_int8_cs<kVec, kMode, 8>(m1, m2, coords, out, vmax, E, P, H2, W2, nkb, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <bool kVec>
@@ -1221,7 +1242,8 @@ int launch_raw(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords
 
 // f1 (E, P, Cpad) and f2 (E, H2*W2, Cpad) bf16, 16-byte aligned, Cpad in
 // {64, 128}; W2 <= 128.  Launch on `stream`; returns cudaGetLastError() of
-// the launch (0 = ok), or -1 if a tensor map could not be encoded.
+// the launch (0 = ok), -1 if a tensor map could not be encoded, -2 if no
+// cluster of the kernel fits on the card.
 extern "C" int corr_fused_xy_launch(const void* f1, const void* f2, const void* coords, void* out,
                                     int E, int P, int H2, int W2, int Cpad, void* stream) {
   if (E == 0 || P == 0) return 0;
@@ -1236,7 +1258,7 @@ extern "C" int corr_fused_xy_launch(const void* f1, const void* f2, const void* 
 }
 
 // K1-int8's first pass alone: vmax (E, P / tile) f32 gets max(max |vol|,
-// 1e-20) of each tile; tile a multiple of 64 up to 256 that divides P.
+// 1e-20) of each tile; tile 128, 256 or 512, dividing P.
 extern "C" int corr_int8_vmax_launch(const void* f1, const void* f2, void* vmax, int E, int P,
                                      int H2, int W2, int Cpad, int tile, void* stream) {
   if (E == 0 || P == 0) return 0;

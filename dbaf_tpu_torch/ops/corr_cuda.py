@@ -11,11 +11,12 @@ K1-int8 ``corr_fused_xy_int8`` replaces the ``int8=True`` branch of the
 same Pallas kernel (``corr_pallas.py:232-259``, ``cfg.graph.corr_int8``):
 the volume rows are built in f32, quantized to int8 per (edge, pixel tile)
 at the tile's max |vol|, and the x stage contracts them with int8 tents.
-The scale must exist before any block quantizes, and a tile spans 2-4 of
-K1's 64-pixel blocks: one launch runs a block per (tile, edge) that builds
-the tile's volume twice, first for its maximum, then a 64-pixel block at a
-time to quantize and look up.  The tile scales come back on request
-(``return_vmax``).  ``corr_int8_vmax`` runs the first
+The scale must exist before any block quantizes, and a tile spans 2-8 of
+the kernel's 64-pixel blocks: one launch runs a thread-block cluster per
+(tile, edge) whose blocks build the volume twice, first for the tile's
+maximum (each block stores its own into every block of the cluster through
+distributed shared memory), then to quantize and look up.  The tile scales
+come back on request (``return_vmax``).  ``corr_int8_vmax`` runs the first
 pass alone, a diagnostic that no path launches.
 
 K1-raw ``corr_fused_xy(..., raw=True)`` replaces the ``raw=True`` branch of
@@ -77,7 +78,13 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+NO_CLUSTER = -2  # a launch's return code: no cluster of the kernel fits on the card
+
+
 def _raise_on(rc: int, name: str) -> None:
+    if rc == NO_CLUSTER:
+        raise RuntimeError(f"{name}: cudaOccupancyMaxActiveClusters finds no cluster of the "
+                           "kernel that fits on this card")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
 
@@ -361,7 +368,7 @@ def int8_agreement(out: torch.Tensor, ref: torch.Tensor, vmax: torch.Tensor, til
     return Int8Agreement(float(err.max()), float(bnd.max()), share, ok)
 
 
-INT8_TILES = (128, 256)  # K1-int8's block walks 2 or 4 blocks of 64 pixels of a tile
+INT8_TILES = (128, 256, 512)  # K1-int8's clusters: 2, 4 or 8 blocks of 64 pixels a tile
 
 
 def _check_tile(name: str, P: int, tile: int) -> None:
@@ -374,7 +381,7 @@ def corr_int8_vmax(f1p: torch.Tensor, f2p: torch.Tensor, H2: int, W2: int,
     """K1-int8's first pass alone: (E, P // tile) f32, the contract of
     :func:`corr_int8_vmax_plain`.  A diagnostic (K1-int8 computes the
     scales inside its own launch); no path calls it.  A CUDA input
-    launches the pass (K1's limits, ``tile`` as :func:`corr_fused_xy_int8`'s), a CPU
+    launches the pass (K1's limits, ``tile`` in :data:`INT8_TILES`), a CPU
     input takes the plain version."""
     if not f1p.is_cuda:
         return corr_int8_vmax_plain(f1p, f2p, tile)
@@ -398,9 +405,8 @@ def corr_fused_xy_int8(f1p: torch.Tensor, f2p: torch.Tensor, coords: torch.Tenso
     contract of :func:`corr_fused_xy_int8_plain`; with ``return_vmax`` also
     the tile scales, (E, P // tile) f32 as :func:`corr_int8_vmax_plain`.
     A CUDA input launches kernel K1-int8 once (K1's limits; ``tile`` in
-    :data:`INT8_TILES`, dividing P: ``int8_tile`` gives these up to
-    ``corr_group`` 16), and raises where it does not launch; a CPU input
-    takes the plain versions."""
+    :data:`INT8_TILES`, dividing P), and raises where it does not launch; a
+    CPU input takes the plain versions."""
     if not f1p.is_cuda:
         out = corr_fused_xy_int8_plain(f1p, f2p, coords, H2, W2, tile)
         return (out, corr_int8_vmax_plain(f1p, f2p, tile)) if return_vmax else out

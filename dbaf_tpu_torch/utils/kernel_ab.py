@@ -29,6 +29,23 @@ from . import cuda_build
 # must occur `times` (default 1) times
 VARIANTS = {
     "shipped": [],
+    # K1-int8 at tile 256 in clusters of one block: each block takes its own
+    # maximum as the tile's (wrong scales; for the time the clusters cost)
+    "int8_no_cluster": [
+        ("    case 4: return launch_int8_cs<kVec, kMode, 4>(",
+         "    case 4: return launch_int8_cs<kVec, kMode, 1>("),
+    ],
+    # K1-int8 launched in clusters whose blocks take their own maximum as
+    # the tile's and never wait for one another (wrong scales; for the time
+    # the exchange's wait costs beside the clusters' scheduling)
+    "int8_cluster_no_exchange": [
+        ("    for (int r = 0; r < kCS; ++r) st_cluster_arrive(smem_u32(slots + rank), b, m.bar_xchg, r);\n",
+         "    slots[rank] = b;\n"),
+        ("  mbar_wait_cluster(m.bar_xchg, 0);\n", "  consumer_sync<kConsumers>();\n"),
+        ("  for (int r = 0; r < kCS; ++r) vm = fmaxf(vm, slots[r]);", "  vm = slots[rank];"),
+    ],
+    # K1-int8's first pass with the ring's three slots only
+    "int8_pass1_3_slots": [("constexpr int kStages1 = kStages + 2;", "constexpr int kStages1 = kStages;")],
     # K1-raw with K1's ring depth
     "raw_3_stages": [("constexpr int kRawStages = 4;", "constexpr int kRawStages = 3;")],
     # K1-raw's build, ring and epilogue with no lookup (its output is wrong)

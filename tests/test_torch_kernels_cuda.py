@@ -87,12 +87,15 @@ def test_corr_fused_xy_matches_plain(dev, case):
     (48, 48, 64, 128, 256, "noise"), (4, 40, 48, 128, 128, "noise"),
     (4, 32, 60, 128, 128, "noise"), (2, 16, 32, 64, 128, "noise"),
     (2, 48, 64, 128, 256, "off_image"), (4, 32, 60, 128, 128, "nan_row"),
-], ids=["main", "tile128", "tile128_ragged_rows", "channels64", "off_image", "nan_row"])
+    (2, 32, 64, 128, 512, "noise"),
+], ids=["main", "tile128", "tile128_ragged_rows", "channels64", "off_image", "nan_row",
+        "tile512"])
 def test_corr_fused_xy_int8_matches_plain(dev, case):
     """K1-int8 against its plain version in one launch, no separate max
     pass, its tile scales against corr_int8_vmax_plain: tumvi's tile of
     256, the group-8 tile of 128 (40 x 48 and 32 x 60 hold 15 of them;
-    W2 = 60 is no multiple of 8), C = 64 (one TMA box); off-image
+    W2 = 60 is no multiple of 8), the group-32 tile of 512 (clusters of
+    8 blocks), C = 64 (one TMA box); off-image
     coordinates give exactly 0, a NaN coordinate row 0 there.  K1 (bf16)
     on the noise cases' inputs is the control that the check can fail.
     The max pass alone (a diagnostic) gives the same scales."""
