@@ -58,9 +58,14 @@
 // (128, 256 or 512 pixels) spans 2, 4 or 8 of K1's 64-pixel blocks, which
 // run in no order.  So one launch, one thread-block cluster per (tile,
 // edge), one block per 64 pixels (corr_int8_kernel):
-//  * Pass 1: each block builds its rows of the volume (K1's build) and
-//    keeps max |vol| of the f32 accumulators; warps reduce, and the block
-//    stores its maximum into every block of the cluster
+//  * Pass 1: each block builds its rows of the volume and keeps max |vol|
+//    of the f32 accumulators.  Each warpgroup takes whole chunks of f2 in
+//    two 64 x 64 wgmma halves (K1's build quarters a chunk among the
+//    warpgroups, which reads f1 from shared memory twice as often; there,
+//    under the lookup, that costs nothing, here it set the pace), so four
+//    chunks are in work at once: the ring has two more slots in pass 1,
+//    where pass 2 keeps its volume chunks and sums.  Warps reduce, and the
+//    block stores its maximum into every block of the cluster
 //    (st.shared::cluster) and arrives on that block's "xchg" barrier
 //    (release at cluster scope).  A block waits on its own barrier and
 //    takes the tile's scale, max(vmax, 1e-20), from its own copy; block 0
@@ -75,18 +80,17 @@
 //    kernel, then scaled and rounded to bf16 once.  The rounding points are
 //    the Pallas kernel's; only the order of the f32 build sums differs,
 //    which can flip a q by one quantum.
-//  Pass 1 streams f2 through a ring of five slots (three of the ring's,
-//  two where pass 2 keeps its volume chunks and sums), pass 2 through the
-//  ring of three once pass 1 is done.  Bound on the H100: the build's flops twice
-//  (the f32 volume of a block, 786 KB, cannot wait between the passes);
-//  pass 1 streams each block's f2 from L2 like K1 and is held by that
-//  stream, pass 2 by K1's lookup.  Int8 tensor cores are not used: the
-//  port's x stage is two block sums per tap, not a product, and the
-//  quantization needs the f32 build.  Measured on the card and left out
-//  (PERF.md): multicasting f2 to the cluster (no gain), a persistent grid
-//  of clusters (its item loop pushed the lookup's registers to the stack).
-//  The first pass alone (kMax) stays as a diagnostic that no path
-//  launches.
+//  Pass 2's ring of three starts once pass 1 is done.  Bound on the H100:
+//  the build's flops twice (the f32 volume of a block, 786 KB, cannot wait
+//  between the passes); pass 2 is held by K1's lookup, and the clusters'
+//  scheduling costs about a tenth of the time (PERF.md).  Int8 tensor
+//  cores are not used: the port's x stage is two block sums per tap, not a
+//  product, and the quantization needs the f32 build.  Measured on the card
+//  and left out (PERF.md): f2 multicast to the cluster (no gain), a
+//  persistent grid of clusters and one block per tile that walks its
+//  64-pixel blocks (both slower: their loops pushed the lookup's registers
+//  to the stack).  The first pass alone (kMax) stays as a diagnostic that
+//  no path launches.
 //
 // K1-raw: the raw=True branch (corr_pallas.py:515-516), the whole per-pixel
 // 32 x 32 block with the diagonal-level extraction skipped.  Row i = l*7+dy
