@@ -58,9 +58,14 @@
 // (128, 256 or 512 pixels) spans 2, 4 or 8 of K1's 64-pixel blocks, which
 // run in no order.  So one launch, one thread-block cluster per (tile,
 // edge), one block per 64 pixels (corr_int8_kernel):
-//  * Pass 1: each block builds its rows of the volume (K1's build) and
-//    keeps max |vol| of the f32 accumulators; warps reduce, and the block
-//    stores its maximum into every block of the cluster
+//  * Pass 1: each block builds its rows of the volume and keeps max |vol|
+//    of the f32 accumulators.  Each warpgroup takes whole chunks of f2 in
+//    two 64 x 64 wgmma halves (K1's build quarters a chunk among the
+//    warpgroups, which reads f1 from shared memory twice as often; there,
+//    under the lookup, that costs nothing, here it set the pace), so four
+//    chunks are in work at once: the ring has two more slots in pass 1,
+//    where pass 2 keeps its volume chunks and sums.  Warps reduce, and the
+//    block stores its maximum into every block of the cluster
 //    (st.shared::cluster) and arrives on that block's "xchg" barrier
 //    (release at cluster scope).  A block waits on its own barrier and
 //    takes the tile's scale, max(vmax, 1e-20), from its own copy; block 0
@@ -75,17 +80,17 @@
 //    kernel, then scaled and rounded to bf16 once.  The rounding points are
 //    the Pallas kernel's; only the order of the f32 build sums differs,
 //    which can flip a q by one quantum.
-//  The producer streams f2 twice through one ring, so pass 2's first chunks
-//  load while pass 1 ends.  Bound on the H100: the build's flops twice
-//  (the f32 volume of a block, 786 KB, cannot wait between the passes);
-//  pass 1 streams each block's f2 from L2 like K1 and is held by that
-//  stream, pass 2 by K1's lookup.  Int8 tensor cores are not used: the
-//  port's x stage is two block sums per tap, not a product, and the
-//  quantization needs the f32 build.  Measured on the card and left out
-//  (PERF.md): multicasting f2 to the cluster (no gain), a persistent grid
-//  of clusters (its item loop pushed the lookup's registers to the stack).
-//  The first pass alone (kMax) stays as a diagnostic that no path
-//  launches.
+//  Pass 2's ring of three starts once pass 1 is done.  Bound on the H100:
+//  the build's flops twice (the f32 volume of a block, 786 KB, cannot wait
+//  between the passes); pass 2 is held by K1's lookup, and the clusters'
+//  scheduling costs about a tenth of the time (PERF.md).  Int8 tensor
+//  cores are not used: the port's x stage is two block sums per tap, not a
+//  product, and the quantization needs the f32 build.  Measured on the card
+//  and left out (PERF.md): f2 multicast to the cluster (no gain), a
+//  persistent grid of clusters and one block per tile that walks its
+//  64-pixel blocks (both slower: their loops pushed the lookup's registers
+//  to the stack).  The first pass alone (kMax) stays as a diagnostic that
+//  no path launches.
 //
 // K1-raw: the raw=True branch (corr_pallas.py:515-516), the whole per-pixel
 // 32 x 32 block with the diagonal-level extraction skipped.  Row i = l*7+dy
@@ -153,8 +158,12 @@ constexpr int kOffF2 = kF1Bytes;
 constexpr int kOffVol = kOffF2 + kStages * kStageBytes;
 constexpr int kOffAcc = kOffVol + 2 * kVolBytes;
 constexpr int kOffBar = kOffAcc + kM * kAccStride * 4;
-constexpr int kOffRed = kOffBar + 128;               // K1-int8: 16 warp maxima, 2 x 8 block maxima
-constexpr int kSmemBytes = kOffRed + 128 + 1024;     // + room to align the base to 1024
+constexpr int kOffRed = kOffBar + 192;               // K1-int8: 16 warp maxima, 8 block maxima
+constexpr int kSmemBytes = kOffRed + 96 + 1024;      // + room to align the base to 1024
+// K1-int8's first pass needs no volume chunks and sums: its ring takes two
+// more slots there
+constexpr int kStages1 = kStages + 2;
+static_assert(2 * kStageBytes <= kOffBar - kOffVol, "K1-int8's pass-1 slots fit");
 
 // K1-raw
 constexpr int kRawM = 32;                  // source pixels per block
@@ -300,6 +309,21 @@ __device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], uint64_t da, uint
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 template <int kCount>
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(kCount) : "memory");
@@ -313,18 +337,18 @@ __device__ __forceinline__ void produce_f1(const CUtensorMap* map_f1, uint32_t s
     tma_load_3d(s_f1 + kb * kM * 128, map_f1, bar_f1, kb * kBoxC, p0, e);
 }
 
-// ... and ring chunks ring0 .. ring0 + n - 1: chunk j of them holds f2
-// positions of chunk j % nchunks of edge e (`span` = whole rows of them).
+// ... and the edge's f2 in nchunks chunks of kN positions (`span` = whole
+// rows of them) through the ring.
 __device__ __forceinline__ void produce_f2(const CUtensorMap* map_f2, uint32_t s_f2,
-                                           uint32_t bar_full, uint32_t bar_empty, int ring0, int n,
-                                           int nchunks, int span, int e, int nkb) {
-  for (int j = 0; j < n; ++j) {
-    const int c = ring0 + j, st = c % kStages;
+                                           uint32_t bar_full, uint32_t bar_empty, int nchunks,
+                                           int span, int e, int nkb) {
+  for (int c = 0; c < nchunks; ++c) {
+    const int st = c % kStages;
     mbar_wait(bar_empty + 8 * st, ((c / kStages) & 1) ^ 1);
     mbar_expect_tx(bar_full + 8 * st, nkb * kN * 128);
     for (int kb = 0; kb < nkb; ++kb)
       tma_load_3d(s_f2 + st * kStageBytes + kb * kN * 128, map_f2, bar_full + 8 * st, kb * kBoxC,
-                  (j % nchunks) * span, e);
+                  c * span, e);
   }
 }
 
@@ -494,14 +518,13 @@ __device__ __forceinline__ void lookup_any(float* acc, const Level& lv, int lvl,
 
 // ---------------------------------------------------------------- the kernel
 
-// Waits for ring chunk c's f2 tile and issues this warpgroup's wgmma on its
-// quarter of the positions (64 x 32, K = Cpad), without waiting for it.
-__device__ __forceinline__ void issue_chunk(float (&d)[kAcc], int c, uint32_t bar_full,
-                                            uint32_t s_f1, uint32_t s_f2, int wg, int nkb) {
-  const int st = c % kStages;
-  mbar_wait(bar_full + 8 * st, (c / kStages) & 1);
+// Issues this warpgroup's wgmma on its quarter of the positions of the f2
+// tile at `tile` (64 x 32, K = Cpad), without waiting for it; issue_chunk
+// first waits for ring chunk c to land.
+__device__ __forceinline__ void issue_tile(float (&d)[kAcc], uint32_t tile, uint32_t s_f1, int wg,
+                                           int nkb) {
   wgmma_fence();
-  const uint32_t b_base = s_f2 + st * kStageBytes + wg * kWgN * 128;
+  const uint32_t b_base = tile + wg * kWgN * 128;
 #pragma unroll
   for (int kb = 0; kb < kMaxKB; ++kb) {
     if (kb >= nkb) break;
@@ -512,6 +535,13 @@ __device__ __forceinline__ void issue_chunk(float (&d)[kAcc], int c, uint32_t ba
       wgmma_m64n32k16(d, da + 2 * k, db + 2 * k, (kb | k) != 0);
   }
   wgmma_commit();
+}
+
+__device__ __forceinline__ void issue_chunk(float (&d)[kAcc], int c, uint32_t bar_full,
+                                            uint32_t s_f1, uint32_t s_f2, int wg, int nkb) {
+  const int st = c % kStages;
+  mbar_wait(bar_full + 8 * st, (c / kStages) & 1);
+  issue_tile(d, s_f2 + st * kStageBytes, s_f1, wg, nkb);
 }
 
 // Waits for ring chunk c's wgmma, frees its ring slot and stores the bf16
@@ -549,8 +579,9 @@ struct K1Smem {
   float* red;                    // K1-int8: 16 warp maxima, then the cluster's block maxima
   uint32_t bar_full, bar_empty;  // kStages each
   uint32_t bar_f1;               // the f1 tile landed
-  uint32_t bar_f1_free;          // K1-int8: the MMA warps are done with the f1 tile
-  uint32_t bar_xchg;             // K1-int8, two: every block's maximum of an item arrived
+  uint32_t bar_xchg;             // K1-int8: every block's maximum arrived
+  uint32_t bar_full1, bar_empty1;  // K1-int8's pass-1 ring, kStages1 each
+  uint32_t bar_pass1;            // K1-int8: the MMA warps are past pass 1
 };
 
 __device__ __forceinline__ K1Smem k1_smem(unsigned char* smem_raw) {
@@ -565,20 +596,28 @@ __device__ __forceinline__ K1Smem k1_smem(unsigned char* smem_raw) {
   m.bar_full = m.s_f1 + kOffBar;
   m.bar_empty = m.bar_full + 8 * kStages;
   m.bar_f1 = m.bar_empty + 8 * kStages;
-  m.bar_f1_free = m.bar_f1 + 8;
-  m.bar_xchg = m.bar_f1_free + 8;
+  m.bar_xchg = m.bar_f1 + 8;
+  m.bar_full1 = m.bar_xchg + 8;
+  m.bar_empty1 = m.bar_full1 + 8 * kStages1;
+  m.bar_pass1 = m.bar_empty1 + 8 * kStages1;
   return m;
 }
 
+// Slot st of K1-int8's pass-1 ring: the ring's kStages, then two in the
+// volume chunks' and sums' place.
+__device__ __forceinline__ uint32_t pass1_slot(const K1Smem& m, int st) {
+  return st < kStages ? m.s_f2 + st * kStageBytes
+                      : m.s_f1 + kOffVol + (st - kStages) * kStageBytes;
+}
+
 // The consumers' build + lookup of one block (64 pixels from p0, edge e)
-// from ring chunks ring .. ring + nchunks - 1, the f1 tile in phase f1_par
-// of its barrier; int8 (kMode kInt8): the tile's step qs and scale sc.
-// kF1Free: the MMA warps free the f1 tile after their last wgmma.
-template <bool kVec, int kMode, bool kF1Free>
+// from ring chunks ring .. ring + nchunks - 1; int8 (kMode kInt8): the
+// tile's step qs and scale sc.
+template <bool kVec, int kMode>
 __device__ __forceinline__ void k1_block(const K1Smem& m, const float* __restrict__ coords,
                                          __nv_bfloat16* __restrict__ out, int tid, int e, int p0,
-                                         int ring, uint32_t f1_par, int P, int H2, int W2,
-                                         int nkb, float qs, float sc) {
+                                         int ring, int P, int H2, int W2, int nkb, float qs,
+                                         float sc) {
   const int rc = kN / W2;                   // whole rows per chunk
   const int nchunks = (H2 + rc - 1) / rc;
   const int wg = tid / 128;       // wgmma warpgroup (0-3): its quarter of the chunk's positions
@@ -600,10 +639,9 @@ __device__ __forceinline__ void k1_block(const K1Smem& m, const float* __restric
 
   float d[kAcc];
   if (mma) {
-    mbar_wait(m.bar_f1, f1_par);
+    mbar_wait(m.bar_f1, 0);
     issue_chunk(d, ring, m.bar_full, m.s_f1, m.s_f2, wg, nkb);
     finish_chunk<kMode>(d, ring, 0, m.bar_empty, m.vol, wg, warp, lane, qs);
-    if (kF1Free && nchunks == 1 && lane == 0) mbar_arrive(m.bar_f1_free);
   }
   consumer_sync<kConsumers>();
 
@@ -614,10 +652,8 @@ __device__ __forceinline__ void k1_block(const K1Smem& m, const float* __restric
     lookup_any<kVec, kMode>(my_acc, lv, lvl, q,
                             m.vol + (c & 1) * (kM * kVolStride) + pix * kVolStride, c * rc,
                             min(rc, H2 - c * rc), W2, sc);
-    if (mma) {
+    if (mma)
       finish_chunk<kMode>(d, ring + c + 1, (c + 1) & 1, m.bar_empty, m.vol, wg, warp, lane, qs);
-      if (kF1Free && c + 2 == nchunks && lane == 0) mbar_arrive(m.bar_f1_free);
-    }
     consumer_sync<kConsumers>();
   }
   {
@@ -683,23 +719,24 @@ corr_fused_xy_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad
     // ---- producer warp: one lane issues every TMA load
     if (tid == kConsumers) {
       produce_f1(&map_f1, m.s_f1, m.bar_f1, p0, e, nkb);
-      produce_f2(&map_f2, m.s_f2, m.bar_full, m.bar_empty, 0, nchunks, nchunks, rc * W2, e, nkb);
+      produce_f2(&map_f2, m.s_f2, m.bar_full, m.bar_empty, nchunks, rc * W2, e, nkb);
     }
     return;
   }
-  k1_block<kVec, kBf16, false>(m, coords, out, tid, e, p0, 0, 0, P, H2, W2, nkb, 0.f, 0.f);
+  k1_block<kVec, kBf16>(m, coords, out, tid, e, p0, 0, P, H2, W2, nkb, 0.f, 0.f);
 }
 
 // K1-int8 (kInt8), or its first pass alone (kMax; coords and out unused):
-// persistent clusters of kCS blocks, a block per 64 pixels of a tile, as
-// many clusters as fit on the card; cluster c takes the (tile, edge) items
-// c, c + nclusters, ...  Per item each block builds its rows for max |vol|
-// (pass 1), sends its maximum to every block of the cluster (a store to
-// distributed shared memory and a remote arrive on its "xchg" barrier),
-// takes the tile's maximum from its own copy, and runs K1 on its rows with
-// the volume quantized at that scale (pass 2).  The ring runs on across
-// passes and items, so the producer loads ahead over their seams; the next
-// item's f1 tile loads once the MMA warps free the current one.
+// one cluster of kCS blocks per (tile, edge), a block per 64 pixels of the
+// tile.  Each block builds its rows for max |vol| (pass 1), sends its
+// maximum to every block of the cluster (a store to distributed shared
+// memory and a remote arrive on its "xchg" barrier), takes the tile's
+// maximum from its own copy, and runs K1 on its rows with the volume
+// quantized at that scale (pass 2).  Pass 1 needs no volume chunks or
+// sums, so its ring has two more slots in their place; pass 2's ring
+// starts when pass 1 is done.  A block reads no other block's memory, so
+// the blocks of a cluster part after the exchange: none waits for another
+// to finish.
 template <bool kVec, int kMode, int kCS>
 __global__ void __launch_bounds__(kThreads, 1)
 corr_int8_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf16
@@ -707,93 +744,105 @@ corr_int8_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf
                  const float* __restrict__ coords,           // (E, P, 2)
                  __nv_bfloat16* __restrict__ out,            // (E, P, 196)
                  float* __restrict__ vmax,                   // (E, P / tile) f32
-                 int P, int H2, int W2, int nkb, int nitems) {
-  constexpr int kPasses = kMode == kInt8 ? 2 : 1;  // f2 streamed once per pass
+                 int P, int H2, int W2, int nkb) {
   extern __shared__ unsigned char smem_raw[];
   const K1Smem m = k1_smem(smem_raw);
+  const int tid = threadIdx.x;
   const int rank = static_cast<int>(cluster_rank());
-  const int cluster = blockIdx.x / kCS, nclusters = gridDim.x / kCS;
-  const int ntiles = P / (kM * kCS);
+  const int e = blockIdx.y, t = blockIdx.x / kCS;
+  const int p0 = blockIdx.x * kM;
   const int rc = kN / W2;
   const int nchunks = (H2 + rc - 1) / rc;
 
-  if (threadIdx.x == 0) {
+  if (tid == 0) {
     for (int i = 0; i < kStages; ++i) {
       mbar_init(m.bar_full + 8 * i, 1);
       mbar_init(m.bar_empty + 8 * i, kMmaWarps);
     }
     mbar_init(m.bar_f1, 1);
-    mbar_init(m.bar_f1_free, kMmaWarps);
     mbar_init(m.bar_xchg, kCS);
-    mbar_init(m.bar_xchg + 8, kCS);
+    for (int i = 0; i < kStages1; ++i) {
+      mbar_init(m.bar_full1 + 8 * i, 1);
+      mbar_init(m.bar_empty1 + 8 * i, 4);  // one warpgroup takes a chunk
+    }
+    mbar_init(m.bar_pass1, kMmaWarps);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   cluster_sync();  // every block's barriers exist before any remote arrive
 
-  if (threadIdx.x >= kConsumers) {
-    if (threadIdx.x == kConsumers) {
-      int k = 0;
-      for (int it = cluster; it < nitems; it += nclusters, ++k) {
-        const int e = it / ntiles, p0 = (it % ntiles) * kM * kCS + rank * kM;
-        mbar_wait(m.bar_f1_free, (k & 1) ^ 1);
-        produce_f1(&map_f1, m.s_f1, m.bar_f1, p0, e, nkb);
-        produce_f2(&map_f2, m.s_f2, m.bar_full, m.bar_empty, k * kPasses * nchunks,
-                   kPasses * nchunks, nchunks, rc * W2, e, nkb);
+  if (tid >= kConsumers) {
+    if (tid == kConsumers) {
+      produce_f1(&map_f1, m.s_f1, m.bar_f1, p0, e, nkb);
+      for (int c = 0; c < nchunks; ++c) {
+        const int st = c % kStages1;
+        mbar_wait(m.bar_empty1 + 8 * st, ((c / kStages1) & 1) ^ 1);
+        mbar_expect_tx(m.bar_full1 + 8 * st, nkb * kN * 128);
+        for (int kb = 0; kb < nkb; ++kb)
+          tma_load_3d(pass1_slot(m, st) + kb * kN * 128, &map_f2, m.bar_full1 + 8 * st,
+                      kb * kBoxC, c * rc * W2, e);
+      }
+      if (kMode == kInt8) {
+        // pass 2's ring overlaps pass 1's: it starts once pass 1 is done
+        mbar_wait(m.bar_pass1, 0);
+        produce_f2(&map_f2, m.s_f2, m.bar_full, m.bar_empty, nchunks, rc * W2, e, nkb);
       }
     }
     return;
   }
 
-  int k = 0;
-#pragma unroll 1
-  for (int it = cluster; it < nitems; it += nclusters, ++k) {
-    // the thread index read anew each item, so that nothing derived from it
-    // is kept live across the item loop (registers are at their cap)
-    int tid;
-    asm volatile("mov.u32 %0, %%tid.x;" : "=r"(tid));
-    const int lane = tid % 32;
-    const int e = it / ntiles, t = it % ntiles;
-    const int p0 = t * kM * kCS + rank * kM;
-    const int ring = k * kPasses * nchunks;
-    // ---- pass 1: max |vol| of this block's rows over every chunk
-    if (tid < kMmaWarps * 32) {
-      float d[kAcc];
-      float mx = 0.f;
-      mbar_wait(m.bar_f1, k & 1);
-      for (int c = 0; c < nchunks; ++c) {
-        issue_chunk(d, ring + c, m.bar_full, m.s_f1, m.s_f2, tid / 128, nkb);
+  // ---- pass 1: max |vol| of this block's rows over every chunk.  Each
+  // warpgroup takes whole chunks (wg, wg + 4, ...), in two 64 x 64 halves:
+  // quartering a chunk among the warpgroups, as the lookup pass does, reads
+  // f1 from shared memory twice as often, and shared memory, not the
+  // tensor cores, would set the pace.
+  const int wg = tid / 128, lane = tid % 32;
+  if (tid < kMmaWarps * 32) {
+    float d[32];
+    float mx = 0.f;
+    mbar_wait(m.bar_f1, 0);
+    for (int c = wg; c < nchunks; c += kMmaWarps / 4) {
+      const int st = c % kStages1;
+      mbar_wait(m.bar_full1 + 8 * st, (c / kStages1) & 1);
+      for (int half = 0; half < 2; ++half) {
+        wgmma_fence();
+#pragma unroll
+        for (int kb = 0; kb < kMaxKB; ++kb) {
+          if (kb >= nkb) break;
+          const uint64_t da = desc_sw128(m.s_f1 + kb * kM * 128);
+          const uint64_t db = desc_sw128(pass1_slot(m, st) + kb * kN * 128 + half * 64 * 128);
+#pragma unroll
+          for (int k = 0; k < kBoxC / 16; ++k)
+            wgmma_m64n64k16(d, da + 2 * k, db + 2 * k, (kb | k) != 0);
+        }
+        wgmma_commit();
         wgmma_wait0();
         fence_acc(d);
-        if (lane == 0) mbar_arrive(m.bar_empty + 8 * ((ring + c) % kStages));
 #pragma unroll
-        for (int i = 0; i < kAcc; ++i) mx = fmaxf(mx, fabsf(d[i]));
+        for (int i = 0; i < 32; ++i) mx = fmaxf(mx, fabsf(d[i]));
       }
-      if (kMode == kMax && lane == 0) mbar_arrive(m.bar_f1_free);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      if (lane == 0) m.red[tid / 32] = mx;
+      if (lane == 0) mbar_arrive(m.bar_empty1 + 8 * st);
     }
-    consumer_sync<kConsumers>();
-    // the block's maximum to slot `rank` of every block's copy; slots and
-    // barrier are double buffered by item (a block sends item k + 1's only
-    // after it has read item k's, and so has every block it waits for)
-    float* slots = m.red + kMmaWarps + (k & 1) * kCS;
-    const uint32_t xchg = m.bar_xchg + 8 * (k & 1);
-    if (tid == 0) {
-      float b = 0.f;
-      for (int w = 0; w < kMmaWarps; ++w) b = fmaxf(b, m.red[w]);
-      for (int r = 0; r < kCS; ++r) st_cluster_arrive(smem_u32(slots + rank), b, xchg, r);
-    }
-    mbar_wait_cluster(xchg, (k >> 1) & 1);
-    float vm = 0.f;
+    if (lane == 0) mbar_arrive(m.bar_pass1);
 #pragma unroll
-    for (int r = 0; r < kCS; ++r) vm = fmaxf(vm, slots[r]);
-    vm = fmaxf(vm, 1e-20f);
-    if (tid == 0 && rank == 0) vmax[static_cast<size_t>(e) * ntiles + t] = vm;
-    if constexpr (kMode == kInt8)
-      k1_block<kVec, kInt8, true>(m, coords, out, tid, e, p0, ring + nchunks, k & 1, P, H2, W2,
-                                  nkb, kQ / vm, vm * kInvQ2);
+    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    if (lane == 0) m.red[tid / 32] = mx;
   }
+  consumer_sync<kConsumers>();
+  // the block's maximum to slot `rank` of every block's copy
+  float* slots = m.red + kMmaWarps;
+  if (tid == 0) {
+    float b = 0.f;
+    for (int w = 0; w < kMmaWarps; ++w) b = fmaxf(b, m.red[w]);
+    for (int r = 0; r < kCS; ++r) st_cluster_arrive(smem_u32(slots + rank), b, m.bar_xchg, r);
+  }
+  mbar_wait_cluster(m.bar_xchg, 0);
+  float vm = 0.f;
+#pragma unroll
+  for (int r = 0; r < kCS; ++r) vm = fmaxf(vm, slots[r]);
+  vm = fmaxf(vm, 1e-20f);
+  if (tid == 0 && rank == 0) vmax[static_cast<size_t>(e) * (gridDim.x / kCS) + t] = vm;
+  if constexpr (kMode == kInt8)
+    k1_block<kVec, kInt8>(m, coords, out, tid, e, p0, 0, P, H2, W2, nkb, kQ / vm, vm * kInvQ2);
 }
 
 // ---------------------------------------------------------------- K1-raw
@@ -1132,9 +1181,8 @@ int launch_k1(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords,
 }
 
 // K1-int8 (kInt8) or its first pass alone (kMax) in clusters of kCS blocks
-// (tile = 64 * kCS pixels), as many clusters as cudaOccupancyMaxActiveClusters
-// (asked once) finds room for on the card and no more than the items;
-// refused when it finds none.
+// (tile = 64 * kCS pixels); refused when cudaOccupancyMaxActiveClusters
+// (asked once) finds no cluster that fits on the card.
 template <bool kVec, int kMode, int kCS>
 int launch_int8_cs(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords,
                    __nv_bfloat16* out, float* vmax, int E, int P, int H2, int W2, int nkb,
@@ -1145,8 +1193,7 @@ int launch_int8_cs(const CUtensorMap& m1, const CUtensorMap& m2, const float* co
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
-  int nitems = P / (kM * kCS) * E;
-  cfg.gridDim = dim3(nitems * kCS);
+  cfg.gridDim = dim3(P / kM, E);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = kSmemBytes;
   cfg.stream = stream;
@@ -1164,9 +1211,8 @@ int launch_int8_cs(const CUtensorMap& m1, const CUtensorMap& m2, const float* co
     fits = n;
   }
   if (fits == 0) return kNoCluster;
-  cfg.gridDim = dim3(min(nitems, fits) * kCS);
   void* args[] = {const_cast<CUtensorMap*>(&m1), const_cast<CUtensorMap*>(&m2), &coords, &out,
-                  &vmax, &P, &H2, &W2, &nkb, &nitems};
+                  &vmax, &P, &H2, &W2, &nkb};
   err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
