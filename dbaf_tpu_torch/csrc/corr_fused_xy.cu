@@ -58,9 +58,14 @@
 // (128, 256 or 512 pixels) spans 2, 4 or 8 of K1's 64-pixel blocks, which
 // run in no order.  So one launch, one thread-block cluster per (tile,
 // edge), one block per 64 pixels (corr_int8_kernel):
-//  * Pass 1: each block builds its rows of the volume (K1's build) and
-//    keeps max |vol| of the f32 accumulators; warps reduce, and the block
-//    stores its maximum into every block of the cluster
+//  * Pass 1: each block builds its rows of the volume and keeps max |vol|
+//    of the f32 accumulators.  Each warpgroup takes whole chunks of f2 in
+//    two 64 x 64 wgmma halves (K1's build quarters a chunk among the
+//    warpgroups, which reads f1 from shared memory twice as often; there,
+//    under the lookup, that costs nothing, here it set the pace), so four
+//    chunks are in work at once: the ring has two more slots in pass 1,
+//    where pass 2 keeps its volume chunks and sums.  Warps reduce, and the
+//    block stores its maximum into every block of the cluster
 //    (st.shared::cluster) and arrives on that block's "xchg" barrier
 //    (release at cluster scope).  A block waits on its own barrier and
 //    takes the tile's scale, max(vmax, 1e-20), from its own copy; block 0
@@ -75,18 +80,17 @@
 //    kernel, then scaled and rounded to bf16 once.  The rounding points are
 //    the Pallas kernel's; only the order of the f32 build sums differs,
 //    which can flip a q by one quantum.
-//  Pass 1 streams f2 through a ring of five slots (three of the ring's,
-//  two where pass 2 keeps its volume chunks and sums), pass 2 through the
-//  ring of three once pass 1 is done.  Bound on the H100: the build's flops twice
-//  (the f32 volume of a block, 786 KB, cannot wait between the passes);
-//  pass 1 streams each block's f2 from L2 like K1 and is held by that
-//  stream, pass 2 by K1's lookup.  Int8 tensor cores are not used: the
-//  port's x stage is two block sums per tap, not a product, and the
-//  quantization needs the f32 build.  Measured on the card and left out
-//  (PERF.md): multicasting f2 to the cluster (no gain), a persistent grid
-//  of clusters (its item loop pushed the lookup's registers to the stack).
-//  The first pass alone (kMax) stays as a diagnostic that no path
-//  launches.
+//  Pass 2's ring of three starts once pass 1 is done.  Bound on the H100:
+//  the build's flops twice (the f32 volume of a block, 786 KB, cannot wait
+//  between the passes); pass 2 is held by K1's lookup, and the clusters'
+//  scheduling costs about a tenth of the time (PERF.md).  Int8 tensor
+//  cores are not used: the port's x stage is two block sums per tap, not a
+//  product, and the quantization needs the f32 build.  Measured on the card
+//  and left out (PERF.md): f2 multicast to the cluster (no gain), a
+//  persistent grid of clusters and one block per tile that walks its
+//  64-pixel blocks (both slower: their loops pushed the lookup's registers
+//  to the stack).  The first pass alone (kMax) stays as a diagnostic that
+//  no path launches.
 //
 // K1-raw: the raw=True branch (corr_pallas.py:515-516), the whole per-pixel
 // 32 x 32 block with the diagonal-level extraction skipped.  Row i = l*7+dy
@@ -217,27 +221,6 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// the same box to the same offset in every block of `mask`, each block's
-// barrier at `bar` credited with the bytes it received
-__device__ __forceinline__ void tma_load_3d_multicast(uint32_t dst, const CUtensorMap* map,
-                                                      uint32_t bar, int c0, int c1, int c2,
-                                                      uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "h"(mask)
-      : "memory");
-}
-
-// arrives on the barrier at offset `bar` of block `cta` of the cluster
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
-  asm volatile(
-      "{\n .reg .b32 ra;\n mapa.shared::cluster.u32 ra, %0, %1;\n"
-      " mbarrier.arrive.shared::cluster.b64 _, [ra];\n}" ::"r"(bar),
-      "r"(cta)
-      : "memory");
-}
-
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
@@ -323,6 +306,21 @@ __device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], uint64_t da, uint
       "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -743,7 +741,6 @@ template <bool kVec, int kMode, int kCS>
 __global__ void __launch_bounds__(kThreads, 1)
 corr_int8_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf16
                  const __grid_constant__ CUtensorMap map_f2,  // (E, P2, Cpad) bf16
-                 const __grid_constant__ CUtensorMap map_f2s,  // the same, kN / kCS-row boxes
                  const float* __restrict__ coords,           // (E, P, 2)
                  __nv_bfloat16* __restrict__ out,            // (E, P, 196)
                  float* __restrict__ vmax,                   // (E, P / tile) f32
@@ -766,7 +763,7 @@ corr_int8_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf
     mbar_init(m.bar_xchg, kCS);
     for (int i = 0; i < kStages1; ++i) {
       mbar_init(m.bar_full1 + 8 * i, 1);
-      mbar_init(m.bar_empty1 + 8 * i, kMmaWarps * kCS);
+      mbar_init(m.bar_empty1 + 8 * i, 4);  // one warpgroup takes a chunk
     }
     mbar_init(m.bar_pass1, kMmaWarps);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -776,16 +773,13 @@ corr_int8_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf
   if (tid >= kConsumers) {
     if (tid == kConsumers) {
       produce_f1(&map_f1, m.s_f1, m.bar_f1, p0, e, nkb);
-      // pass 1: this block's slice of each chunk, to every block of the cluster
-      constexpr int kSlice = kN / kCS;
       for (int c = 0; c < nchunks; ++c) {
         const int st = c % kStages1;
         mbar_wait(m.bar_empty1 + 8 * st, ((c / kStages1) & 1) ^ 1);
         mbar_expect_tx(m.bar_full1 + 8 * st, nkb * kN * 128);
         for (int kb = 0; kb < nkb; ++kb)
-          tma_load_3d_multicast(pass1_slot(m, st) + kb * kN * 128 + rank * kSlice * 128, &map_f2s,
-                                m.bar_full1 + 8 * st, kb * kBoxC, c * rc * W2 + rank * kSlice, e,
-                                static_cast<uint16_t>((1 << kCS) - 1));
+          tma_load_3d(pass1_slot(m, st) + kb * kN * 128, &map_f2, m.bar_full1 + 8 * st,
+                      kb * kBoxC, c * rc * W2, e);
       }
       if (kMode == kInt8) {
         // pass 2's ring overlaps pass 1's: it starts once pass 1 is done
@@ -796,23 +790,37 @@ corr_int8_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf
     return;
   }
 
-  // ---- pass 1: max |vol| of this block's rows over every chunk
+  // ---- pass 1: max |vol| of this block's rows over every chunk.  Each
+  // warpgroup takes whole chunks (wg, wg + 4, ...), in two 64 x 64 halves:
+  // quartering a chunk among the warpgroups, as the lookup pass does, reads
+  // f1 from shared memory twice as often, and shared memory, not the
+  // tensor cores, would set the pace.
   const int wg = tid / 128, lane = tid % 32;
   if (tid < kMmaWarps * 32) {
-    float d[kAcc];
+    float d[32];
     float mx = 0.f;
     mbar_wait(m.bar_f1, 0);
-    for (int c = 0; c < nchunks; ++c) {
+    for (int c = wg; c < nchunks; c += kMmaWarps / 4) {
       const int st = c % kStages1;
       mbar_wait(m.bar_full1 + 8 * st, (c / kStages1) & 1);
-      issue_tile(d, pass1_slot(m, st), m.s_f1, wg, nkb);
-      wgmma_wait0();
-      fence_acc(d);
-      // the slot is free in every block (lane r tells block r) if a chunk
-      // will refill it; no arrive goes to a block that may have left
-      if (lane < kCS && c + kStages1 < nchunks) mbar_arrive_cluster(m.bar_empty1 + 8 * st, lane);
+      for (int half = 0; half < 2; ++half) {
+        wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < kAcc; ++i) mx = fmaxf(mx, fabsf(d[i]));
+        for (int kb = 0; kb < kMaxKB; ++kb) {
+          if (kb >= nkb) break;
+          const uint64_t da = desc_sw128(m.s_f1 + kb * kM * 128);
+          const uint64_t db = desc_sw128(pass1_slot(m, st) + kb * kN * 128 + half * 64 * 128);
+#pragma unroll
+          for (int k = 0; k < kBoxC / 16; ++k)
+            wgmma_m64n64k16(d, da + 2 * k, db + 2 * k, (kb | k) != 0);
+        }
+        wgmma_commit();
+        wgmma_wait0();
+        fence_acc(d);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) mx = fmaxf(mx, fabsf(d[i]));
+      }
+      if (lane == 0) mbar_arrive(m.bar_empty1 + 8 * st);
     }
     if (lane == 0) mbar_arrive(m.bar_pass1);
 #pragma unroll
@@ -1176,7 +1184,7 @@ int launch_k1(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords,
 // (tile = 64 * kCS pixels); refused when cudaOccupancyMaxActiveClusters
 // (asked once) finds no cluster that fits on the card.
 template <bool kVec, int kMode, int kCS>
-int launch_int8_cs(const CUtensorMap& m1, const CUtensorMap& m2, const void* f2, const float* coords,
+int launch_int8_cs(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords,
                    __nv_bfloat16* out, float* vmax, int E, int P, int H2, int W2, int nkb,
                    cudaStream_t stream) {
   static int fits = -1;
@@ -1203,23 +1211,21 @@ int launch_int8_cs(const CUtensorMap& m1, const CUtensorMap& m2, const void* f2,
     fits = n;
   }
   if (fits == 0) return kNoCluster;
-  CUtensorMap m2s;
-  if (!make_map(&m2s, f2, E, H2 * W2, nkb * kBoxC, kN / kCS)) return -1;
-  void* args[] = {const_cast<CUtensorMap*>(&m1), const_cast<CUtensorMap*>(&m2), &m2s, &coords,
-                  &out, &vmax, &P, &H2, &W2, &nkb};
+  void* args[] = {const_cast<CUtensorMap*>(&m1), const_cast<CUtensorMap*>(&m2), &coords, &out,
+                  &vmax, &P, &H2, &W2, &nkb};
   err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kVec, int kMode>
-int launch_int8(const CUtensorMap& m1, const CUtensorMap& m2, const void* f2, const float* coords,
+int launch_int8(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords,
                 __nv_bfloat16* out, float* vmax, int E, int P, int H2, int W2, int nkb, int tile,
                 cudaStream_t s) {
   switch (tile / kM) {
-    case 2: return launch_int8_cs<kVec, kMode, 2>(m1, m2, f2, coords, out, vmax, E, P, H2, W2, nkb, s);
-    case 4: return launch_int8_cs<kVec, kMode, 4>(m1, m2, f2, coords, out, vmax, E, P, H2, W2, nkb, s);
-    case 8: return launch_int8_cs<kVec, kMode, 8>(m1, m2, f2, coords, out, vmax, E, P, H2, W2, nkb, s);
+    case 2: return launch_int8_cs<kVec, kMode, 2>(m1, m2, coords, out, vmax, E, P, H2, W2, nkb, s);
+    case 4: return launch_int8_cs<kVec, kMode, 4>(m1, m2, coords, out, vmax, E, P, H2, W2, nkb, s);
+    case 8: return launch_int8_cs<kVec, kMode, 8>(m1, m2, coords, out, vmax, E, P, H2, W2, nkb, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1262,7 +1268,7 @@ extern "C" int corr_int8_vmax_launch(const void* f1, const void* f2, void* vmax,
   if (E == 0 || P == 0) return 0;
   CUtensorMap m1, m2;
   if (!make_maps(&m1, &m2, f1, f2, E, P, H2, W2, Cpad, kM)) return -1;
-  return launch_int8<false, kMax>(m1, m2, f2, nullptr, nullptr, static_cast<float*>(vmax), E, P, H2,
+  return launch_int8<false, kMax>(m1, m2, nullptr, nullptr, static_cast<float*>(vmax), E, P, H2,
                                   W2, Cpad / kBoxC, tile, static_cast<cudaStream_t>(stream));
 }
 
@@ -1279,8 +1285,8 @@ extern "C" int corr_fused_xy_int8_launch(const void* f1, const void* f2, const v
   const float* c = static_cast<const float*>(coords);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
   float* v = static_cast<float*>(vmax);
-  if (W2 % 8 == 0) return launch_int8<true, kInt8>(m1, m2, f2, c, o, v, E, P, H2, W2, nkb, tile, s);
-  return launch_int8<false, kInt8>(m1, m2, f2, c, o, v, E, P, H2, W2, nkb, tile, s);
+  if (W2 % 8 == 0) return launch_int8<true, kInt8>(m1, m2, c, o, v, E, P, H2, W2, nkb, tile, s);
+  return launch_int8<false, kInt8>(m1, m2, c, o, v, E, P, H2, W2, nkb, tile, s);
 }
 
 // K1-raw: as corr_fused_xy_launch, out (E, P, 1024) bf16 (16-byte aligned).
