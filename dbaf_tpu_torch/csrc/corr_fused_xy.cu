@@ -979,41 +979,40 @@ __device__ __forceinline__ void raw_load(const CUtensorMap* map_f2, uint32_t s_f
                 c * span, e);
 }
 
-// Waits for chunk c's f2 tile and issues this warpgroup's wgmma (wg 0 or
-// 1): A the chunk's positions 64 * wg .. + 63, B the block's 32 pixels,
-// K = Cpad.  Two warpgroups of 64 x 32, not four of 64 x 16: each wgmma
-// reads its A from shared memory, and at N = 16 those reads, not the
-// tensor cores, set the pace.
-__device__ __forceinline__ void raw_issue(float (&d)[kAcc], int c, uint32_t bar_full,
-                                          uint32_t s_f1, uint32_t s_f2, int wg, int nkb) {
+// Waits for chunk c's f2 tile and issues this warpgroup's wgmma: A the
+// chunk's positions 64 * (wg & 1) .. + 63, B the block's pixels
+// 16 * (wg >> 1) .. + 15, K = Cpad.
+__device__ __forceinline__ void raw_issue(float (&d)[8], int c, uint32_t bar_full, uint32_t s_f1,
+                                          uint32_t s_f2, int wg, int nkb) {
   const int st = c % kRawStages;
   mbar_wait(bar_full + 8 * st, (c / kRawStages) & 1);
   wgmma_fence();
-  const uint32_t a_base = s_f2 + st * kStageBytes + wg * 64 * 128;
+  const uint32_t a_base = s_f2 + st * kStageBytes + (wg & 1) * 64 * 128;
+  const uint32_t b_base = s_f1 + (wg >> 1) * 16 * 128;
 #pragma unroll
   for (int kb = 0; kb < kMaxKB; ++kb) {
     if (kb >= nkb) break;
     const uint64_t da = desc_sw128(a_base + kb * kN * 128);
-    const uint64_t db = desc_sw128(s_f1 + kb * kRawM * 128);
+    const uint64_t db = desc_sw128(b_base + kb * kRawM * 128);
 #pragma unroll
     for (int k = 0; k < kBoxC / 16; ++k)
-      wgmma_m64n32k16(d, da + 2 * k, db + 2 * k, (kb | k) != 0);
+      wgmma_m64n16k16(d, da + 2 * k, db + 2 * k, (kb | k) != 0);
   }
   wgmma_commit();
 }
 
 // Waits for the wgmma and stores the tile transposed, bf16, to volume
 // buffer `buf` ([pixel][position]).  Fragment: position 16*warp + lane/4
-// (+8), pixel 8j + 2*(lane%4) (+1) of the warpgroup's 64 x 32.
-__device__ __forceinline__ void raw_finish(float (&d)[kAcc], int buf, __nv_bfloat16* vol, int wg,
+// (+8), pixel 8j + 2*(lane%4) (+1) of the warpgroup's 64 x 16.
+__device__ __forceinline__ void raw_finish(float (&d)[8], int buf, __nv_bfloat16* vol, int wg,
                                            int warp, int lane) {
   wgmma_wait0();
   fence_acc(d);
   __nv_bfloat16* vbuf = vol + buf * (kRawM * kVolStride);
-  const int n = 64 * wg + 16 * warp + lane / 4;
-  const int p = 2 * (lane % 4);
+  const int n = 64 * (wg & 1) + 16 * warp + lane / 4;
+  const int p = 16 * (wg >> 1) + 2 * (lane % 4);
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < 2; ++j) {
     __nv_bfloat16* col = vbuf + (p + 8 * j) * kVolStride + n;
     col[0] = __float2bfloat16(d[4 * j]);
     col[kVolStride] = __float2bfloat16(d[4 * j + 1]);
@@ -1084,20 +1083,17 @@ corr_fused_xy_raw_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, 
   // chunk c + 1 runs on the tensor cores under chunk c's lookup; after the
   // block's barrier every warpgroup is past chunk c + 1's slot, which takes
   // chunk c + 1 + kRawStages
-  float d[kAcc];
-  const bool mma = wg < 2;
+  float d[8];
   mbar_wait(bar_f1, 0);
-  if (mma) {
-    raw_issue(d, 0, bar_full, s_f1, s_f2, wg, nkb);
-    raw_finish(d, 0, vol, wg, warp, lane);
-  }
+  raw_issue(d, 0, bar_full, s_f1, s_f2, wg, nkb);
+  raw_finish(d, 0, vol, wg, warp, lane);
   __syncthreads();
   if (tid == 0 && kRawStages < nchunks) raw_load(&map_f2, s_f2, bar_full, kRawStages, rc * W2, e, nkb);
   for (int c = 0; c + 1 < nchunks; ++c) {
-    if (mma) raw_issue(d, c + 1, bar_full, s_f1, s_f2, wg, nkb);
+    raw_issue(d, c + 1, bar_full, s_f1, s_f2, wg, nkb);
     raw_lookup<kVec>(s, L, ax, ay, q, vol + (c & 1) * (kRawM * kVolStride) + pix * kVolStride,
                      c * rc, min(rc, H2 - c * rc), W2, my_out);
-    if (mma) raw_finish(d, (c + 1) & 1, vol, wg, warp, lane);
+    raw_finish(d, (c + 1) & 1, vol, wg, warp, lane);
     __syncthreads();
     if (tid == 0 && c + 1 + kRawStages < nchunks)
       raw_load(&map_f2, s_f2, bar_full, c + 1 + kRawStages, rc * W2, e, nkb);
