@@ -63,11 +63,11 @@
 //    two 64 x 64 wgmma halves (K1's build quarters a chunk among the
 //    warpgroups, which reads f1 from shared memory twice as often; there,
 //    under the lookup, that costs nothing, here it set the pace), so four
-//    chunks are in work at once: the ring has two more slots in pass 1,
-//    where pass 2 keeps its volume chunks and sums.  Warps reduce, and the
-//    block stores its maximum into every block of the cluster
-//    (st.shared::cluster) and arrives on that block's "xchg" barrier
-//    (release at cluster scope).  A block waits on its own barrier and
+//    chunks are in work at once, each in its warpgroup's slot of a 4-slot
+//    ring (the fourth where pass 2 keeps its volume chunks and sums).
+//    Warps reduce, and the block stores its maximum into every block of
+//    the cluster (st.shared::cluster) and arrives on that block's "xchg"
+//    barrier (release at cluster scope).  A block waits on its own barrier and
 //    takes the tile's scale, max(vmax, 1e-20), from its own copy; block 0
 //    writes it to vmax[e, tile].  No atomics, no memset, no second launch,
 //    and no block reads another's memory, so the blocks of a cluster part
@@ -160,10 +160,14 @@ constexpr int kOffAcc = kOffVol + 2 * kVolBytes;
 constexpr int kOffBar = kOffAcc + kM * kAccStride * 4;
 constexpr int kOffRed = kOffBar + 192;               // K1-int8: 16 warp maxima, 8 block maxima
 constexpr int kSmemBytes = kOffRed + 96 + 1024;      // + room to align the base to 1024
-// K1-int8's first pass needs no volume chunks and sums: its ring takes two
-// more slots there
-constexpr int kStages1 = kStages + 2;
-static_assert(2 * kStageBytes <= kOffBar - kOffVol, "K1-int8's pass-1 slots fit");
+// K1-int8's first pass: a slot per warpgroup (chunk c goes to slot c % 4,
+// the slot of warpgroup c % 4), the ring's three and one where pass 2 keeps
+// its volume chunks and sums.  A warpgroup waits on its own slot's barrier
+// only for the phase after the one it has consumed, so a phase parity can
+// never be mistaken for one two phases on.
+constexpr int kStages1 = kMmaWarps / 4;
+static_assert(kStages1 == kStages + 1 && kStageBytes <= kOffBar - kOffVol,
+              "K1-int8's pass-1 slots fit");
 
 // K1-raw
 constexpr int kRawM = 32;                  // source pixels per block
@@ -603,11 +607,10 @@ __device__ __forceinline__ K1Smem k1_smem(unsigned char* smem_raw) {
   return m;
 }
 
-// Slot st of K1-int8's pass-1 ring: the ring's kStages, then two in the
+// Slot st of K1-int8's pass-1 ring: the ring's kStages, then one in the
 // volume chunks' and sums' place.
 __device__ __forceinline__ uint32_t pass1_slot(const K1Smem& m, int st) {
-  return st < kStages ? m.s_f2 + st * kStageBytes
-                      : m.s_f1 + kOffVol + (st - kStages) * kStageBytes;
+  return st < kStages ? m.s_f2 + st * kStageBytes : m.s_f1 + kOffVol;
 }
 
 // The consumers' build + lookup of one block (64 pixels from p0, edge e)
@@ -733,7 +736,7 @@ corr_fused_xy_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad
 // memory and a remote arrive on its "xchg" barrier), takes the tile's
 // maximum from its own copy, and runs K1 on its rows with the volume
 // quantized at that scale (pass 2).  Pass 1 needs no volume chunks or
-// sums, so its ring has two more slots in their place; pass 2's ring
+// sums, so its ring has a fourth slot in their place; pass 2's ring
 // starts when pass 1 is done.  A block reads no other block's memory, so
 // the blocks of a cluster part after the exchange: none waits for another
 // to finish.

@@ -44,8 +44,6 @@ VARIANTS = {
         ("  mbar_wait_cluster(m.bar_xchg, 0);\n", "  consumer_sync<kConsumers>();\n"),
         ("  for (int r = 0; r < kCS; ++r) vm = fmaxf(vm, slots[r]);", "  vm = slots[rank];"),
     ],
-    # K1-int8's first pass with the ring's three slots only
-    "int8_pass1_3_slots": [("constexpr int kStages1 = kStages + 2;", "constexpr int kStages1 = kStages;")],
     # K1-raw with K1's ring depth
     "raw_3_stages": [("constexpr int kRawStages = 4;", "constexpr int kRawStages = 3;")],
     # K1-raw's build, ring and epilogue with no lookup (its output is wrong)
