@@ -81,7 +81,8 @@ Phases, each fatal on failure:
              chiprun_out/profile_visual_async.txt);
   7b. int8   phase 3's main path for 12 keyframe steps with
              cfg.graph.corr_int8: fatal unless K1-int8 runs once in every
-             round, the max pass alone never, and the trajectory is finite;
+             round and no other correlation build does (no max pass of its
+             own), and the trajectory is finite;
              prints the largest position difference from phase 3's bf16
              rows at the same stamps.
   8. export  save_pkl through apps/runner.run at full width, the trajectories
@@ -103,9 +104,9 @@ Phases, each fatal on failure:
              point block per exported keyframe, and the ms of the export's
              device step (_points_and_counts) at (a)'s keyframe count.
 Phase 2 also holds K1-int8 (one launch, its tile scales inside it) at
-(E=48, 48x64, C=128, tile 256), at a tile-128 shape, off the image and with
-a NaN row, its returned scales, and its first pass alone (a diagnostic that
-no path launches), against their plain versions; and K1-raw (raw=True, the whole
+(E=48, 48x64, C=128, tile 256), at tiles of 128, 192 and 768 pixels, off
+the image and with a NaN row, and its returned scales, against their plain
+versions; and K1-raw (raw=True, the whole
 32x32 block per pixel) at (E=48, 48x64, C=128), off the image and with a
 NaN row: within one bf16 ulp of its largest output, rows and columns
 28-31 exactly 0, its diagonal blocks against K1 on the same inputs, and
@@ -474,24 +475,6 @@ def phase_kernels(dev) -> dict:
                 raise SystemExit(f"{name}: the update operator's {label} on the raw layout "
                                  f"disagrees with the 196-channel route: {err} > {tol}")
 
-    def vmax_case(name, E, H, W, C, tile):
-        """K1-int8's first pass alone (a diagnostic: no path launches it)
-        against its plain version: f32 sums of bf16 products in another
-        order, rtol 1e-4."""
-        f1, f2, _ = inputs(E, H, W, C)
-        f1p, f2p = cc.prepare_corr_fmaps(f1, f2)
-        P = H * W
-
-        def compare(out, ref):
-            err, bnd = (out - ref).abs(), 1e-4 * ref
-            if not bool((err <= bnd).all()):
-                raise SystemExit(f"{name}: a tile's scale is off by {float((err / ref).max())}")
-            return float(err.max()), float(bnd.max())
-        return case(
-            name, lambda: cc.corr_int8_vmax(f1p, f2p, H, W, tile),
-            lambda: cc.corr_int8_vmax_plain(f1p, f2p, tile), None, 50, 2,
-            E * P * C * 2 * 2 + E * (P // tile) * 4, 2.0 * E * P * P * C, PEAK_BF16, compare)
-
     def k2_case(name, dtype):
         E, H, W = 1, 48, 64
         f1, f2, coords = inputs(E, H, W, 128)
@@ -510,12 +493,15 @@ def phase_kernels(dev) -> dict:
                                            "off_image"),
         "corr_fused_xy_nan_row": k1_case("K1 NaN row E=8 37x45 C=128", 8, 37, 45, 128,
                                          "nan_row", iters=20),
-        "corr_int8_vmax": vmax_case("K1-int8 first pass alone E=48 48x64 C=128 tile 256", 48,
-                                    48, 64, 128, 256),
         "corr_fused_xy_int8": int8_case("K1-int8 E=48 48x64 C=128 tile 256", 48, 48, 64, 128,
                                         256),
         "corr_fused_xy_int8_tile128": int8_case("K1-int8 E=8 32x60 C=128 tile 128", 8, 32, 60,
                                                 128, 128, iters=20),
+        # tiles of 3 and 12 blocks (corr_group 12 and 48)
+        "corr_fused_xy_int8_tile192": int8_case("K1-int8 E=8 48x64 C=128 tile 192", 8, 48, 64,
+                                                128, 192, iters=20),
+        "corr_fused_xy_int8_tile768": int8_case("K1-int8 E=8 48x64 C=128 tile 768", 8, 48, 64,
+                                                128, 768, iters=20),
         "corr_fused_xy_int8_off_image": int8_case("K1-int8 off-image E=48 48x64 C=128", 48, 48,
                                                   64, 128, 256, "off_image"),
         "corr_fused_xy_int8_nan_row": int8_case("K1-int8 NaN row E=8 32x60 C=128", 8, 32, 60,
@@ -1250,8 +1236,8 @@ def phase_visual_async(dev, main_kfs: float) -> dict:
 
 def phase_int8(dev, main_res: dict, n_frames: int = 20) -> dict:
     """Phase 7b: phase 3's main path with cfg.graph.corr_int8 for about 12
-    keyframe steps; one K1-int8 launch in every update round and no
-    separate max pass."""
+    keyframe steps; one K1-int8 launch in every update round and no other
+    correlation build (no max pass of its own)."""
     from dbaf_tpu_torch.ops import corr_cuda as cc
     from dbaf_tpu_torch.slam.system import DBAFusion
     from dbaf_tpu_torch.utils.config import tumvi_config
@@ -1278,11 +1264,12 @@ def phase_int8(dev, main_res: dict, n_frames: int = 20) -> dict:
     log(f"[int8] {fe.keyframe_steps} keyframe steps, {fe.update_rounds} update rounds, launches "
         f"{L}; largest position difference from phase 3's bf16 rows at the same stamps "
         f"{diff:.4e}")
-    if not (L["corr_fused_xy_int8"] >= fe.update_rounds > 0 and L["corr_int8_vmax"] == 0
-            and L["corr_fused_xy"] == 0):
-        raise SystemExit(f"int8: K1-int8 launched {L['corr_fused_xy_int8']} times and the max "
-                         f"pass alone {L['corr_int8_vmax']} times for {fe.update_rounds} update "
-                         "rounds")
+    # one K1-int8 launch a round and no other correlation build: no max pass
+    # of its own, no bf16 or raw round
+    if not (L["corr_fused_xy_int8"] == fe.update_rounds > 0 and L["corr_fused_xy"] == 0
+            and L["corr_fused_xy_raw"] == 0):
+        raise SystemExit(f"int8: K1-int8 launched {L['corr_fused_xy_int8']} times for "
+                         f"{fe.update_rounds} update rounds; launches {L}")
     if traj.shape[0] < 10 or not np.all(np.isfinite(traj)):
         raise SystemExit(f"int8: trajectory {traj.shape} too short or not finite")
     return dict(launches=L, pos_diff_to_bf16=diff)
@@ -1552,8 +1539,6 @@ def main() -> int:
              replaces="dbaf_tpu/ops/corr_pallas.py:206", row=rows["corr_fused_xy"]),
         dict(name="corr_fused_xy_int8", route="cuda", source=src + "corr_fused_xy.cu",
              replaces="dbaf_tpu/ops/corr_pallas.py:249", row=rows["corr_fused_xy_int8"]),
-        dict(name="corr_int8_vmax", route="cuda", source=src + "corr_fused_xy.cu",
-             replaces="dbaf_tpu/ops/corr_pallas.py:250", row=rows["corr_int8_vmax"]),
         dict(name="corr_fused_xy_raw", route="cuda", source=src + "corr_fused_xy.cu",
              replaces="dbaf_tpu/ops/corr_pallas.py:515", row=rows["corr_fused_xy_raw"]),
         dict(name="corr_lookup", route="cuda", source=src + "corr_lookup.cu",

@@ -55,9 +55,13 @@
 // It replaces a design of two launches (a max pass that built the volume
 // and atomicMax-ed into a zeroed vmax, then K1 in int8 mode that built it
 // again).  The scale has to exist before any block quantizes, and a tile
-// (128, 256 or 512 pixels) spans 2, 4 or 8 of K1's 64-pixel blocks, which
-// run in no order.  So one launch, one thread-block cluster per (tile,
-// edge), one block per 64 pixels (corr_int8_kernel):
+// (a multiple of 64 pixels) spans several of K1's 64-pixel blocks, which run
+// in no order.  So one launch, a block per 64 pixels (corr_int8_kernel),
+// whose blocks take their work in ticket order:
+//  * Ticket: a block's first thread takes the next ticket from a counter
+//    (atomicAdd); ticket k is block k % (P / 64) of edge k / (P / 64), so
+//    the blocks of a tile hold consecutive tickets, and a block with a
+//    lower ticket has started.
 //  * Pass 1: each block builds its rows of the volume and keeps max |vol|
 //    of the f32 accumulators.  Each warpgroup takes whole chunks of f2 in
 //    two 64 x 64 wgmma halves (K1's build quarters a chunk among the
@@ -65,13 +69,16 @@
 //    under the lookup, that costs nothing, here it set the pace), so four
 //    chunks are in work at once, each in its warpgroup's slot of a 4-slot
 //    ring (the fourth where pass 2 keeps its volume chunks and sums).
-//    Warps reduce, and the block stores its maximum into every block of
-//    the cluster (st.shared::cluster) and arrives on that block's "xchg"
-//    barrier (release at cluster scope).  A block waits on its own barrier and
-//    takes the tile's scale, max(vmax, 1e-20), from its own copy; block 0
-//    writes it to vmax[e, tile].  No atomics, no memset, no second launch,
-//    and no block reads another's memory, so the blocks of a cluster part
-//    after the exchange (none waits for another to end).
+//  * Exchange: warps reduce; the block publishes its maximum with this
+//    launch's tag (st.release.gpu of one 64-bit word) and reads its tile's
+//    other blocks' words (ld.acquire.gpu) until each carries the tag.  The
+//    scale is max(vmax, 1e-20); the tile's first block writes it to
+//    vmax[e, tile].  A block waits only on tickets of its own tile, and
+//    every block publishes before it waits, so the blocks run to the end
+//    whenever a tile's blocks fit on the card at once (the launch checks
+//    that).  The last block to pass the exchange resets the counters and
+//    moves the tag on, so a CUDA graph replays the launch as it is.  No
+//    memset, no atomicMax, no second launch, no cluster.
 //  * Pass 2: K1 with each chunk quantized from the f32 accumulators
 //    straight into the shared volume chunk.  Integers up to 127 are exact
 //    in bf16, so the chunk keeps its bf16 layout and the lookup its code: a
@@ -82,15 +89,17 @@
 //    which can flip a q by one quantum.
 //  Pass 2's ring of three starts once pass 1 is done.  Bound on the H100:
 //  the build's flops twice (the f32 volume of a block, 786 KB, cannot wait
-//  between the passes); pass 2 is held by K1's lookup, and the clusters'
-//  scheduling costs about a tenth of the time (PERF.md).  Int8 tensor
-//  cores are not used: the port's x stage is two block sums per tap, not a
+//  between the passes); pass 2 is held by K1's lookup.  Int8 tensor cores
+//  are not used: the port's x stage is two block sums per tap, not a
 //  product, and the quantization needs the f32 build.  Measured on the card
-//  and left out (PERF.md): f2 multicast to the cluster (no gain), a
-//  persistent grid of clusters and one block per tile that walks its
-//  64-pixel blocks (both slower: their loops pushed the lookup's registers
-//  to the stack).  The first pass alone (kMax) stays as a diagnostic that
-//  no path launches.
+//  and left out (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W): a cluster per
+//  (tile, edge) that exchanged the maxima through distributed shared memory
+//  (1.19-1.22 ms at tile 256, with or without an f2 multicast, against
+//  1.07-1.08 for the same kernel with clusters of one block: the clusters'
+//  co-scheduling), a persistent grid of clusters and one block per tile
+//  that walks its 64-pixel blocks (both slower: their loops pushed the
+//  lookup's registers to the stack), and the exchange moved after pass 2's
+//  first wgmma (1.139 against 1.111-1.113 ms).
 //
 // K1-raw: the raw=True branch (corr_pallas.py:515-516), the whole per-pixel
 // 32 x 32 block with the diagonal-level extraction skipped.  Row i = l*7+dy
@@ -146,8 +155,8 @@ constexpr int kChannels = 4 * kTaps * kTaps;  // 196
 constexpr int kVolStride = kN + 8;         // bf16 per pixel row of a volume chunk (272 B)
 constexpr int kAccStride = kChannels + 1;  // f32 per pixel of the sums
 
-// kernel variants: K1 (bf16 volume), K1-int8, and K1-int8's max pass alone
-constexpr int kBf16 = 0, kInt8 = 1, kMax = 2;
+// kernel variants: K1 (bf16 volume) and K1-int8
+constexpr int kBf16 = 0, kInt8 = 1;
 constexpr float kQ = 127.f;                               // int8 steps per unit of the scale
 constexpr float kInvQ2 = static_cast<float>(1.0 / (127.0 * 127.0));
 
@@ -158,7 +167,7 @@ constexpr int kOffF2 = kF1Bytes;
 constexpr int kOffVol = kOffF2 + kStages * kStageBytes;
 constexpr int kOffAcc = kOffVol + 2 * kVolBytes;
 constexpr int kOffBar = kOffAcc + kM * kAccStride * 4;
-constexpr int kOffRed = kOffBar + 192;               // K1-int8: 16 warp maxima, 8 block maxima
+constexpr int kOffRed = kOffBar + 192;               // K1-int8: 16 warp maxima, scale, ticket
 constexpr int kSmemBytes = kOffRed + 96 + 1024;      // + room to align the base to 1024
 // K1-int8's first pass: a slot per warpgroup (chunk c goes to slot c % 4,
 // the slot of warpgroup c % 4), the ring's three and one where pass 2 keeps
@@ -225,41 +234,16 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
+// K1-int8's exchange: a 64-bit word published to and read from the other
+// blocks of the launch
+__device__ __forceinline__ void st_release_gpu(uint64_t* p, uint64_t v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
 }
 
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\n barrier.cluster.wait.acquire;" ::: "memory");
-}
-
-// Stores v at shared offset `addr` of block `cta` of the cluster, then
-// arrives on its barrier at offset `bar` (release: the store is seen first).
-__device__ __forceinline__ void st_cluster_arrive(uint32_t addr, float v, uint32_t bar,
-                                                  uint32_t cta) {
-  asm volatile(
-      "{\n .reg .b32 ra, rb;\n mapa.shared::cluster.u32 ra, %0, %2;\n"
-      " mapa.shared::cluster.u32 rb, %1, %2;\n st.shared::cluster.f32 [ra], %3;\n"
-      " mbarrier.arrive.release.cluster.shared::cluster.b64 _, [rb];\n}" ::"r"(addr),
-      "r"(bar), "r"(cta), "f"(v)
-      : "memory");
-}
-
-// mbar_wait for a barrier that other blocks of the cluster arrive on
-// (acquire: their stores before the arrive are seen after it)
-__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
+__device__ __forceinline__ uint64_t ld_acquire_gpu(const uint64_t* p) {
+  uint64_t v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
 }
 
 // wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:
@@ -580,10 +564,9 @@ struct K1Smem {
   uint32_t s_f1, s_f2;           // f1 tile, f2 ring
   __nv_bfloat16* vol;            // two volume chunks
   float* acc;                    // the sums, kAccStride per pixel
-  float* red;                    // K1-int8: 16 warp maxima, then the cluster's block maxima
+  float* red;                    // K1-int8: 16 warp maxima, the tile's scale, ticket and tag
   uint32_t bar_full, bar_empty;  // kStages each
   uint32_t bar_f1;               // the f1 tile landed
-  uint32_t bar_xchg;             // K1-int8: every block's maximum arrived
   uint32_t bar_full1, bar_empty1;  // K1-int8's pass-1 ring, kStages1 each
   uint32_t bar_pass1;            // K1-int8: the MMA warps are past pass 1
 };
@@ -600,8 +583,7 @@ __device__ __forceinline__ K1Smem k1_smem(unsigned char* smem_raw) {
   m.bar_full = m.s_f1 + kOffBar;
   m.bar_empty = m.bar_full + 8 * kStages;
   m.bar_f1 = m.bar_empty + 8 * kStages;
-  m.bar_xchg = m.bar_f1 + 8;
-  m.bar_full1 = m.bar_xchg + 8;
+  m.bar_full1 = m.bar_f1 + 8;
   m.bar_empty1 = m.bar_full1 + 8 * kStages1;
   m.bar_pass1 = m.bar_empty1 + 8 * kStages1;
   return m;
@@ -613,14 +595,12 @@ __device__ __forceinline__ uint32_t pass1_slot(const K1Smem& m, int st) {
   return st < kStages ? m.s_f2 + st * kStageBytes : m.s_f1 + kOffVol;
 }
 
-// The consumers' build + lookup of one block (64 pixels from p0, edge e)
-// from ring chunks ring .. ring + nchunks - 1; int8 (kMode kInt8): the
-// tile's step qs and scale sc.
+// The consumers' build + lookup of one block (64 pixels from p0, edge e);
+// int8 (kMode kInt8): the tile's step qs and scale sc.
 template <bool kVec, int kMode>
 __device__ __forceinline__ void k1_block(const K1Smem& m, const float* __restrict__ coords,
                                          __nv_bfloat16* __restrict__ out, int tid, int e, int p0,
-                                         int ring, int P, int H2, int W2, int nkb, float qs,
-                                         float sc) {
+                                         int P, int H2, int W2, int nkb, float qs, float sc) {
   const int rc = kN / W2;                   // whole rows per chunk
   const int nchunks = (H2 + rc - 1) / rc;
   const int wg = tid / 128;       // wgmma warpgroup (0-3): its quarter of the chunk's positions
@@ -643,20 +623,20 @@ __device__ __forceinline__ void k1_block(const K1Smem& m, const float* __restric
   float d[kAcc];
   if (mma) {
     mbar_wait(m.bar_f1, 0);
-    issue_chunk(d, ring, m.bar_full, m.s_f1, m.s_f2, wg, nkb);
-    finish_chunk<kMode>(d, ring, 0, m.bar_empty, m.vol, wg, warp, lane, qs);
+    issue_chunk(d, 0, m.bar_full, m.s_f1, m.s_f2, wg, nkb);
+    finish_chunk<kMode>(d, 0, 0, m.bar_empty, m.vol, wg, warp, lane, qs);
   }
   consumer_sync<kConsumers>();
 
   // chunk c + 1 runs on the tensor cores under chunk c's lookup; the last
   // chunk's lookup runs alone
   for (int c = 0; c + 1 < nchunks; ++c) {
-    if (mma) issue_chunk(d, ring + c + 1, m.bar_full, m.s_f1, m.s_f2, wg, nkb);
+    if (mma) issue_chunk(d, c + 1, m.bar_full, m.s_f1, m.s_f2, wg, nkb);
     lookup_any<kVec, kMode>(my_acc, lv, lvl, q,
                             m.vol + (c & 1) * (kM * kVolStride) + pix * kVolStride, c * rc,
                             min(rc, H2 - c * rc), W2, sc);
     if (mma)
-      finish_chunk<kMode>(d, ring + c + 1, (c + 1) & 1, m.bar_empty, m.vol, wg, warp, lane, qs);
+      finish_chunk<kMode>(d, c + 1, (c + 1) & 1, m.bar_empty, m.vol, wg, warp, lane, qs);
     consumer_sync<kConsumers>();
   }
   {
@@ -726,34 +706,32 @@ corr_fused_xy_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad
     }
     return;
   }
-  k1_block<kVec, kBf16>(m, coords, out, tid, e, p0, 0, P, H2, W2, nkb, 0.f, 0.f);
+  k1_block<kVec, kBf16>(m, coords, out, tid, e, p0, P, H2, W2, nkb, 0.f, 0.f);
 }
 
-// K1-int8 (kInt8), or its first pass alone (kMax; coords and out unused):
-// one cluster of kCS blocks per (tile, edge), a block per 64 pixels of the
-// tile.  Each block builds its rows for max |vol| (pass 1), sends its
-// maximum to every block of the cluster (a store to distributed shared
-// memory and a remote arrive on its "xchg" barrier), takes the tile's
-// maximum from its own copy, and runs K1 on its rows with the volume
-// quantized at that scale (pass 2).  Pass 1 needs no volume chunks or
-// sums, so its ring has a fourth slot in their place; pass 2's ring
-// starts when pass 1 is done.  A block reads no other block's memory, so
-// the blocks of a cluster part after the exchange: none waits for another
-// to finish.
-template <bool kVec, int kMode, int kCS>
+// K1-int8: a block per 64 pixels of an edge, in ticket order (the
+// header).  Each block builds its rows for max |vol| (pass 1), publishes
+// its maximum and takes the tile's from its tile's blocks (the exchange),
+// and runs K1 on its rows with the volume quantized at that scale (pass
+// 2).  Pass 1 needs no volume chunks or sums, so its ring has a fourth
+// slot in their place; pass 2's ring starts when pass 1 is done, and
+// fills while the block waits in the exchange.  `sync`: the ticket
+// counter, the count of blocks past the exchange, the last launch's tag,
+// a word of padding, then a 64-bit word per block ((tag << 32) | bits of
+// its maximum); zeroed once by the caller.
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads, 1)
 corr_int8_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf16
                  const __grid_constant__ CUtensorMap map_f2,  // (E, P2, Cpad) bf16
                  const float* __restrict__ coords,           // (E, P, 2)
                  __nv_bfloat16* __restrict__ out,            // (E, P, 196)
                  float* __restrict__ vmax,                   // (E, P / tile) f32
-                 int P, int H2, int W2, int nkb) {
+                 uint32_t* __restrict__ sync,                // 4 + 2 * E * P / 64 words
+                 int P, int H2, int W2, int nkb, int tile) {
   extern __shared__ unsigned char smem_raw[];
   const K1Smem m = k1_smem(smem_raw);
   const int tid = threadIdx.x;
-  const int rank = static_cast<int>(cluster_rank());
-  const int e = blockIdx.y, t = blockIdx.x / kCS;
-  const int p0 = blockIdx.x * kM;
+  uint32_t* item = reinterpret_cast<uint32_t*>(m.red + kMmaWarps + 1);  // ticket, tag
   const int rc = kN / W2;
   const int nchunks = (H2 + rc - 1) / rc;
 
@@ -763,15 +741,23 @@ corr_int8_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf
       mbar_init(m.bar_empty + 8 * i, kMmaWarps);
     }
     mbar_init(m.bar_f1, 1);
-    mbar_init(m.bar_xchg, kCS);
     for (int i = 0; i < kStages1; ++i) {
       mbar_init(m.bar_full1 + 8 * i, 1);
       mbar_init(m.bar_empty1 + 8 * i, 4);  // one warpgroup takes a chunk
     }
     mbar_init(m.bar_pass1, kMmaWarps);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    item[0] = atomicAdd(sync, 1u);
+    // the tag moves on only after every block of this launch has read it
+    // (the last block past the exchange moves it)
+    item[1] = *reinterpret_cast<volatile uint32_t*>(sync + 2) + 1u;
   }
-  cluster_sync();  // every block's barriers exist before any remote arrive
+  __syncthreads();
+  const int nb = P / kM;  // blocks an edge
+  const int k = static_cast<int>(item[0]);
+  const uint32_t tag = item[1];
+  const int e = k / nb, blk = k % nb;
+  const int p0 = blk * kM;
 
   if (tid >= kConsumers) {
     if (tid == kConsumers) {
@@ -784,11 +770,9 @@ corr_int8_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf
           tma_load_3d(pass1_slot(m, st) + kb * kN * 128, &map_f2, m.bar_full1 + 8 * st,
                       kb * kBoxC, c * rc * W2, e);
       }
-      if (kMode == kInt8) {
-        // pass 2's ring overlaps pass 1's: it starts once pass 1 is done
-        mbar_wait(m.bar_pass1, 0);
-        produce_f2(&map_f2, m.s_f2, m.bar_full, m.bar_empty, nchunks, rc * W2, e, nkb);
-      }
+      // pass 2's ring overlaps pass 1's: it starts once pass 1 is done
+      mbar_wait(m.bar_pass1, 0);
+      produce_f2(&map_f2, m.s_f2, m.bar_full, m.bar_empty, nchunks, rc * W2, e, nkb);
     }
     return;
   }
@@ -814,8 +798,8 @@ corr_int8_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf
           const uint64_t da = desc_sw128(m.s_f1 + kb * kM * 128);
           const uint64_t db = desc_sw128(pass1_slot(m, st) + kb * kN * 128 + half * 64 * 128);
 #pragma unroll
-          for (int k = 0; k < kBoxC / 16; ++k)
-            wgmma_m64n64k16(d, da + 2 * k, db + 2 * k, (kb | k) != 0);
+          for (int j = 0; j < kBoxC / 16; ++j)
+            wgmma_m64n64k16(d, da + 2 * j, db + 2 * j, (kb | j) != 0);
         }
         wgmma_commit();
         wgmma_wait0();
@@ -831,21 +815,37 @@ corr_int8_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf
     if (lane == 0) m.red[tid / 32] = mx;
   }
   consumer_sync<kConsumers>();
-  // the block's maximum to slot `rank` of every block's copy
-  float* slots = m.red + kMmaWarps;
+  // ---- the exchange: publish, then read the words of the tile's blocks
+  // (tickets k0 .. k0 + tile / 64 - 1) until each carries this launch's tag
   if (tid == 0) {
     float b = 0.f;
     for (int w = 0; w < kMmaWarps; ++w) b = fmaxf(b, m.red[w]);
-    for (int r = 0; r < kCS; ++r) st_cluster_arrive(smem_u32(slots + rank), b, m.bar_xchg, r);
+    uint64_t* words = reinterpret_cast<uint64_t*>(sync + 4);
+    st_release_gpu(words + k, (static_cast<uint64_t>(tag) << 32) | __float_as_uint(b));
+    const int cs = tile / kM, k0 = k - blk % cs;
+    float vm = 0.f;
+    for (int j = 0; j < cs; ++j) {
+      uint64_t w = ld_acquire_gpu(words + k0 + j);
+      while (static_cast<uint32_t>(w >> 32) != tag) {
+        __nanosleep(64);
+        w = ld_acquire_gpu(words + k0 + j);
+      }
+      vm = fmaxf(vm, __uint_as_float(static_cast<uint32_t>(w)));
+    }
+    vm = fmaxf(vm, 1e-20f);
+    m.red[kMmaWarps] = vm;
+    if (blk % cs == 0) vmax[static_cast<size_t>(e) * (nb / cs) + blk / cs] = vm;
+    // the last block past the exchange: every block has its ticket and its
+    // tile's scale, so the counters start over and the tag moves on
+    if (atomicAdd(sync + 1, 1u) == gridDim.x - 1) {
+      sync[0] = 0u;
+      sync[1] = 0u;
+      sync[2] = tag;
+    }
   }
-  mbar_wait_cluster(m.bar_xchg, 0);
-  float vm = 0.f;
-#pragma unroll
-  for (int r = 0; r < kCS; ++r) vm = fmaxf(vm, slots[r]);
-  vm = fmaxf(vm, 1e-20f);
-  if (tid == 0 && rank == 0) vmax[static_cast<size_t>(e) * (gridDim.x / kCS) + t] = vm;
-  if constexpr (kMode == kInt8)
-    k1_block<kVec, kInt8>(m, coords, out, tid, e, p0, 0, P, H2, W2, nkb, kQ / vm, vm * kInvQ2);
+  consumer_sync<kConsumers>();
+  const float vm = m.red[kMmaWarps];
+  k1_block<kVec, kInt8>(m, coords, out, tid, e, p0, P, H2, W2, nkb, kQ / vm, vm * kInvQ2);
 }
 
 // ---------------------------------------------------------------- K1-raw
@@ -1169,7 +1169,7 @@ bool make_maps(CUtensorMap* m1, CUtensorMap* m2, const void* f1, const void* f2,
   return make_map(m1, f1, E, P, Cpad, f1_rows) && make_map(m2, f2, E, H2 * W2, Cpad, kN);
 }
 
-constexpr int kNoCluster = -2;  // returned when no cluster of the kernel fits on the card
+constexpr int kTooWide = -2;  // returned when a tile's blocks do not fit on the card at once
 
 template <bool kVec>
 int launch_k1(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords,
@@ -1183,54 +1183,31 @@ int launch_k1(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K1-int8 (kInt8) or its first pass alone (kMax) in clusters of kCS blocks
-// (tile = 64 * kCS pixels); refused when cudaOccupancyMaxActiveClusters
-// (asked once) finds no cluster that fits on the card.
-template <bool kVec, int kMode, int kCS>
-int launch_int8_cs(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords,
-                   __nv_bfloat16* out, float* vmax, int E, int P, int H2, int W2, int nkb,
-                   cudaStream_t stream) {
-  static int fits = -1;
-  const auto kernel = corr_int8_kernel<kVec, kMode, kCS>;
+// K1-int8: E * P / 64 blocks in one dimension, taken by ticket; refused
+// unless the card holds a tile's tile / 64 blocks at once (asked once),
+// which the exchange needs to run to the end.
+template <bool kVec>
+int launch_int8(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords,
+                __nv_bfloat16* out, float* vmax, uint32_t* sync, int E, int P, int H2, int W2,
+                int nkb, int tile, cudaStream_t stream) {
+  static int resident = -1;
+  const auto kernel = corr_int8_kernel<kVec>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(P / kM, E);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kSmemBytes;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCS;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if (fits < 0) {
-    int n = 0;
-    err = cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(kernel), &cfg);
+  if (resident < 0) {
+    int per_sm = 0, dev = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, kSmemBytes);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return static_cast<int>(err);
-    fits = n;
+    resident = per_sm * sms;
   }
-  if (fits == 0) return kNoCluster;
-  void* args[] = {const_cast<CUtensorMap*>(&m1), const_cast<CUtensorMap*>(&m2), &coords, &out,
-                  &vmax, &P, &H2, &W2, &nkb};
-  err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (tile <= 0 || tile % kM != 0 || P % tile != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (tile / kM > resident) return kTooWide;
+  kernel<<<E * (P / kM), kThreads, kSmemBytes, stream>>>(m1, m2, coords, out, vmax, sync, P, H2,
+                                                          W2, nkb, tile);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <bool kVec, int kMode>
-int launch_int8(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords,
-                __nv_bfloat16* out, float* vmax, int E, int P, int H2, int W2, int nkb, int tile,
-                cudaStream_t s) {
-  switch (tile / kM) {
-    case 2: return launch_int8_cs<kVec, kMode, 2>(m1, m2, coords, out, vmax, E, P, H2, W2, nkb, s);
-    case 4: return launch_int8_cs<kVec, kMode, 4>(m1, m2, coords, out, vmax, E, P, H2, W2, nkb, s);
-    case 8: return launch_int8_cs<kVec, kMode, 8>(m1, m2, coords, out, vmax, E, P, H2, W2, nkb, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 template <bool kVec>
@@ -1264,22 +1241,14 @@ extern "C" int corr_fused_xy_launch(const void* f1, const void* f2, const void* 
   return launch_k1<false>(m1, m2, c, o, E, P, H2, W2, nkb, s);
 }
 
-// K1-int8's first pass alone: vmax (E, P / tile) f32 gets max(max |vol|,
-// 1e-20) of each tile; tile 128, 256 or 512, dividing P.
-extern "C" int corr_int8_vmax_launch(const void* f1, const void* f2, void* vmax, int E, int P,
-                                     int H2, int W2, int Cpad, int tile, void* stream) {
-  if (E == 0 || P == 0) return 0;
-  CUtensorMap m1, m2;
-  if (!make_maps(&m1, &m2, f1, f2, E, P, H2, W2, Cpad, kM)) return -1;
-  return launch_int8<false, kMax>(m1, m2, nullptr, nullptr, static_cast<float*>(vmax), E, P, H2,
-                                  W2, Cpad / kBoxC, tile, static_cast<cudaStream_t>(stream));
-}
-
 // K1-int8 in one launch: as corr_fused_xy_launch, and vmax (E, P / tile)
-// f32 gets each tile's scale, as corr_int8_vmax_launch.
+// f32 gets each tile's scale, max(max |vol|, 1e-20); tile a multiple of 64
+// that divides P.  `sync` (4 + 2 * E * P / 64 words, zeroed once) is kept
+// by the caller between launches on one stream; -2 if a tile's blocks do
+// not fit on the card at once.
 extern "C" int corr_fused_xy_int8_launch(const void* f1, const void* f2, const void* coords,
-                                         void* vmax, void* out, int E, int P, int H2, int W2,
-                                         int Cpad, int tile, void* stream) {
+                                         void* vmax, void* out, void* sync, int E, int P, int H2,
+                                         int W2, int Cpad, int tile, void* stream) {
   if (E == 0 || P == 0) return 0;
   CUtensorMap m1, m2;
   if (!make_maps(&m1, &m2, f1, f2, E, P, H2, W2, Cpad, kM)) return -1;
@@ -1288,8 +1257,9 @@ extern "C" int corr_fused_xy_int8_launch(const void* f1, const void* f2, const v
   const float* c = static_cast<const float*>(coords);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
   float* v = static_cast<float*>(vmax);
-  if (W2 % 8 == 0) return launch_int8<true, kInt8>(m1, m2, c, o, v, E, P, H2, W2, nkb, tile, s);
-  return launch_int8<false, kInt8>(m1, m2, c, o, v, E, P, H2, W2, nkb, tile, s);
+  uint32_t* y = static_cast<uint32_t*>(sync);
+  if (W2 % 8 == 0) return launch_int8<true>(m1, m2, c, o, v, y, E, P, H2, W2, nkb, tile, s);
+  return launch_int8<false>(m1, m2, c, o, v, y, E, P, H2, W2, nkb, tile, s);
 }
 
 // K1-raw: as corr_fused_xy_launch, out (E, P, 1024) bf16 (16-byte aligned).

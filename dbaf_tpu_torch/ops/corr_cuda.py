@@ -11,13 +11,13 @@ K1-int8 ``corr_fused_xy_int8`` replaces the ``int8=True`` branch of the
 same Pallas kernel (``corr_pallas.py:232-259``, ``cfg.graph.corr_int8``):
 the volume rows are built in f32, quantized to int8 per (edge, pixel tile)
 at the tile's max |vol|, and the x stage contracts them with int8 tents.
-The scale must exist before any block quantizes, and a tile spans 2-8 of
-the kernel's 64-pixel blocks: one launch runs a thread-block cluster per
-(tile, edge) whose blocks build the volume twice, first for the tile's
-maximum (each block stores its own into every block of the cluster through
-distributed shared memory), then to quantize and look up.  The tile scales
-come back on request (``return_vmax``).  ``corr_int8_vmax`` runs the first
-pass alone, a diagnostic that no path launches.
+The scale must exist before any block quantizes, and a tile spans several
+of the kernel's 64-pixel blocks: in one launch the blocks take their work
+by ticket, build their rows for the maximum, trade it with the blocks of
+their tile through device memory (a word each, tagged with the launch),
+and build again to quantize and look up.  It replaces a design of two
+launches (a max pass, then the lookup).  The tile scales come back on
+request (``return_vmax``); ``corr_int8_vmax`` returns them alone.
 
 K1-raw ``corr_fused_xy(..., raw=True)`` replaces the ``raw=True`` branch of
 the same Pallas kernel (``corr_pallas.py:515-516``): the whole per-pixel
@@ -56,8 +56,8 @@ K1_CHUNK = 128  # f2 positions per K1 chunk: whole rows, so W2 <= 128
 K1_BOX_C = 64  # channels per K1 TMA box (128-byte rows)
 
 # launches of each kernel; a plain integer per wrapper, reset by the caller
-LAUNCHES = {"corr_fused_xy": 0, "corr_int8_vmax": 0, "corr_fused_xy_int8": 0,
-            "corr_fused_xy_raw": 0, "corr_lookup": 0}
+LAUNCHES = {"corr_fused_xy": 0, "corr_fused_xy_int8": 0, "corr_fused_xy_raw": 0,
+            "corr_lookup": 0}
 
 
 def reset_launch_counts() -> None:
@@ -78,13 +78,12 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-NO_CLUSTER = -2  # a launch's return code: no cluster of the kernel fits on the card
+TOO_WIDE = -2  # K1-int8's return code: a tile's blocks do not fit on the card at once
 
 
 def _raise_on(rc: int, name: str) -> None:
-    if rc == NO_CLUSTER:
-        raise RuntimeError(f"{name}: cudaOccupancyMaxActiveClusters finds no cluster of the "
-                           "kernel that fits on this card")
+    if rc == TOO_WIDE:
+        raise RuntimeError(f"{name}: the card does not hold a tile's blocks at once")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
 
@@ -368,35 +367,39 @@ def int8_agreement(out: torch.Tensor, ref: torch.Tensor, vmax: torch.Tensor, til
     return Int8Agreement(float(err.max()), float(bnd.max()), share, ok)
 
 
-INT8_TILES = (128, 256, 512)  # K1-int8's clusters: 2, 4 or 8 blocks of 64 pixels a tile
+def check_int8_tile(P: int, tile: int) -> None:
+    """Raise ``ValueError`` unless K1-int8 takes int8 tiles of ``tile``
+    pixels on a grid of P: whole blocks of 64 pixels, and whole tiles.
+    The plain version takes any tile that divides P."""
+    _check(tile > 0 and tile % 64 == 0 and P % tile == 0,
+           f"corr_fused_xy_int8: tile {tile} must be a multiple of 64 that divides P={P}")
 
 
-def _check_tile(name: str, P: int, tile: int) -> None:
-    _check(tile in INT8_TILES and P % tile == 0,
-           f"{name}: tile {tile} must be one of {INT8_TILES} and divide P={P}")
+# K1-int8's exchange state, per (device, stream): zeroed once, then kept
+# by the kernel (it resets its counters at the end of every launch)
+_INT8_SYNC: dict = {}
+
+
+def _int8_sync(device: torch.device, blocks: int) -> torch.Tensor:
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    sync = _INT8_SYNC.get(key)
+    if sync is None or sync.numel() < 4 + 2 * blocks:
+        sync = torch.zeros(4 + 2 * blocks, dtype=torch.int32, device=device)
+        _INT8_SYNC[key] = sync
+    return sync
 
 
 def corr_int8_vmax(f1p: torch.Tensor, f2p: torch.Tensor, H2: int, W2: int,
                    tile: int) -> torch.Tensor:
-    """K1-int8's first pass alone: (E, P // tile) f32, the contract of
-    :func:`corr_int8_vmax_plain`.  A diagnostic (K1-int8 computes the
-    scales inside its own launch); no path calls it.  A CUDA input
-    launches the pass (K1's limits, ``tile`` in :data:`INT8_TILES`), a CPU
-    input takes the plain version."""
+    """The tile scales alone: (E, P // tile) f32, the contract of
+    :func:`corr_int8_vmax_plain`.  A CUDA input takes them from one launch
+    of K1-int8 (no coordinate has support, so its lookup adds nothing); a
+    CPU input takes the plain version.  No path calls it."""
     if not f1p.is_cuda:
         return corr_int8_vmax_plain(f1p, f2p, tile)
-    f1p, f2p, _ = _k1_operands("corr_int8_vmax", f1p, f2p, None, H2, W2)
-    E, P, Cpad = f1p.shape
-    _check_tile("corr_int8_vmax", P, tile)
-    from ..utils.cuda_build import load_kernel_library
-
-    lib = load_kernel_library("corr_fused_xy")
-    vmax = torch.empty((E, P // tile), dtype=torch.float32, device=f1p.device)
-    rc = lib.corr_int8_vmax_launch(_ptr(f1p), _ptr(f2p), _ptr(vmax), E, P, H2, W2, Cpad, tile,
-                                   _stream())
-    _raise_on(rc, "corr_int8_vmax")
-    LAUNCHES["corr_int8_vmax"] += 1
-    return vmax
+    E, P = f1p.shape[:2]
+    nowhere = torch.full((E, P, 1, 2), float("nan"), dtype=torch.float32, device=f1p.device)
+    return corr_fused_xy_int8(f1p, f2p, nowhere, H2, W2, tile, return_vmax=True)[1]
 
 
 def corr_fused_xy_int8(f1p: torch.Tensor, f2p: torch.Tensor, coords: torch.Tensor,
@@ -404,23 +407,24 @@ def corr_fused_xy_int8(f1p: torch.Tensor, f2p: torch.Tensor, coords: torch.Tenso
     """Fused correlation build + int8 x stage + 4-level lookup, the
     contract of :func:`corr_fused_xy_int8_plain`; with ``return_vmax`` also
     the tile scales, (E, P // tile) f32 as :func:`corr_int8_vmax_plain`.
-    A CUDA input launches kernel K1-int8 once (K1's limits; ``tile`` in
-    :data:`INT8_TILES`, dividing P), and raises where it does not launch; a
-    CPU input takes the plain versions."""
+    A CUDA input launches kernel K1-int8 once (K1's limits and those of
+    :func:`check_int8_tile`), and raises where it does not launch; a CPU
+    input takes the plain versions."""
     if not f1p.is_cuda:
         out = corr_fused_xy_int8_plain(f1p, f2p, coords, H2, W2, tile)
         return (out, corr_int8_vmax_plain(f1p, f2p, tile)) if return_vmax else out
     f1p, f2p, coords = _k1_operands("corr_fused_xy_int8", f1p, f2p, coords, H2, W2)
     E, P, Cpad = f1p.shape
-    _check_tile("corr_fused_xy_int8", P, tile)
+    check_int8_tile(P, tile)
     from ..utils.cuda_build import load_kernel_library
 
     lib = load_kernel_library("corr_fused_xy")
     out = torch.empty((E, coords.shape[1], coords.shape[2], NUM_CHANNELS),
                       dtype=torch.bfloat16, device=f1p.device)
     vmax = torch.empty((E, P // tile), dtype=torch.float32, device=f1p.device)
+    sync = _int8_sync(f1p.device, E * (P // 64))
     rc = lib.corr_fused_xy_int8_launch(_ptr(f1p), _ptr(f2p), _ptr(coords), _ptr(vmax), _ptr(out),
-                                       E, P, H2, W2, Cpad, tile, _stream())
+                                       _ptr(sync), E, P, H2, W2, Cpad, tile, _stream())
     _raise_on(rc, "corr_fused_xy_int8")
     LAUNCHES["corr_fused_xy_int8"] += 1
     return (out, vmax) if return_vmax else out

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from ..models.net import DroidNet
-from ..ops.corr_cuda import check_k1_shape
+from ..ops.corr_cuda import check_int8_tile, check_k1_shape, int8_tile
 from ..utils.config import DBAFusionConfig
 from ..utils.device import resolve_device, to_host
 from .frontend import Frontend
@@ -37,7 +37,9 @@ class DBAFusion:
     card and raises without one; pass ``device="cpu"`` for the plain path.
     On the card the image may be at most 1024 px wide (kernel K1's limit,
     :func:`~dbaf_tpu_torch.ops.corr_cuda.check_k1_shape`); a wider
-    ``cfg.image_size`` raises ``ValueError`` here.
+    ``cfg.image_size`` raises ``ValueError`` here, and so does a
+    ``cfg.graph.corr_group`` whose int8 tile K1-int8 does not take
+    (:func:`~dbaf_tpu_torch.ops.corr_cuda.check_int8_tile`, with ``corr_int8``).
     ``dtype`` is the network's compute type.  With
     ``cfg.frontend.async_pipeline``, frames of a visual-only run go through
     the asynchronous pipeline from the first frame after initialization on.
@@ -60,6 +62,10 @@ class DBAFusion:
             # K1 runs in every update round: refuse a feature grid it does
             # not take here rather than in the first round (fnet's 128 channels)
             check_k1_shape(cfg.feat_size[1], 128)
+            h8, w8 = cfg.feat_size
+            tile = int8_tile(h8, w8, cfg.graph.corr_group) if cfg.graph.corr_int8 else None
+            if tile is not None:  # K1-int8 in every round instead
+                check_int8_tile(h8 * w8, tile)
         self.device = resolve_device(device)
         self.video = DepthVideo(cfg, self.device)
         self.model = None

@@ -30,8 +30,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "corr_fused_xy": {
         "corr_fused_xy_launch": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
-        "corr_int8_vmax_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
-        "corr_fused_xy_int8_launch": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
+        "corr_fused_xy_int8_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                                      _VP],
         "corr_fused_xy_raw_launch": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
     },
     "corr_lookup": {

@@ -273,3 +273,38 @@ def test_dbafusion_refuses_a_grid_k1_does_not_take_at_construction():
                   update_fn=lambda *a: None)
     assert DBAFusion(cfg, device="cpu", feat_fn=lambda *a: None, ctx_fn=lambda *a: None,
                      update_fn=lambda *a: None).device.type == "cpu"
+
+
+@pytest.mark.parametrize("P,tile,ok", [
+    (3072, 256, True), (3072, 512, True), (3072, 192, True), (1920, 320, True),
+    (3072, 768, True), (3072, 3072, True), (384, 64, True), (3072, 160, False),
+    (1280, 96, False), (4480, 256, False),
+], ids=["256", "512", "192", "320", "768", "3072", "64", "160_not_whole_blocks",
+        "96_not_whole_blocks", "256_not_dividing"])
+def test_int8_tile_check_takes_whole_blocks(P, tile, ok):
+    """K1-int8 trades a tile's maximum among the tile's blocks of 64 pixels:
+    any multiple of 64 that divides P."""
+    if ok:
+        tk.check_int8_tile(P, tile)
+    else:
+        with pytest.raises(ValueError, match=f"tile {tile}"):
+            tk.check_int8_tile(P, tile)
+
+
+@pytest.mark.parametrize("group,tile", [(10, 160), (14, 224)])
+def test_dbafusion_refuses_an_int8_tile_k1_int8_does_not_take_at_construction(group, tile):
+    """With corr_int8, a corr_group whose tile K1-int8 does not take (not
+    whole 64-pixel blocks) raises when the system is built for the card,
+    before any card is looked for, and is accepted on the CPU (the plain
+    version takes any tile)."""
+    from dbaf_tpu_torch.slam.system import DBAFusion
+    from dbaf_tpu_torch.utils import config
+
+    cfg = config.kitti360_config()  # 40 x 112 features: 4480 pixels
+    cfg.graph.corr_int8 = True
+    cfg.graph.corr_group = group
+    assert tk.int8_tile(*cfg.feat_size, group) == tile
+    fns = dict(feat_fn=lambda *a: None, ctx_fn=lambda *a: None, update_fn=lambda *a: None)
+    with pytest.raises(ValueError, match=f"tile {tile}"):
+        DBAFusion(cfg, device="cuda", **fns)
+    assert DBAFusion(cfg, device="cpu", **fns).device.type == "cpu"

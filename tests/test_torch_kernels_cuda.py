@@ -87,18 +87,21 @@ def test_corr_fused_xy_matches_plain(dev, case):
     (48, 48, 64, 128, 256, "noise"), (4, 40, 48, 128, 128, "noise"),
     (4, 32, 60, 128, 128, "noise"), (2, 16, 32, 64, 128, "noise"),
     (2, 48, 64, 128, 256, "off_image"), (4, 32, 60, 128, 128, "nan_row"),
-    (2, 32, 64, 128, 512, "noise"),
+    (2, 32, 64, 128, 512, "noise"), (2, 16, 24, 128, 64, "noise"),
+    (3, 48, 64, 128, 192, "noise"), (2, 40, 48, 128, 320, "noise"),
+    (2, 48, 64, 128, 768, "noise"), (2, 48, 64, 128, 3072, "noise"),
 ], ids=["main", "tile128", "tile128_ragged_rows", "channels64", "off_image", "nan_row",
-        "tile512"])
+        "tile512", "tile64", "tile192", "tile320", "tile768", "tile3072"])
 def test_corr_fused_xy_int8_matches_plain(dev, case):
     """K1-int8 against its plain version in one launch, no separate max
     pass, its tile scales against corr_int8_vmax_plain: tumvi's tile of
     256, the group-8 tile of 128 (40 x 48 and 32 x 60 hold 15 of them;
-    W2 = 60 is no multiple of 8), the group-32 tile of 512 (clusters of
-    8 blocks), C = 64 (one TMA box); off-image
+    W2 = 60 is no multiple of 8), C = 64 (one TMA box), and tiles of 1,
+    3, 5, 8, 12 and 48 blocks (64 to 3072 pixels: the blocks of a tile
+    trade their maxima in the kernel's exchange); off-image
     coordinates give exactly 0, a NaN coordinate row 0 there.  K1 (bf16)
     on the noise cases' inputs is the control that the check can fail.
-    The max pass alone (a diagnostic) gives the same scales."""
+    ``corr_int8_vmax`` gives the same scales."""
     from dbaf_tpu_torch.ops import corr_cuda as cc
 
     E, H, W, C, tile, kind = case
@@ -111,8 +114,9 @@ def test_corr_fused_xy_int8_matches_plain(dev, case):
     before = dict(cc.LAUNCHES)
     got, vmax = cc.corr_fused_xy_int8(f1p, f2p, coords, H, W, tile, return_vmax=True)
     torch.cuda.synchronize()
-    assert cc.LAUNCHES["corr_fused_xy_int8"] == before["corr_fused_xy_int8"] + 1
-    assert cc.LAUNCHES["corr_int8_vmax"] == before["corr_int8_vmax"]
+    # one launch, and no other kernel: no max pass of its own
+    assert {k: n - before[k] for k, n in cc.LAUNCHES.items()} == {
+        k: int(k == "corr_fused_xy_int8") for k in before}
     vmax_ref = cc.corr_int8_vmax_plain(f1p, f2p, tile)
     torch.testing.assert_close(vmax, vmax_ref, rtol=1e-4, atol=0)
     torch.testing.assert_close(cc.corr_int8_vmax(f1p, f2p, H, W, tile), vmax_ref, rtol=1e-4,
@@ -225,6 +229,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     f1p, f2p = cc.prepare_corr_fmaps(f1, f2)
     with pytest.raises(ValueError, match="W2=136"):
         cc.corr_fused_xy(f1p, f2p, coords, 2, 136)
+    # K1-int8 takes tiles of whole 64-pixel blocks
+    f1, f2, coords = _inputs(dev, 1, 20, 64, 32, 3)
+    f1p, f2p = cc.prepare_corr_fmaps(f1, f2)
+    for tile in (160, 96):
+        with pytest.raises(ValueError, match=f"tile {tile}"):
+            cc.corr_fused_xy_int8(f1p, f2p, coords, 20, 64, tile)
     # K2 needs two f32 rows of 180 x 180 in one block: more than 227 KB
     vol = torch.zeros(1, 4, 180, 180, device=dev)
     with pytest.raises(RuntimeError, match="cudaError"):
@@ -290,5 +300,5 @@ def test_visual_async_entry_points_on_the_card(dev):
     assert a.stats()["steps"] == n_frames - 8 and fe.rollup_count >= 1
     assert cc.LAUNCHES["corr_lookup"] == n_frames - 1
     assert cc.LAUNCHES["corr_fused_xy_int8"] >= fe.update_rounds > 0
-    assert cc.LAUNCHES["corr_fused_xy"] == 0 and cc.LAUNCHES["corr_int8_vmax"] == 0
+    assert cc.LAUNCHES["corr_fused_xy"] == 0 and cc.LAUNCHES["corr_fused_xy_raw"] == 0
     assert traj.shape == (fe.keyframe_steps, 8) and np.all(np.isfinite(traj))
