@@ -5,7 +5,8 @@ Two sources:
 * :func:`from_jax_params` takes the JAX package's Flax parameter tree (numpy
   arrays, HWIO kernels, fused GRU/head convs of its ``models/net.py``) and
   returns the port's ``state_dict`` -- the port's modules carry the same
-  fused layout, so this is a transpose to OIHW;
+  fused layout, so this is a transpose to OIHW (the GraphAgg head
+  ``update.agg`` included, where the tree has it);
 * :func:`load_reference_state_dict` takes a reference-format checkpoint
   (``module.``-prefixed keys, 3-channel update heads, dbaf.py:38-48),
   checks its keys and shapes against a manifest, strips the prefix, slices
@@ -29,11 +30,6 @@ _HEAD_SLICE = {
     ("update", "weight_2", "bias"): 2,
 }
 
-# parts of the checkpoint the visual path does not run (the GraphAgg
-# damping/upsample head, cfg.upsample)
-_SKIP_PREFIXES = (("update", "agg"),)
-
-
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
     for k, v in tree.items():
         path = prefix + (k,)
@@ -48,8 +44,6 @@ def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     or array-likes) -> the port's ``state_dict`` (f32 tensors)."""
     sd = {}
     for path, value in _flatten(params):
-        if any(path[: len(p)] == p for p in _SKIP_PREFIXES):
-            continue
         arr = np.asarray(value, dtype=np.float32)
         leaf = path[-1]
         if leaf == "kernel":

@@ -49,10 +49,27 @@ def gradient_clip(x: torch.Tensor) -> torch.Tensor:
     return GradientClip.apply(x)
 
 
-def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+class _Sigmoid(torch.autograd.Function):
     """``1 / (1 + exp(-x))`` with each step in x's dtype: the expansion
-    ``jax.nn.sigmoid`` lowers to, so bf16 results round alike."""
-    return 1.0 / (1.0 + torch.exp(-x))
+    ``jax.nn.sigmoid`` lowers to, so bf16 results round alike.  The
+    derivative is ``s (1 - s)`` of the result, as JAX's ``logistic``
+    defines it; autograd of the expansion gives inf / inf = NaN where
+    ``exp(-x)`` overflows (x below about -88 in f32)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * s * (1.0 - s)
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return _Sigmoid.apply(x)
 
 
 class Conv(nn.Conv2d):
@@ -74,6 +91,12 @@ class Conv(nn.Conv2d):
         if self.bias is not None:
             y = y + self.bias.to(dtype).view(1, -1, 1, 1)
         return y
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + exp(x))`` as ``logaddexp(x, 0)``, Flax's ``nn.softplus``
+    (no linear cut-off above a threshold, unlike ``F.softplus``)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -151,6 +174,38 @@ class ConvGRU(nn.Module):
         return (1.0 - z) * net + z * q
 
 
+class GraphAgg(nn.Module):
+    """Edge -> keyframe aggregation head: depth damping ``eta`` and the
+    8 x 8 x 9 convex-upsampling mask (droid_net.py:40-71; JAX
+    ``dbaf_tpu/models/net.py:187-212``).  conv1, a mean over the edges of
+    each source frame ``ii``, conv2, then ``0.01 * softplus`` of a
+    gradient-clipped 3 x 3 conv and a 1 x 1 mask conv."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv1 = Conv(128, 128, 3, padding=1)
+        self.conv2 = Conv(128, 128, 3, padding=1)
+        self.eta_0 = Conv(128, 1, 3, padding=1)
+        self.upmask_0 = Conv(128, 8 * 8 * 9, 1)
+
+    def forward(self, net, ii, num_frames: int, dtype):
+        """NCHW net (E, 128, H, W) in dtype, ii (E,) source frame per edge
+        (every index below ``num_frames``).  Returns eta (F, H, W) and the
+        mask (F, 576, H, W), both in dtype, F = ``num_frames``.  The
+        per-frame sums run in f32; a frame without an edge takes a zero
+        mean."""
+        net = F.relu(self.conv1.run(net, dtype))
+        E = net.shape[0]
+        sums = torch.zeros((num_frames,) + net.shape[1:], dtype=torch.float32,
+                           device=net.device).index_add(0, ii, net.float())
+        counts = torch.zeros((num_frames,), dtype=torch.float32, device=net.device).index_add(
+            0, ii, torch.ones((E,), dtype=torch.float32, device=net.device))
+        net = (sums / torch.clamp(counts, min=1.0)[:, None, None, None]).to(dtype)
+        net = F.relu(self.conv2.run(net, dtype))
+        eta = 0.01 * _softplus(gradient_clip(self.eta_0.run(net, dtype)))
+        return eta[:, 0], self.upmask_0.run(net, dtype)
+
+
 class UpdateModule(nn.Module):
     """RAFT-style update operator (droid_net.py:74-142) with 2-channel
     delta/weight heads.
@@ -163,9 +218,11 @@ class UpdateModule(nn.Module):
     :func:`~dbaf_tpu_torch.ops.corr_cuda.raw_corr_index`, with zero rows
     off the diagonal blocks, as the JAX package's ``_CorrEnc0`` does
     (``dbaf_tpu/models/net.py:214-257``).  No update round passes the raw
-    layout: the JAX package's do not either."""
+    layout: the JAX package's do not either.  With ``agg`` the module
+    carries the :class:`GraphAgg` head (the training path and the
+    upsample path run it)."""
 
-    def __init__(self, corr_channels: int = 196):
+    def __init__(self, corr_channels: int = 196, agg: bool = True):
         super().__init__()
         self.corr_encoder_0 = Conv(corr_channels, 128, 1)
         self.corr_encoder_2 = Conv(128, 128, 3, padding=1)
@@ -175,11 +232,14 @@ class UpdateModule(nn.Module):
         self.dw_0 = Conv(128, 256, 3, padding=1)
         self.delta_2 = Conv(128, 2, 3, padding=1)
         self.weight_2 = Conv(128, 2, 3, padding=1)
+        self.agg = GraphAgg() if agg else None
 
-    def forward(self, net, inp, corr, flow, dtype):
+    def forward(self, net, inp, corr, flow, dtype, ii=None, num_frames: int = 0):
         """NCHW-shaped net (E,128,H,W), inp (E,128,H,W), corr (E,196,H,W)
         or (E,1024,H,W) (the raw layout), flow (E,4,H,W).  Returns (net,
-        delta f32, weight f32), NCHW."""
+        delta f32, weight f32), NCHW; with ``ii`` also GraphAgg's eta
+        (num_frames, H, W) f32 and mask (num_frames, 576, H, W) in dtype
+        (``upsample=True`` in the JAX module)."""
         c = F.relu(self.corr_encoder_0.run(corr, dtype, self._corr_weight(corr.shape[1])))
         c = F.relu(self.corr_encoder_2.run(c, dtype))
         f = F.relu(self.flow_encoder_0.run(flow, dtype))
@@ -188,7 +248,10 @@ class UpdateModule(nn.Module):
         dw = F.relu(self.dw_0.run(net, dtype))
         delta = gradient_clip(self.delta_2.run(dw[:, :128], dtype))
         weight = _sigmoid(gradient_clip(self.weight_2.run(dw[:, 128:], dtype)))
-        return net, delta.float(), weight.float()
+        if ii is None:
+            return net, delta.float(), weight.float()
+        eta, upmask = self.agg(net, ii, num_frames, dtype)
+        return net, delta.float(), weight.float(), eta.float(), upmask
 
     def _corr_weight(self, channels: int) -> Optional[torch.Tensor]:
         """The first corr-encoder kernel for ``channels`` input channels:
@@ -216,26 +279,80 @@ class DroidNet(nn.Module):
     """fnet (correlation features), cnet (context), update operator
     (droid_net.py:145-168).  All public tensors are NHWC.  ``device``
     defaults to the card and raises without one; pass ``"cpu"`` for the
-    CPU."""
+    CPU.  ``agg=False`` leaves out the GraphAgg head, for weights that do
+    not carry ``update.agg``.  The serving methods run without autograd;
+    :meth:`extract_features` and :meth:`update_with_agg` are the training
+    path's and keep it."""
 
     def __init__(self, dtype: torch.dtype = torch.bfloat16,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None, agg: bool = True):
         super().__init__()
         self.dtype = dtype
         self.fnet = BasicEncoder(output_dim=128, norm="instance")
         self.cnet = BasicEncoder(output_dim=256, norm="none")
-        self.update = UpdateModule()
+        self.update = UpdateModule(agg=agg)
         # on the device once: a per-frame host->device copy would
         # synchronise the stream
         self.register_buffer("_mean", torch.tensor(IMAGE_MEAN), persistent=False)
         self.register_buffer("_std", torch.tensor(IMAGE_STD), persistent=False)
         self.to(resolve_device(device))
 
+    # heads fused into one convolution (the GRU's and dw_0): their He
+    # variance is scaled by the head count, as the JAX module's _fused_init
+    _FUSED_HEADS = {"update.gru.convzrq_glo": 3, "update.gru.convzrq_i": 3,
+                    "update.gru.convzr_n": 2, "update.dw_0": 2}
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "DroidNet":
+        """Fresh weights for training from scratch, drawn as the JAX
+        module's initializers draw them (``dbaf_tpu/models/net.py:36-45``):
+        every kernel from N(0, 2 * heads / fan_out) with fan_out = out
+        channels x kernel area, every bias 0.  ``generator`` is a CPU
+        ``torch.Generator``; returns the module."""
+        for name, mod in self.named_modules():
+            if not isinstance(mod, Conv):
+                continue
+            w = mod.weight
+            fan_out = w.shape[0] * w.shape[2] * w.shape[3]
+            std = (2.0 * self._FUSED_HEADS.get(name, 1) / fan_out) ** 0.5
+            w.copy_(torch.randn(w.shape, generator=generator) * std)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        return self
+
     def _normalize(self, images: torch.Tensor) -> torch.Tensor:
         """(N, H, W, 3) BGR uint8-valued -> NCHW normalized RGB in dtype
         (droid_net.py:155-160)."""
         x = images.flip(-1).float() / 255.0
         return _nchw(((x - self._mean) / self._std).to(self.dtype))
+
+    def extract_features(self, images: torch.Tensor):
+        """fnet and cnet together, with autograd (the training path):
+        fmaps (N, H/8, W/8, 128), net (tanh) and inp (relu), each 128
+        channels, in dtype."""
+        x = self._normalize(images)
+        ctx = self.cnet(x, self.dtype)
+        return (_nhwc(self.fnet(x, self.dtype)), _nhwc(torch.tanh(ctx[:, :128])),
+                _nhwc(F.relu(ctx[:, 128:])))
+
+    def update_with_agg(self, net, inp, corr, flow, ii: torch.Tensor, num_frames: int):
+        """One update with the GraphAgg head, with autograd (droid_net.py:
+        205-206): NHWC net, inp, corr, flow over edges and ii (E,).
+        Returns (net in dtype, delta f32, weight f32, eta (num_frames, H,
+        W) f32, upmask (num_frames, H, W, 576) in dtype)."""
+        dt = self.dtype
+        net_n, delta, weight, eta, upmask = self.update(
+            _nchw(net.to(dt)), _nchw(inp.to(dt)), _nchw(corr.to(dt)), _nchw(flow.to(dt)), dt,
+            ii=ii, num_frames=num_frames)
+        return _nhwc(net_n), _nhwc(delta), _nhwc(weight), eta, _nhwc(upmask)
+
+    @torch.no_grad()
+    def agg_fn(self, net: torch.Tensor, ii: torch.Tensor, num_frames: int):
+        """GraphAgg alone on NHWC edge states (E, H, W, 128), the
+        graph's ``run_upsample`` signature: eta (num_frames, H, W) f32 and
+        upmask (num_frames, H, W, 576) in dtype."""
+        eta, upmask = self.update.agg(_nchw(net.to(self.dtype)), ii, num_frames, self.dtype)
+        return eta.float(), _nhwc(upmask)
 
     @torch.no_grad()
     def features_only(self, images: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Projective camera operations: inverse projection, reprojection, flow.
 
-Port of ``dbaf_tpu/ops/projective.py`` (SE3 paths, and the export's
-back-projection and depth vote).  Poses are
-world->camera 7-vectors, disparities are inverse depths at 1/8 resolution
+Port of ``dbaf_tpu/ops/projective.py`` (SE3 paths, the Sim3 branch of
+``projective_transform``, and the export's back-projection and depth
+vote).  Poses are world->camera 7-vectors (8-vectors for Sim3),
+disparities are inverse depths at 1/8 resolution
 and intrinsics are ``[fx, fy, cx, cy]`` already divided by 8.  Edge-indexed
 functions take integer index tensors ``ii, jj`` and gather from the
 keyframe axis.
@@ -15,7 +16,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..utils.device import device_const
-from . import lie
+from . import lie, sim3
 
 MIN_DEPTH_PY = 0.2
 MIN_DEPTH_KERNEL = 0.25
@@ -67,21 +68,29 @@ def _intrinsics_ij(intrinsics, ii, jj):
 
 
 def _edge_rel_poses(poses: torch.Tensor, ii: torch.Tensor, jj: torch.Tensor) -> torch.Tensor:
-    """Per-edge G_ij with the fixed stereo baseline for ii == jj edges."""
-    gij = lie.se3_rel(poses[ii], poses[jj])
-    override = device_const(_STEREO_POSE, gij.dtype, gij.device)
+    """Per-edge G_ij with the fixed stereo baseline for ii == jj edges.
+    SE3 7-vectors or Sim3 8-vectors (the training-time branch,
+    projective_ops.py:84-94; the baseline lifts to unit scale)."""
+    if poses.shape[-1] == 8:
+        gij = sim3.rel(poses[ii], poses[jj])
+        override = device_const(_STEREO_POSE + (1.0,), gij.dtype, gij.device)
+    else:
+        gij = lie.se3_rel(poses[ii], poses[jj])
+        override = device_const(_STEREO_POSE, gij.dtype, gij.device)
     return torch.where((ii == jj)[..., None], override, gij)
 
 
 def projective_transform(poses, disps, intrinsics, ii, jj, min_depth: float = MIN_DEPTH_PY,
                          return_depth: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reproject every pixel of frame ii into frame jj
-    (projective_ops.py:96-125).  Returns coords (E, H, W, 2[+1]) and the
-    validity mask (E, H, W, 1)."""
+    (projective_ops.py:96-125).  ``poses`` are (N, 7) SE3 or (N, 8) Sim3
+    ``(t, q, s)``.  Returns coords (E, H, W, 2[+1]) and the validity mask
+    (E, H, W, 1)."""
     intr_i, intr_j = _intrinsics_ij(intrinsics, ii, jj)
     X0 = iproj(disps[ii], intr_i)
     gij = _edge_rel_poses(poses, ii, jj)
-    X1 = lie.se3_act4(gij[:, None, None, :], X0)
+    act4 = sim3.act4 if poses.shape[-1] == 8 else lie.se3_act4
+    X1 = act4(gij[:, None, None, :], X0)
     coords = proj(X1, intr_j, min_depth=min_depth, return_depth=return_depth)
     valid = (X1[..., 2] > min_depth) & (X0[..., 2] > min_depth)
     return coords, valid[..., None].to(coords.dtype)

@@ -219,8 +219,12 @@ class AsyncPipeline:
     # ------------------------------------------------------------------
     def can_activate(self) -> bool:
         fe = self.sys.frontend
+        # upsample stays on the synchronous flow, which runs the GraphAgg
+        # head after every keyframe step (the JAX pipeline enters with the
+        # flag set and then stops updating damping and disps_up)
         return (self.cfg.frontend.async_pipeline and fe.is_initialized
                 and fe.all_imu is None and self.sys.graph.coupled is None
+                and not self.cfg.upsample
                 and fe.t1 >= max(self.cfg.graph.frontend_window, 5))
 
     def activate(self):

@@ -289,6 +289,7 @@ class Frontend:
             if culled:
                 self._cull()
             self._maybe_init_gnss()
+            self._maybe_upsample()
             v.seed_next(self.t1)
             self._maybe_activate_casync()
             return
@@ -321,6 +322,13 @@ class Frontend:
         if self.video.imu_enabled and c.gnss_init_time <= 0.0 and len(self.all_gnss) > 0 \
                 and c.ten0 is not None:
             init_gnss(self.video, c, self.t1, c.ten0)
+
+    def _maybe_upsample(self):
+        """The GraphAgg head after a keyframe step, with ``cfg.upsample``
+        and weights that carry it (covisible_graph.py:239-240, 339-340)."""
+        g = self.graph
+        if self.cfg.upsample and g.agg_fn is not None:
+            g.run_upsample(g.agg_fn)
 
     def _update_two_call(self, cur_t: float):
         """The multi-sensor keyframe step as two update calls around a host
@@ -367,6 +375,7 @@ class Frontend:
         if self.t1 > self.vi_warmup and self.coupled.vi_init_t1 < 0:
             self._try_init_vi(cur_t)
         self._maybe_init_gnss()
+        self._maybe_upsample()
         v.seed_next(self.t1)
 
     def _update_visual_fused(self, cur_t: float):
@@ -384,6 +393,7 @@ class Frontend:
             # asynchronous visual step moves them
             g.aux = v.rm_keyframe_aux(g.aux, ix)
             v.seed_next(self.t1)
+        self._maybe_upsample()
 
     # ------------------------------------------------------------------
     def _try_init_vi(self, cur_t: float):

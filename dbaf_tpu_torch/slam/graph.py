@@ -26,6 +26,7 @@ from ..ops import corr as corr_ops
 from ..ops import corr_cuda
 from ..ops import dba, lie
 from ..ops import projective as pj
+from ..train.unroll import upsample_disp
 from ..utils.config import DBAFusionConfig
 from ..utils.device import FlagPoll, clip, device_const, rows_at, set_row, to_host
 from .video import DepthVideo
@@ -386,6 +387,7 @@ class CovisibleGraph:
         self.hyst_norms = None      # (7,) cull-hysteresis |rel t| (coupled)
         self._prox_offset = 1
         self.aux = {}               # forwarded to update_fn each round
+        self.agg_fn = None          # GraphAgg head of the upsample path
         self.coupled = None         # MultiSensorBA when multi-sensor fusion is on
         self.mega_count = 0         # fused coupled keyframe steps taken
         self.lm_stats = None        # realized LM iterations per coupled round
@@ -724,6 +726,31 @@ class CovisibleGraph:
             else:
                 self._host_pack_np = full
         return self._host_pack_np
+
+    # ------------------------------------------------------------------
+    def run_upsample(self, agg_fn: Callable):
+        """GraphAgg damping and convex disparity upsampling for the frames
+        with active edges (covisible_graph.py:239-240, 339-340;
+        droid_net.py:40-71), in place on ``video.damping`` and
+        ``video.disps_up``.  The head runs on the active edges alone, with
+        their frames numbered compactly from the host's edge list, so it
+        touches only the frames that take its output (the JAX package runs
+        it over the whole buffer, padded edges routed to a dump frame, and
+        keeps the same frames' rows; each frame's result is the same).
+
+        agg_fn(net_e (E, H, W, 128), ii (E,), num_frames) -> (eta
+        (num_frames, H, W), upmask (num_frames, H, W, 576)).
+        """
+        if self.n == 0:
+            return
+        self._flush()
+        v = self.video
+        frames, local = np.unique(self.ii, return_inverse=True)
+        eta, upmask = agg_fn(self.edges.net[:self.n], self._dev(local), len(frames))
+        rows = self._dev(frames)
+        v.damping.index_copy_(0, rows, eta.float())
+        if v.disps_up is not None:
+            v.disps_up.index_copy_(0, rows, upsample_disp(v.disps.index_select(0, rows), upmask))
 
     # ------------------------------------------------------------------
     def add_neighborhood_factors(self, t0: int, t1: int, r: int = 3):

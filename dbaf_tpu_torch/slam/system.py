@@ -45,6 +45,11 @@ class DBAFusion:
     the asynchronous pipeline from the first frame after initialization on.
     With ``cfg.save_pkl`` the keyframes that leave the buffer are archived
     for the dense export (:func:`dbaf_tpu_torch.eval.export.save_reconstruction`).
+    With ``cfg.upsample`` and weights that carry the GraphAgg head
+    (``update.agg``), every keyframe step of the synchronous flow ends with
+    ``CovisibleGraph.run_upsample``: the frames with edges take GraphAgg's
+    damping and a full-resolution ``video.disps_up``; the asynchronous
+    pipelines do not activate then.
     ``cfg.frontend.monitor_dir`` (the per-keyframe panel dump) is not ported
     and raises ``NotImplementedError``.
     """
@@ -77,13 +82,16 @@ class DBAFusion:
 
                 params = load_reference_state_dict(
                     torch.load(cfg.weights_path, map_location="cpu", weights_only=True))
-            self.model = DroidNet(dtype=dtype, device=self.device)
+            has_agg = any(k.startswith("update.agg.") for k in params)
+            self.model = DroidNet(dtype=dtype, device=self.device, agg=has_agg)
             self.model.load_state_dict(params)
             self.model.eval()
             feat_fn = feat_fn or self.model.features_only
             ctx_fn = ctx_fn or self.model.context_only
             update_fn = update_fn or self.model.update_fn
         self.graph = CovisibleGraph(self.video, update_fn, cfg)
+        if cfg.upsample and self.model is not None and self.model.update.agg is not None:
+            self.graph.agg_fn = self.model.agg_fn
         self.filter = MotionFilter(self.video, cfg, feat_fn, ctx_fn, update_fn)
         self.frontend = Frontend(self.video, self.graph, cfg)
         self._async = None

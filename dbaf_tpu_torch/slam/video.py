@@ -10,8 +10,10 @@ the initializations of the coupled path rewrite poses and rescale
 disparities in place.  With ``cfg.save_pkl`` the rows that leave the
 buffer are archived on the host (``saved_*``, the dense export's input):
 at a rollup, and at the coupled path's window advance (``archive_mark``
-keeps the two from archiving a row twice).  Depth-sensor rows and the
-stereo feature buffer come with later slices.
+keeps the two from archiving a row twice).  With ``cfg.upsample`` the
+full-resolution ``disps_up`` rows (filled by the GraphAgg head,
+``CovisibleGraph.run_upsample``) move with every other row.  Depth-sensor
+rows and the stereo feature buffer come with later slices.
 """
 
 from __future__ import annotations
@@ -56,10 +58,9 @@ class DepthVideo:
     _SHIFT_BUFFERS = ("poses", "disps", "damping", "fmaps", "nets", "inps")
 
     def __init__(self, cfg: DBAFusionConfig, device: Optional[Union[str, torch.device]] = None):
-        if cfg.stereo or cfg.upsample:
+        if cfg.stereo:
             raise NotImplementedError(
-                "dbaf_tpu_torch: stereo and upsample are not ported yet "
-                "(the port runs the monocular path)")
+                "dbaf_tpu_torch: stereo is not ported yet (the port runs the monocular path)")
         self.cfg = cfg
         self.device = device = resolve_device(device)
         ht, wd = cfg.image_size
@@ -76,6 +77,10 @@ class DepthVideo:
         self.fmaps = torch.zeros((B, h8, w8, 128), dtype=torch.bfloat16, **kw)
         self.nets = torch.zeros((B, h8, w8, 128), dtype=torch.bfloat16, **kw)
         self.inps = torch.zeros((B, h8, w8, 128), dtype=torch.bfloat16, **kw)
+        self.disps_up = None
+        if cfg.upsample:  # convex-upsampled disparities, 8x the features (depth_video.py:57)
+            self.disps_up = torch.zeros((B, 8 * h8, 8 * w8), dtype=torch.float32, **kw)
+            self._SHIFT_BUFFERS = DepthVideo._SHIFT_BUFFERS + ("disps_up",)
         self.intrinsics = torch.zeros((4,), dtype=torch.float32, **kw)  # at 1/8 scale
         self.images_small = np.zeros((B, h8, w8, 3), dtype=np.uint8)
         self.imu_enabled = False
