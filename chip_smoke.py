@@ -126,6 +126,27 @@ Phases, each fatal on failure:
              phase 3's (that of a second run on the same frames, whose
              convolution plans the first run built) and the ms of one
              run_upsample.
+  10a. stereo  phase 3's main path with cfg.stereo for 12 keyframe steps
+             (after the same frames without stereo, for a kf/s on built
+             convolution plans), each frame's right image cut from the
+             same texture 4 pixels to the side: K2 on every gated frame, K1 in every round,
+             self-edges in every keyframe step's edge set, a finite
+             trajectory, and K1 on one round's stereo operands against
+             its plain version (one bf16 ulp of the largest output, and
+             at least phase 2's bound), whose self-edges must
+             differ from left-only operands; kf/s beside phase 3's.
+  10b. oracle  phase 7's oracle scene at full width on the synchronous
+             flow (the scene's camera), once with stereo and once with
+             RGB-D (the scene's depth at pixels [3::8, 3::8]): fatal
+             unless self-edges exist and the poses are finite (stereo) and
+             the median disparity ratio to the truth lies in 0.9-1.1
+             (RGB-D); prints the SE3- and Sim3-aligned ATE and the scale.
+  10c. resume  phase 3's main path saved before frame 12 and run to 16; a
+             fresh system loads the file and runs 12-16 again: loaded poses
+             within 1e-6, resumed ones within 1e-4 of the first run (or
+             twice the spread of two uninterrupted runs where larger); the
+             file unpickled in a child process that sees no card, without
+             importing torch.
 Phase 2 also holds K1-int8 (one launch, its tile scales inside it) at
 (E=48, 48x64, C=128, tile 256), at tiles of 128, 192 and 768 pixels, off
 the image and with a NaN row, and its returned scales, against their plain
@@ -139,9 +160,9 @@ value).
 Phase 2 prints a digest of every case's kernel output ("[digest]" lines):
 with --root, two packages' digests show whether a kernel's outputs changed.
 Then one JSON line listing the kernels (launches summed over the main,
-coupled, coupled_async, visual_async, int8, export and upsample paths, each counted
-from 0 just before its run; "launches_by_path" splits them), and last the
-ok line.
+coupled, coupled_async, visual_async, int8, export, upsample, stereo,
+oracle_stereo, oracle_rgbd and resume paths, each counted from 0 just
+before its run; "launches_by_path" splits them), and last the ok line.
 
 Exits non-zero without a CUDA device, and without the port's package.
 """
@@ -1061,24 +1082,40 @@ class VisualRun:
         ox, oy = (3 * k) % 64, (2 * k) % 64
         return float(k), self.base[oy:oy + HT, ox:ox + WD], self.intr
 
-    def track(self, k: int) -> None:
+    def track(self, k: int, **sensors) -> None:
         t, image, intr = self.frame(k)
-        self.system.track(t, image, intrinsics=intr)
+        self.system.track(t, image, intrinsics=intr, **sensors)
+
+    def right(self, k: int):
+        """The right camera's frame k: the same texture, STEREO_SHIFT
+        pixels to the side."""
+        HT, WD = self.cfg.image_size
+        ox, oy = right_offset((3 * k) % 64, STEREO_SHIFT), (2 * k) % 64
+        return self.base[oy:oy + HT, ox:ox + WD]
 
 
 VISUAL_SCENE = 128  # frames of the visual phases' synthetic scene
 
 
-def visual_oracle(dev, perturb: float = 0.0):
-    """The synthetic-scene oracle of the visual phases at tumvi_config()'s
-    feature grid; ``perturb`` moves the scene's disparities by that much
-    (relative, seeded noise)."""
-    from dbaf_tpu_torch.eval.synthetic import make_oracle, scene_from_poses, simulate_imu_and_poses
+def visual_scene():
+    """The synthetic scene of the visual phases at tumvi_config()'s feature
+    grid: (world->camera poses, disparities at 1/8 resolution, intrinsics
+    at 1/8 resolution)."""
+    from dbaf_tpu_torch.eval.synthetic import scene_from_poses, simulate_imu_and_poses
 
     H8, W8 = visual_config("visual").feat_size
     _, poses_at = simulate_imu_and_poses(VISUAL_SCENE / 10.0 + 0.5, fps=10.0)
     intr8 = np.asarray([2.0 * W8, 2.0 * W8, W8 / 2, H8 / 2], np.float32)
     gt_cw, gt_disps = scene_from_poses(poses_at, VISUAL_SCENE, intr8, H8, W8)
+    return gt_cw, gt_disps, intr8
+
+
+def visual_oracle(dev, perturb: float = 0.0):
+    """The synthetic-scene oracle of the visual phases; ``perturb`` moves
+    the scene's disparities by that much (relative, seeded noise)."""
+    from dbaf_tpu_torch.eval.synthetic import make_oracle
+
+    gt_cw, gt_disps, intr8 = visual_scene()
     if perturb:
         noise = np.random.default_rng(0).normal(size=gt_disps.shape)
         gt_disps = (gt_disps * (1.0 + perturb * noise)).astype(gt_disps.dtype)
@@ -1837,6 +1874,268 @@ def phase_upsample(dev, main_kfs: float) -> dict:
                 agg_err=agg_err, up_err=up_err, up16_err=up16_err)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: stereo and RGB-D input, save_state/load_state
+# ---------------------------------------------------------------------------
+
+STEREO_FRAMES = 20  # 10a: initialization at 8, then 12 keyframe steps
+STEREO_SHIFT = 4    # the right frame: the same texture, 4 pixels to the side
+ORACLE_FRAMES = 20  # 10b: each input mode
+SAVE_AT, RESUME_TO = 12, 16  # 10c: the state saved before frame 12, frames 12-15 again
+RESUME_TOL = 1e-4   # 10c: tests/test_slam_e2e.py:230-272's bound on the resumed poses
+K1_TOL = 2e-2       # phase 2's K1 bound (test_corr.py's bf16 bound at outputs of order 1)
+
+
+def right_offset(ox: int, shift: int) -> int:
+    """The right frame's x offset in the texture (64 pixels wider than a
+    frame): ``shift`` to the right, or to the left near the edge."""
+    return ox + shift if ox + shift <= 64 else ox - shift
+
+
+def main_frames(cfg):
+    """Phase 3's procedural frames (left) and their right frames."""
+    HT, WD = cfg.image_size
+    base = np.random.default_rng(0).integers(0, 255, size=(HT + 64, WD + 64, 3)).astype(np.uint8)
+
+    def frame(k, shift=0):
+        ox, oy = right_offset((3 * k) % 64, shift), (2 * k) % 64
+        return base[oy:oy + HT, ox:ox + WD]
+    return frame, np.asarray([460.0, 460.0, WD / 2, HT / 2], np.float32)
+
+
+def stereo_k1_check(system) -> dict:
+    """One round's operands of the last edge set (self-edges among them)
+    through K1 against its plain version; the self-edges' outputs must
+    differ from those of left-only operands (the right buffer is read)."""
+    from dbaf_tpu_torch.ops import corr_cuda as cc
+    from dbaf_tpu_torch.ops import projective as pj
+    from dbaf_tpu_torch.slam.graph import corr_operands
+
+    g, v = system.graph, system.video
+    g._flush()
+    dev = v.device
+    ii, jj = torch.as_tensor(g.ii, device=dev), torch.as_tensor(g.jj, device=dev)
+    selfs = ii == jj
+    coords1, _ = pj.projective_transform(v.poses, v.disps, v.intrinsics, ii, jj)
+    f1p, f2p, _ = corr_operands(system.cfg, v.fmaps, v.fmaps_right, ii, jj)
+    out = cc.corr_fused_xy(f1p, f2p, coords1, v.h8, v.w8)
+    ref = cc.corr_fused_xy_plain(f1p, f2p, coords1, v.h8, v.w8)
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    # phase 2's bound is one bf16 ulp of outputs of order 1 there; the
+    # network's features give outputs of order 10, so it scales with them
+    # (2^-7 of the largest output, tests/test_torch_corr.py's K1 bound)
+    tol = max(K1_TOL, 2.0 ** -7 * float(ref.float().abs().max()))
+    mono = cc.corr_fused_xy(*corr_operands(system.cfg, v.fmaps, None, ii, jj)[:2], coords1,
+                            v.h8, v.w8)
+    right_read = bool((mono[selfs] != out[selfs]).any()) and bool(
+        (mono[~selfs] == out[~selfs]).all())
+    return dict(edges=int(ii.numel()), self_edges=int(selfs.sum()), k1_err=err, k1_tol=tol,
+                max_out=float(ref.float().abs().max()), n_apart=int((diff > 0).sum()),
+                n_out=int(diff.numel()), right_read=right_read)
+
+
+def phase_stereo(dev, main_kfs: float) -> dict:
+    """Phase 10a: phase 3's main path with cfg.stereo, the right frames cut
+    from the same texture STEREO_SHIFT pixels to the side, after the same
+    frames without stereo: phase 3 runs first in the script and builds the
+    convolution plans of each new edge count, so its kf/s is not the
+    baseline of a run on built plans."""
+    from dbaf_tpu_torch.ops import corr_cuda as cc
+    from dbaf_tpu_torch.slam.system import DBAFusion
+    from dbaf_tpu_torch.utils.config import tumvi_config
+
+    frame, intr = main_frames(tumvi_config())
+    params = seeded_params(20260820)
+
+    def drive(stereo: bool):
+        cfg = tumvi_config()
+        cfg.frontend.filter_thresh = -1.0
+        cfg.stereo = stereo
+        system = DBAFusion(cfg, params=params, device=dev)
+        fe = system.frontend
+        cc.reset_launch_counts()
+        t_steady = None
+        self_edges = []
+        for k in range(STEREO_FRAMES):
+            if fe.is_initialized and t_steady is None:
+                torch.cuda.synchronize()
+                t_steady, steps0 = time.perf_counter(), fe.keyframe_steps
+            steps = fe.keyframe_steps
+            system.track(float(k), frame(k), intrinsics=intr,
+                         image_right=frame(k, STEREO_SHIFT) if stereo else None)
+            if fe.keyframe_steps > steps:
+                self_edges.append(int(np.sum(system.graph.ii == system.graph.jj)))
+        torch.cuda.synchronize()
+        kfs = (fe.keyframe_steps - steps0) / (time.perf_counter() - t_steady)
+        return system, kfs, self_edges, dict(cc.LAUNCHES)
+
+    mono, mono_kfs, _, _ = drive(False)
+    system, kfs, self_edges, L = drive(True)
+    fe = system.frontend
+    traj = system.terminate()
+    chk = stereo_k1_check(system)
+    log(f"[stereo] {fe.keyframe_steps} keyframe steps, {fe.culls} culls, {fe.update_rounds} "
+        f"update rounds, launches {L}; self-edges per keyframe step {self_edges}; {kfs:.3f} "
+        f"kf/s (the same frames without stereo: {mono_kfs:.3f} kf/s, {mono.frontend.culls} "
+        f"culls, {mono.frontend.update_rounds} rounds; phase 3: {main_kfs:.3f}); K1 on the "
+        f"last edge set ({chk['edges']} edges, {chk['self_edges']} self-edges) against its "
+        f"plain version {chk['k1_err']:.3e} (bound {chk['k1_tol']:.4g}: 2^-7 of the largest "
+        f"output {chk['max_out']:.4g}, or phase 2's {K1_TOL:g}), {chk['n_apart']} of "
+        f"{chk['n_out']} outputs apart; self-edges read the right buffer: {chk['right_read']}")
+    if L["corr_lookup"] < STEREO_FRAMES - 1 or L["corr_fused_xy"] < fe.update_rounds \
+            or fe.update_rounds == 0:
+        raise SystemExit(f"stereo: launches {L} for {STEREO_FRAMES - 1} gated frames and "
+                         f"{fe.update_rounds} rounds")
+    if len(self_edges) < 10 or min(self_edges) == 0:
+        raise SystemExit(f"stereo: a keyframe step without self-edges: {self_edges}")
+    if traj.shape != (fe.keyframe_steps, 8) or not np.all(np.isfinite(traj)):
+        raise SystemExit(f"stereo: trajectory {traj.shape} not finite / not one row per step")
+    if not (chk["k1_err"] <= chk["k1_tol"] and chk["right_read"] and chk["self_edges"] > 0):
+        raise SystemExit(f"stereo: K1 on the stereo operands is off: {chk}")
+    return dict(launches=L, kf_per_s=kfs, mono_kf_per_s=mono_kfs, culls=fe.culls,
+                mono_culls=mono.frontend.culls, self_edges_per_step=self_edges, k1_check=chk)
+
+
+def phase_oracle_inputs(dev) -> dict:
+    """Phase 10b: phase 7's oracle scene at full width on the synchronous
+    flow (bench.py's visual configuration with the pipeline off), once with
+    stereo and once with RGB-D (the scene's depth at pixels [3::8, 3::8],
+    as tests/test_slam_e2e.py:208-209 renders it).  Fatal unless (stereo)
+    self-edges exist and the poses are finite
+    (tests/test_slam_e2e.py:170-194) and (RGB-D) the median ratio of the
+    live disparities to the truth lies in 0.9-1.1 (:198-227)."""
+    from dbaf_tpu_torch.eval.ate import ate_rmse, umeyama
+    from dbaf_tpu_torch.models.net import DroidNet
+    from dbaf_tpu_torch.ops import corr_cuda as cc
+    from dbaf_tpu_torch.ops import lie_np
+
+    gt_cw, gt_disps, intr8 = visual_scene()
+    oracle = visual_oracle(dev)
+    model = DroidNet(device=dev)
+    model.load_state_dict(seeded_params(20260820))
+    model.eval()
+    res = {}
+    for mode in ("stereo", "rgbd"):
+        cfg = visual_config("visual", async_on=False)
+        cfg.stereo = mode == "stereo"
+        run = VisualRun(dev, cfg, model, oracle, VISUAL_SCENE)
+        run.intr = intr8 * 8.0  # the scene's camera, so that the oracle's targets are its views
+        system = run.system
+        HT, WD = cfg.image_size
+        cc.reset_launch_counts()
+        for k in range(ORACLE_FRAMES):
+            if mode == "stereo":
+                run.track(k, image_right=run.right(k))
+            else:
+                depth = np.zeros((HT, WD), np.float32)
+                depth[3::8, 3::8] = 1.0 / gt_disps[k]
+                run.track(k, depth=depth)
+        L = dict(cc.LAUNCHES)
+        traj = system.terminate()
+        t1 = system.frontend.t1
+        ids = np.round(system.video.tstamp[:t1]).astype(int)
+        poses = system.video.poses[:t1].cpu().numpy().astype(np.float64)
+        disps = system.video.disps[:t1].cpu().numpy()
+        est = lie_np.se3_inv(poses)[:, :3]
+        ref = lie_np.se3_inv(gt_cw[ids].astype(np.float64))[:, :3]
+        ratio = float(np.median(disps[1:t1 - 1] / gt_disps[ids[1:t1 - 1]]))
+        r = dict(launches=L, t1=t1, ratio=ratio, ate_se3=ate_rmse(est, ref, align="se3"),
+                 ate_sim3=ate_rmse(est, ref, align="sim3"), scale=umeyama(est, ref)[0],
+                 span=float(np.linalg.norm(ref.max(0) - ref.min(0))),
+                 self_edges=int(np.sum(system.graph.ii == system.graph.jj)),
+                 has_depth=system.video.has_depth)
+        log(f"[oracle_{mode}] {t1} keyframes, launches {L}, self-edges {r['self_edges']}, "
+            f"median disparity ratio {ratio:.4f}, ATE se3 {r['ate_se3']:.4e} m, sim3 "
+            f"{r['ate_sim3']:.4e} m, scale {r['scale']:.4f}, span {r['span']:.3f} m")
+        finite = np.all(np.isfinite(poses)) and np.all(np.isfinite(traj))
+        if mode == "stereo" and not (r["self_edges"] > 0 and finite):
+            raise SystemExit(f"oracle stereo: no self-edges or poses not finite: {r}")
+        if mode == "rgbd" and not (r["has_depth"] and finite and 0.9 < ratio < 1.1):
+            raise SystemExit(f"oracle RGB-D: the depth prior did not hold the scale: {r}")
+        rounds = system.frontend.update_rounds
+        if L["corr_fused_xy"] < rounds or L["corr_lookup"] < ORACLE_FRAMES - 1:
+            raise SystemExit(f"oracle {mode}: launches {L}")
+        res[mode] = r
+    return res
+
+
+def _state_has_no_tensor(path: str) -> str:
+    """Unpickle a state file in a child process that sees no card; it fails
+    if the load imports torch (a tensor in the file) or finds a non-numpy
+    array among the video's buffers.  Returns its line."""
+    code = (
+        "import pickle, sys\n"
+        "import numpy as np\n"
+        f"s = pickle.load(open({path!r}, 'rb'))\n"
+        "assert 'torch' not in sys.modules, 'the file holds a torch object'\n"
+        "assert all(a is None or type(a) is np.ndarray for a in s['video'].values())\n"
+        "print('state file loads without torch or a card:', sorted(s))\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                         timeout=300)
+    if out.returncode != 0:
+        raise SystemExit(f"resume: the state file does not load without a card:\n{out.stderr}")
+    return out.stdout.strip()
+
+
+def phase_resume(dev) -> dict:
+    """Phase 10c: phase 3's main path saved before frame SAVE_AT and run on
+    to RESUME_TO; a fresh system loads the file and runs the same frames;
+    an uninterrupted run gives the card's own spread.  Bounds: the loaded
+    poses within 1e-6 of the saved ones, the resumed run's within RESUME_TOL
+    of the first run's (the JAX test's bounds), or within twice the spread
+    of two uninterrupted runs where that is larger."""
+    from dbaf_tpu_torch.ops import corr_cuda as cc
+    from dbaf_tpu_torch.slam.system import DBAFusion
+    from dbaf_tpu_torch.utils.config import tumvi_config
+
+    cfg = tumvi_config()
+    cfg.frontend.filter_thresh = -1.0
+    frame, intr = main_frames(cfg)
+    params = seeded_params(20260820)
+    path = os.path.join(ROOT, "dbaf_tpu_torch", "_build", "state_resume.pkl")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+
+    def run(system, k0, k1):
+        for k in range(k0, k1):
+            system.track(float(k), frame(k), intrinsics=intr)
+        return system.video.poses[:system.frontend.t1].cpu().numpy().copy()
+
+    cc.reset_launch_counts()
+    a = DBAFusion(cfg, params=params, device=dev)
+    run(a, 0, SAVE_AT)
+    t = time.perf_counter()
+    a.save_state(path)
+    save_s = time.perf_counter() - t
+    saved = a.video.poses[:a.frontend.t1].cpu().numpy().copy()
+    end_a = run(a, SAVE_AT, RESUME_TO)
+    b = DBAFusion(cfg, params=params, device=dev)
+    t = time.perf_counter()
+    b.load_state(path)
+    load_s = time.perf_counter() - t
+    loaded = b.video.poses[:b.frontend.t1].cpu().numpy().copy()
+    end_b = run(b, SAVE_AT, RESUME_TO)
+    L = dict(cc.LAUNCHES)
+    end_c = run(DBAFusion(cfg, params=params, device=dev), 0, RESUME_TO)
+    size = os.path.getsize(path)
+    child = _state_has_no_tensor(path)
+    os.remove(path)
+    load_err = float(np.abs(loaded - saved).max())
+    same = end_a.shape == end_b.shape == end_c.shape
+    resume_err = float(np.abs(end_b - end_a).max()) if same else float("inf")
+    spread = float(np.abs(end_c - end_a).max()) if same else float("inf")
+    tol = max(RESUME_TOL, 2.0 * spread)
+    log(f"[resume] state file {size / 2**20:.1f} MiB, save {save_s:.3f} s, load {load_s:.3f} s; "
+        f"poses after the load {load_err:.3e} from the saved ones (bound 1e-6); after frames "
+        f"{SAVE_AT}-{RESUME_TO - 1} {resume_err:.3e} from the uninterrupted run (bound {tol:g}); "
+        f"two uninterrupted runs {spread:.3e} apart; launches {L}; {child}")
+    if not (same and load_err <= 1e-6 and resume_err <= tol and np.all(np.isfinite(end_b))):
+        raise SystemExit("resume: the loaded or resumed poses are off")
+    return dict(launches=L, load_err=load_err, resume_err=resume_err, spread=spread, tol=tol,
+                file_mib=size / 2**20, save_s=save_s, load_s=load_s)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--root", default=ROOT,
@@ -1890,13 +2189,24 @@ def main() -> int:
     t = time.perf_counter()
     up_res = phase_upsample(dev, main_res["kf_per_s"])
     log(f"[time] phase 9c (upsample) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    stereo_res = phase_stereo(dev, main_res["kf_per_s"])
+    log(f"[time] phase 10a (stereo) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    oracle_res = phase_oracle_inputs(dev)
+    log(f"[time] phase 10b (oracle stereo, RGB-D) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    resume_res = phase_resume(dev)
+    log(f"[time] phase 10c (save and resume) took {time.perf_counter() - t:.1f} s")
     visual_launches = {name: sum(visual_res[m]["launches"][name]
                                  for m in ("visual", "cull", "gateonly"))
                        for name in int8_res["launches"]}
     paths = {"main": main_res["launches"], "coupled": coupled_res["launches"],
              "coupled_async": async_res["launches"], "visual_async": visual_launches,
              "int8": int8_res["launches"], "export": export_res["launches"],
-             "upsample": up_res["launches"]}
+             "upsample": up_res["launches"], "stereo": stereo_res["launches"],
+             "oracle_stereo": oracle_res["stereo"]["launches"],
+             "oracle_rgbd": oracle_res["rgbd"]["launches"], "resume": resume_res["launches"]}
 
     src = "dbaf_tpu_torch/csrc/"
     kernels = [
@@ -1930,6 +2240,16 @@ def main() -> int:
     log(f"[upsample] {up_res['kf_per_s']:.3f} kf/s ({up_res['kf_per_s_cold']:.3f} in the first "
         f"run; phase 3 {main_res['kf_per_s']:.3f}), run_upsample "
         f"{up_res['run_upsample_ms']:.3f} ms on {card}")
+    log(f"[stereo] {stereo_res['kf_per_s']:.3f} kf/s (without stereo on the same frames "
+        f"{stereo_res['mono_kf_per_s']:.3f}; phase 3 {main_res['kf_per_s']:.3f}), "
+        f"K1 launches {stereo_res['launches']['corr_fused_xy']}, K2 launches "
+        f"{stereo_res['launches']['corr_lookup']} on {card}")
+    for mode in ("stereo", "rgbd"):
+        r = oracle_res[mode]
+        log(f"[oracle_{mode}] ATE se3 {r['ate_se3']:.4e} m, sim3 {r['ate_sim3']:.4e} m, scale "
+            f"{r['scale']:.4f}, disparity ratio {r['ratio']:.4f} on {card}")
+    log(f"[resume] {resume_res['resume_err']:.3e} after the resumed frames (spread of two runs "
+        f"{resume_res['spread']:.3e}), file {resume_res['file_mib']:.1f} MiB on {card}")
     print(card, flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

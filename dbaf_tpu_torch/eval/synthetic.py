@@ -80,19 +80,35 @@ def scene_from_poses(poses_at, n_frames: int, intr: np.ndarray, h8: int, w8: int
     return np.stack(gt_cw).astype(np.float32), np.stack(gt_disps).astype(np.float32)
 
 
-def make_oracle(gt_poses_cw, gt_disps, intr, device=None):
+def make_oracle(gt_poses_cw, gt_disps, intr, noise_px: float = 0.0, device=None):
     """'Perfect network' update operator: true correspondences, weight 1.
 
     Frame identity travels in ``aux['id_map']`` (video slot -> ground-truth
-    frame id, a device int64 tensor) so culls and rollups stay correct."""
+    frame id, a device int64 tensor) so culls and rollups stay correct.
+
+    ``noise_px`` adds zero-mean per-pixel pseudo-noise (std about
+    ``noise_px``) to the targets, drawn by the JAX package's hash of the
+    current reprojection and the edge (dbaf_tpu/eval/synthetic.py:98-135),
+    so every round sees fresh draws; 0.0 keeps the exact oracle."""
     gtp = torch.as_tensor(np.asarray(gt_poses_cw, np.float32), device=device)
     gtd = torch.as_tensor(np.asarray(gt_disps, np.float32), device=device)
     intr8 = torch.as_tensor(np.asarray(intr, np.float32), device=device)
+    k1 = torch.tensor([12.9898, 78.233], device=device)
+    k2 = torch.tensor([39.3467, 11.135], device=device)
 
     def update_fn(net, inp, corr, motn, ii, jj, aux):
         id_map = aux["id_map"]
         target, valid = pj.projective_transform(gtp, gtd, intr8, id_map[ii], id_map[jj])
-        delta = target - aux["coords1"]
+        c1 = aux["coords1"]
+        if noise_px:
+            phase = (c1 * k1 + c1.flip(-1) * k2
+                     + ii[:, None, None, None].float() * 0.7311
+                     + jj[:, None, None, None].float() * 1.2371)
+            h = torch.sin(phase.sum(-1, keepdim=True) * 43758.5453)
+            h2 = torch.cat([h, torch.sin(h * 24634.6345 + 1.0)], dim=-1)
+            # the sine of a fast phase: about zero-mean, std 1/sqrt(2), bounded
+            target = target + (noise_px * 1.414) * torch.sin(h2 * 971.487)
+        delta = target - c1
         return net, delta.float(), valid.expand(delta.shape).float()
 
     return update_fn

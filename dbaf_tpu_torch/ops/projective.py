@@ -1,12 +1,12 @@
 """Projective camera operations: inverse projection, reprojection, flow.
 
-Port of ``dbaf_tpu/ops/projective.py`` (SE3 paths, the Sim3 branch of
-``projective_transform``, and the export's back-projection and depth
-vote).  Poses are world->camera 7-vectors (8-vectors for Sim3),
-disparities are inverse depths at 1/8 resolution
-and intrinsics are ``[fx, fy, cx, cy]`` already divided by 8.  Edge-indexed
-functions take integer index tensors ``ii, jj`` and gather from the
-keyframe axis.
+Port of ``dbaf_tpu/ops/projective.py``: the SE3 and Sim3 reprojections
+and their Jacobians, the motion-compensated reprojection and induced flow,
+the frame distances, and the export's back-projection and depth vote.
+Poses are world->camera 7-vectors (8-vectors for Sim3), disparities are
+inverse depths at 1/8 resolution and intrinsics are ``[fx, fy, cx, cy]``
+already divided by 8.  Edge-indexed functions take integer index tensors
+``ii, jj`` and gather from the keyframe axis.
 """
 
 from __future__ import annotations
@@ -96,6 +96,30 @@ def projective_transform(poses, disps, intrinsics, ii, jj, min_depth: float = MI
     return coords, valid[..., None].to(coords.dtype)
 
 
+def projective_transform_comp(poses, disps, intrinsics, ii, jj, xyz_comp: torch.Tensor,
+                              min_depth: float = MIN_DEPTH_PY) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`projective_transform` with an additive object-motion offset
+    ``xyz_comp`` (E, H, W, 4) on the transformed homogeneous points before
+    the projection (projective_ops.py:127-158)."""
+    intr_i, intr_j = _intrinsics_ij(intrinsics, ii, jj)
+    X0 = iproj(disps[ii], intr_i)
+    gij = _edge_rel_poses(poses, ii, jj)
+    act4 = sim3.act4 if poses.shape[-1] == 8 else lie.se3_act4
+    X1 = act4(gij[:, None, None, :], X0) + xyz_comp
+    coords = proj(X1, intr_j, min_depth=min_depth)
+    valid = (X1[..., 2] > min_depth) & (X0[..., 2] > min_depth)
+    return coords, valid[..., None].to(coords.dtype)
+
+
+def induced_flow(poses, disps, intrinsics, ii, jj) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Optical flow induced by the camera motion, (E, H, W, 2), and the
+    validity mask (projective_ops.py:160-171)."""
+    ht, wd = disps.shape[-2:]
+    coords0 = coords_grid(ht, wd, dtype=disps.dtype, device=disps.device)
+    coords1, valid = projective_transform(poses, disps, intrinsics, ii, jj)
+    return coords1[..., :2] - coords0, valid
+
+
 class EdgeJacobians(NamedTuple):
     coords: torch.Tensor  # (E, H, W, 2)
     valid: torch.Tensor   # (E, H, W) bool
@@ -139,6 +163,47 @@ def projection_jacobians(poses, disps, intrinsics, ii, jj,
         [fx * (tx * d - tz * (x * d2)), fy * (ty * d - tz * (y * d2))], dim=-1
     )
     Ji = -lie.se3_adjT(gije[..., None, :], Jj)
+    return EdgeJacobians(coords=coords, valid=valid, Ji=Ji, Jj=Jj, Jz=Jz)
+
+
+def projection_jacobians_sim3(poses, disps, intrinsics, ii, jj,
+                              min_depth: float = MIN_DEPTH_PY) -> EdgeJacobians:
+    """7-dof reprojection Jacobians for Sim3 poses (N, 8), the Sim3 branch of
+    the reference's training-time linearization (projective_ops.py:36-94):
+    Ji, Jj are (E, H, W, 2, 7), their scale column exactly 0 (a pure
+    scale of the relative Sim3 scales the point and leaves its projection);
+    Ji applies the negated Sim3 dual adjoint row-wise, through which the
+    frames' scales enter; Jz = Jp . Gij e4."""
+    intr_i, intr_j = _intrinsics_ij(intrinsics, ii, jj)
+    X0 = iproj(disps[ii], intr_i)
+    gij = _edge_rel_poses(poses, ii, jj)
+    gije = gij[:, None, None, :]
+    X1 = sim3.act4(gije, X0)
+
+    x, y, z, h = X1.unbind(-1)
+    valid = z > min_depth
+    d = torch.where(valid, 1.0 / torch.where(valid, z, torch.ones_like(z)), torch.zeros_like(z))
+    d2 = d * d
+
+    fx, fy, cx, cy = intr_j[:, None, None, :].unbind(-1)
+    coords = torch.stack([fx * d * x + cx, fy * d * y + cy], dim=-1)
+
+    o = torch.zeros_like(d)
+    Jj = torch.stack(
+        [
+            fx * (h * d), o, fx * (-x * h * d2),
+            fx * (-x * y * d2), fx * (1.0 + x * x * d2), fx * (-y * d), o,
+            o, fy * (h * d), fy * (-y * h * d2),
+            fy * (-1.0 - y * y * d2), fy * (x * y * d2), fy * (x * d), o,
+        ],
+        dim=-1,
+    ).reshape(x.shape + (2, 7))
+
+    tx, ty, tz = (gij[:, k][:, None, None] for k in range(3))
+    Jz = torch.stack(
+        [fx * (tx * d - tz * (x * d2)), fy * (ty * d - tz * (y * d2))], dim=-1
+    )
+    Ji = -sim3.adjT(gije[..., None, :], Jj)
     return EdgeJacobians(coords=coords, valid=valid, Ji=Ji, Jj=Jj, Jz=Jz)
 
 

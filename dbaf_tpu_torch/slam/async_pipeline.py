@@ -29,8 +29,9 @@ with its archival and re-enters.  The drain batch is clamped so that the
 count the host sees lags the device's by no more than the buffer's
 headroom above ``rollup_start``.
 
-Scope: visual-only configurations after initialization (no IMU; the port
-refuses stereo and depth input).  Not ported: the monitor feed.
+Scope: visual-only configurations after initialization (no IMU; stereo
+and RGB-D input stay on the synchronous flow, as in the JAX package).  Not
+ported: the monitor feed.
 """
 
 from __future__ import annotations
@@ -221,10 +222,12 @@ class AsyncPipeline:
         fe = self.sys.frontend
         # upsample stays on the synchronous flow, which runs the GraphAgg
         # head after every keyframe step (the JAX pipeline enters with the
-        # flag set and then stops updating damping and disps_up)
+        # flag set and then stops updating damping and disps_up); so do
+        # stereo and RGB-D input, as in the JAX package
         return (self.cfg.frontend.async_pipeline and fe.is_initialized
                 and fe.all_imu is None and self.sys.graph.coupled is None
-                and not self.cfg.upsample
+                and not self.cfg.upsample and not self.cfg.stereo
+                and not self.sys.video.has_depth
                 and fe.t1 >= max(self.cfg.graph.frontend_window, 5))
 
     def activate(self):

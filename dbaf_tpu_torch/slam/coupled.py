@@ -18,6 +18,7 @@ dropped by the GNSS initialization can never come back.
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -593,6 +594,34 @@ class MultiSensorBA:
         self._marg_dev = None
         self._marg_dev_origin = -1
         self._mgd_cache = None
+
+    # ------------------------------------------------------------------
+    def snapshot(self) -> "MultiSensorBA":
+        """A picklable copy for a state file (what the JAX package's
+        ``__getstate__`` keeps, dbaf_tpu/slam/coupled.py:679-704): host
+        state only, the device caches dropped, ``cur_target``/``cur_weight``
+        as numpy arrays, the video unlinked (:meth:`attach` relinks it).
+        The device window state and marginal are first pulled to the host."""
+        self.sync_host()
+        self._marg_host()
+        snap = copy.copy(self)
+        snap.__dict__.update(video=None, device=None, _marg_dev=None, _fg_state=None,
+                             _fg_pg=None, _fg_key=None, _A_dev=None, _Tbc12=None,
+                             _fg_synced=True, _lm_stats=None, _fg_rows_np=None,
+                             _mgd_cache=None)
+        for k in ("cur_target", "cur_weight"):
+            if getattr(snap, k) is not None:
+                setattr(snap, k, to_host(getattr(snap, k)))
+        return snap
+
+    def attach(self, video: DepthVideo) -> None:
+        """Relink an unpickled solve to ``video``, its arrays on its device."""
+        self.video = video
+        self.device = video.device
+        for k in ("cur_target", "cur_weight"):
+            a = getattr(self, k)
+            if a is not None:
+                setattr(self, k, torch.as_tensor(a, device=video.device))
 
     # ------------------------------------------------------------------
     def rollup(self, roll: int):

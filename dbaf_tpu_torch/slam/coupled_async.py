@@ -502,7 +502,8 @@ class CoupledAsync:
         return (
             cfg.sensors.coupled_async and cfg.sensors.device_solver and cfg.sensors.coupled_mega
             and fe.video.imu_enabled
-            and not cfg.upsample  # upsample stays on the synchronous flow
+            # upsample, stereo and RGB-D input stay on the synchronous flow
+            and not cfg.upsample and not cfg.stereo and not fe.video.has_depth
             and coupled is not None
             and not coupled.reinit
             and coupled._fg_state is not None

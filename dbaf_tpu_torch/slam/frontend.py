@@ -268,6 +268,8 @@ class Frontend:
             self.t1 - 5, max(self.t1 - self.cfg.graph.frontend_window, 0),
             rad=self.cfg.graph.frontend_radius, nms=self.cfg.graph.frontend_nms,
             thresh=self.cfg.graph.frontend_thresh, beta=self.beta, remove=True)
+        if v.has_depth:  # RGB-D: seed from the sensor (dbaf_frontend.py:247-248)
+            v.seed_depth(self.t1 - 1)
 
         self._rollup()
         if not multisensor:

@@ -37,13 +37,17 @@ class UpdateResult(NamedTuple):
     traj_row: Optional[torch.Tensor]  # camera-to-world 7-vec (mega step)
 
 
-def corr_operands(cfg: DBAFusionConfig, fmaps_buf: torch.Tensor, ii: torch.Tensor,
-                  jj: torch.Tensor):
+def corr_operands(cfg: DBAFusionConfig, fmaps_buf: torch.Tensor,
+                  fmaps_right_buf: Optional[torch.Tensor], ii: torch.Tensor, jj: torch.Tensor):
     """Round-invariant correlation operands of an edge set: the prepared
     bf16 features and the int8 tile (None: bf16) for K1 or K1-int8, or the
-    bf16 volume for ``lookup_fused`` on the CPU without int8."""
+    bf16 volume for ``lookup_fused`` on the CPU without int8.  With a stereo
+    rig's right buffer, a self-edge (``ii == jj``) correlates the left
+    features with the right camera's (dbaf_tpu/slam/graph.py:100-118)."""
     f1 = fmaps_buf[ii]
     f2 = fmaps_buf[jj]
+    if fmaps_right_buf is not None:
+        f2 = torch.where((ii == jj)[:, None, None, None], fmaps_right_buf[jj], f2)
     tile = None
     if cfg.graph.corr_int8:
         tile = corr_cuda.int8_tile(f1.shape[1], f1.shape[2], cfg.graph.corr_group)
@@ -172,8 +176,10 @@ class UpdateStep:
         return t_all, w_ba
 
     def window_ba(self, video: DepthVideo, t_all, w_ba, sets: EdgeSets, t0, t1, s0, iters: int):
-        """Window-local dense BA over [s0, s0 + window), in place.  ``t0``,
-        ``t1`` and ``s0`` are ints or 0-d device tensors."""
+        """Window-local dense BA over [s0, s0 + window), in place, with the
+        depth sensor's prior (weight ``cfg.ba.alpha``) once ``video`` holds a
+        depth frame.  ``t0``, ``t1`` and ``s0`` are ints or 0-d device
+        tensors."""
         cfg = self.cfg
         P = cfg.ba.window
         B = video.poses.shape[0]
@@ -182,13 +188,15 @@ class UpdateStep:
         rows = torch.arange(P, device=video.poses.device) + clip(s0, 0, B - P)
         poses_w, disps_w, damping_w = (b.index_select(0, rows) for b in (
             video.poses, video.disps, video.damping))
+        use_sens = video.has_depth
+        sens_w = video.disps_sens.index_select(0, rows) if use_sens else None
         eta = 0.2 * damping_w.reshape(P, -1) + cfg.ba.eps_damping
         m_ba = sets.mask & (sets.ii >= s0) & (sets.jj >= s0)
         ii_w = torch.clamp(sets.ii - s0, 0, P - 1)
         jj_w = torch.clamp(sets.jj - s0, 0, P - 1)
         state = dba.ba(poses_w, disps_w, video.intrinsics, t_all, w_ba, eta, ii_w, jj_w, m_ba,
-                       t0 - s0, t1 - s0, iterations=iters, lm=cfg.ba.lm, ep=cfg.ba.ep,
-                       alpha=cfg.ba.alpha)
+                       t0 - s0, t1 - s0, disps_sens=sens_w, iterations=iters, lm=cfg.ba.lm,
+                       ep=cfg.ba.ep, alpha=cfg.ba.alpha, use_sens=use_sens)
         video.poses.index_copy_(0, rows, state.poses)
         video.disps.index_copy_(0, rows, state.disps)
 
@@ -210,7 +218,7 @@ class UpdateStep:
                                              sets, t0, t1, s0, rounds, rounds_b, iters, aux)
             return UpdateResult(host_pack=pack, traj_row=traj_row)
         inp_e = video.inps[ii_t]
-        prep = corr_operands(self.cfg, video.fmaps, ii_t, jj_t)
+        prep = corr_operands(self.cfg, video.fmaps, video.fmaps_right, ii_t, jj_t)
         for _ in range(rounds):
             t_all, w_ba = self.update_round(video, edges, ii_t, jj_t, e_mask_t, t_inac, w_inac,
                                             sets, prep, inp_e, aux, use_inactive)
@@ -241,7 +249,7 @@ class UpdateStep:
         polls = polls or blocking_mega_polls()
         B = video.poses.shape[0]
         inp_e = video.inps[ii]
-        prep = corr_operands(self.cfg, video.fmaps, ii, jj)
+        prep = corr_operands(self.cfg, video.fmaps, video.fmaps_right, ii, jj)
         bufs = (video.poses, video.disps, edges.net, edges.target, edges.weight)
 
         def rounds(n: int, gate: Optional[torch.Tensor], poll: FlagPoll) -> int:
@@ -618,7 +626,8 @@ class CovisibleGraph:
                               self._pad_np(self.jj_inac, self.i_cap), i_mask, t0, use_inactive,
                               dev)
         ii_t, jj_t = torch.as_tensor(ii, device=dev), torch.as_tensor(jj, device=dev)
-        prep = corr_operands(self.cfg, self.video.fmaps, ii_t, jj_t)
+        prep = corr_operands(self.cfg, self.video.fmaps, self.video.fmaps_right, ii_t,
+                             jj_t)
         inp_e = self.video.inps[ii_t]
         for r in range(rounds):
             t_all, w_ba = step.update_round(self.video, self.edges, ii_t, jj_t,
@@ -757,7 +766,8 @@ class CovisibleGraph:
         """Dense all-pairs edges within radius r (covisible_graph.py:344-354)."""
         ii, jj = np.meshgrid(np.arange(t0, t1), np.arange(t0, t1), indexing="ij")
         ii, jj = ii.reshape(-1), jj.reshape(-1)
-        keep = (np.abs(ii - jj) > 0) & (np.abs(ii - jj) <= r)
+        c = 1 if self.cfg.stereo else 0
+        keep = (np.abs(ii - jj) > c) & (np.abs(ii - jj) <= r)
         self.add_factors(ii[keep], jj[keep])
 
     def _candidate_distances(self, t0, t1, t, ii, jj, beta) -> np.ndarray:
@@ -777,7 +787,9 @@ class CovisibleGraph:
                               beta: float = 0.25, thresh: float = 16.0, remove: bool = False):
         """Distance-ranked edge selection with NMS, forced radius edges and
         the opportunistic skip edge (covisible_graph.py:357-441), run by the
-        native scheduler ``native/graphops.cpp``."""
+        native scheduler ``native/graphops.cpp`` (by
+        :func:`select_proximity_edges_py` where it cannot be built).  With
+        ``cfg.stereo`` each frame in [t0, t) also takes its self-edge."""
         t = self.video.counter
         ix = np.arange(t0, t)
         jx = np.arange(t1, t)
@@ -793,23 +805,92 @@ class CovisibleGraph:
             ii = np.concatenate([ii, np.full_like(jj_add, ii.max())])
             jj = np.concatenate([jj, jj_add])
         d = self._candidate_distances(t0, t1, t, ii, jj, beta)
-        ii_new, jj_new = select_proximity_edges(
-            d, ii, jj, cc,
-            np.concatenate([self.ii, self.ii_inac]),
-            np.concatenate([self.jj, self.jj_inac]),
-            t0, t1, t, rad, nms, thresh, self.cfg.graph.max_factors)
+        exist_ii = np.concatenate([self.ii, self.ii_inac])
+        exist_jj = np.concatenate([self.jj, self.jj_inac])
+        res = select_proximity_edges(d, ii, jj, cc, exist_ii, exist_jj, t0, t1, t, rad, nms,
+                                     thresh, self.cfg.graph.max_factors)
+        if res is None:  # no native scheduler: the Python route
+            ii_new, jj_new = select_proximity_edges_py(
+                d, ii, jj, cc, exist_ii, exist_jj, t0, t1, t, rad, nms, thresh,
+                self.cfg.graph.max_factors, self.cfg.stereo)
+        else:
+            ii_new, jj_new = res
+            if self.cfg.stereo:
+                # stereo self-edges ahead of the selection, so that they win
+                # the edge capacity (covisible_graph.py:397-399)
+                selfs = np.arange(t0, t, dtype=np.int64)
+                ii_new = np.concatenate([selfs, ii_new])
+                jj_new = np.concatenate([selfs, jj_new])
         if len(ii_new):
             self.add_factors(ii_new, jj_new, remove)
 
 
+def select_proximity_edges_py(d, ii, jj, cc, exist_ii, exist_jj, t0, t1, t, rad, nms, thresh,
+                              max_factors, stereo: bool):
+    """The selection of ``native/graphops.cpp`` in Python, as the JAX
+    package runs it without the library (dbaf_tpu/slam/graph.py:1214-1271):
+    with ``stereo`` every frame's self-edge comes first in its row and its
+    candidate is masked.  Returns (ii_out, jj_out) in its order."""
+    d = np.array(d, dtype=np.float64)
+    d[ii - rad < jj] = np.inf
+    d[d > 100] = np.inf
+
+    def suppress(i, j):
+        r_n = max(min(abs(int(i) - int(j)) - 2, nms), 0)
+        for di in range(-nms, nms + 1):
+            for dj in range(-nms, nms + 1):
+                if abs(di) + abs(dj) <= r_n:
+                    i1, j1 = int(i) + di, int(j) + dj
+                    if t0 <= i1 < t and t1 <= j1 < t:
+                        d[(i1 - t0) * (t - t1) + (j1 - t1)] = np.inf
+
+    for i, j in zip(exist_ii, exist_jj):
+        suppress(i, j)
+    es = []
+    for i in range(t0, t):
+        if stereo:
+            es.append((i, i))
+            k_self = (i - t0) * (t - t1) + (i - t1)
+            if 0 <= k_self < cc:
+                d[k_self] = np.inf
+        for j in range(max(i - rad - 1, 0), i):
+            es.append((i, j))
+            es.append((j, i))
+            if (i - t0) * (t - t1) + (j - t1) >= 0:
+                d[(i - t0) * (t - t1) + (j - t1)] = np.inf
+    for k in np.argsort(d):
+        if k >= cc or d[k] > thresh:
+            continue
+        if len(es) > max_factors:
+            break
+        i, j = int(ii[k]), int(jj[k])
+        es.append((i, j))
+        es.append((j, i))
+        suppress(i, j)
+    if ii.shape[0] > cc:  # the opportunistic best skip edge (covisible_graph.py:434-438)
+        sub = d[cc:ii.shape[0]]
+        k = int(np.argmin(sub))
+        if thresh > sub[k] > 0:
+            es.append((int(ii[cc + k]), int(jj[cc + k])))
+            es.append((int(jj[cc + k]), int(ii[cc + k])))
+    if not es:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    out = np.asarray(es, dtype=np.int64)
+    return out[:, 0], out[:, 1]
+
+
 def select_proximity_edges(d, ii, jj, cc, exist_ii, exist_jj, t0, t1, t, rad, nms, thresh,
                            max_factors):
-    """Run the native edge scheduler; returns (ii_out, jj_out) in its order."""
+    """Run the native edge scheduler; returns (ii_out, jj_out) in its order,
+    or None where the library cannot be built (dbaf_tpu/utils/native.py:75-85)."""
     import ctypes
 
     from ..utils.cuda_build import load_graphops
 
-    lib = load_graphops()
+    try:
+        lib = load_graphops()
+    except RuntimeError:
+        return None
     lp = ctypes.POINTER(ctypes.c_long)
     d = np.ascontiguousarray(d, dtype=np.float64)
     ii = np.ascontiguousarray(ii, dtype=np.int64)

@@ -61,18 +61,33 @@ class MotionFilter:
         self._kf_net = None
         self._kf_inp = None
 
-    def track(self, tstamp: float, image: np.ndarray, intrinsics: Optional[np.ndarray] = None) -> bool:
-        """Process one (H, W, 3) BGR frame; returns True if admitted."""
+    def track(self, tstamp: float, image: np.ndarray, depth: Optional[np.ndarray] = None,
+              intrinsics: Optional[np.ndarray] = None,
+              image_right: Optional[np.ndarray] = None) -> bool:
+        """Process one (H, W, 3) BGR frame; returns True if admitted.  The
+        gate sees the left image only; an admitted frame's ``depth`` (H, W)
+        goes to ``disps_sens`` and, with ``cfg.stereo``, the features of
+        ``image_right`` to ``fmaps_right`` (motion_filter.py:111-191 of the
+        JAX package), both uploaded without a read."""
         v = self.video
         img = upload(np.asarray(image, dtype=np.uint8), v.device)[None]
         intr8 = upload(np.asarray(intrinsics, np.float32), v.device) / 8.0
         small = np.asarray(image[::8, ::8]).astype(np.uint8)
+
+        def sensors():
+            d = None if depth is None else upload(np.asarray(depth, np.float32), v.device)
+            fr = None
+            if image_right is not None and v.fmaps_right is not None:
+                fr = self.feat(upload(np.asarray(image_right, dtype=np.uint8), v.device)[None])[0]
+            return d, fr
+
         if v.counter == 0:
             fmap = self.feat(img)[0]
             net, inp = self.ctx(img)
             self._store(fmap, net[0], inp[0])
+            d, fr = sensors()
             v.append(tstamp, small, lie.se3_identity(device=v.device), 1.0, intr8,
-                     fmap, net[0], inp[0])
+                     fmap, net[0], inp[0], depth=d, fmap_right=fr)
             return True
         fmap, delta = gate(self.feat, self.update_fn, img, self._kf_fmap, self._kf_net,
                            self._kf_inp)
@@ -82,6 +97,7 @@ class MotionFilter:
             idx = v.counter
             net, inp = self.ctx(img)
             v.set_features(idx, fmap, net[0], inp[0])
+            v.set_sensors(idx, *sensors())
             self._store(fmap, net[0], inp[0])
             v.tstamp[idx] = tstamp
             v.images_small[idx] = small

@@ -2,7 +2,7 @@
 keyframe store, motion filter, covisibility graph and frontend, the
 tightly-coupled multi-sensor solve (:meth:`DBAFusion.set_multisensor`) and,
 with ``cfg.frontend.async_pipeline``, the asynchronous visual pipeline
-(``slam/async_pipeline.py``).
+(``slam/async_pipeline.py``); saves and restores the streaming state.
 """
 
 from __future__ import annotations
@@ -50,6 +50,10 @@ class DBAFusion:
     ``CovisibleGraph.run_upsample``: the frames with edges take GraphAgg's
     damping and a full-resolution ``video.disps_up``; the asynchronous
     pipelines do not activate then.
+    With ``cfg.stereo`` :meth:`track` takes each frame's right image, and
+    it takes a depth map for RGB-D input; both run the synchronous flow.
+    :meth:`save_state` and :meth:`load_state` snapshot and restore the
+    streaming state.
     ``cfg.frontend.monitor_dir`` (the per-keyframe panel dump) is not ported
     and raises ``NotImplementedError``.
     """
@@ -127,16 +131,21 @@ class DBAFusion:
 
     def track(self, tstamp: float, image: np.ndarray, depth: Optional[np.ndarray] = None,
               intrinsics: Optional[np.ndarray] = None, image_right: Optional[np.ndarray] = None):
-        """Feed one (H, W, 3) BGR frame (dbaf.py:50-58)."""
-        if depth is not None or image_right is not None:
-            raise NotImplementedError("dbaf_tpu_torch: RGB-D and stereo input are not ported yet")
+        """Feed one (H, W, 3) BGR frame (dbaf.py:50-58), with an (H, W)
+        depth map for RGB-D input and the right camera's frame with
+        ``cfg.stereo``.  A depth map runs the synchronous flow: an active
+        asynchronous visual pipeline is drained first (the JAX package hands
+        the pipeline the image alone and drops the depth map), and once a
+        depth frame is in, the pipeline no longer activates."""
         a = self._async
-        if a is not None and (a.active or a.can_activate()):
+        if a is not None and depth is not None and a.active:
+            a.sync()
+        if a is not None and depth is None and (a.active or a.can_activate()):
             if not a.active:
                 a.activate()
             a.track(tstamp, image)
             return
-        self.filter.track(tstamp, image, intrinsics)
+        self.filter.track(tstamp, image, depth, intrinsics, image_right)
         self.frontend()
 
     @property
@@ -148,6 +157,100 @@ class DBAFusion:
         """f64 ECEF positions keyed by trajectory row index (rows written
         after GNSS initialization; dbaf_frontend.py:270-272)."""
         return self.frontend.trajectory_ecef
+
+    # ------------------------------------------------------------------
+    _VIDEO_ARRAYS = ("poses", "disps", "disps_sens", "damping", "fmaps", "nets", "inps",
+                     "fmaps_right", "disps_up", "intrinsics")
+    _GRAPH_HOST = ("ii", "jj", "age", "ii_inac", "jj_inac")
+
+    def _graph_dev(self) -> dict:
+        """The edge stores a state file keeps, by its names."""
+        g = self.graph
+        return dict(net=g.edges.net, target=g.edges.target, weight=g.edges.weight,
+                    t_inac=g.t_inac, w_inac=g.w_inac)
+
+    def save_state(self, path: str):
+        """Pickle the streaming state for a resume (dbaf_tpu/slam/system.py:
+        167-218, in its dict layout): the asynchronous pipelines are drained
+        first, and every video, edge and trajectory array is a numpy array
+        (bf16 buffers as their 16-bit patterns, ``int16``), so the file
+        loads without a card.  ``video_host`` also keeps ``has_depth``,
+        which the JAX file leaves out; the port's graph has no quarantined
+        edges, so ``ii_bad``/``jj_bad`` are not in it."""
+        import pickle
+
+        if self._async is not None and self._async.active:
+            self._async.sync()
+        v, g, fe = self.video, self.graph, self.frontend
+        fe.drain_async()
+        g._flush()
+        traj = fe.trajectory
+        dev_idx = [k for k, (_, p) in enumerate(traj) if isinstance(p, torch.Tensor)]
+        rows = to_host(torch.stack([traj[k][1] for k in dev_idx])) if dev_idx else None
+        traj_np = list(traj)
+        for n, k in enumerate(dev_idx):
+            traj_np[k] = (traj[k][0], rows[n])
+        state = {
+            "video": {name: (None if getattr(v, name) is None else _state_array(getattr(v, name)))
+                      for name in self._VIDEO_ARRAYS},
+            "video_host": {
+                "tstamp": v.tstamp.copy(),
+                "images_small": v.images_small.copy(),
+                "counter": v.counter,
+                "saved": (v.saved_tstamps, v.saved_poses, v.saved_disps, v.saved_images),
+                "imu_enabled": v.imu_enabled,
+                "has_depth": v.has_depth,
+            },
+            "graph": {name: getattr(g, name).copy() for name in self._GRAPH_HOST},
+            "graph_dev": {name: _state_array(t) for name, t in self._graph_dev().items()},
+            "frontend": {
+                "t0": fe.t0, "t1": fe.t1, "count": fe.count,
+                "is_initialized": fe.is_initialized, "trajectory": traj_np,
+                "cur_imu_ii": fe.cur_imu_ii, "cur_stamp_ii": fe.cur_stamp_ii,
+            },
+            "coupled": None if g.coupled is None else g.coupled.snapshot(),
+        }
+        with open(path, "wb") as f:
+            pickle.dump(state, f)
+
+    def load_state(self, path: str):
+        """Restore a :meth:`save_state` file into this system's buffers, on
+        its own device (dbaf_tpu/slam/system.py:220-254), and the motion
+        gate's keyframe features from the newest row, so that ``track``
+        goes on."""
+        import pickle
+
+        with open(path, "rb") as f:
+            state = pickle.load(f)
+        v, g, fe = self.video, self.graph, self.frontend
+        for name, arr in state["video"].items():
+            if arr is not None:
+                _load_array(getattr(v, name), arr)
+        vh = state["video_host"]
+        v.tstamp = vh["tstamp"]
+        v.images_small = vh["images_small"]
+        v.counter = vh["counter"]
+        v.saved_tstamps, v.saved_poses, v.saved_disps, v.saved_images = vh["saved"]
+        v.imu_enabled = vh["imu_enabled"]
+        v.has_depth = vh["has_depth"]
+        for name, arr in state["graph"].items():
+            setattr(g, name, arr)
+        stores = self._graph_dev()
+        for name, arr in state["graph_dev"].items():
+            _load_array(stores[name], arr)
+        g._perm = np.arange(g.e_cap, dtype=np.int64)
+        g._is_new[:] = False
+        g._dirty = False
+        for k, val in state["frontend"].items():
+            setattr(fe, k, val)
+        if self.filter is not None and v.counter > 0:
+            # the motion gate's last keyframe: the newest row (a cull never
+            # removes it), which the JAX file leaves out
+            last = v.counter - 1
+            self.filter._store(v.fmaps[last], v.nets[last], v.inps[last])
+        if state["coupled"] is not None:
+            state["coupled"].attach(v)
+            g.coupled = state["coupled"]
 
     def terminate(self) -> np.ndarray:
         """Keyframe trajectory as (N, 8) ``[t, x, y, z, qx, qy, qz, qw]``
@@ -179,3 +282,17 @@ class DBAFusion:
                 if k not in ecef:
                     ecef[k] = coupled.ten0 + Cen @ rows[k, 1:4]
         return rows
+
+
+def _state_array(t: torch.Tensor) -> np.ndarray:
+    """A device tensor as a numpy array for a state file (one read); bf16
+    as its bit patterns, which numpy has no type for."""
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return to_host(t)
+
+
+def _load_array(dst: torch.Tensor, arr: np.ndarray) -> None:
+    """In place: ``dst`` (on its device) takes a :func:`_state_array`."""
+    src = torch.from_numpy(np.ascontiguousarray(arr))
+    dst.copy_(src.view(torch.bfloat16) if dst.dtype == torch.bfloat16 else src)

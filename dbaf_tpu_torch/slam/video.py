@@ -12,8 +12,10 @@ buffer are archived on the host (``saved_*``, the dense export's input):
 at a rollup, and at the coupled path's window advance (``archive_mark``
 keeps the two from archiving a row twice).  With ``cfg.upsample`` the
 full-resolution ``disps_up`` rows (filled by the GraphAgg head,
-``CovisibleGraph.run_upsample``) move with every other row.  Depth-sensor
-rows and the stereo feature buffer come with later slices.
+``CovisibleGraph.run_upsample``) move with every other row, and so do
+the depth sensor's disparities (``disps_sens``, written by ``append`` from an
+RGB-D frame) and, with ``cfg.stereo``, the right camera's features
+(``fmaps_right``).
 """
 
 from __future__ import annotations
@@ -55,12 +57,9 @@ class DepthVideo:
     """Fixed-capacity keyframe ring with device-resident hot state.
     ``device`` defaults to the card and raises without one."""
 
-    _SHIFT_BUFFERS = ("poses", "disps", "damping", "fmaps", "nets", "inps")
+    _SHIFT_BUFFERS = ("poses", "disps", "disps_sens", "damping", "fmaps", "nets", "inps")
 
     def __init__(self, cfg: DBAFusionConfig, device: Optional[Union[str, torch.device]] = None):
-        if cfg.stereo:
-            raise NotImplementedError(
-                "dbaf_tpu_torch: stereo is not ported yet (the port runs the monocular path)")
         self.cfg = cfg
         self.device = device = resolve_device(device)
         ht, wd = cfg.image_size
@@ -73,17 +72,25 @@ class DepthVideo:
         self.poses = torch.zeros((B, 7), dtype=torch.float32, **kw)
         self.poses[:, 6] = 1.0
         self.disps = torch.ones((B, h8, w8), dtype=torch.float32, **kw)
+        self.disps_sens = torch.zeros((B, h8, w8), dtype=torch.float32, **kw)
         self.damping = torch.full((B, h8, w8), 1e-6, dtype=torch.float32, **kw)
         self.fmaps = torch.zeros((B, h8, w8, 128), dtype=torch.bfloat16, **kw)
         self.nets = torch.zeros((B, h8, w8, 128), dtype=torch.bfloat16, **kw)
         self.inps = torch.zeros((B, h8, w8, 128), dtype=torch.bfloat16, **kw)
+        # the right camera's features of a stereo rig (the c=2 axis of the
+        # reference's fmaps buffer, depth_video.py:64)
+        self.fmaps_right = None
+        if cfg.stereo:
+            self.fmaps_right = torch.zeros((B, h8, w8, 128), dtype=torch.bfloat16, **kw)
+            self._SHIFT_BUFFERS = self._SHIFT_BUFFERS + ("fmaps_right",)
         self.disps_up = None
         if cfg.upsample:  # convex-upsampled disparities, 8x the features (depth_video.py:57)
             self.disps_up = torch.zeros((B, 8 * h8, 8 * w8), dtype=torch.float32, **kw)
-            self._SHIFT_BUFFERS = DepthVideo._SHIFT_BUFFERS + ("disps_up",)
+            self._SHIFT_BUFFERS = self._SHIFT_BUFFERS + ("disps_up",)
         self.intrinsics = torch.zeros((4,), dtype=torch.float32, **kw)  # at 1/8 scale
         self.images_small = np.zeros((B, h8, w8, 3), dtype=np.uint8)
         self.imu_enabled = False
+        self.has_depth = False  # a depth frame was appended (RGB-D input)
         # host archive of the keyframes that left the buffer (save_pkl);
         # live rows [0, archive_mark) are in it already
         self.saved_tstamps: List[float] = []
@@ -95,8 +102,11 @@ class DepthVideo:
     # ------------------------------------------------------------------
     def append(self, tstamp: float, image_small: Optional[np.ndarray], pose: Optional[torch.Tensor],
                disp: Optional[float], intrinsics: torch.Tensor, fmap: torch.Tensor,
-               net: torch.Tensor, inp: torch.Tensor) -> int:
-        """Add a keyframe at the next slot; returns its index."""
+               net: torch.Tensor, inp: torch.Tensor, depth: Optional[torch.Tensor] = None,
+               fmap_right: Optional[torch.Tensor] = None) -> int:
+        """Add a keyframe at the next slot; returns its index.  ``depth``
+        (H, W) is a full-resolution depth map on the device, ``fmap_right``
+        the right camera's features."""
         idx = self.counter
         self.tstamp[idx] = tstamp
         if image_small is not None:
@@ -107,8 +117,21 @@ class DepthVideo:
             self.disps[idx] = disp
         self.intrinsics = intrinsics
         self.set_features(idx, fmap, net, inp)
+        self.set_sensors(idx, depth, fmap_right)
         self.counter += 1
         return idx
+
+    def set_sensors(self, idx: int, depth: Optional[torch.Tensor],
+                    fmap_right: Optional[torch.Tensor]) -> None:
+        """Row ``idx`` of the depth sensor's disparities, 1/d where d > 0 at
+        pixels [3::8, 3::8] of ``depth`` (depth_video.py:146-147), and of the
+        right camera's features (kept only with ``cfg.stereo``)."""
+        if depth is not None:
+            d8 = depth[3::8, 3::8].float()
+            self.disps_sens[idx] = torch.where(d8 > 0, 1.0 / d8, d8)
+            self.has_depth = True
+        if fmap_right is not None and self.fmaps_right is not None:
+            self.fmaps_right[idx] = fmap_right
 
     def set_features(self, idx: int, fmap, net, inp):
         self.fmaps[idx] = fmap
@@ -251,6 +274,12 @@ class DepthVideo:
         s = self.disps[:n].mean()
         self.disps[:n] /= s
         self.poses[:n, :3] *= s
+
+    def seed_depth(self, idx: int):
+        """disps[idx] = disps_sens[idx] where the sensor has a value
+        (dbaf_frontend.py:247-248)."""
+        self.disps[idx] = torch.where(self.disps_sens[idx] > 0, self.disps_sens[idx],
+                                      self.disps[idx])
 
     def seed_next(self, idx: int):
         """poses[idx] = poses[idx-1]; disps[idx] = mean(disps[idx-1])

@@ -308,3 +308,95 @@ def test_dbafusion_refuses_an_int8_tile_k1_int8_does_not_take_at_construction(gr
     with pytest.raises(ValueError, match=f"tile {tile}"):
         DBAFusion(cfg, device="cuda", **fns)
     assert DBAFusion(cfg, device="cpu", **fns).device.type == "cpu"
+
+
+def test_lookup_level_gather_matches_oracle_and_jax():
+    """tests/test_corr.py:43 through the port: the gather lookup and the
+    separable one against the literal numpy restatement of the reference
+    kernel (atol 1e-4, the JAX test's bound), and the gather one against the
+    JAX function (1e-5, f32 on both sides)."""
+    from tests.test_corr import cuda_lookup_oracle
+
+    rng = np.random.default_rng(21)
+    E, P, H2, W2, r = 2, 6, 8, 10, 3
+    vol = rng.normal(size=(E, P, H2, W2)).astype(np.float32)
+    co = np.stack([rng.uniform(-2, W2 + 1, size=(E, P)), rng.uniform(-2, H2 + 1, size=(E, P))],
+                  -1).astype(np.float32)
+    ref = cuda_lookup_oracle(vol, co, r)
+    got = tc.lookup_level_gather(torch.tensor(vol), torch.tensor(co), r).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-4)
+    np.testing.assert_allclose(tc.lookup_level(torch.tensor(vol), torch.tensor(co), r).numpy(), ref,
+                               atol=1e-4)
+    np.testing.assert_allclose(
+        got, np.asarray(jc.lookup_level_gather(jnp.asarray(vol), jnp.asarray(co), r)), atol=1e-5)
+
+
+def test_build_volume_nchw_and_corr_pyramid():
+    """build_volume (channels first) against the JAX function and the
+    scaled dot of tests/test_corr.py:66 (1e-4); CorrPyramid against JAX's
+    (the pyramid's lookup, 1e-4)."""
+    rng = np.random.default_rng(23)
+    E, C, H, W = 2, 16, 8, 8
+    f1 = rng.normal(size=(E, C, H, W)).astype(np.float32)
+    f2 = rng.normal(size=(E, C, H, W)).astype(np.float32)
+    vol = tc.build_volume(torch.tensor(f1), torch.tensor(f2)).numpy()
+    ref = np.einsum("ecp,ecq->epq", f1.reshape(E, C, -1), f2.reshape(E, C, -1)) / 16.0
+    assert vol.shape == (E, H * W, H, W)
+    np.testing.assert_allclose(vol.reshape(E, H * W, H * W), ref, atol=1e-4)
+    np.testing.assert_allclose(vol, np.asarray(jc.build_volume(jnp.asarray(f1), jnp.asarray(f2))),
+                               atol=1e-5)
+    co = np.stack([rng.uniform(-1, W, size=(E, H, W)), rng.uniform(-1, H, size=(E, H, W))],
+                  -1).astype(np.float32)
+    got = tc.CorrPyramid(torch.tensor(f1), torch.tensor(f2))(torch.tensor(co)).numpy()
+    want = np.asarray(jc.CorrPyramid(jnp.asarray(f1), jnp.asarray(f2))(jnp.asarray(co)))
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+def test_crop_and_fast_pyramid_match_reference():
+    """tests/test_corr.py:86-100 through the port (its bounds: pyramids
+    1e-5, lookups 1e-4), and both against the JAX functions (1e-5, 1e-4)."""
+    rng = np.random.default_rng(24)
+    E, H, W = 2, 8, 16
+    fm = rng.normal(size=(E, H, W, 32)).astype(np.float32)
+    co = rng.uniform(-2, 18, size=(E, H, W, 2)).astype(np.float32)
+    vol = tc.build_volume_nhwc(torch.tensor(fm), torch.tensor(fm))
+    pyr_ref, pyr_fast = tc.build_pyramid(vol), tc.build_pyramid_fast(vol)
+    jpyr = jc.build_pyramid_fast(jnp.asarray(vol.numpy()))
+    for a, b, j in zip(pyr_ref, pyr_fast, jpyr):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
+        np.testing.assert_allclose(b.numpy(), np.asarray(j), atol=1e-5)
+    ref = tc.lookup_pyramid(pyr_ref, torch.tensor(co)).numpy()
+    crop = tc.lookup_crop(pyr_fast, torch.tensor(co)).numpy()
+    np.testing.assert_allclose(crop, ref, atol=1e-4)
+    np.testing.assert_allclose(
+        crop, np.asarray(jc.lookup_crop([jnp.asarray(p.numpy()) for p in pyr_fast],
+                                        jnp.asarray(co))), atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lookup_fused_tiled_matches_jax_and_lookup_fused(dtype):
+    """The tiled build-and-lookup (a ragged last tile) against the JAX
+    function and against lookup_fused of the whole volume: f32 1e-4; bf16
+    2e-2, the bound of the K1 cases above (the volume rounded to bf16, its
+    f32 sums in another order)."""
+    f1, f2, co = _feats(25, 2, 6, 10, 32)
+    atol = 1e-4 if dtype == "float32" else 2e-2
+    t1, t2 = torch.tensor(f1).to(getattr(torch, dtype)), torch.tensor(f2).to(getattr(torch, dtype))
+    got = tc.lookup_fused_tiled(t1, t2, torch.tensor(co), tile=16).numpy()
+    want = np.asarray(jc.lookup_fused_tiled(jnp.asarray(f1, dtype), jnp.asarray(f2, dtype),
+                                            jnp.asarray(co), tile=16))
+    whole = tc.lookup_fused(tc.build_volume_nhwc(t1, t2), torch.tensor(co)).numpy()
+    assert got.shape == whole.shape == (2, 196, 6, 10)
+    np.testing.assert_allclose(got, want, atol=atol)
+    np.testing.assert_allclose(got, whole, atol=atol)
+
+
+def test_projmap_is_projective_transform():
+    """projmap against the JAX function (reprojected pixels to 1e-4)."""
+    from tests.test_torch_projective import _scene
+
+    poses, disps, intr, ii, jj = _scene(26)
+    tcrd, tval = tc.projmap(*(torch.tensor(a) for a in (poses, disps, intr, ii, jj)))
+    jcrd, jval = jc.projmap(*(jnp.asarray(a) for a in (poses, disps, intr, ii, jj)))
+    np.testing.assert_allclose(tcrd.numpy(), np.asarray(jcrd), atol=1e-4)
+    np.testing.assert_array_equal(tval.numpy(), np.asarray(jval))

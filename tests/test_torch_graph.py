@@ -36,9 +36,9 @@ HT, WD = 48, 64
 B, WINDOW = 12, 10
 
 
-def _cfg(m, i_cap=8):
+def _cfg(m, i_cap=8, stereo=False):
     return m.DBAFusionConfig(
-        image_size=(HT, WD), buffer=B,
+        image_size=(HT, WD), buffer=B, stereo=stereo,
         graph=m.GraphConfig(max_factors=16, edge_capacity=16, inactive_capacity=i_cap,
                             frontend_thresh=20.0, far_threshold=-1.0, mask_threshold=-1.0,
                             skip_edge=(-4, -5, -6)),
@@ -94,20 +94,35 @@ def _pad(a, n):
     return out
 
 
-def test_fused_keyframe_step_matches_jax(nets):
+@pytest.mark.parametrize("case", ["mono", "stereo", "use_sens"])
+def test_fused_keyframe_step_matches_jax(nets, case):
+    """``stereo``: self-edges among the active ones, their correlation
+    against a right-camera buffer; ``use_sens``: the depth prior on a
+    sensor map with holes."""
     j_update_fn, t_update_fn = nets
     s = _state(3)
+    rng = np.random.default_rng(30)
+    right = sens = None
+    if case == "stereo":
+        s["ii"] = np.concatenate([[5, 6, 7], s["ii"][:11]])
+        s["jj"] = np.concatenate([[5, 6, 7], s["jj"][:11]])
+        right = rng.normal(size=s["fmaps"].shape).astype(np.float32)
+    if case == "use_sens":
+        sens = (0.5 + 0.3 * rng.random(s["disps"].shape)).astype(np.float32)
+        sens[rng.random(sens.shape) < 0.3] = 0.0
     n_kf = s["n_kf"]
     t0, t1 = 1, n_kf
     s0 = max(0, t1 - WINDOW)
     e_mask = np.arange(16) < len(s["ii"])
     i_mask = np.arange(8) < len(s["ii_i"])
     bf = jnp.bfloat16
-    kern = jg.make_update_kernel(_cfg(jcfg), j_update_fn, 16, 8)
+    kern = jg.make_update_kernel(_cfg(jcfg, stereo=right is not None), j_update_fn, 16, 8)
     jres, jtraj = kern(
-        jnp.asarray(s["poses"]), jnp.asarray(s["disps"]), jnp.zeros_like(s["disps"]),
+        jnp.asarray(s["poses"]), jnp.asarray(s["disps"]),
+        jnp.zeros_like(s["disps"]) if sens is None else jnp.asarray(sens),
         jnp.full(s["disps"].shape, 1e-6, jnp.float32), jnp.asarray(s["intr"]),
-        jnp.asarray(s["fmaps"], bf), jnp.asarray(s["inps"], bf), None,
+        jnp.asarray(s["fmaps"], bf), jnp.asarray(s["inps"], bf),
+        None if right is None else jnp.asarray(right, bf),
         jnp.asarray(s["e_net"], bf), jnp.asarray(s["target"]), jnp.asarray(s["weight"]),
         jnp.asarray(_pad(s["ii"], 16), jnp.int32), jnp.asarray(_pad(s["jj"], 16), jnp.int32),
         jnp.asarray(e_mask), jnp.asarray(s["t_inac"]), jnp.asarray(s["w_inac"]),
@@ -115,11 +130,17 @@ def test_fused_keyframe_step_matches_jax(nets):
         jnp.asarray(i_mask), jnp.asarray(t0, jnp.int32), jnp.asarray(t1, jnp.int32),
         jnp.asarray(s0, jnp.int32), jnp.asarray(False), {},
         jnp.asarray(3, jnp.int32), jnp.asarray(1, jnp.int32),
-        iters=2, use_inactive=True, do_ba=True, use_sens=False, seed_next=False, mega=True)
+        iters=2, use_inactive=True, do_ba=True, use_sens=sens is not None, seed_next=False,
+        mega=True)
 
-    cfg = _cfg(tcfg)
+    cfg = _cfg(tcfg, stereo=right is not None)
     dev = torch.device("cpu")
     v = TVideo(cfg, dev)
+    if right is not None:
+        v.fmaps_right.copy_(torch.tensor(right))
+    if sens is not None:
+        v.disps_sens.copy_(torch.tensor(sens))
+        v.has_depth = True
     v.poses.copy_(torch.tensor(s["poses"]))
     v.disps.copy_(torch.tensor(s["disps"]))
     v.fmaps.copy_(torch.tensor(s["fmaps"]))
@@ -145,9 +166,21 @@ def test_fused_keyframe_step_matches_jax(nets):
     np.testing.assert_allclose(tp_[1:], jp_[1:], rtol=1e-2, atol=1e-2)
 
 
-def test_proximity_edges_match_jax_order():
+@pytest.mark.parametrize("case", ["mono", "stereo_native", "stereo_python"])
+def test_proximity_edges_match_jax_order(case, monkeypatch):
+    """The edge lists in order after two selections.  With stereo the
+    self-edges go ahead of the selection on the native route and into each
+    row on the Python route (the library's stand-in where it cannot be
+    built), and the 16-edge capacity binds, so their place decides which
+    edges stay."""
+    from dbaf_tpu.utils import native
+
+    stereo = case != "mono"
+    if case == "stereo_python":
+        monkeypatch.setattr(native, "select_proximity_edges", lambda *a, **k: None)
+        monkeypatch.setattr(tg, "select_proximity_edges", lambda *a, **k: None)
     s = _state(4, n_kf=9)
-    jcf, tcf = _cfg(jcfg, i_cap=32), _cfg(tcfg, i_cap=32)
+    jcf, tcf = _cfg(jcfg, i_cap=32, stereo=stereo), _cfg(tcfg, i_cap=32, stereo=stereo)
     jv = JVideo(jcf)
     jv.poses = jnp.asarray(s["poses"])
     jv.disps = jnp.asarray(s["disps"])
@@ -171,6 +204,12 @@ def test_proximity_edges_match_jax_order():
                                      remove=True)
         np.testing.assert_array_equal(tgr.ii, jgr.ii)
         np.testing.assert_array_equal(tgr.jj, jgr.jj)
+        if stereo and t0 == 0:
+            # the first selection fills the 14 free slots: natively the self-
+            # edges of frames 0-8 first; in Python rows 0-2 whole (each self-
+            # edge, then the radius edges) and row 3's first five edges
+            selfs = {"stereo_native": 9, "stereo_python": 4}[case]
+            assert np.sum(tgr.ii == tgr.jj) == selfs and len(tgr.ii) == tcf.graph.edge_capacity
     assert len(tgr.ii) > 2
 
 

@@ -247,11 +247,16 @@ def test_dbafusion_upsample_fills_disps_up(params):
     plain = {k: t for k, t in from_jax_params(params).items() if not k.startswith("update.agg.")}
     sysm2, ups2, _ = _network_system(plain, n_frames=9)
     assert sysm2.graph.agg_fn is None and float(sysm2.video.disps_up.abs().sum()) == 0
-    cfg = config.DBAFusionConfig(stereo=True)
-    with pytest.raises(NotImplementedError, match="stereo"):
-        from dbaf_tpu_torch.slam.system import DBAFusion
+    # stereo with upsample (ported since): the right buffer and disps_up
+    # both move with every row
+    from dbaf_tpu_torch.slam.system import DBAFusion
+    from tests.test_torch_system import golden_cfg
 
-        DBAFusion(cfg, params=plain, device="cpu")
+    cfg = golden_cfg(config)
+    cfg.stereo = cfg.upsample = True
+    v3 = DBAFusion(cfg, params=plain, device="cpu").video
+    assert v3.fmaps_right.shape == v3.fmaps.shape and v3.fmaps_right.dtype == torch.bfloat16
+    assert {"fmaps_right", "disps_up", "disps_sens"} <= set(v3._SHIFT_BUFFERS)
 
 
 def test_disps_up_moves_with_every_row():

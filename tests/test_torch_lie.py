@@ -105,11 +105,27 @@ def test_matrix_to_quat_and_se3_from_matrix_match_jax():
                                atol=2e-6)
 
 
-@pytest.mark.parametrize("name", ["se3_mul", "se3_inv", "se3_from_matrix", "quat_to_matrix",
-                                  "matrix_to_quat", "se3_matrix"])
+LIE_NP_NAMES = ["matrix_to_quat", "quat_act", "quat_conj", "quat_mul", "quat_to_matrix",
+                "se3_act", "se3_act4", "se3_adjT", "se3_exp", "se3_from_matrix", "se3_identity",
+                "se3_inv", "se3_log", "se3_matrix", "se3_mul", "se3_normalize", "se3_rel",
+                "se3_retr", "so3_exp", "so3_log"]
+
+
+def test_lie_np_exports_every_public_function():
+    """The port's numpy twin has every public function of the port's
+    ops/lie, and the same names as the JAX package's twin."""
+    from dbaf_tpu.ops import lie_np as jnp_lie
+    from dbaf_tpu_torch.ops import lie_np as tnp_lie
+
+    assert sorted(tnp_lie.__all__) == sorted(jnp_lie.__all__) == LIE_NP_NAMES
+    assert all(callable(getattr(tnp_lie, n)) for n in LIE_NP_NAMES)
+
+
+@pytest.mark.parametrize("name", LIE_NP_NAMES)
 def test_lie_np_matches_jax_lie_np(name):
     """The port's numpy host twin (f64) against the JAX package's exec-twin
-    of ops/lie.py, to 1e-12."""
+    of ops/lie.py, to 1e-12 (the same formulas in f64; se3_identity in the
+    default f32 of both)."""
     from dbaf_tpu.ops import lie_np as jnp_lie
     from dbaf_tpu_torch.ops import lie_np as tnp_lie
 
@@ -117,10 +133,20 @@ def test_lie_np_matches_jax_lie_np(name):
     g = _poses(rng, 32).astype(np.float64)
     g[:, 3:] /= np.linalg.norm(g[:, 3:], axis=1, keepdims=True)
     R = _rotations(rng, 32).astype(np.float64)
+    xi = _twists(rng, 32).astype(np.float64)
+    v3, v4 = rng.normal(size=(32, 3)), rng.normal(size=(32, 4))
+    q = g[:, 3:]
     args = {"se3_mul": (g, g[::-1]), "se3_inv": (g,), "se3_matrix": (g,),
-            "quat_to_matrix": (g[:, 3:],), "matrix_to_quat": (R,),
-            "se3_from_matrix": (jnp_lie.se3_matrix(g),)}[name]
+            "quat_to_matrix": (q,), "matrix_to_quat": (R,),
+            "se3_from_matrix": (jnp_lie.se3_matrix(g),), "quat_act": (q, v3),
+            "quat_conj": (q,), "quat_mul": (q, q[::-1]), "se3_act": (g, v3),
+            "se3_act4": (g, v4), "se3_adjT": (g, xi), "se3_exp": (xi,),
+            "se3_identity": ((4, 2),), "se3_log": (g,), "se3_normalize": (g,),
+            "se3_rel": (g, g[::-1]), "se3_retr": (g, xi), "so3_exp": (xi[:, 3:],),
+            "so3_log": (q,)}[name]
     got = getattr(tnp_lie, name)(*args)
     ref = getattr(jnp_lie, name)(*args)
-    assert got.dtype == np.float64
+    assert isinstance(got, np.ndarray)
+    assert got.dtype == (np.float32 if name == "se3_identity" else np.float64)
+    assert got.shape == np.shape(ref)
     np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-12)

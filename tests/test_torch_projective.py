@@ -142,3 +142,49 @@ def test_depth_consistency_count_selfconsistent():
     intr = torch.tensor([24.0, 24.0, wd / 2, ht / 2])
     count = tp.depth_consistency_count(poses, disps, intr, torch.tensor([4]), torch.tensor([0.1]))
     assert count[0, 5, 8] == 6.0
+
+
+def test_projective_transform_comp():
+    """The motion-compensated reprojection against the JAX function
+    (f32: reprojected pixels to 1e-4); a zero offset gives
+    projective_transform's output."""
+    poses, disps, intr, ii, jj = _scene(5)
+    comp = 0.05 * np.random.default_rng(5).normal(size=(len(ii),) + disps.shape[1:] + (4,))
+    comp = comp.astype(np.float32)
+    (jc, jv), (tc, tv) = _both("projective_transform_comp", poses, disps, intr, ii, jj, comp)
+    np.testing.assert_allclose(np.asarray(jc), tc.numpy(), atol=1e-4)
+    np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
+    c0, v0 = tp.projective_transform_comp(*(torch.tensor(a) for a in (poses, disps, intr, ii, jj)),
+                                          torch.zeros(comp.shape))
+    c, v = tp.projective_transform(*(torch.tensor(a) for a in (poses, disps, intr, ii, jj)))
+    np.testing.assert_array_equal(c0.numpy(), c.numpy())
+    np.testing.assert_array_equal(v0.numpy(), v.numpy())
+
+
+def test_induced_flow():
+    """Against the JAX function (1e-4 px), and zero for identical poses
+    (tests/test_projective.py:122, atol 1e-4)."""
+    poses, disps, intr, ii, jj = _scene(6)
+    (jf, jv), (tf, tv) = _both("induced_flow", poses, disps, intr, ii, jj)
+    np.testing.assert_allclose(np.asarray(jf), tf.numpy(), atol=1e-4)
+    np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
+    ident = tp.lie.se3_identity((5,))
+    flow, _ = tp.induced_flow(ident, torch.tensor(disps), torch.tensor(intr),
+                              torch.tensor([0]), torch.tensor([1]))
+    np.testing.assert_allclose(flow.numpy(), 0.0, atol=1e-4)
+
+
+def test_stereo_edge_uses_baseline():
+    """tests/test_projective.py:95 through the port: an (i, i) edge
+    reprojects by the fixed stereo baseline pose (1e-5), as the JAX one."""
+    poses, disps, intr, _, _ = _scene(7)
+    one = torch.tensor([1])
+    coords, _ = tp.projective_transform(torch.tensor(poses), torch.tensor(disps),
+                                        torch.tensor(intr), one, one)
+    X0 = tp.iproj(torch.tensor(disps[1:2]), torch.tensor(intr).expand(1, 4))
+    X1 = tp.lie.se3_act4(torch.tensor(tp._STEREO_POSE)[None, None, None], X0)
+    ref = tp.proj(X1, torch.tensor(intr).expand(1, 4))
+    np.testing.assert_allclose(coords.numpy(), ref.numpy(), atol=1e-5)
+    jc, _ = jp.projective_transform(jnp.asarray(poses), jnp.asarray(disps), jnp.asarray(intr),
+                                    jnp.asarray([1]), jnp.asarray([1]))
+    np.testing.assert_allclose(coords.numpy(), np.asarray(jc), atol=1e-4)

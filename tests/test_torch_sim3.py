@@ -191,3 +191,41 @@ def test_geodesic_loss_sim3():
     check(torch.cat([Ps, s[:, None]], dim=-1), True)
     _, m3 = check(Ps, True)
     assert float(m3["rot_error"]) < 1e-3
+
+
+def test_projection_jacobians_sim3():
+    """projection_jacobians_sim3 against the JAX function (f32: 1e-4 on
+    pixels and Jacobian entries) and against the port's own autograd of the
+    Sim3 reprojection under the left-perturbation convention, at the bound
+    of tests/test_sim3.py:143 (2e-3)."""
+    rng = np.random.default_rng(3)
+    N, H, W = 3, 4, 6
+    intr = np.asarray([8.0, 8.0, W / 2, H / 2], np.float32)
+    p8 = sim3.exp(T(_xi_sim3(rng, N, max_angle=0.3)))
+    poses8 = torch.cat([0.2 * p8[:, :3], p8[:, 3:7], p8[:, 7:].clamp(0.7, 1.4)], -1)
+    disps = T((0.6 + 0.1 * rng.random((N, H, W))).astype(np.float32))
+    ii, jj = T(np.asarray([0, 1, 2])), T(np.asarray([1, 2, 2]))  # with a stereo edge
+    J = pj.projection_jacobians_sim3(poses8, disps, T(intr), ii, jj)
+    Jj_ = jpj.projection_jacobians_sim3(jnp.asarray(poses8.numpy()), jnp.asarray(disps.numpy()),
+                                        jnp.asarray(intr), jnp.asarray(ii.numpy()),
+                                        jnp.asarray(jj.numpy()))
+    for name in ("coords", "Ji", "Jj", "Jz"):
+        np.testing.assert_allclose(getattr(J, name).numpy(), np.asarray(getattr(Jj_, name)),
+                                   atol=1e-4, rtol=1e-5, err_msg=name)
+    np.testing.assert_array_equal(J.valid.numpy(), np.asarray(Jj_.valid))
+
+    def coords_fn(xi_j, xi_i, dd):
+        p = torch.stack([sim3.retr(poses8[0], xi_i), sim3.retr(poses8[1], xi_j), poses8[2]])
+        d = torch.cat([(disps[0] + dd)[None], disps[1:]])
+        return pj.projective_transform(p, d, T(intr), ii[:1], jj[:1])[0][0]
+
+    z7 = torch.zeros(7)
+    Jj_num = torch.autograd.functional.jacobian(lambda x: coords_fn(x, z7, 0.0), z7).numpy()
+    Ji_num = torch.autograd.functional.jacobian(lambda x: coords_fn(z7, x, 0.0), z7).numpy()
+    Jz_num = torch.autograd.functional.jacobian(
+        lambda x: coords_fn(z7, z7, x), torch.zeros(H, W)).numpy()
+    m = J.valid[0].numpy()[..., None, None]
+    np.testing.assert_allclose(J.Jj[0].numpy() * m, Jj_num * m, atol=2e-3)
+    np.testing.assert_allclose(J.Ji[0].numpy() * m, Ji_num * m, atol=2e-3)
+    Jz_diag = np.stack([np.stack([Jz_num[y, x, :, y, x] for x in range(W)]) for y in range(H)])
+    np.testing.assert_allclose(J.Jz[0].numpy() * m[..., 0], Jz_diag * m[..., 0], atol=2e-3)
