@@ -147,6 +147,29 @@ Phases, each fatal on failure:
              twice the spread of two uninterrupted runs where larger); the
              file unpickled in a child process that sees no card, without
              importing torch.
+  11. demos  each dataset demo (apps/demo_tumvi, demo_kitti360, demo_whu,
+             demo_subt) built by its own parse_args and setup from the argv a
+             user passes, at its preset's full width (TUM-VI and SubT
+             384x512, KITTI-360 320x896, WHU 320x640) and sensor defaults
+             (device_solver False: the host f64 LM on the two-call flow), on
+             sensor files written under chiprun_out/demos/ in the dataset's
+             own layout and units (DemoScene: eval/synthetic's motion, the
+             body turned by the demo's extrinsic; WHU with
+             tests/test_georef.py's 12 m/s drift, GNSS, odometry and ZUPT)
+             and the seeded weights as a .pth; the update rounds take the
+             scene's oracle, the motion gate the network (filter_thresh -1
+             where the preset's gate admits too few of the first frames,
+             said on the line); procedural frames at the preset's size fed
+             through apps/runner.run, which writes the result file (and the
+             .pkl of SubT's --save_pkl).  Fatal unless every pose is finite,
+             ATE is under 0.08 x span and every |bias| under 0.2, K1 runs
+             in every round at the preset's grid and K2 on every gated
+             frame, all_stamp adds rows (TUM-VI, WHU), and on WHU
+             init_gnss fires and the ECEF rows hold tests/test_georef.py's
+             bounds; K1 on the operands of the KITTI-360 run's last round at
+             E=48 and 40x112 against its plain version (2^-7 of the largest output), and
+             its ms beside its bound.  One JSON line a demo (profile tables
+             in chiprun_out/profile_demo_*.txt).
 Phase 2 also holds K1-int8 (one launch, its tile scales inside it) at
 (E=48, 48x64, C=128, tile 256), at tiles of 128, 192 and 768 pixels, off
 the image and with a NaN row, and its returned scales, against their plain
@@ -161,8 +184,9 @@ Phase 2 prints a digest of every case's kernel output ("[digest]" lines):
 with --root, two packages' digests show whether a kernel's outputs changed.
 Then one JSON line listing the kernels (launches summed over the main,
 coupled, coupled_async, visual_async, int8, export, upsample, stereo,
-oracle_stereo, oracle_rgbd and resume paths, each counted from 0 just
-before its run; "launches_by_path" splits them), and last the ok line.
+oracle_stereo, oracle_rgbd, resume and the four demo paths, each counted
+from 0 just before its run; "launches_by_path" splits them), and last the
+ok line.
 
 Exits non-zero without a CUDA device, and without the port's package.
 """
@@ -2136,6 +2160,521 @@ def phase_resume(dev) -> dict:
                 file_mib=size / 2**20, save_s=save_s, load_s=load_s)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the dataset demos' setup at each preset's full width
+# ---------------------------------------------------------------------------
+
+DEMOS = ("tumvi", "kitti360", "whu", "subt")
+DEMO_FPS = 10.0
+DEMO_FRAMES = 44  # VI initialization near frame 13, then about 28 keyframe steps
+DEMO_GATE_PROBE = 10  # frames the preset's gate is tried on (DemoRun.probe_gate)
+DEMO_Z0 = {"tumvi": 4.0, "kitti360": 4.0, "whu": 8.0, "subt": 4.0}  # camera to plane, m
+# focal length over the feature grid's width: phase 5's camera (2), and for
+# WHU a wide one, so that its 1.2 m a frame moves the view by a few percent
+DEMO_FOCAL = {"tumvi": 2.0, "kitti360": 2.0, "whu": 0.5, "subt": 2.0}
+DEMO_SAVE_PKL = "subt"  # the demo run with --save_pkl
+# WHU: the GNSS scene of tests/test_georef.py:33-74: a 12 m/s forward drift
+# (a 10 m baseline within ten keyframes) and the rows' true ENU frame yawed
+# and offset from the world; ECEF about ten0_base (:97)
+WHU_SPEED = 12.0
+WHU_PSI = np.deg2rad(35.0)
+WHU_OFFSET = np.array([100.0, -50.0, 3.0])
+WHU_TEN0 = np.array([-2694045.0, -4293642.0, 3857878.0])
+# SubT's --Tbc file: the camera looks along the body's x axis, 10 cm ahead
+SUBT_TBC = np.array([[0.0, 0.0, 1.0, 0.10], [-1.0, 0.0, 0.0, 0.0], [0.0, -1.0, 0.0, 0.05],
+                     [0.0, 0.0, 0.0, 1.0]])
+DEMO_CALIB = {  # fx fy cx cy [distortion] in each dataset's calib layout
+    "tumvi": "190.978477 190.973307 254.931706 256.897442 0.003482 0.000715 -0.002053 0.000203",
+    "kitti360": "552.554261 552.554261 682.049453 238.769549 -0.05 0.01 0.001 -0.001",
+    # no distortion: demo_whu's stream would undistort into 512x512
+    # (image_stream's default size; ROADMAP Queue 3), which the preset's
+    # 320x640 buffers do not take
+    "whu": "1145.0 1145.0 640.0 512.0",
+    "subt": "640.0 640.0 360.0 270.0",
+}
+
+
+def whu_body_state(t: float):
+    """tests/test_georef.py:_body_state_fast: eval/synthetic.body_state's
+    rotation with a 12 m/s forward drift."""
+    p = np.array([WHU_SPEED * t + 1.2 * np.sin(1.3 * t), 0.9 * np.cos(1.7 * t), 0.25 * t])
+    v = np.array([WHU_SPEED + 1.56 * np.cos(1.3 * t), -1.53 * np.sin(1.7 * t), 0.25])
+    a = np.array([-2.03 * np.sin(1.3 * t), -2.60 * np.cos(1.7 * t), 0.0])
+    w = np.array([0.25 * np.sin(0.9 * t), 0.2 * np.cos(0.7 * t), 0.15])
+    return p, v, a, w
+
+
+def whu_ecef(p_world: np.ndarray) -> np.ndarray:
+    """ECEF of a world position through the yawed, offset true ENU frame."""
+    from dbaf_tpu_torch.utils import geodesy
+
+    Rz = np.array([[np.cos(WHU_PSI), -np.sin(WHU_PSI), 0.0],
+                   [np.sin(WHU_PSI), np.cos(WHU_PSI), 0.0], [0.0, 0.0, 1.0]])
+    return WHU_TEN0 + geodesy.Cen(WHU_TEN0) @ (Rz @ np.asarray(p_world, float) + WHU_OFFSET)
+
+
+def demo_extrinsic(kind: str) -> np.ndarray:
+    """The body<-camera extrinsic the demo passes to set_multisensor."""
+    from dbaf_tpu_torch.apps import demo_kitti360, demo_tumvi, demo_whu
+
+    return {"tumvi": np.linalg.inv(demo_tumvi.TUMVI_TIC), "kitti360": demo_kitti360.KITTI360_TBC,
+            "whu": demo_whu.WHU_TBC, "subt": SUBT_TBC}[kind]
+
+
+class DemoScene:
+    """One demo's synthetic world, from eval/synthetic.simulate_imu_and_poses
+    (WHU: with whu_body_state).  The simulated frame S is the camera's
+    attitude: it looks up at the plane z = z0, as in phase 5.  The body is S
+    turned by the demo's extrinsic (R_wb = R_s Rbc^T) at S's position, so the
+    body's IMU reads S's rates and specific force turned by Rbc, and the
+    camera sits at the lever arm R_wb tbc.  ``imu`` rows are the internal
+    convention [t, gyro deg/s, acc], ``body`` maps a frame to (R_wb, p_wb)."""
+
+    def __init__(self, kind: str, n_frames: int, image_size):
+        from unittest import mock
+
+        from dbaf_tpu_torch.eval import synthetic
+
+        self.kind, self.n_frames, self.fps = kind, n_frames, DEMO_FPS
+        self.state_fn = whu_body_state if kind == "whu" else synthetic.body_state
+        with mock.patch.object(synthetic, "body_state", self.state_fn):
+            rows, poses_s = synthetic.simulate_imu_and_poses(n_frames / self.fps + 0.5,
+                                                             fps=self.fps)
+        self.Tbc = demo_extrinsic(kind)
+        Rbc, tbc = self.Tbc[:3, :3], self.Tbc[:3, 3]
+        self.imu = rows.copy()
+        self.imu[:, 1:4] = rows[:, 1:4] @ Rbc.T
+        self.imu[:, 4:7] = rows[:, 4:7] @ Rbc.T
+        self.body = {k: (R @ Rbc.T, p) for k, (R, p) in poses_s.items()}
+        cam = {k: (R, p + R @ (Rbc.T @ tbc)) for k, (R, p) in poses_s.items()}
+        HT, WD = image_size
+        H8, W8 = HT // 8, WD // 8
+        f8 = DEMO_FOCAL[kind] * W8
+        self.intr8 = np.asarray([f8, f8, W8 / 2, H8 / 2], np.float32)
+        z_plane = DEMO_Z0[kind] + (Rbc.T @ tbc)[2]
+        self.gt_cw, self.gt_disps = synthetic.scene_from_poses(cam, n_frames, self.intr8, H8, W8,
+                                                               z0=z_plane)
+
+    def velocity_body(self, k: int) -> np.ndarray:
+        """The body's velocity in the body frame at frame k (wheel odometry)."""
+        R, _ = self.body[k]
+        return R.T @ self.state_fn(k / self.fps)[1]
+
+
+def write_demo_files(kind: str, scene: DemoScene, root: str, weights: str,
+                     resultpath: str, pklpath: str) -> list:
+    """Write ``scene``'s sensor files in the dataset's own layout and units
+    under ``root`` and return the demo's argv.  Camera stamps: TUM-VI's
+    data.csv lists 4 images a frame (the demo's stride 4), WHU's stamp file 2
+    (stride 2); each image folder is left empty (the phase feeds rendered
+    frames)."""
+    os.makedirs(root, exist_ok=True)
+    calib = os.path.join(root, "calib.txt")
+    with open(calib, "w") as f:
+        f.write(DEMO_CALIB[kind] + "\n")
+    fps, n, imu = scene.fps, scene.n_frames, scene.imu
+    common = ["--calib", calib, "--weights", weights, "--resultpath", resultpath,
+              "--pklpath", pklpath]
+    if kind == "tumvi":
+        data = os.path.join(root, "dataset-room1_512_16", "mav0")
+        os.makedirs(os.path.join(data, "cam0", "data"), exist_ok=True)
+        os.makedirs(os.path.join(data, "imu0"), exist_ok=True)
+        imupath = os.path.join(data, "imu0", "data.csv")
+        with open(imupath, "w") as f:  # ns, gyro rad/s, acc m/s^2
+            f.write("#timestamp [ns],w_RS_S_x [rad s^-1],w_RS_S_y [rad s^-1],w_RS_S_z "
+                    "[rad s^-1],a_RS_S_x [m s^-2],a_RS_S_y [m s^-2],a_RS_S_z [m s^-2]\n")
+            for r in imu:
+                g = np.deg2rad(r[1:4])
+                f.write(f"{int(round(r[0] * 1e9))}," + ",".join(f"{x:.17g}" for x in g)
+                        + "," + ",".join(f"{x:.17g}" for x in r[4:7]) + "\n")
+        with open(os.path.join(data, "cam0", "data.csv"), "w") as f:
+            f.write("#timestamp [ns],filename\n")
+            for j in range(4 * n):
+                ns = int(round(j / (4 * fps) * 1e9))
+                f.write(f"{ns},{ns}.png\n")
+        return ["--datadir", os.path.dirname(data), "--imupath", imupath] + common
+    if kind == "kitti360":
+        imagedir = os.path.join(root, "image_00", "data_rgb")
+        os.makedirs(imagedir, exist_ok=True)
+        imupath = os.path.join(root, "imu.txt")
+        rows = imu.copy()
+        rows[:, 0] -= demo_module("kitti360").IMU_CAM_TIME_OFFSET  # the demo moves it back
+        np.savetxt(imupath, rows, fmt="%.17g")  # seconds, gyro deg/s, whitespace
+        return ["--imagedir", imagedir, "--imupath", imupath] + common
+    if kind == "whu":
+        imagedir = os.path.join(root, "cam0")
+        os.makedirs(imagedir, exist_ok=True)
+        imupath = os.path.join(root, "imu.csv")
+        np.savetxt(imupath, imu, delimiter=",", fmt="%.17g")  # seconds, gyro deg/s
+        stamps = os.path.join(root, "image_stamps.csv")
+        with open(stamps, "w") as f:
+            for j in range(2 * n):
+                f.write(f"{j / (2 * fps):.17g},{j:06d}.png\n")
+        gnss = os.path.join(root, "gnss.txt")
+        tbg = demo_module("whu").WHU_TBG
+        with open(gnss, "w") as f:  # t, ECEF x y z, 12 more columns, Fixed (column 16)
+            for k in range(n):
+                R, p = scene.body[k]
+                e = whu_ecef(p + R @ tbg)  # the antenna
+                f.write(" ".join(f"{x:.17g}" for x in [k / fps, *e]) + " "
+                        + " ".join(["0.0"] * 12) + " Fixed\n")
+        odo = os.path.join(root, "odo.txt")
+        np.savetxt(odo, [[k / fps, *scene.velocity_body(k)] for k in range(n)], fmt="%.17g")
+        return (["--imagedir", imagedir, "--imagestamp", stamps, "--imupath", imupath,
+                 "--use_gnss", "--gnsspath", gnss, "--use_odo", "--odopath", odo, "--use_zupt"]
+                + common)
+    imagedir = os.path.join(root, "cam_0")
+    os.makedirs(imagedir, exist_ok=True)
+    imupath = os.path.join(root, "imu_data.csv")
+    rows = imu.copy()
+    rows[:, 0] = np.round(rows[:, 0] * 1e9)
+    rows[:, 1:4] = np.deg2rad(rows[:, 1:4])
+    np.savetxt(imupath, rows, delimiter=",", fmt="%.17g")  # ns, gyro rad/s
+    tbc = os.path.join(root, "Tbc.txt")
+    np.savetxt(tbc, SUBT_TBC, fmt="%.17g")
+    argv = ["--imagedir", imagedir, "--imupath", imupath, "--Tbc", tbc] + common
+    return argv + (["--save_pkl"] if kind == DEMO_SAVE_PKL else [])
+
+
+def demo_module(kind: str):
+    import importlib
+
+    return importlib.import_module(f"dbaf_tpu_torch.apps.demo_{kind}")
+
+
+def demo_stamps(kind: str, n: int) -> np.ndarray:
+    """The camera stamps of the frames the demo's stream would yield, as
+    the stream reads them from the files (TUM-VI and SubT in nanoseconds)."""
+    t = np.arange(n) / DEMO_FPS
+    return np.round(t * 1e9) * 1e-9 if kind in ("tumvi", "subt") else t
+
+
+class DemoRun:
+    """A demo's system built by its own ``setup`` from ``argv``, the
+    update rounds' outputs replaced by the scene's oracle (the network still
+    runs in each round and in the motion gate, as in phase 5), and the
+    rendered frames it is fed: phase 5's procedural texture at the
+    preset's size."""
+
+    def __init__(self, kind: str, scene: DemoScene, argv: list, device=None):
+        from dbaf_tpu_torch.eval.synthetic import make_oracle
+
+        self.kind, self.scene = kind, scene
+        mod = demo_module(kind)
+        self.args = mod.parse_args(argv)
+        self.system, self.demo_stream = mod.setup(self.args, device)
+        system = self.system
+        self.dev = system.device
+        step = system.graph._step
+        model_update = step.update_fn
+        oracle = make_oracle(scene.gt_cw, scene.gt_disps, scene.intr8, device=self.dev)
+
+        def update_fn(net, inp, corr, motn, ii, jj, aux):
+            net2, delta, weight = model_update(net, inp, corr, motn, ii, jj, aux)
+            _, d_o, w_o = oracle(net, inp, corr, motn, ii, jj, aux)
+            return net2, d_o + delta.float() * 1e-30, w_o + weight.float() * 1e-30
+
+        step.update_fn = update_fn
+        HT, WD = system.cfg.image_size
+        self.base = np.random.default_rng(1).integers(0, 255, size=(HT + 64, WD + 64, 3)) \
+            .astype(np.uint8)
+        self.id_map = np.zeros(system.cfg.buffer, np.int64)
+        self.stamps = demo_stamps(kind, scene.n_frames)
+        self.probe_gate(mod, device)
+
+    def frame(self, k: int) -> np.ndarray:
+        HT, WD = self.system.cfg.image_size
+        ox, oy = (3 * k) % 64, (2 * k) % 64
+        return self.base[oy:oy + HT, ox:ox + WD]
+
+    def probe_gate(self, mod, device) -> None:
+        """The preset's motion gate on the first DEMO_GATE_PROBE frames, in a
+        second system from the same setup (its MotionFilter alone, no
+        keyframe step).  If it admits fewer than all but one of them, the run
+        sets filter_thresh to -1 (every frame admitted): the seeded random
+        network's flow is no motion estimate, and VI initialization needs
+        12 keyframes on a motion the IMU can follow."""
+        probe, _ = mod.setup(self.args, device)
+        intr = self.scene.intr8 * 8.0
+        for k in range(DEMO_GATE_PROBE):
+            probe.filter.track(float(self.stamps[k]), self.frame(k), intrinsics=intr)
+        self.gate_admitted = int(probe.video.counter)
+        del probe
+        if self.gate_admitted < DEMO_GATE_PROBE - 1:
+            self.system.cfg.frontend.filter_thresh = -1.0
+
+    def stream(self, hooks=None):
+        """(t, image, intrinsics) of every frame for ``runner.run``; the
+        oracle's slot -> frame map goes up around each yield, and
+        ``hooks(k)`` runs before frame k is yielded (and once after the
+        last)."""
+        v, g = self.system.video, self.system.graph
+        intr = self.scene.intr8 * 8.0
+        for k in range(self.scene.n_frames):
+            if hooks is not None:
+                hooks(k)
+            self.id_map[v.counter] = k
+            g.aux = {"id_map": torch.as_tensor(self.id_map, device=self.dev)}
+            yield float(self.stamps[k]), self.frame(k), intr
+            n = v.counter
+            self.id_map[:n] = np.round(v.tstamp[:n] * self.scene.fps).astype(np.int64)
+            g.aux = {"id_map": torch.as_tensor(self.id_map, device=self.dev)}
+        if hooks is not None:
+            hooks(self.scene.n_frames)
+
+    def accuracy(self):
+        """(ATE of the keyframes' solved body positions, span, max |bias|)."""
+        from dbaf_tpu_torch.eval.ate import ate_rmse
+
+        v, st = self.system.video, self.system.graph.coupled.state
+        t1 = self.system.frontend.t1
+        est = np.asarray([st.wTbs[k].t for k in range(t1)])
+        ids = np.round(v.tstamp[:t1] * self.scene.fps).astype(int)
+        ref = np.stack([self.scene.body[i][1] for i in ids])
+        return (ate_rmse(est, ref, align="se3"), float(np.linalg.norm(ref.max(0) - ref.min(0))),
+                float(np.abs(np.asarray([st.bs[k] for k in range(t1)])).max()), est)
+
+
+def read_result_rows(path: str) -> list:
+    """The result file's rows: 8 TUM fields, 11 once georeferenced."""
+    with open(path) as f:
+        return [[float(x) for x in line.split()] for line in f if line.strip()]
+
+
+def whu_enu_check(run: DemoRun, rows: list) -> dict:
+    """The rows written after GNSS initialization, their ECEF columns in
+    the local frame at ten0 against the truth there
+    (tests/test_georef.py:146-170's bounds on the same quantities)."""
+    from dbaf_tpu_torch.eval.ate import ate_rmse
+    from dbaf_tpu_torch.utils import geodesy
+
+    c = run.system.graph.coupled
+    geo = [r for r in rows if len(r) == 11 and r[0] > c.gnss_init_time + 1e-9]
+    if len(geo) < 3:
+        return dict(rows=len(geo))
+    C0 = geodesy.Cen(c.ten0)
+    est = np.asarray([C0.T @ (np.asarray(r[8:11]) - c.ten0) for r in geo])
+    truth_w = np.asarray([whu_body_state(r[0])[0] for r in geo])
+    ref = np.asarray([C0.T @ (whu_ecef(p) - c.ten0) for p in truth_w])
+    err = np.linalg.norm(est - ref, axis=1)
+    span = float(np.linalg.norm(ref.max(0) - ref.min(0)))
+    rmse = ate_rmse(est, truth_w, align="se3")
+    # the ECEF columns are the rows' local positions taken to ECEF
+    col = max(float(np.abs(C0.T @ (np.asarray(r[8:11]) - c.ten0) - r[1:4]).max()) for r in geo)
+    return dict(rows=len(geo), span=span, err_max=float(err.max()),
+                err_median=float(np.median(err)), rmse_se3=rmse, ecef_vs_local=col,
+                ok=bool(err.max() < 0.08 * span and np.median(err) < 0.05 * span
+                        and rmse < 0.05 * span and col < 1e-3))
+
+
+def count_host_lm():
+    """Count the host LM solver's passes and iterations (a linearization
+    each) while the returned restore function is not called."""
+    from dbaf_tpu_torch.fusion import graph as fg
+
+    counts = {"passes": 0, "iters": 0}
+    optimize = fg.LevenbergMarquardt.optimize
+
+    def counted(self):
+        counts["passes"] += 1
+        linearize = self.graph.linearize
+
+        def lin(values):
+            counts["iters"] += 1
+            return linearize(values)
+
+        self.graph.linearize = lin
+        try:
+            return optimize(self)
+        finally:
+            del self.graph.linearize
+
+    fg.LevenbergMarquardt.optimize = counted
+    return counts, lambda: setattr(fg.LevenbergMarquardt, "optimize", optimize)
+
+
+def k1_round_check(operands) -> dict:
+    """K1 on one round's operands (``(f1p, f2p, coords1, H, W)`` of a launch
+    the run made) against its plain version at 2^-7 of the largest output
+    (phase 10a's bound), and its ms a launch at that shape beside its bound,
+    computed as phase 2 computes them."""
+    from dbaf_tpu_torch.ops import corr_cuda as cc
+
+    f1p, f2p, coords1, H, W = operands
+    E = int(coords1.shape[0])
+    out = cc.corr_fused_xy(f1p, f2p, coords1, H, W)
+    ref = cc.corr_fused_xy_plain(f1p, f2p, coords1, H, W)
+    err = float((out.float() - ref.float()).abs().max())
+    max_out = float(ref.float().abs().max())
+    tol = max(K1_TOL, 2.0 ** -7 * max_out)
+    ms = graph_ms(lambda: cc.corr_fused_xy(f1p, f2p, coords1, H, W), 20)
+    plain_ms = cuda_ms(lambda: cc.corr_fused_xy_plain(f1p, f2p, coords1, H, W), 2, warmup=1)
+    P, C = H * W, 128
+    bms, by = bound(E * P * C * 2 * 2 + E * P * 2 * 4 + E * P * 196 * 2,
+                    (2.0 * E * P * P * C + lookup_flops(coords1, H, W, True)) / PEAK_BF16)
+    return dict(E=E, grid=f"{H}x{W}", k1_err=err, k1_tol=tol, max_out=max_out, ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+
+
+def run_demo(kind: str, weights: str, out_root: str, build_root: str, dev) -> dict:
+    """Phase 11 for one demo: write its files, build it through its setup,
+    feed its frames through runner.run, and hold the results."""
+    from dbaf_tpu_torch.apps import runner
+    from dbaf_tpu_torch.ops import corr_cuda as cc
+    from dbaf_tpu_torch.utils import config
+    from dbaf_tpu_torch.utils import device as devmod
+
+    n = DEMO_FRAMES
+    image_size = getattr(config, f"{kind}_config")().image_size
+    scene = DemoScene(kind, n, image_size)
+    root = os.path.join(out_root, kind)
+    result = os.path.join(root, f"result_{kind}.txt")
+    pkl = os.path.join(build_root, f"reconstruction_{kind}.pkl")
+    argv = write_demo_files(kind, scene, root, weights, result, pkl)
+    run = DemoRun(kind, scene, argv, dev)
+    system = run.system
+    fe, v, g = system.frontend, system.video, system.graph
+    shapes = set()
+    k1 = cc.corr_fused_xy
+    full = {}  # the operands of the run's last K1 launch at E = 48
+
+    def k1_shapes(f1p, f2p, coords, H, W, *a, **kw):
+        shapes.add((int(coords.shape[0]), H, W))
+        if coords.shape[0] == 48:
+            full["ops"] = (f1p, f2p, coords, H, W)
+        return k1(f1p, f2p, coords, H, W, *a, **kw)
+
+    lm, restore = count_host_lm()
+    clock = {}
+
+    def hooks(k):
+        if "t0" not in clock and v.imu_enabled:  # VI initialization ran in frame k - 1
+            torch.cuda.synchronize()
+            clock.update(t0=time.perf_counter(), steps0=fe.keyframe_steps, vi_frame=k - 1,
+                         reads0=devmod.HOST_READS["count"], lm0=dict(lm))
+        if k == n - N_PROFILED:
+            if "t0" not in clock:
+                raise SystemExit(f"demo {kind}: VI initialization did not trigger in {k} frames")
+            torch.cuda.synchronize()
+            clock.update(wall=time.perf_counter() - clock["t0"],
+                         steps=fe.keyframe_steps - clock["steps0"],
+                         reads=devmod.HOST_READS["count"] - clock["reads0"],
+                         lm_passes=lm["passes"] - clock["lm0"]["passes"],
+                         lm_iters=lm["iters"] - clock["lm0"]["iters"])
+            clock["prof"] = Profile()
+        if k == n:
+            clock["profile"] = clock.pop("prof").stop(f"demo_{kind}", f"profile_demo_{kind}.txt")
+
+    cc.reset_launch_counts()
+    cc.corr_fused_xy = k1_shapes
+    try:
+        out = runner.run(system, run.stream(hooks), run.args.resultpath, run.args.pklpath
+                         if run.args.save_pkl else None, None, None)
+    finally:
+        cc.corr_fused_xy = k1
+        restore()
+    launches = dict(cc.LAUNCHES)
+    rows = read_result_rows(result)
+    traj = np.asarray([r[:8] for r in rows])
+    ate, span, bias, est = run.accuracy()
+    c = g.coupled
+    res = dict(
+        demo=kind, argv=" ".join(a if not a.startswith(ROOT) else os.path.relpath(a, ROOT)
+                                 for a in argv),
+        image_size=list(system.cfg.image_size), frames=out["frames"], keyframes=out["keyframes"],
+        keyframe_steps=fe.keyframe_steps, culls=fe.culls, rollups=fe.rollup_count,
+        update_rounds=fe.update_rounds, vi_init_frame=clock["vi_frame"],
+        kf_per_s=clock["steps"] / clock["wall"], steady_steps=clock["steps"],
+        host_reads_per_kf=clock["reads"] / max(clock["steps"], 1),
+        lm_iters_per_pass=clock["lm_iters"] / max(clock["lm_passes"], 1),
+        lm_passes_per_kf=clock["lm_passes"] / max(clock["steps"], 1),
+        idle_share=clock["profile"]["idle_share"],
+        k1_launches=launches["corr_fused_xy"], k2_launches=launches["corr_lookup"],
+        k1_grid=f"{v.h8}x{v.w8}", k1_max_edges=max((e for e, _, _ in shapes), default=0),
+        traj_rows=len(rows), all_stamp_rows=len(rows) - fe.keyframe_steps,
+        ecef_rows=sum(len(r) == 11 for r in rows),
+        gnss_init_frame=None, ate=ate, span=span, ate_share=ate / span, max_abs_bias=bias,
+        filter_thresh=system.cfg.frontend.filter_thresh,
+        gate=(f"the preset's gate admitted {run.gate_admitted} of the first {DEMO_GATE_PROBE} "
+              "frames" + ("" if system.cfg.frontend.filter_thresh >= 0 else
+                          ", so filter_thresh is -1 (every frame admitted)")),
+        device_solver=system.cfg.sensors.device_solver)
+    if c.gnss_init_time > 0:
+        res["gnss_init_frame"] = int(round(c.gnss_init_time * DEMO_FPS))
+    checks = [
+        (np.all(np.isfinite(traj)) and np.all(np.isfinite(est)), "a pose is not finite"),
+        (traj.shape[0] >= fe.keyframe_steps > 0, f"{traj.shape[0]} rows for "
+         f"{fe.keyframe_steps} keyframe steps"),
+        (launches["corr_lookup"] >= n - 1, f"K2 launched {launches['corr_lookup']} times for "
+         f"{n - 1} gated frames"),
+        (launches["corr_fused_xy"] >= fe.update_rounds > 0, f"K1 launched "
+         f"{launches['corr_fused_xy']} times for {fe.update_rounds} update rounds"),
+        (all((h, w) == (v.h8, v.w8) for _, h, w in shapes), f"K1 ran at {shapes}"),
+        (ate < 0.08 * span, f"ATE {ate} m is not under 0.08 x span ({span} m)"),
+        (bias < 0.2, f"a bias reached {bias} (bound 0.2)"),
+        (not system.cfg.sensors.device_solver, "the preset's device_solver=False changed"),
+    ]
+    if kind in ("tumvi", "whu"):
+        checks.append((res["all_stamp_rows"] > 0, "all_stamp added no trajectory row"))
+    if kind == "whu":
+        enu = whu_enu_check(run, rows)
+        res["enu"] = enu
+        checks += [(c.gnss_init_time > 0, "init_gnss did not fire"),
+                   (len(system.trajectory_ecef) > 0, "trajectory_ecef has no rows"),
+                   (enu.get("ok", False), f"the ECEF rows are off the truth: {enu}")]
+    if kind == DEMO_SAVE_PKL:
+        from dbaf_tpu_torch.eval.visualize import load_reconstruction
+
+        recon = load_reconstruction(pkl)
+        exported = len(v.saved_tstamps) + fe.t1 - min(v.archive_mark, fe.t1)
+        res["pkl_keyframes"] = len(recon["points"])
+        res["pkl_mib"] = (os.path.getsize(pkl) + os.path.getsize(pkl[:-4] + "_raw.pkl")) / 2**20
+        checks.append((len(recon["points"]) == exported > 0 and all(
+            np.all(np.isfinite(e["pts"])) for e in recon["points"].values()),
+            f"the reconstruction is not one finite block per keyframe ({exported})"))
+        os.remove(pkl)
+        os.remove(pkl[:-4] + "_raw.pkl")
+    if kind == "kitti360":
+        if "ops" not in full:
+            raise SystemExit(f"demo {kind}: no round ran K1 at E=48 ({shapes})")
+        chk = k1_round_check(full.pop("ops"))
+        res["k1_check"] = chk
+        checks.append((chk["k1_err"] <= chk["k1_tol"], f"K1 at E=48 {chk['grid']} off its "
+                       f"plain version: {chk}"))
+    res["launches"] = launches
+    log(f"[demo_{kind}] " + json.dumps(res))
+    for ok, msg in checks:
+        if not ok:
+            raise SystemExit(f"demo {kind}: {msg}")
+    return res
+
+
+def write_demo_weights(path: str) -> str:
+    """The seeded reference-format checkpoint, as a user's droid.pth."""
+    from dbaf_tpu_torch.models.convert import synth_reference_state_dict
+
+    with open(MANIFEST) as f:
+        manifest = json.load(f)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({k: torch.as_tensor(a) for k, a in synth_reference_state_dict(
+        manifest, 20260820).items()}, path)
+    return path
+
+
+def phase_demos(dev) -> dict:
+    """Phase 11: each dataset demo's setup at its preset's full width."""
+    build = os.path.join(ROOT, "dbaf_tpu_torch", "_build", "demos")
+    weights = write_demo_weights(os.path.join(build, "droid_seeded.pth"))
+    out_root = os.path.join(ROOT, "chiprun_out", "demos")
+    res = {}
+    for kind in DEMOS:
+        t = time.perf_counter()
+        res[kind] = run_demo(kind, weights, out_root, build, dev)
+        log(f"[time] phase 11 {kind} took {time.perf_counter() - t:.1f} s")
+    os.remove(weights)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--root", default=ROOT,
@@ -2198,6 +2737,9 @@ def main() -> int:
     t = time.perf_counter()
     resume_res = phase_resume(dev)
     log(f"[time] phase 10c (save and resume) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    demo_res = phase_demos(dev)
+    log(f"[time] phase 11 (dataset demos) took {time.perf_counter() - t:.1f} s")
     visual_launches = {name: sum(visual_res[m]["launches"][name]
                                  for m in ("visual", "cull", "gateonly"))
                        for name in int8_res["launches"]}
@@ -2207,6 +2749,7 @@ def main() -> int:
              "upsample": up_res["launches"], "stereo": stereo_res["launches"],
              "oracle_stereo": oracle_res["stereo"]["launches"],
              "oracle_rgbd": oracle_res["rgbd"]["launches"], "resume": resume_res["launches"]}
+    paths.update({f"demo_{kind}": r["launches"] for kind, r in demo_res.items()})
 
     src = "dbaf_tpu_torch/csrc/"
     kernels = [
@@ -2250,6 +2793,14 @@ def main() -> int:
             f"{r['scale']:.4f}, disparity ratio {r['ratio']:.4f} on {card}")
     log(f"[resume] {resume_res['resume_err']:.3e} after the resumed frames (spread of two runs "
         f"{resume_res['spread']:.3e}), file {resume_res['file_mib']:.1f} MiB on {card}")
+    for kind, r in demo_res.items():
+        log(f"[demo_{kind}] {r['image_size'][0]}x{r['image_size'][1]}, {r['kf_per_s']:.3f} kf/s "
+            f"after VI init, ATE {r['ate_share']:.4f} of the span, {r['host_reads_per_kf']:.3f} "
+            f"host reads and {r['lm_passes_per_kf']:.3f} LM passes a keyframe on {card}")
+    k1d = demo_res["kitti360"]["k1_check"]
+    log(f"[demo_kitti360] K1 at E={k1d['E']} {k1d['grid']}: {k1d['ms']:.4f} ms (bound "
+        f"{k1d['bound_ms']:.4f} ms by {k1d['bound_by']}, plain {k1d['plain_ms']:.3f} ms), "
+        f"{k1d['k1_err']:.3e} from its plain version on {card}")
     print(card, flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -30,8 +30,8 @@ count the host sees lags the device's by no more than the buffer's
 headroom above ``rollup_start``.
 
 Scope: visual-only configurations after initialization (no IMU; stereo
-and RGB-D input stay on the synchronous flow, as in the JAX package).  Not
-ported: the monitor feed.
+and RGB-D input stay on the synchronous flow, as in the JAX package, and so
+does a run with the monitor on: ``DBAFusion`` does not build the pipeline).
 """
 
 from __future__ import annotations

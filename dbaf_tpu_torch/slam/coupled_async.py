@@ -45,8 +45,12 @@ pinned memory ahead of the pack; the host replays the roll with their
 timestamps and thumbnails and archives them at the next drain, whose wait
 on the pack covers the copy, so archival adds no read and no drain.
 
+With the monitor on (and its debug views off) each drained pack feeds it
+the keyframe's decision-time pose and gyro bias, one keyframe behind the
+solve, at no extra read.
+
 Scope: the post-VI-init steady state; reinitialization drains back to the
-synchronous flow.  Not ported: the file-dump monitor feed.
+synchronous flow.
 """
 
 from __future__ import annotations
@@ -607,7 +611,7 @@ class CoupledAsync:
         self.steps += 1
         self.total_steps += 1
         fe.keyframe_steps += 1
-        self.pending.append(PendingRead(pack, t1))
+        self.pending.append(PendingRead(pack, t1, cur_t))
         if len(self.pending) > 1:
             self._drain_one()
         # replay the step's rollup decision (post-cull count > rollup_start;
@@ -649,7 +653,9 @@ class CoupledAsync:
         p = self.pending.pop(0)
         pack = p.read()
         self._resolve_archives(wait=False)
-        self._refresh_mirrors_from_pack(pack, *p.meta)
+        t1_at, cur_t = p.meta
+        self._refresh_mirrors_from_pack(pack, t1_at)
+        self._monitor_from_pack(pack, t1_at, cur_t)
         culled = bool(pack[0] > 0.5)
         fe = self.fe
         fe.update_rounds += fe.iters1 + (0 if culled else fe.iters2)
@@ -673,6 +679,24 @@ class CoupledAsync:
         if t1_k > fc.rollup_start:
             t1_k -= fc.rollup_shift
         return t0_c, rows, t1_k
+
+    def _monitor_from_pack(self, pack: np.ndarray, t1_at: int, cur_t: float):
+        """Feed the monitor from a drained pack: the decision-time body pose
+        and the keyframe's solved gyro bias ride it, so the rows cost no
+        read; they lag the solve by one keyframe.  A summary at each rollup."""
+        mon = self.fe.monitor
+        if mon is None:
+            return
+        NW = self.cfg.sensors.fg_cap
+        t0_c, rows, t1_k = self._parse_pack(pack, t1_at)
+        wtb = pack[-13:-1]
+        T = np.eye(4)
+        T[:3, :3] = wtb[:9].reshape(3, 3)
+        T[:3, 3] = wtb[9:12]
+        mon.record_keyframe(cur_t, T, gyro_bias=rows[int(np.clip(t1_k - 1 - t0_c, 0, NW - 1)),
+                                                     18:21])
+        if t1_at - int(self._drained_cull) > self.cfg.frontend.rollup_start:
+            mon.dump_summary()
 
     def _refresh_mirrors_from_pack(self, pack: np.ndarray, t1_at: int):
         """Mirror the drained pack's solved window into the host
@@ -752,7 +776,10 @@ class CoupledAsync:
         t1 = self._last_t1
         in_flight = fe.t1 - t1  # 0 or 1
         # the one pending pack is the last step's: its cull is the carried
-        # prev_cull, finished below
+        # prev_cull, finished below; its monitor row is recorded here (a
+        # read the drain makes only with the monitor on)
+        if fe.monitor is not None and self.pending:
+            self._monitor_from_pack(self.pending[-1].read(), *self.pending[-1].meta)
         self.pending.clear()
         self._resolve_archives(wait=True)
         names = ("prev_cull", "e_valid", "i_valid", "ii", "jj", "age", "ii_i", "jj_i", "o_prev",

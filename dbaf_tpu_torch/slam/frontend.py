@@ -12,6 +12,12 @@ frame sees is the same.  With ``device_solver``, ``coupled_mega`` and
 pipeline (``slam/coupled_async.py``) after a non-culled fused step and drains
 back to the synchronous flow on a bias reinitialization; with
 ``device_solver`` off it runs the host f64 solve, as the JAX package does.
+
+With ``cfg.frontend.monitor_dir`` a :class:`~dbaf_tpu_torch.eval.monitor.Monitor`
+records every keyframe and dumps its panels at each rollup (the
+reference's live window, dbaf_frontend.py:76-83, 278-314); the visual
+keyframe step then runs as two update calls, as in the JAX package.  The
+monitor's reads of device state happen only when it exists.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 
 from ..fusion.se3np import Pose
 from ..ops import lie, lie_np
+from ..ops import projective as pj
 from ..utils.config import DBAFusionConfig
 from ..utils.device import to_host
 from .graph import CovisibleGraph
@@ -75,6 +82,12 @@ class Frontend:
         self.update_rounds = 0
         self.culls = 0
         self._casync = None  # the asynchronous coupled pipeline (slam/coupled_async.py)
+        # the file-dump monitor (dbaf_frontend.py:76-83; covisible_graph.py:252-307)
+        self.monitor = None
+        if fc.monitor_dir:
+            from ..eval.monitor import Monitor
+
+            self.monitor = Monitor(fc.monitor_dir, debug_views=fc.monitor_debug)
 
     def set_multisensor(self, all_imu, all_gnss=None, all_odo=None, all_stamp=None,
                         visual_only: bool = False):
@@ -272,8 +285,11 @@ class Frontend:
             v.seed_depth(self.t1 - 1)
 
         self._rollup()
-        if not multisensor:
+        if not multisensor and self.monitor is None:
             self._update_visual_fused(cur_t)
+            return
+        if not multisensor:
+            self._update_two_call(cur_t)
             return
 
         # fused coupled keyframe: iters1 rounds + the cull decision +
@@ -288,6 +304,7 @@ class Frontend:
             dec = g.dec_pose
             self._write_traj_row(cur_t, Pose(dec[:9].reshape(3, 3).astype(np.float64),
                                              dec[9:12].astype(np.float64)))
+            self._monitor_keyframe(cur_t)
             if culled:
                 self._cull()
             self._maybe_init_gnss()
@@ -312,6 +329,11 @@ class Frontend:
         (CoupledAsync.can_activate)."""
         if not self.cfg.sensors.coupled_async:
             return
+        # the pipeline feeds the monitor's keyframe rows from its drained
+        # packs (CoupledAsync._monitor_from_pack); the debug views read the
+        # edge state, which stays on the synchronous flow
+        if self.monitor is not None and self.monitor.debug_views:
+            return
         if self._casync is None:
             from .coupled_async import CoupledAsync
 
@@ -321,7 +343,7 @@ class Frontend:
 
     def _maybe_init_gnss(self):
         c = self.coupled
-        if self.video.imu_enabled and c.gnss_init_time <= 0.0 and len(self.all_gnss) > 0 \
+        if self.all_imu is not None and c is not None and self.video.imu_enabled and c.gnss_init_time <= 0.0 and len(self.all_gnss) > 0 \
                 and c.ten0 is not None:
             init_gnss(self.video, c, self.t1, c.ten0)
 
@@ -333,11 +355,12 @@ class Frontend:
             g.run_upsample(g.agg_fn)
 
     def _update_two_call(self, cur_t: float):
-        """The multi-sensor keyframe step as two update calls around a host
-        cull decision: before VI initialization, with ``coupled_mega`` off,
-        and as the fallback when the window exceeds ``fg_cap``
-        (dbaf_frontend.py:243-373)."""
+        """The keyframe step as two update calls around a host cull
+        decision (dbaf_frontend.py:243-373): multi-sensor before VI
+        initialization, with ``coupled_mega`` off, and where the window
+        exceeds ``fg_cap``; visual with the monitor on."""
         g, v = self.graph, self.video
+        multisensor = self.all_imu is not None and self.coupled is not None
         g.update(None, None, use_inactive=True, rounds=self.iters1)
         self.keyframe_steps += 1
         self.update_rounds += self.iters1
@@ -345,6 +368,7 @@ class Frontend:
             self._write_traj_row(cur_t, self.coupled.state.wTbs[self.t1 - 1])
         else:
             self.trajectory.append((cur_t, lie.se3_inv(v.poses[self.t1 - 1])))
+        self._monitor_keyframe(cur_t)
 
         # keyframe cull decision (dbaf_frontend.py:317-353); the distance
         # came with the update's pack
@@ -374,11 +398,49 @@ class Frontend:
             self.update_rounds += self.iters2
 
         # VI / GNSS initialization triggers (dbaf_frontend.py:359-369)
-        if self.t1 > self.vi_warmup and self.coupled.vi_init_t1 < 0:
+        if multisensor and self.t1 > self.vi_warmup and self.coupled.vi_init_t1 < 0:
             self._try_init_vi(cur_t)
         self._maybe_init_gnss()
         self._maybe_upsample()
         v.seed_next(self.t1)
+
+    def _monitor_keyframe(self, cur_t: float):
+        """Record the keyframe in the monitor and, after a rollup, dump its
+        panels and debug views (the reference refreshes its window there,
+        dbaf_frontend.py:296-314)."""
+        mon = self.monitor
+        if mon is None:
+            return
+        g, v = self.graph, self.video
+        T = np.eye(4)
+        bg = None
+        if self.all_imu is not None and self.coupled is not None and v.imu_enabled:
+            P = self.coupled.state.wTbs[self.t1 - 1]
+            T[:3, :3], T[:3, 3] = P.R, P.t
+            bg = np.asarray(self.coupled.state.bs[self.t1 - 1][3:6])
+        else:
+            row = to_host(lie.se3_inv(v.poses[self.t1 - 1])).astype(np.float64)
+            T[:3, :3] = lie_np.quat_to_matrix(row[3:7])
+            T[:3, 3] = row[:3]
+        mon.record_keyframe(cur_t, T, gyro_bias=bg)
+        if not self.did_rollup:
+            return
+        mon.dump_summary()
+        if not mon.debug_views or g.n == 0:
+            return
+        # the oldest keyframe's disparity (covisible_graph.py:253-263)
+        mon.dump_disparity(to_host(v.disps[int(g.ii[0])]))
+        # the (max ii, max ii - 5) edge's flow/weight overlay, as the
+        # reference picks it, else the newest edge (covisible_graph.py:266-283)
+        sel = np.nonzero((g.ii == g.ii.max()) & (g.jj == g.ii.max() - 5))[0]
+        e = int(sel[0]) if len(sel) else int(np.argmax(g.ii))
+        target = to_host(g.edges.target[e])
+        coords0 = np.asarray(pj.coords_grid(target.shape[0], target.shape[1]))
+        mon.dump_flow_weight(v.images_small[int(g.ii[e])], target, coords0,
+                             to_host(g.edges.weight[e]))
+        # the covisibility graph over the camera centres (covisible_graph.py:287-307)
+        centers = lie_np.se3_inv(to_host(v.poses[:self.t1]).astype(np.float64))[:, :3]
+        mon.dump_covisible(centers, g.ii, g.jj, g.ii_inac, g.jj_inac)
 
     def _update_visual_fused(self, cur_t: float):
         """The visual keyframe step in one fused call: iters1 rounds, the

@@ -54,8 +54,9 @@ class DBAFusion:
     it takes a depth map for RGB-D input; both run the synchronous flow.
     :meth:`save_state` and :meth:`load_state` snapshot and restore the
     streaming state.
-    ``cfg.frontend.monitor_dir`` (the per-keyframe panel dump) is not ported
-    and raises ``NotImplementedError``.
+    With ``cfg.frontend.monitor_dir`` the frontend's monitor dumps its
+    panels there (:mod:`dbaf_tpu_torch.eval.monitor`); the visual
+    asynchronous pipeline is then not built, as in the JAX package.
     """
 
     def __init__(self, cfg: DBAFusionConfig, params: Optional[Mapping[str, torch.Tensor]] = None,
@@ -63,10 +64,6 @@ class DBAFusion:
                  feat_fn: Optional[Callable] = None, ctx_fn: Optional[Callable] = None,
                  update_fn: Optional[Callable] = None, dtype: torch.dtype = torch.bfloat16):
         self.cfg = cfg
-        if cfg.frontend.monitor_dir:
-            raise NotImplementedError(
-                "dbaf_tpu_torch: cfg.frontend.monitor_dir (the keyframe monitor's panel dump) "
-                "is not ported yet")
         if torch.device("cuda" if device is None else device).type == "cuda":
             # K1 runs in every update round: refuse a feature grid it does
             # not take here rather than in the first round (fnet's 128 channels)
@@ -99,7 +96,8 @@ class DBAFusion:
         self.filter = MotionFilter(self.video, cfg, feat_fn, ctx_fn, update_fn)
         self.frontend = Frontend(self.video, self.graph, cfg)
         self._async = None
-        if cfg.frontend.async_pipeline:
+        if cfg.frontend.async_pipeline and not cfg.frontend.monitor_dir:
+            # the monitor reads each keyframe's host state: stay synchronous
             from .async_pipeline import AsyncPipeline
 
             self._async = AsyncPipeline(self)

@@ -3,9 +3,8 @@
 The port's own copy of ``dbaf_tpu/utils/config.py``: the same dataclasses,
 field names and defaults, so one set of keyword arguments builds the same
 configuration in both packages.  Fields that only the JAX package's
-unported paths read (sharding, the monitor's output) are kept so the two
-trees stay interchangeable; the port ignores them, except that
-``DBAFusion`` refuses a ``monitor_dir`` (the monitor is not ported).
+unported paths read (sharding) are kept so the two trees stay
+interchangeable; the port ignores them.
 """
 
 from __future__ import annotations

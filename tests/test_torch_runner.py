@@ -3,8 +3,7 @@
 and ``save_pkl`` driven by ``runner.run`` writes the TUM trajectory, both
 reconstruction files and the JSON line; the JAX package's ``run`` on the
 same trajectory gives the same line and the same files.  Also the weights
-self-test on a reference-format checkpoint, and the refusal of the
-unported monitor.
+self-test on a reference-format checkpoint.
 """
 
 import importlib
@@ -114,16 +113,3 @@ def test_weights_selftest_on_a_reference_checkpoint(tmp_path, capsys):
     torch.save(sd, path)
     with pytest.raises((RuntimeError, ValueError)):
         weights_selftest(path)
-
-
-def test_monitor_dir_is_refused():
-    """The monitor (its panel dump) is not ported: DBAFusion refuses a
-    monitor_dir instead of ignoring it."""
-    from dbaf_tpu_torch.slam.system import DBAFusion
-
-    for async_on in (False, True):
-        cfg = port_cfg(async_on)
-        cfg.frontend.monitor_dir = "panels"
-        with pytest.raises(NotImplementedError, match="monitor_dir"):
-            DBAFusion(cfg, device="cpu", feat_fn=lambda *a: None, ctx_fn=lambda *a: None,
-                      update_fn=lambda *a: None)
