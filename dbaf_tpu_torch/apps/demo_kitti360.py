@@ -71,14 +71,14 @@ def setup(args: argparse.Namespace, device=None):
     return system, kitti360_stream(args.imagedir, args.calib, args.stride)
 
 
-def main(argv=None, device=None):
+def main(argv=None):
     from . import runner
 
     args = parse_args(argv)
     if args.selftest:
         runner.weights_selftest(args.weights)
         return
-    system, stream = setup(args, device)
+    system, stream = setup(args)
     runner.run(system, stream, args.resultpath, args.pklpath, args.gtpath, args.max_frames)
 
 

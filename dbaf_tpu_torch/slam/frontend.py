@@ -343,7 +343,7 @@ class Frontend:
 
     def _maybe_init_gnss(self):
         c = self.coupled
-        if self.all_imu is not None and c is not None and self.video.imu_enabled and c.gnss_init_time <= 0.0 and len(self.all_gnss) > 0 \
+        if self.video.imu_enabled and c.gnss_init_time <= 0.0 and len(self.all_gnss) > 0 \
                 and c.ten0 is not None:
             init_gnss(self.video, c, self.t1, c.ten0)
 
