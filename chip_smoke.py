@@ -170,6 +170,40 @@ Phases, each fatal on failure:
              E=48 and 40x112 against its plain version (2^-7 of the largest output), and
              its ms beside its bound.  One JSON line a demo (profile tables
              in chiprun_out/profile_demo_*.txt).
+  12. multi-device  the parallel layer (dbaf_tpu_torch/parallel) with its
+             ranks spawned from this script on cuda:0 (NCCL takes no two
+             ranks on one card, so RANKS = 2 ranks use gloo, whose
+             collectives go through the host; no scaling number can be
+             taken on one card).  Single-process references run first in
+             this process.  12a: sharded_ba_step on 2 ranks, each with half
+             of the 170 edges of bench.py's coupled window (P = 44, 48x64),
+             in f64, against one process's dba.ba in f64, within
+             tests/test_parallel.py's 2e-5 (poses) and 2e-4 (disps); ms a
+             sharded f32 iteration beside ms a single-process one;
+             sharded_feature_step, each rank extracting 2 of 4 of phase
+             3's frames, bit-equal to one
+             process on the same two-frame batches.  12b: a world of one over
+             NCCL runs the same step and dist_worker's CLI.  12c:
+             make_train_step on a dp 2 x edge 1 mesh, one tuple a rank, at
+             phase 9b's width, against one process's B = 2 step, and on a
+             dp 1 x edge 2 mesh at phase 9a's f32 shape: loss, gradients
+             and updated parameters within SPREAD_FACTOR times the spread
+             of two single-process steps, the second on images moved by
+             TRAIN_EPS (with floors, see SPREAD_FACTOR); the dp step also
+             by phase 9a's parity bounds, which the same step with its
+             gradients not summed over dp (a planted fault) must fail;
+             s/step and peak memory per rank, held under 1.05 x phase 9b's
+             peak in this run.  12d: phase 3's path (30 frames) and phase
+             6's configuration (36 frames: VI init, >= 10 async steps)
+             with cfg.shard_video on 2 ranks, against one process with the
+             flag (a world of one: no sharding, the same numerics; the
+             flag turns on deterministic algorithms on the card, and every
+             rank takes its host decisions from rank 0's reads): poses
+             (body positions) and disparities within the larger of the
+             spread of two single runs and tests/test_shard_video.py's
+             1e-5 / 1e-4, and the ranks' distance from each other; each
+             rank holds half of fmaps+nets+inps; kf/s with the gloo staging; K1 and K2
+             launches of both ranks.  Any failed rank fails the phase.
 Phase 2 also holds K1-int8 (one launch, its tile scales inside it) at
 (E=48, 48x64, C=128, tile 256), at tiles of 128, 192 and 768 pixels, off
 the image and with a NaN row, and its returned scales, against their plain
@@ -184,7 +218,8 @@ Phase 2 prints a digest of every case's kernel output ("[digest]" lines):
 with --root, two packages' digests show whether a kernel's outputs changed.
 Then one JSON line listing the kernels (launches summed over the main,
 coupled, coupled_async, visual_async, int8, export, upsample, stereo,
-oracle_stereo, oracle_rgbd, resume and the four demo paths, each counted
+oracle_stereo, oracle_rgbd, resume, the four demo paths and phase 12d's
+sharded_main and sharded_coupled_async (both ranks' launches), each counted
 from 0 just before its run; "launches_by_path" splits them), and last the
 ok line.
 
@@ -639,15 +674,8 @@ def phase_main(dev, n_frames: int) -> dict:
 
     cfg = tumvi_config()
     cfg.frontend.filter_thresh = -1.0  # admit every frame
-    HT, WD = cfg.image_size
     system = DBAFusion(cfg, params=seeded_params(20260820), device=dev)
-    rng = np.random.default_rng(0)
-    base = rng.integers(0, 255, size=(HT + 64, WD + 64, 3)).astype(np.uint8)
-    intr = np.asarray([460.0, 460.0, WD / 2, HT / 2], np.float32)
-
-    def frame(k):
-        ox, oy = (3 * k) % 64, (2 * k) % 64
-        return base[oy:oy + HT, ox:ox + WD]
+    frame, intr = main_frames(cfg)
 
     cc.reset_launch_counts()
     fe = system.frontend
@@ -1639,6 +1667,62 @@ def train_spread(params: dict, batch: dict, eps: float = 1e-4) -> dict:
     return dict(loss=abs(l1 - l0) / abs(l0), median=float(np.median(rel)), worst=max(rel))
 
 
+def step_parity(a, b, lr: float) -> dict:
+    """Phase 9a's parity measures of training step ``a`` against ``b``, each
+    (loss, {leaf: gradient}, {leaf: updated parameter}) on the host: the
+    loss (relative), each leaf's gradient (L2 of the difference over the
+    leaf's norm; the zero-gradient biases ahead of fnet's instance norms
+    over the largest leaf norm), the updated parameters where the two
+    gradients agree to 1%, and the share of entries at the noise (held to
+    2 lr); ``bad`` names each measure over its TRAIN_* bound."""
+    (loss_a, g_a, p_a), (loss_b, g_b, p_b) = a, b
+    g_a, g_b, p_a, p_b = ({k: torch.as_tensor(v) for k, v in d.items()}
+                          for d in (g_a, g_b, p_a, p_b))
+    loss_rel = abs(loss_a - loss_b) / abs(loss_b)
+    top = max(float(g.norm()) for g in g_b.values())
+    worst_rel, worst_noise = 0.0, 0.0
+    bad = ["loss"] if not loss_rel <= TRAIN_LOSS_RTOL else []
+    if g_a.keys() != g_b.keys():
+        bad.append("gradient leaves")
+    for k, g in g_b.items():
+        d = float((g_a[k] - g).norm())
+        if k.startswith("fnet.") and k.endswith(".bias") and k != "fnet.conv2.bias":
+            worst_noise = max(worst_noise, d / top)
+            if d > TRAIN_NOISE_TOL * top:
+                bad.append(k)
+        else:
+            worst_rel = max(worst_rel, d / max(float(g.norm()), 1e-30))
+            if not d <= TRAIN_GRAD_TOL * float(g.norm()):
+                bad.append(k)
+    noisy = total = 0
+    worst_p = 0.0
+    for k, p in p_b.items():
+        err = (p_a[k] - p).abs()
+        at_noise = ((g_a[k] - g_b[k]).abs() > 0.01 * torch.maximum(g_a[k].abs(), g_b[k].abs())
+                    if k in g_b else torch.zeros_like(err, dtype=torch.bool))
+        if bool((err[at_noise] > 2 * lr + TRAIN_PARAM_ATOL).any()):
+            bad.append(k + " (update)")
+        if (~at_noise).any():
+            worst_p = max(worst_p, float(err[~at_noise].max()))
+        noisy += int(at_noise.sum())
+        total += p.numel()
+    if worst_p > TRAIN_PARAM_ATOL:
+        bad.append("parameters")
+    if noisy > TRAIN_NOISY_SHARE * total:
+        bad.append("noisy share")
+    return dict(loss_rel=loss_rel, grad_rel=worst_rel, grad_noise=worst_noise, param_err=worst_p,
+                noisy=noisy, total=total, noisy_share=noisy / total, bad=bad)
+
+
+def parity_line(m: dict) -> str:
+    return (f"loss rel {m['loss_rel']:.2e} (bound {TRAIN_LOSS_RTOL:g}); worst leaf gradient "
+            f"{m['grad_rel']:.2e} of its norm (bound {TRAIN_GRAD_TOL:g}), zero-gradient biases "
+            f"{m['grad_noise']:.2e} of the largest leaf norm (bound {TRAIN_NOISE_TOL:g}); "
+            f"updated parameters {m['param_err']:.2e} (bound {TRAIN_PARAM_ATOL:g}) where the "
+            f"gradients agree to 1%, {m['noisy']} of {m['total']} entries with gradients at the "
+            f"noise (share bound {TRAIN_NOISY_SHARE:g}, held to 2 lr)")
+
+
 def train_parity(dev) -> dict:
     """Phase 9a: one make_train_step step (f32 DroidNet, weights from seed 0
     with the delta head scaled by 0.01, 4 frames at 96 x 128, num_steps 2,
@@ -1666,53 +1750,53 @@ def train_parity(dev) -> dict:
         runs.append((float(met["loss"]),
                      {k: p.grad.detach().cpu() for k, p in model.named_parameters()},
                      {k: p.detach().cpu() for k, p in model.named_parameters()}))
-    (loss_c, g_c, p_c), (loss_h, g_h, p_h) = runs
-    loss_rel = abs(loss_c - loss_h) / abs(loss_h)
-    top = max(float(g.norm()) for g in g_h.values())
-    worst_rel, worst_noise, bad = 0.0, 0.0, []
-    for k, g in g_h.items():
-        d = float((g_c[k] - g).norm())
-        if k.startswith("fnet.") and k.endswith(".bias") and k != "fnet.conv2.bias":
-            worst_noise = max(worst_noise, d / top)
-            if d > TRAIN_NOISE_TOL * top:
-                bad.append(k)
-        else:
-            worst_rel = max(worst_rel, d / max(float(g.norm()), 1e-30))
-            if d > TRAIN_GRAD_TOL * float(g.norm()):
-                bad.append(k)
-    noisy = total = 0
-    worst_p = 0.0
-    for k, p in p_h.items():
-        err = (p_c[k] - p).abs()
-        at_noise = (g_c[k] - g_h[k]).abs() > 0.01 * torch.maximum(g_c[k].abs(), g_h[k].abs())
-        if bool((err[at_noise] > 2 * lr + TRAIN_PARAM_ATOL).any()):
-            bad.append(k + " (update)")
-        if (~at_noise).any():
-            worst_p = max(worst_p, float(err[~at_noise].max()))
-        noisy += int(at_noise.sum())
-        total += p.numel()
+    m = step_parity(runs[0], runs[1], lr)
+    loss_c, loss_h = runs[0][0], runs[1][0]
     spread = train_spread(params, batch)
     spread_ckpt = train_spread(seeded_params(20260820), batch)
-    res = dict(loss_card=loss_c, loss_cpu=loss_h, loss_rel=loss_rel, grad_rel=worst_rel,
-               grad_noise=worst_noise, param_err=worst_p, noisy_share=noisy / total,
-               spread=spread, spread_checkpoint=spread_ckpt)
-    log(f"[train_parity] loss card {loss_c:.7f} cpu {loss_h:.7f} (rel {loss_rel:.2e}, bound "
-        f"{TRAIN_LOSS_RTOL:g}); worst leaf gradient {worst_rel:.2e} of its norm (bound "
-        f"{TRAIN_GRAD_TOL:g}), zero-gradient biases {worst_noise:.2e} of the largest leaf "
-        f"norm (bound {TRAIN_NOISE_TOL:g}); updated parameters {worst_p:.2e} (bound "
-        f"{TRAIN_PARAM_ATOL:g}) where the gradients agree to 1%, {noisy} of {total} entries "
-        f"with gradients at the noise (share bound {TRAIN_NOISY_SHARE:g}, held to 2 lr)")
+    res = dict(loss_card=loss_c, loss_cpu=loss_h, spread=spread, spread_checkpoint=spread_ckpt,
+               **{k: m[k] for k in ("loss_rel", "grad_rel", "grad_noise", "param_err",
+                                    "noisy_share")})
+    log(f"[train_parity] loss card {loss_c:.7f} cpu {loss_h:.7f}; {parity_line(m)}")
     for tag, sp in (("these weights", spread), ("the seeded checkpoint's", spread_ckpt)):
         log(f"[train_parity] the CPU's own spread at {tag}, images moved by 1e-4: loss "
             f"{sp['loss']:.2e}, leaf gradients {sp['median']:.2e} (median) to "
             f"{sp['worst']:.2e} (worst) of their norms")
-    if (loss_rel > TRAIN_LOSS_RTOL or bad or worst_p > TRAIN_PARAM_ATOL
-            or noisy > TRAIN_NOISY_SHARE * total or not np.isfinite(loss_c)):
-        raise SystemExit(f"train parity: card and CPU disagree ({bad[:6]})")
+    if m["bad"] or not np.isfinite(loss_c):
+        raise SystemExit(f"train parity: card and CPU disagree ({m['bad'][:6]})")
     return res
 
 
 TRAIN_FRAMES, TRAIN_WARM, TRAIN_TIMED = 7, 1, 5
+
+
+def full_train_batch(dev, tuples: int) -> dict:
+    """Phase 9b's batch: ``tuples`` tuples of TRAIN_FRAMES of phase 3's 384 x
+    512 frames (tuple b takes frames [7b, 7b + 7)), ground truth from
+    eval/synthetic.scene_from_poses, poses0 the identity and disps0 ones,
+    the 22 edges |i - j| in {1, 2}; on ``dev``."""
+    from dbaf_tpu_torch.eval.synthetic import scene_from_poses, simulate_imu_and_poses
+    from dbaf_tpu_torch.ops import lie
+    from dbaf_tpu_torch.utils.config import tumvi_config
+
+    HT, WD = tumvi_config().image_size
+    h8, w8, n = HT // 8, WD // 8, TRAIN_FRAMES
+    intr8 = np.asarray([460.0, 460.0, WD / 2, HT / 2], np.float32) / 8.0
+    _, poses_at = simulate_imu_and_poses(tuples * n / 10.0 + 0.5, fps=10.0)
+    gt_cw, gt_disps = scene_from_poses(poses_at, tuples * n, intr8, h8, w8)
+    images = feature_frames(tuples * n)
+    ii, jj = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    keep = (np.abs(ii - jj) >= 1) & (np.abs(ii - jj) <= 2)
+    out = []
+    for b in range(tuples):
+        fr = slice(b * n, (b + 1) * n)
+        out.append(dict(images=torch.as_tensor(images[fr], dtype=torch.float32),
+                        poses0=lie.se3_identity((n,)), disps0=torch.ones((n, h8, w8)),
+                        poses_gt=torch.as_tensor(gt_cw[fr]),
+                        disps_gt=torch.as_tensor(gt_disps[fr]),
+                        intrinsics=torch.as_tensor(intr8), ii=torch.as_tensor(ii[keep]),
+                        jj=torch.as_tensor(jj[keep])))
+    return {k: torch.stack([o[k] for o in out]).to(dev) for k in out[0]}
 
 
 def phase_train(dev) -> dict:
@@ -1725,31 +1809,15 @@ def phase_train(dev) -> dict:
     finite, the parameters move, and no correlation kernel launches (the
     training unroll runs the plain lookup).  Then the objective-decrease
     scenario of tests/test_train.py:172-217 on the card."""
-    from dbaf_tpu_torch.eval.synthetic import scene_from_poses, simulate_imu_and_poses
     from dbaf_tpu_torch.models.net import DroidNet
     from dbaf_tpu_torch.ops import corr_cuda as cc
-    from dbaf_tpu_torch.ops import lie
     from dbaf_tpu_torch.train.trainer import make_optimizer, make_train_step
     from dbaf_tpu_torch.utils.config import tumvi_config
 
     HT, WD = tumvi_config().image_size
-    h8, w8, n = HT // 8, WD // 8, TRAIN_FRAMES
-    intr8 = np.asarray([460.0, 460.0, WD / 2, HT / 2], np.float32) / 8.0
-    _, poses_at = simulate_imu_and_poses(n / 10.0 + 0.5, fps=10.0)
-    gt_cw, gt_disps = scene_from_poses(poses_at, n, intr8, h8, w8)
-    rng = np.random.default_rng(0)  # phase 3's frames
-    base = rng.integers(0, 255, size=(HT + 64, WD + 64, 3)).astype(np.uint8)
-    images = np.stack([base[(2 * k) % 64:(2 * k) % 64 + HT, (3 * k) % 64:(3 * k) % 64 + WD]
-                       for k in range(n)])
-    ii, jj = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
-    keep = (np.abs(ii - jj) >= 1) & (np.abs(ii - jj) <= 2)
-    batch = dict(images=torch.as_tensor(images, dtype=torch.float32),
-                 poses0=lie.se3_identity((n,)), disps0=torch.ones((n, h8, w8)),
-                 poses_gt=torch.as_tensor(gt_cw[:n]), disps_gt=torch.as_tensor(gt_disps[:n]),
-                 intrinsics=torch.as_tensor(intr8), ii=torch.as_tensor(ii[keep]),
-                 jj=torch.as_tensor(jj[keep]))
-    batch = {k: v[None].to(dev) for k, v in batch.items()}
-    E = int(keep.sum())
+    n = TRAIN_FRAMES
+    batch = full_train_batch(dev, 1)
+    E = int(batch["ii"].shape[1])
 
     model = DroidNet(device=dev)
     model.load_state_dict(seeded_params(20260820))
@@ -1941,7 +2009,7 @@ def stereo_k1_check(system) -> dict:
     ii, jj = torch.as_tensor(g.ii, device=dev), torch.as_tensor(g.jj, device=dev)
     selfs = ii == jj
     coords1, _ = pj.projective_transform(v.poses, v.disps, v.intrinsics, ii, jj)
-    f1p, f2p, _ = corr_operands(system.cfg, v.fmaps, v.fmaps_right, ii, jj)
+    f1p, f2p, _ = corr_operands(system.cfg, v, ii, jj)
     out = cc.corr_fused_xy(f1p, f2p, coords1, v.h8, v.w8)
     ref = cc.corr_fused_xy_plain(f1p, f2p, coords1, v.h8, v.w8)
     diff = (out.float() - ref.float()).abs()
@@ -1950,7 +2018,7 @@ def stereo_k1_check(system) -> dict:
     # network's features give outputs of order 10, so it scales with them
     # (2^-7 of the largest output, tests/test_torch_corr.py's K1 bound)
     tol = max(K1_TOL, 2.0 ** -7 * float(ref.float().abs().max()))
-    mono = cc.corr_fused_xy(*corr_operands(system.cfg, v.fmaps, None, ii, jj)[:2], coords1,
+    mono = cc.corr_fused_xy(*corr_operands(system.cfg, v, ii, jj, right=False)[:2], coords1,
                             v.h8, v.w8)
     right_read = bool((mono[selfs] != out[selfs]).any()) and bool(
         (mono[~selfs] == out[~selfs]).all())
@@ -2675,6 +2743,604 @@ def phase_demos(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 12: multi-device on the one card.  The ranks are processes of this
+# script (torch.multiprocessing spawn, through parallel/launch.py), each on
+# cuda:0.  NCCL puts no two ranks on one card, so two ranks use gloo, whose
+# collectives go through the host; a world of one runs over NCCL.  No
+# scaling number can be taken on one card: the phase measures agreement,
+# memory per rank and what the host-staged collectives cost.
+
+RANKS = 2
+BA_ITERS_TIMED = 10
+# 12a: tests/test_parallel.py:57-58's bounds, the ranks and one process
+# both in f64 (in f32 the solve itself lies about 3e-4 from f64 at P = 44
+# and 48 x 64, so two f32 summation orders cannot be held to 2e-5); the
+# f32 iteration is timed
+BA_TOL_POSES, BA_TOL_DISPS = 2e-5, 2e-4
+SV_TOL_POSES, SV_TOL_DISPS = 1e-5, 1e-4   # tests/test_shard_video.py:85-86
+N_SHARD_MAIN, N_SHARD_COUPLED = N_FRAMES, 36  # 12d: phase 3's frames; VI init and async steps
+SHARD_TRAIN_TIMED = 3
+WORLD1_BACKEND = "nccl"  # 12b: the production backend, a world of one
+# 12c: a sharded step against the single-process one, each measure at most
+# SPREAD_FACTOR times the spread of two single-process steps, the second on
+# images moved by TRAIN_EPS intensity levels: a sharded step sums the edges'
+# and tuples' terms in another order, a change at the rounding level, and
+# the unroll amplifies such a change as it amplifies that one (phase 9a's
+# train_spread).  Floors: f32 rounding of a sum in another order for the
+# loss and the gradient, and 2 lr for a parameter (AdamW's first step moves
+# an entry by about lr times the sign of its gradient, so an entry whose
+# gradient is at the noise can move either way; that measure catches only
+# a step of another size).  The bf16 spread is large (an image level moves
+# the gradients by percents), so the dp 2 step, which runs each tuple
+# through the single-process code, is also held by phase 9a's parity bounds
+# (step_parity: each leaf's gradient within 1e-3 of its norm), and a step
+# with its gradients not summed over dp (the planted fault) must fail them
+SPREAD_FACTOR, LOSS_FLOOR, GRAD_FLOOR = 10.0, 1e-6, 1e-5
+# TRAIN_EPS is phase 9a's (f32); the bf16 network rounds its normalized
+# input to 8 bits, which swallows 1e-4, so its images move by one level
+TRAIN_EPS, TRAIN_EPS_BF16 = 1e-4, 1.0
+
+
+def sharded_ba_window(seed: int = 0) -> dict:
+    """12a's window (numpy): bench.py's coupled window (P = 44 of phase 5's
+    48 x 64 grid) on phase 5's synthetic scene, the 170 edges |i - j| in
+    {1, 2}, targets the true reprojections plus 0.25 px noise, weights in
+    [0.2, 1], poses perturbed by 0.01 (slot 0 fixed) and disparities by 2 %."""
+    from dbaf_tpu_torch.eval.synthetic import scene_from_poses, simulate_imu_and_poses
+    from dbaf_tpu_torch.ops import lie
+    from dbaf_tpu_torch.ops import projective as pj
+
+    cfg = coupled_config()
+    P, (H8, W8) = cfg.ba.window, cfg.feat_size
+    intr8 = np.asarray([2.0 * W8, 2.0 * W8, W8 / 2, H8 / 2], np.float32)
+    _, poses_at = simulate_imu_and_poses(P / COUPLED_FPS + 0.5, fps=COUPLED_FPS)
+    gt_cw, gt_disps = scene_from_poses(poses_at, P, intr8, H8, W8)
+    gt_cw, gt_disps = torch.as_tensor(gt_cw[:P]), torch.as_tensor(gt_disps[:P])
+    ai, aj = np.meshgrid(np.arange(P), np.arange(P), indexing="ij")
+    keep = (np.abs(ai - aj) >= 1) & (np.abs(ai - aj) <= 2)
+    ii, jj = torch.as_tensor(ai[keep]), torch.as_tensor(aj[keep])
+    tgt, _ = pj.projective_transform(gt_cw, gt_disps, torch.as_tensor(intr8), ii, jj)
+    rng = np.random.default_rng(seed)
+    E = ii.shape[0]
+    xi = rng.normal(size=(P, 6)).astype(np.float32) * 0.01
+    xi[0] = 0.0
+    return dict(
+        poses=lie.se3_retr(gt_cw, torch.as_tensor(xi)).numpy(),
+        disps=(gt_disps.numpy() * (1 + 0.02 * rng.standard_normal((P, H8, W8)))).astype(np.float32),
+        intr=intr8, eta=np.full((P, H8 * W8), 1e-4, np.float32),
+        targets=(tgt.numpy() + 0.25 * rng.standard_normal(tgt.shape)).astype(np.float32),
+        weights=rng.uniform(0.2, 1.0, size=tgt.shape).astype(np.float32),
+        ii=ii.numpy(), jj=jj.numpy(), mask=np.ones(E, bool))
+
+
+def _ba_args(w: dict, dev, sl=slice(None), dtype=torch.float32):
+    t = {k: torch.as_tensor(v).to(dev) for k, v in w.items()}
+    t = {k: v.to(dtype) if v.dtype == torch.float32 else v for k, v in t.items()}
+    return ((t["poses"], t["disps"], t["intr"]), (t["targets"][sl], t["weights"][sl]), t["eta"],
+            (t["ii"][sl], t["jj"][sl], t["mask"][sl]))
+
+
+def rank_sharded_ba(dev, w: dict, iters_timed: int) -> dict:
+    """12a/12b on one rank: sharded_ba_step (two iterations) on this rank's
+    edges in f64, then ms an f32 iteration of make_sharded_ba_iteration
+    over ``iters_timed`` chained iterations (the host-staged collectives
+    included)."""
+    from dbaf_tpu_torch.parallel import dist, make_mesh, make_sharded_ba_iteration
+    from dbaf_tpu_torch.parallel import sharded_ba_step
+
+    mesh = make_mesh()
+    sl = dist.process_edge_slice(w["ii"].shape[0])
+    (p, d, intr), (tg, wg), eta, (ii, jj, m) = _ba_args(w, dev, sl, dtype=torch.float64)
+    P = p.shape[0]
+    out = sharded_ba_step(mesh)(p, d, intr, tg, wg, eta, ii, jj, m, 1, P)
+    (p, d, intr), (tg, wg), eta, (ii, jj, m) = _ba_args(w, dev, sl)
+    step = make_sharded_ba_iteration(mesh, P)
+    for _ in range(2):
+        step(p, d, intr, tg, wg, eta, ii, jj, m, 1, P)
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    tp, td = p, d
+    for _ in range(iters_timed):
+        tp, td = step(tp, td, intr, tg, wg, eta, ii, jj, m, 1, P)
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t) / iters_timed * 1e3
+    return dict(poses=out.poses.cpu().numpy(), disps=out.disps.cpu().numpy(), iter_ms=ms,
+                edges=int(ii.shape[0]), backend=torch.distributed.get_backend())
+
+
+def feature_frames(n: int = 4) -> np.ndarray:
+    """The first ``n`` of phase 3's 384 x 512 frames, (n, H, W, 3) uint8."""
+    from dbaf_tpu_torch.utils.config import tumvi_config
+
+    frame, _ = main_frames(tumvi_config())
+    return np.stack([frame(k) for k in range(n)])
+
+
+def _feature_model(dev):
+    from dbaf_tpu_torch.models.net import DroidNet
+
+    model = DroidNet(device=dev)
+    model.load_state_dict(seeded_params(20260820))
+    return model
+
+
+def rank_features(dev, images: np.ndarray) -> list:
+    """sharded_feature_step of the seeded network: this rank extracts its
+    share of ``images``; returns every frame's (fmaps, net, inp) as f32."""
+    from dbaf_tpu_torch.parallel import dist, make_mesh, sharded_feature_step
+
+    sl = dist.process_edge_slice(images.shape[0])
+    out = sharded_feature_step(make_mesh(), _feature_model(dev))(
+        torch.as_tensor(images[sl]).to(dev))
+    return [x.float().cpu().numpy() for x in out]
+
+
+def _train_model(dev, tiny: bool):
+    """12c's network: phase 9b's (bf16, the seeded checkpoint) or phase
+    9a's (f32, drawn from seed 0, the delta head scaled by 0.01)."""
+    from dbaf_tpu_torch.models.net import DroidNet
+
+    if tiny:
+        model = DroidNet(dtype=torch.float32, device="cpu").init_weights(
+            torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            model.update.delta_2.weight.mul_(0.01)
+            model.update.delta_2.bias.mul_(0.01)
+        return model.to(dev)
+    model = DroidNet(device=dev)
+    model.load_state_dict(seeded_params(20260820))
+    return model
+
+
+def train_run(dev, tiny: bool, mesh_shape=None, timed: int = 0, eps: float = 0.0) -> dict:
+    """One make_train_step step from 12c's weights: phase 9b's batch of two
+    tuples (full width, num_steps 12, bf16, make_optimizer() at its
+    defaults) or, ``tiny``, phase 9a's tuple (f32, 96 x 128, num_steps 2,
+    lr 1e-4); on a (dp, edge) mesh of the job's ranks when ``mesh_shape``
+    is given, this rank's share of the batch; the images moved by ``eps``
+    intensity levels.  Then ``timed`` more steps.
+    Returns the step's loss, the gradients and the updated parameters (f32
+    numpy), s/step over the timed steps and the peak memory."""
+    from dbaf_tpu_torch.parallel import make_mesh_2d
+    from dbaf_tpu_torch.train.trainer import make_optimizer, make_train_step, shard_batch
+
+    model = _train_model(dev, tiny)
+    if tiny:
+        batch, opt = tiny_train_batch("cpu", 0, n=4, h8=12, w8=16), \
+            make_optimizer(model.parameters(), lr=1e-4, total_steps=2)
+        num_steps = 2
+    else:
+        batch, opt, num_steps = full_train_batch("cpu", 2), make_optimizer(model.parameters()), 12
+    batch["images"] = batch["images"] + eps
+    mesh = None if mesh_shape is None else make_mesh_2d(*mesh_shape)
+    batch = ({k: v.to(dev) for k, v in batch.items()} if mesh is None
+             else shard_batch(batch, mesh, device=dev))
+    step = make_train_step(model, opt, num_steps=num_steps, fixedp=2, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    loss = float(step(batch)["loss"])
+    res = dict(loss=loss,
+               grads={k: p.grad.float().cpu().numpy().copy() for k, p in model.named_parameters()
+                      if p.grad is not None},
+               params={k: p.detach().float().cpu().numpy().copy()
+                       for k, p in model.named_parameters()},
+               tuples=int(batch["images"].shape[0]), edges=int(batch["ii"].shape[1]))
+    if timed:
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        for _ in range(timed):
+            step(batch)
+        torch.cuda.synchronize(dev)
+        res["s_per_step"] = (time.perf_counter() - t) / timed
+    res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return res
+
+
+def _feature_bytes(video) -> int:
+    return sum(getattr(video, n).numel() * getattr(video, n).element_size()
+               for n in ("fmaps", "nets", "inps"))
+
+
+def video_main_run(dev, shard: bool, n_frames: int = N_SHARD_MAIN) -> dict:
+    """Phase 3's path (DBAFusion at tumvi_config(), the seeded network,
+    every frame admitted) with ``cfg.shard_video``: live poses and
+    disparities, steady-state kf/s, the launch counts, this rank's bytes of
+    fmaps + nets + inps."""
+    from dbaf_tpu_torch.ops import corr_cuda as cc
+    from dbaf_tpu_torch.slam.system import DBAFusion
+    from dbaf_tpu_torch.utils.config import tumvi_config
+
+    cfg = tumvi_config()
+    cfg.frontend.filter_thresh = -1.0
+    cfg.shard_video = shard
+    system = DBAFusion(cfg, params=seeded_params(20260820), device=dev)
+    frames = feature_frames(n_frames)
+    _, intr = main_frames(cfg)
+    fe = system.frontend
+    cc.reset_launch_counts()
+    t0 = None
+    for k in range(n_frames):
+        if fe.is_initialized and t0 is None:
+            torch.cuda.synchronize(dev)
+            t0, steps0 = time.perf_counter(), fe.keyframe_steps
+        system.track(float(k), frames[k], intrinsics=intr)
+    torch.cuda.synchronize(dev)
+    kfs = (fe.keyframe_steps - steps0) / (time.perf_counter() - t0)
+    launches = dict(cc.LAUNCHES)
+    v = system.video
+    n = v.counter
+    traj = system.terminate()
+    return dict(poses=v.poses[:n].cpu().numpy(), disps=v.disps[:n].cpu().numpy(), traj=traj,
+                kf_per_s=kfs, launches=launches, feature_bytes=_feature_bytes(v),
+                sharded=v.kf_group is not None, steps=fe.keyframe_steps)
+
+
+def video_coupled_run(dev, shard: bool, n_frames: int = N_SHARD_COUPLED) -> dict:
+    """Phase 6's configuration (the asynchronous coupled pipeline) for
+    ``n_frames`` frames with ``cfg.shard_video``: the keyframes' solved
+    body positions and disparities, kf/s over the frames the pipeline ran,
+    the async steps, culls and rollups inside it, launch counts, this
+    rank's feature bytes."""
+    from dbaf_tpu_torch.ops import corr_cuda as cc
+    from dbaf_tpu_torch.utils import device as devmod
+
+    cfg = coupled_config(coupled_async=True)
+    cfg.shard_video = shard
+    run = CoupledRun(dev, cfg, n_frames)
+    fe = run.system.frontend
+    cc.reset_launch_counts()
+    wall, steps = 0.0, 0
+    for k in range(n_frames):
+        ca = fe._casync
+        active = ca is not None and ca.active
+        steps0 = ca.total_steps if active else 0
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        run.track(k, devmod.upload)
+        torch.cuda.synchronize(dev)
+        if active and ca.active:
+            wall += time.perf_counter() - t
+            steps += ca.total_steps - steps0
+    ca = fe._casync
+    if ca is None:
+        raise SystemExit("video_coupled: the asynchronous pipeline never activated")
+    launches = dict(cc.LAUNCHES)
+    v = run.system.video
+    t1 = fe.t1
+    disps = v.disps[:t1].cpu().numpy()
+    traj = run.system.terminate()
+    return dict(pos=run.positions(), disps=disps, traj=traj, launches=launches,
+                kf_per_s=steps / wall if wall else 0.0, async_steps=ca.total_steps,
+                culls=ca.culls, rollups=ca.rollups, feature_bytes=_feature_bytes(v),
+                sharded=v.kf_group is not None)
+
+
+def train_run_unsummed(dev) -> dict:
+    """12c's planted fault: train_dp's step with the gradients left unsummed
+    over the dp ranks (``trainer._sum_gradients`` a no-op), each rank
+    stepping on its own tuple's half of the gradient."""
+    from dbaf_tpu_torch.train import trainer
+
+    summed = trainer._sum_gradients
+    trainer._sum_gradients = lambda params, groups: None
+    try:
+        return train_run(dev, False, (RANKS, 1))
+    finally:
+        trainer._sum_gradients = summed
+
+
+def rank_phase12(jobs, device: str) -> dict:
+    """Phase 12's work on one rank, job by job (``(name, args)``), on
+    ``device`` (the card).  The video jobs come last: ``cfg.shard_video``
+    turns on deterministic algorithms in the process
+    (``slam/video.py``)."""
+    from dbaf_tpu_torch.parallel import dist
+
+    dev = dist.rank_device(device)
+    out = {}
+    for name, args in jobs:
+        t = time.perf_counter()
+        if name == "ba":
+            out[name] = rank_sharded_ba(dev, *args)
+        elif name == "features":
+            out[name] = dict(maps=rank_features(dev, *args))
+        elif name == "train_dp":
+            out[name] = train_run(dev, False, (RANKS, 1), *args)
+        elif name == "train_dp_fault":
+            out[name] = train_run_unsummed(dev)
+        elif name == "train_edge":
+            out[name] = train_run(dev, True, (1, RANKS))
+        elif name in ("video_main", "video_coupled"):
+            fn = video_main_run if name == "video_main" else video_coupled_run
+            out[name] = fn(dev, True, *args)
+        else:
+            raise ValueError(name)
+        out[name]["seconds"] = time.perf_counter() - t
+    return out
+
+
+def _rank_workdir(name: str) -> str:
+    return os.path.join(ROOT, "dbaf_tpu_torch", "_build", "ranks", name)
+
+
+def run_ranks(dev, world: int, jobs, backend: str, timeout: float) -> list:
+    """rank_phase12(jobs) on ``world`` spawned ranks on ``dev`` (the card);
+    a rank that fails (or the timeout) fails the phase, and every rank is
+    stopped."""
+    from dbaf_tpu_torch.parallel import launch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    return launch.run(rank_phase12, world, (jobs, dev.type),
+                      workdir=_rank_workdir(f"{backend}{world}"), backend=backend,
+                      device=dev.type, timeout=timeout)
+
+
+def _train_measures(a: dict, b: dict) -> dict:
+    """Loss (relative), gradients (relative L2 over every leaf) and the
+    updated parameters (worst absolute) of two training steps."""
+    num = sum(float(np.sum((a["grads"][k] - g) ** 2)) for k, g in b["grads"].items())
+    den = sum(float(np.sum(g ** 2)) for g in b["grads"].values())
+    return dict(loss=abs(a["loss"] - b["loss"]) / abs(b["loss"]), grad=(num / den) ** 0.5,
+                param=max(float(np.max(np.abs(a["params"][k] - p))) for k, p in b["params"].items()))
+
+
+def _as_step(r: dict) -> tuple:
+    return r["loss"], r["grads"], r["params"]
+
+
+def _hold_dp(ranks: list, singles: list, card: str) -> dict:
+    """12c's dp 2 step against one process's B = 2 step: within
+    SPREAD_FACTOR times the spread of two single steps (_hold_train) and by
+    phase 9a's parity bounds (step_parity), and the planted fault (the
+    gradients not summed over dp) failing the parity bounds."""
+    lr0 = 2.5e-4 / 25  # make_optimizer()'s first-step lr
+    out = _hold_train("train_dp", [r["train_dp"] for r in ranks], singles, lr0, TRAIN_EPS_BF16,
+                      card)
+    ref = _as_step(singles[0])
+    held = [step_parity(_as_step(r["train_dp"]), ref, lr0) for r in ranks]
+    fault = [step_parity(_as_step(r["train_dp_fault"]), ref, lr0) for r in ranks]
+    fault_grad = max(_train_measures(r["train_dp_fault"], singles[0])["grad"] for r in ranks)
+    for k, m in enumerate(held):
+        log(f"[train_dp] rank {k} against one process's B = 2 step: {parity_line(m)} on {card}")
+    log(f"[train_dp] planted fault, the gradients not summed over dp: worst leaf gradient "
+        f"{max(f['grad_rel'] for f in fault):.3e} of its norm (bound {TRAIN_GRAD_TOL:g}), "
+        f"gradients {fault_grad:.3e} over every leaf (spread bound {out['tol']['grad']:.3e}); "
+        f"{min(len(f['bad']) for f in fault)} measures past their parity bounds on a rank")
+    if any(m["bad"] for m in held):
+        raise SystemExit(f"train_dp: the sharded step differs from the single one "
+                         f"({[m['bad'][:6] for m in held]})")
+    if not all(f["bad"] for f in fault):
+        raise SystemExit("train_dp: the planted fault passed the parity bounds")
+    out.update(parity=[{k: v for k, v in m.items() if k != "bad"} for m in held],
+               fault_grad_rel=[f["grad_rel"] for f in fault], fault_grad=fault_grad)
+    return out
+
+
+def _hold_train(tag: str, ranks: list, singles: list, lr0: float, eps: float, card: str) -> dict:
+    spread = _train_measures(singles[1], singles[0])
+    tol = dict(loss=max(SPREAD_FACTOR * spread["loss"], LOSS_FLOOR),
+               grad=max(SPREAD_FACTOR * spread["grad"], GRAD_FLOOR),
+               param=max(SPREAD_FACTOR * spread["param"], 2 * lr0))
+    worst = {k: 0.0 for k in tol}
+    for r in ranks:
+        if r["grads"].keys() != singles[0]["grads"].keys():
+            raise SystemExit(f"{tag}: a rank's gradient leaves differ from the single step's")
+        m = _train_measures(r, singles[0])
+        worst = {k: max(worst[k], m[k]) for k in m}
+        if not np.isfinite(r["loss"]):
+            raise SystemExit(f"{tag}: a rank's loss is not finite")
+    log(f"[{tag}] sharded against single: loss {worst['loss']:.3e} (bound {tol['loss']:.3e}), "
+        f"gradients {worst['grad']:.3e} (bound {tol['grad']:.3e}), parameters "
+        f"{worst['param']:.3e} (bound {tol['param']:.3e}); spread of two single steps "
+        f"(images moved by {eps:g}): loss "
+        f"{spread['loss']:.3e}, gradients {spread['grad']:.3e}, parameters "
+        f"{spread['param']:.3e} on {card}")
+    bad = [k for k in tol if worst[k] > tol[k]]
+    if bad:
+        raise SystemExit(f"{tag}: the sharded step differs from the single one in {bad}")
+    return dict(worst=worst, tol=tol, spread=spread)
+
+
+def _hold_video(tag: str, ranks: list, singles: list, keys, card: str) -> dict:
+    """The ranks' rows against the first single run (one process with the
+    flag), within the larger of the two single runs' spread and the
+    reference's bounds; the ranks' distance from each other is printed."""
+    a, b = singles
+    out = {}
+    for key, ref_tol in zip(keys, (SV_TOL_POSES, SV_TOL_DISPS)):
+        if a[key].shape != b[key].shape:
+            raise SystemExit(f"{tag}: two single runs kept different keyframes")
+        spread = float(np.max(np.abs(a[key] - b[key])))
+        tol = max(spread, ref_tol)
+        diff = 0.0
+        for r in ranks:
+            if r[key].shape != a[key].shape:
+                raise SystemExit(f"{tag}: a rank kept {r[key].shape} {key}, one process "
+                                 f"{a[key].shape}")
+            diff = max(diff, float(np.max(np.abs(r[key] - a[key]))))
+        apart = max(float(np.max(np.abs(r[key] - ranks[0][key]))) for r in ranks)
+        log(f"[{tag}] {key}: ranks {diff:.3e} from one process (bound {tol:.3e}: the spread "
+            f"of two single runs {spread:.3e} or the reference's {ref_tol:g}), {apart:.3e} from "
+            f"each other on {card}")
+        if not diff <= tol:
+            raise SystemExit(f"{tag}: the sharded {key} are {diff} from one process's")
+        out[key] = dict(diff=diff, spread=spread, tol=tol, apart=apart)
+    if not all(np.all(np.isfinite(r["traj"])) for r in ranks):
+        raise SystemExit(f"{tag}: a rank's trajectory is not finite")
+    if not all(r["sharded"] for r in ranks) or any(s["sharded"] for s in singles):
+        raise SystemExit(f"{tag}: the ranks did not shard the video, or one process did")
+    for r in ranks:
+        if 2 * r["feature_bytes"] != a["feature_bytes"]:
+            raise SystemExit(f"{tag}: a rank holds {r['feature_bytes']} feature bytes of "
+                             f"{a['feature_bytes']}")
+    return out
+
+
+def phase_multi_device(dev, train_peak: int, card: str) -> dict:
+    """Phase 12: the parallel layer on the card (see the module docstring)."""
+    from dbaf_tpu_torch.ops import dba
+
+    res = {}
+    # ---- single-process references first, then the ranks
+    w = sharded_ba_window()
+    (p, d, intr), (tg, wg), eta, (ii, jj, m) = _ba_args(w, dev)
+    P = p.shape[0]
+    single = dba.ba(p, d, intr, tg, wg, eta, ii, jj, m, 1, P, iterations=2)
+    for _ in range(2):
+        dba.ba(p, d, intr, tg, wg, eta, ii, jj, m, 1, P, iterations=1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tp, td = p, d
+    for _ in range(BA_ITERS_TIMED):
+        tp, td = dba.ba(tp, td, intr, tg, wg, eta, ii, jj, m, 1, P, iterations=1)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t) / BA_ITERS_TIMED * 1e3
+    (p64, d64, intr64), (tg64, wg64), eta64, _ = _ba_args(w, dev, dtype=torch.float64)
+    s64 = dba.ba(p64, d64, intr64, tg64, wg64, eta64, ii, jj, m, 1, P, iterations=2)
+    ba64 = (s64.poses.cpu().numpy(), s64.disps.cpu().numpy())
+    own = [float(np.max(np.abs(a.double().cpu().numpy() - b)))
+           for a, b in zip((single.poses, single.disps), ba64)]
+
+    t = time.perf_counter()
+    frames = feature_frames()
+    with torch.no_grad():
+        fmodel = _feature_model(dev)
+        x = torch.as_tensor(frames).to(dev)
+        per_rank = [fmodel.extract_features(x[k:k + 2]) for k in (0, 2)]
+        single_feat = [torch.cat(a).float().cpu().numpy() for a in zip(*per_rank)]
+        whole_feat = [a.float().cpu().numpy() for a in fmodel.extract_features(x)]
+        del fmodel, x, per_rank
+    train_single = [train_run(dev, False, eps=e) for e in (0.0, TRAIN_EPS_BF16)]
+    tiny_single = [train_run(dev, True, eps=e) for e in (0.0, TRAIN_EPS)]
+    # the flag in a world of one: no sharding, and the numerics the ranks
+    # run (cfg.shard_video turns on deterministic algorithms, slam/video.py);
+    # the rest of this process runs without them, as before
+    try:
+        main_single = [video_main_run(dev, True) for _ in range(2)]
+        coupled_single = [video_coupled_run(dev, True) for _ in range(2)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log(f"[time] phase 12 single-process references took {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    ranks = run_ranks(dev, RANKS, [("ba", (w, BA_ITERS_TIMED)), ("features", (frames,)),
+                                   ("train_dp", (SHARD_TRAIN_TIMED,)), ("train_dp_fault", ()),
+                                   ("train_edge", ()), ("video_main", ()), ("video_coupled", ())],
+                      "gloo", 900)
+    jobs_s = ", ".join("%s %.1f s" % (k, v["seconds"]) for k, v in ranks[0].items())
+    log(f"[time] phase 12 {RANKS} gloo ranks took {time.perf_counter() - t:.1f} s "
+        f"(rank 0: {jobs_s})")
+
+    # ---- 12a: edge-sharded BA, two gloo ranks
+    def hold_ba(tag, outs):
+        dp, dd = (max(float(np.max(np.abs(o[k] - ref))) for o in outs)
+                  for k, ref in zip(("poses", "disps"), ba64))
+        log(f"[{tag}] {len(outs)} {outs[0]['backend']} rank(s), {outs[0]['edges']} of "
+            f"{w['ii'].shape[0]} edges each, P = {P}, f64: from one process's f64 dba.ba poses "
+            f"{dp:.3e} (bound {BA_TOL_POSES:g}), disps {dd:.3e} (bound {BA_TOL_DISPS:g}); the "
+            f"single-process f32 solve {own[0]:.3e}, {own[1]:.3e} from the f64 one (printed); "
+            f"{outs[0]['iter_ms']:.3f} ms a sharded f32 iteration, {single_ms:.3f} ms a "
+            f"single-process one on {card}")
+        if not (dp <= BA_TOL_POSES and dd <= BA_TOL_DISPS):
+            raise SystemExit(f"{tag}: the sharded BA is off (poses {dp}, disps {dd})")
+        return dict(poses=dp, disps=dd, own_f32=own, iter_ms=outs[0]["iter_ms"],
+                    single_ms=single_ms)
+
+    res["ba"] = hold_ba("sharded_ba", [r["ba"] for r in ranks])
+
+    # frame-parallel features: bit-equal to one process on the same batches
+    feat_diff = max(float(np.max(np.abs(a - b))) for r in ranks
+                    for a, b in zip(r["features"]["maps"], single_feat))
+    whole_diff = max(float(np.max(np.abs(a - b) / max(float(np.max(np.abs(b))), 1e-30)))
+                     for a, b in zip(ranks[0]["features"]["maps"], whole_feat))
+    log(f"[sharded_features] {RANKS} ranks, 2 of 4 of phase 3's frames each (fmaps "
+        f"{ranks[0]['features']['maps'][0].shape}): {feat_diff:.3e} from one process on the same "
+        f"two-frame batches (bound 0: the same kernels on the same batches); "
+        f"{whole_diff:.3e} of the largest output from one 4-frame batch (printed) on {card}")
+    if feat_diff != 0.0:
+        raise SystemExit(f"sharded_features: {feat_diff} from one process's features")
+    res["features"] = dict(diff=feat_diff, whole_rel=whole_diff)
+
+    # ---- 12b: a world of one over NCCL: the worker CLI and the sharded step
+    t = time.perf_counter()
+    nccl = run_ranks(dev, 1, [("ba", (w, BA_ITERS_TIMED))], WORLD1_BACKEND, 300)
+    res["ba_nccl"] = hold_ba("sharded_ba_nccl", [nccl[0]["ba"]])
+    out = os.path.join(_rank_workdir("worker"), "worker.npz")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    store = os.path.join(_rank_workdir("worker"), f"store-{time.time_ns()}")
+    import dbaf_tpu_torch
+
+    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(dbaf_tpu_torch.__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "dbaf_tpu_torch.parallel.dist_worker", "--process-id", "0",
+         "--num-processes", "1", "--coordinator", f"file://{store}", "--device", dev.type,
+         "--backend", WORLD1_BACKEND, "--time", str(BA_ITERS_TIMED), "--out", out],
+        cwd=pkg_root, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=pkg_root))
+    if proc.returncode != 0:
+        raise SystemExit(f"dist_worker over NCCL failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
+    wk = np.load(out)
+    metric = json.loads([ln for ln in proc.stdout.splitlines() if ln.startswith("{")][-1])
+    if not (np.all(np.isfinite(wk["poses"])) and np.all(np.isfinite(wk["disps"]))
+            and float(wk["iter_ms"]) > 0 and metric["backend"] == WORLD1_BACKEND):
+        raise SystemExit(f"dist_worker over NCCL gave {metric}")
+    res["worker_nccl_ms"] = float(wk["iter_ms"])
+    log(f"[worker_nccl] dist_worker, world 1 over {metric['backend']} on {metric['device']}: "
+        f"{float(wk['iter_ms']):.3f} ms an iteration (window 16, 128 edges at 24x32; "
+        f"{time.perf_counter() - t:.1f} s with the world-1 step) on {card}")
+
+    # ---- 12c: the sharded training step
+    res["train_dp"] = _hold_dp(ranks, train_single, card)
+    peaks = [r["train_dp"]["peak_bytes"] for r in ranks]
+    s_step = [r["train_dp"]["s_per_step"] for r in ranks]
+    log(f"[train_dp] dp {RANKS} x edge 1, {ranks[0]['train_dp']['tuples']} tuple a rank "
+        f"(7 frames at 384x512, 22 edges, num_steps 12, bf16): "
+        f"{', '.join(f'{s:.4f}' for s in s_step)} s/step, peak "
+        f"{', '.join(f'{x / 2**30:.3f}' for x in peaks)} GiB per rank (phase 9b at B = 1 in "
+        f"this run: {train_peak / 2**30:.3f} GiB) on {card}")
+    if max(peaks) > 1.05 * train_peak:
+        raise SystemExit(f"train_dp: a rank peaked at {max(peaks)} bytes, past 1.05 x phase "
+                         f"9b's {train_peak}")
+    res["train_dp"].update(s_per_step=s_step, peak_bytes=peaks)
+    res["train_edge"] = _hold_train("train_edge", [r["train_edge"] for r in ranks], tiny_single,
+                                    1e-4, TRAIN_EPS, card)
+    log(f"[train_edge] dp 1 x edge {RANKS}: {ranks[0]['train_edge']['edges']} of "
+        f"{tiny_single[0]['edges']} edges a rank (phase 9a's f32 tuple, num_steps 2)")
+
+    # ---- 12d: keyframe-sharded video
+    for name, keys in (("video_main", ("poses", "disps")), ("video_coupled", ("pos", "disps"))):
+        rr = [r[name] for r in ranks]
+        res[name] = _hold_video(name, rr, (main_single if name == "video_main"
+                                           else coupled_single), keys, card)
+        single = main_single if name == "video_main" else coupled_single
+        res[name].update(kf_per_s=[r["kf_per_s"] for r in rr],
+                         single_kf_per_s=[s["kf_per_s"] for s in single],
+                         feature_bytes=[r["feature_bytes"] for r in rr],
+                         single_feature_bytes=single[0]["feature_bytes"],
+                         launches={k: sum(r["launches"][k] for r in rr) for k in rr[0]["launches"]})
+        extra = ""
+        if name == "video_coupled":
+            extra = (f"; {rr[0]['async_steps']} async steps, {rr[0]['culls']} culls, "
+                     f"{rr[0]['rollups']} rollups in the pipeline")
+            if rr[0]["async_steps"] < 10:
+                raise SystemExit(f"{name}: the sharded pipeline ran {rr[0]['async_steps']} "
+                                 "async steps")
+        log(f"[{name}] {RANKS} ranks with shard_video: "
+            f"{', '.join('%.3f' % r['kf_per_s'] for r in rr)} kf/s (gloo staging through the "
+            f"host included; one process {single[0]['kf_per_s']:.3f}, "
+            f"{single[1]['kf_per_s']:.3f}); fmaps+nets+inps "
+            f"{', '.join(str(r['feature_bytes']) for r in rr)} bytes a rank against "
+            f"{single[0]['feature_bytes']}; launches (both ranks) {res[name]['launches']}{extra} "
+            f"on {card}")
+        la = res[name]["launches"]
+        if la["corr_fused_xy"] == 0 or la["corr_lookup"] == 0:
+            raise SystemExit(f"{name}: K1 or K2 did not run on the ranks: {la}")
+    return res
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--root", default=ROOT,
@@ -2740,6 +3406,9 @@ def main() -> int:
     t = time.perf_counter()
     demo_res = phase_demos(dev)
     log(f"[time] phase 11 (dataset demos) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    multi_res = phase_multi_device(dev, train_res["peak_bytes"], card)
+    log(f"[time] phase 12 (multi-device) took {time.perf_counter() - t:.1f} s")
     visual_launches = {name: sum(visual_res[m]["launches"][name]
                                  for m in ("visual", "cull", "gateonly"))
                        for name in int8_res["launches"]}
@@ -2750,6 +3419,8 @@ def main() -> int:
              "oracle_stereo": oracle_res["stereo"]["launches"],
              "oracle_rgbd": oracle_res["rgbd"]["launches"], "resume": resume_res["launches"]}
     paths.update({f"demo_{kind}": r["launches"] for kind, r in demo_res.items()})
+    paths.update(sharded_main=multi_res["video_main"]["launches"],
+                 sharded_coupled_async=multi_res["video_coupled"]["launches"])
 
     src = "dbaf_tpu_torch/csrc/"
     kernels = [
@@ -2801,6 +3472,12 @@ def main() -> int:
     log(f"[demo_kitti360] K1 at E={k1d['E']} {k1d['grid']}: {k1d['ms']:.4f} ms (bound "
         f"{k1d['bound_ms']:.4f} ms by {k1d['bound_by']}, plain {k1d['plain_ms']:.3f} ms), "
         f"{k1d['k1_err']:.3e} from its plain version on {card}")
+    mb, mt = multi_res["ba"], multi_res["train_dp"]
+    log(f"[multi_device] sharded BA {mb['iter_ms']:.3f} ms an iteration on {RANKS} gloo ranks "
+        f"({mb['single_ms']:.3f} ms in one process); dp {RANKS} training "
+        f"{max(mt['s_per_step']):.4f} s/step, peak {max(mt['peak_bytes']) / 2**30:.3f} GiB a "
+        f"rank; shard_video {max(multi_res['video_main']['kf_per_s']):.3f} kf/s (phase 3's path) "
+        f"and {max(multi_res['video_coupled']['kf_per_s']):.3f} kf/s (phase 6's) on {card}")
     print(card, flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

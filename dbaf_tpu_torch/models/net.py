@@ -25,6 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.corr_cuda import RAW_CHANNELS, raw_corr_index
+from ..parallel.collectives import all_sum_packed
 from ..utils.device import device_const, resolve_device
 
 IMAGE_MEAN = (0.485, 0.456, 0.406)
@@ -188,18 +189,20 @@ class GraphAgg(nn.Module):
         self.eta_0 = Conv(128, 1, 3, padding=1)
         self.upmask_0 = Conv(128, 8 * 8 * 9, 1)
 
-    def forward(self, net, ii, num_frames: int, dtype):
+    def forward(self, net, ii, num_frames: int, dtype, group=None):
         """NCHW net (E, 128, H, W) in dtype, ii (E,) source frame per edge
         (every index below ``num_frames``).  Returns eta (F, H, W) and the
         mask (F, 576, H, W), both in dtype, F = ``num_frames``.  The
         per-frame sums run in f32; a frame without an edge takes a zero
-        mean."""
+        mean.  With a process ``group`` the edges are this rank's share:
+        the sums and counts are summed over the group (differentiably)."""
         net = F.relu(self.conv1.run(net, dtype))
         E = net.shape[0]
         sums = torch.zeros((num_frames,) + net.shape[1:], dtype=torch.float32,
                            device=net.device).index_add(0, ii, net.float())
         counts = torch.zeros((num_frames,), dtype=torch.float32, device=net.device).index_add(
             0, ii, torch.ones((E,), dtype=torch.float32, device=net.device))
+        sums, counts = all_sum_packed((sums, counts), group)
         net = (sums / torch.clamp(counts, min=1.0)[:, None, None, None]).to(dtype)
         net = F.relu(self.conv2.run(net, dtype))
         eta = 0.01 * _softplus(gradient_clip(self.eta_0.run(net, dtype)))
@@ -234,12 +237,13 @@ class UpdateModule(nn.Module):
         self.weight_2 = Conv(128, 2, 3, padding=1)
         self.agg = GraphAgg() if agg else None
 
-    def forward(self, net, inp, corr, flow, dtype, ii=None, num_frames: int = 0):
+    def forward(self, net, inp, corr, flow, dtype, ii=None, num_frames: int = 0, group=None):
         """NCHW-shaped net (E,128,H,W), inp (E,128,H,W), corr (E,196,H,W)
         or (E,1024,H,W) (the raw layout), flow (E,4,H,W).  Returns (net,
         delta f32, weight f32), NCHW; with ``ii`` also GraphAgg's eta
         (num_frames, H, W) f32 and mask (num_frames, 576, H, W) in dtype
-        (``upsample=True`` in the JAX module)."""
+        (``upsample=True`` in the JAX module), GraphAgg's edge sums over
+        ``group`` where one is given."""
         c = F.relu(self.corr_encoder_0.run(corr, dtype, self._corr_weight(corr.shape[1])))
         c = F.relu(self.corr_encoder_2.run(c, dtype))
         f = F.relu(self.flow_encoder_0.run(flow, dtype))
@@ -250,7 +254,7 @@ class UpdateModule(nn.Module):
         weight = _sigmoid(gradient_clip(self.weight_2.run(dw[:, 128:], dtype)))
         if ii is None:
             return net, delta.float(), weight.float()
-        eta, upmask = self.agg(net, ii, num_frames, dtype)
+        eta, upmask = self.agg(net, ii, num_frames, dtype, group)
         return net, delta.float(), weight.float(), eta.float(), upmask
 
     def _corr_weight(self, channels: int) -> Optional[torch.Tensor]:
@@ -335,15 +339,17 @@ class DroidNet(nn.Module):
         return (_nhwc(self.fnet(x, self.dtype)), _nhwc(torch.tanh(ctx[:, :128])),
                 _nhwc(F.relu(ctx[:, 128:])))
 
-    def update_with_agg(self, net, inp, corr, flow, ii: torch.Tensor, num_frames: int):
+    def update_with_agg(self, net, inp, corr, flow, ii: torch.Tensor, num_frames: int,
+                        group=None):
         """One update with the GraphAgg head, with autograd (droid_net.py:
         205-206): NHWC net, inp, corr, flow over edges and ii (E,).
         Returns (net in dtype, delta f32, weight f32, eta (num_frames, H,
-        W) f32, upmask (num_frames, H, W, 576) in dtype)."""
+        W) f32, upmask (num_frames, H, W, 576) in dtype).  With a process
+        ``group`` the edges are this rank's share of the tuple's."""
         dt = self.dtype
         net_n, delta, weight, eta, upmask = self.update(
             _nchw(net.to(dt)), _nchw(inp.to(dt)), _nchw(corr.to(dt)), _nchw(flow.to(dt)), dt,
-            ii=ii, num_frames=num_frames)
+            ii=ii, num_frames=num_frames, group=group)
         return _nhwc(net_n), _nhwc(delta), _nhwc(weight), eta, _nhwc(upmask)
 
     @torch.no_grad()

@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from ..parallel import collectives as col
 from . import lie
 from . import projective as pj
 
@@ -223,7 +224,7 @@ class PairwiseSystem(NamedTuple):
     b: torch.Tensor
 
 
-def _placement_matrix(li, lj, P: int) -> torch.Tensor:
+def _placement_matrix(li, lj, P: int, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(P*6, E*12) one-hot: column e*12+k -> pose row role_{k//6}(e)*6 + k%6."""
     E = li.shape[0]
     dev = li.device
@@ -232,45 +233,77 @@ def _placement_matrix(li, lj, P: int) -> torch.Tensor:
     kk = (k % 6).repeat(E)
     row = torch.arange(P * 6, device=dev)
     M = (role[None, :] == (row[:, None] // 6)) & (kk[None, :] == (row[:, None] % 6))
-    return M.to(torch.float32)
+    return M.to(dtype)
+
+
+def _block_diag(H: torch.Tensor) -> torch.Tensor:
+    """(E, 12, 12) per-edge blocks -> the (E*12, E*12) block diagonal."""
+    E = H.shape[0]
+    eye = torch.eye(E, dtype=H.dtype, device=H.device)
+    return (H[:, :, None, :] * eye[:, None, :, None]).reshape(E * 12, E * 12)
+
+
+def _accumulate_depth_diag(sys_e: EdgeSystem, ki: torch.Tensor, P: int):
+    """The depth diagonal ``C`` and right-hand side ``w`` of these edges,
+    summed onto their source frames ``ki`` (P, D)."""
+    Ok = (torch.arange(P, device=ki.device)[:, None] == ki[None, :]).to(sys_e.C.dtype)
+    return Ok @ sys_e.C, Ok @ sys_e.w
+
+
+def _couplings(sys_e: EdgeSystem, li: torch.Tensor, lj: torch.Tensor) -> torch.Tensor:
+    """(E, 12, D) pose-depth couplings, zero at fixed or outside poses."""
+    Ei = sys_e.Ei * (li >= 0)[:, None, None]
+    Ej = sys_e.Ej * (lj >= 0)[:, None, None]
+    return torch.cat([Ei, Ej], dim=1)
+
+
+def _pair_product(Exy: torch.Tensor, Q: torch.Tensor, ki: torch.Tensor,
+                  ii: torch.Tensor) -> torch.Tensor:
+    """``T = (Exy Q[ii]) Exy^T`` over depth pixels, (E*12, E*12), masked to
+    the edge pairs that share a source frame."""
+    E, _, D = Exy.shape
+    ExyQ = Exy * Q[ki][:, None, :]
+    T = (ExyQ.reshape(E * 12, D) @ Exy.reshape(E * 12, D).T).reshape(E, 12, E, 12)
+    pair = (ii[:, None] == ii[None, :]).to(T.dtype)
+    return (T * pair[:, None, :, None]).reshape(E * 12, E * 12)
 
 
 def assemble_pairwise(sys_e: EdgeSystem, ii, jj, P: int, nfixed, nactive, eta,
-                      disps=None, disps_sens=None, alpha: float = 0.05) -> PairwiseSystem:
+                      disps=None, disps_sens=None, alpha: float = 0.05,
+                      group=None) -> PairwiseSystem:
     """A, b, C, w and the Schur complement without the dense coupling:
     ``T = (Exy Q[ii]) Exy^T`` over depth pixels, masked to edge pairs that
     share a source frame, placed with one one-hot matrix:
-    ``S = M (Hbd - T) M^T``."""
-    E = ii.shape[0]
+    ``S = M (Hbd - T) M^T``.
+
+    With a process ``group`` the edges are this rank's share (equal sizes
+    on every rank): the depth diagonal (C, w) is summed over the ranks, and
+    the per-edge blocks ``H``, ``v`` and couplings ``Exy`` are gathered with
+    their indices, so every rank forms the pose system and ``S`` from every
+    edge in one process's order and by its formula
+    (``parallel/shard_ba.py``)."""
     dev = ii.device
     li, lj = _edge_pose_indices(ii, jj, nfixed, nactive)
-    M = _placement_matrix(li, lj, P)
-
     slot = torch.arange(P, device=dev)
     depth_active = slot < nactive
-    ki = torch.clamp(ii, 0, P - 1)
-    Ok = (slot[:, None] == ki[None, :]).to(torch.float32)
-    C = Ok @ sys_e.C
-    w = Ok @ sys_e.w
+    C, w = _accumulate_depth_diag(sys_e, torch.clamp(ii, 0, P - 1), P)
+    H, v, Exy = sys_e.H, sys_e.v, _couplings(sys_e, li, lj)
+    if group is not None:
+        C, w = col.all_sum_packed((C, w), group)
+        packed = col.all_cat(torch.cat([H, v[:, :, None], Exy], dim=2), group)
+        H, v, Exy = packed[:, :, :12], packed[:, :, 12], packed[:, :, 13:]
+        ii, li, lj = col.all_cat_packed((ii, li, lj), group)
     C, w = _finish_depth_diag(C, w, eta, depth_active, disps, disps_sens, alpha)
     Q = 1.0 / C
 
-    Ei = sys_e.Ei * (li >= 0)[:, None, None]
-    Ej = sys_e.Ej * (lj >= 0)[:, None, None]
-    Exy = torch.cat([Ei, Ej], dim=1)  # (E, 12, D)
-    ExyQ = Exy * Q[ki][:, None, :]
-    D = Exy.shape[-1]
-    T = (ExyQ.reshape(E * 12, D) @ Exy.reshape(E * 12, D).T).reshape(E, 12, E, 12)
-    pair = (ii[:, None] == ii[None, :]).to(T.dtype)
-    T = (T * pair[:, None, :, None]).reshape(E * 12, E * 12)
-
-    eye = torch.eye(E, dtype=sys_e.H.dtype, device=dev)
-    Hbd = (sys_e.H[:, :, None, :] * eye[:, None, :, None]).reshape(E * 12, E * 12)
+    ki = torch.clamp(ii, 0, P - 1)
+    M = _placement_matrix(li, lj, P, H.dtype)
+    T = _pair_product(Exy, Q, ki, ii)
+    Hbd = _block_diag(H)
     S = (M @ (Hbd - T)) @ M.T
-    A = (M @ Hbd) @ M.T
-    b = M @ sys_e.v.reshape(E * 12)
+    A, b = (M @ Hbd) @ M.T, M @ v.reshape(-1)
     Ev = torch.einsum("ecd,ed->ec", Exy, (Q * w)[ki])
-    EQw = M @ Ev.reshape(E * 12)
+    EQw = M @ Ev.reshape(-1)
 
     pose_active = (slot >= nfixed) & (slot < nactive)
     pa6 = pose_active[:, None].expand(-1, 6).reshape(-1)
@@ -279,9 +312,9 @@ def assemble_pairwise(sys_e: EdgeSystem, ii, jj, P: int, nfixed, nactive, eta,
                           pose_active=pose_active, A=A, b=torch.where(pa6, b, zero))
 
 
-def back_substitute_pairwise(ps: PairwiseSystem, sys_e: EdgeSystem, ii, jj, dx, nfixed, nactive):
-    """dz = Q (w - E^T dx) edge-wise, with the pose-t0 exclusion."""
-    P = ps.C.shape[0]
+def _depth_accumulate(sys_e: EdgeSystem, ii, jj, dx, nfixed, nactive, P: int) -> torch.Tensor:
+    """``E^T dx`` summed onto the source frames (P, D), the step of pose
+    slot ``nfixed`` left out (droid_kernels.cu:1152-1153)."""
     dev = ii.device
     dxm = dx.reshape(P, 6)
     dxm = torch.where((torch.arange(P, device=dev) == nfixed)[:, None], torch.zeros_like(dxm), dxm)
@@ -290,8 +323,20 @@ def back_substitute_pairwise(ps: PairwiseSystem, sys_e: EdgeSystem, ii, jj, dx, 
     dxj = torch.where((lj >= 0)[:, None], dxm[torch.clamp(lj, 0, P - 1)], torch.zeros((), device=dev))
     dw = torch.einsum("ecd,ec->ed", sys_e.Ei, dxi) + torch.einsum("ecd,ec->ed", sys_e.Ej, dxj)
     ki = torch.clamp(ii, 0, P - 1)
-    Ok = (torch.arange(P, device=dev)[:, None] == ki[None, :]).to(torch.float32)
-    return (1.0 / ps.C) * (ps.w - Ok @ dw)
+    Ok = (torch.arange(P, device=dev)[:, None] == ki[None, :]).to(dw.dtype)
+    return Ok @ dw
+
+
+def back_substitute_pairwise(ps: PairwiseSystem, sys_e: EdgeSystem, ii, jj, dx, nfixed, nactive,
+                             group=None):
+    """dz = Q (w - E^T dx) edge-wise, with the pose-t0 exclusion; with a
+    process ``group``, ``E^T dx`` of this rank's edges summed over the
+    ranks."""
+    P = ps.C.shape[0]
+    acc = _depth_accumulate(sys_e, ii, jj, dx, nfixed, nactive, P)
+    if group is not None:
+        acc = col.all_sum(acc, group)
+    return (1.0 / ps.C) * (ps.w - acc)
 
 
 class BAState(NamedTuple):
@@ -302,9 +347,14 @@ class BAState(NamedTuple):
 def ba(poses, disps, intrinsics, targets, weights, eta, ii, jj, edge_mask, nfixed, nactive,
        disps_sens=None, iterations: int = 2, lm: float = 1e-4, ep: float = 0.1,
        alpha: float = 0.05, motion_only: bool = False, use_sens: bool = False,
-       schur: str = "pairwise") -> BAState:
+       schur: str = "pairwise", group=None) -> BAState:
     """``iterations`` Gauss-Newton steps on a window (droid_kernels.cu:1394-1512).
-    ``nfixed``/``nactive`` may be ints or 0-d tensors."""
+    ``nfixed``/``nactive`` may be ints or 0-d tensors.  With a process
+    ``group`` (the pairwise route only) the edge arguments are this rank's
+    share, the window state is replicated and so is the result
+    (:func:`assemble_pairwise`)."""
+    if group is not None and (schur != "pairwise" or motion_only):
+        raise ValueError("an edge-sharded dba.ba takes the pairwise route only")
     P = poses.shape[0]
     p, d = poses, disps
     for _ in range(iterations):
@@ -312,9 +362,10 @@ def ba(poses, disps, intrinsics, targets, weights, eta, ii, jj, edge_mask, nfixe
         if schur == "pairwise" and not motion_only:
             ps = assemble_pairwise(es, ii, jj, P, nfixed, nactive, eta,
                                    disps=d if use_sens else None,
-                                   disps_sens=disps_sens if use_sens else None, alpha=alpha)
+                                   disps_sens=disps_sens if use_sens else None, alpha=alpha,
+                                   group=group)
             dx = damped_solve(ps.S, ps.v, ps.pose_active, lm, ep)
-            dz = back_substitute_pairwise(ps, es, ii, jj, dx, nfixed, nactive)
+            dz = back_substitute_pairwise(ps, es, ii, jj, dx, nfixed, nactive, group)
             pose_active = ps.pose_active
         else:
             ws = assemble_window_system(es, ii, jj, P, nfixed, nactive, eta,

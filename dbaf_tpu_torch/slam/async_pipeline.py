@@ -93,7 +93,8 @@ def visual_step(ustep: UpdateStep, cfg: DBAFusionConfig, video: DepthVideo, edge
     ct = cull_transition(st["ii"], st["jj"], st["age"], st["e_valid"], st["ii_i"], st["jj_i"],
                          st["i_valid"], ixc)
     edges.assign(_rebuild_edges(edges, torch.where(pc, ct["perm"], ar(E)), no_new_e, ct["ii"],
-                                ct["jj"], video.poses, video.disps, video.intrinsics, video.nets))
+                                ct["jj"], video.poses, video.disps, video.intrinsics,
+                                video.feature_rows("nets", ct["ii"])))
     t_new, w_new = _rebuild_inactive(t_inac, w_inac, torch.where(pc, ct["inact_perm_old"], ar(I)),
                                      no_act_i, zero_i, edges.target, edges.weight)
     t_inac.copy_(t_new)
@@ -111,8 +112,8 @@ def visual_step(ustep: UpdateStep, cfg: DBAFusionConfig, video: DepthVideo, edge
 
     # ---- 2. admission writes: one row each, at the device count
     net0, inp0 = ctx_fn(image)
-    for buf, row in ((video.fmaps, fmap), (video.nets, net0[0]), (video.inps, inp0[0])):
-        set_row(buf, slot, torch.where(adm, row.to(buf.dtype), rows_at(buf, slot)))
+    for name, row in (("fmaps", fmap), ("nets", net0[0]), ("inps", inp0[0])):
+        video.write_feature(name, slot, row, on=adm)
     kf_fmap = torch.where(adm, fmap, st["kf_fmap"])
     kf_net = torch.where(adm, net0[0].to(torch.bfloat16), st["kf_net"])
     kf_inp = torch.where(adm, inp0[0].to(torch.bfloat16), st["kf_inp"])
@@ -136,7 +137,8 @@ def visual_step(ustep: UpdateStep, cfg: DBAFusionConfig, video: DepthVideo, edge
     t_inac.copy_(t_new)
     w_inac.copy_(w_new)
     edges.assign(_rebuild_edges(edges, torch.where(adm, tr["perm"], ar(E)), adm & tr["is_new"],
-                                ii2, jj2, video.poses, video.disps, video.intrinsics, video.nets))
+                                ii2, jj2, video.poses, video.disps, video.intrinsics,
+                                video.feature_rows("nets", ii2)))
 
     # ---- 4. rollup (dbaf_frontend.py:253-257), in the synchronous flow's
     # place: after the edge selection, before the rounds

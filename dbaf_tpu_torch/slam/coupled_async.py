@@ -308,7 +308,8 @@ def coupled_step(ustep: UpdateStep, cfg: DBAFusionConfig, NW: int, video: DepthV
     no_act_i = torch.zeros(I, dtype=torch.bool, device=dev)
     zero_i = torch.zeros(I, dtype=torch.int64, device=dev)
     edges.assign(_rebuild_edges(edges, torch.where(pc, ct["perm"], ar(E)), no_new_e, ct["ii"],
-                                ct["jj"], video.poses, video.disps, video.intrinsics, video.nets))
+                                ct["jj"], video.poses, video.disps, video.intrinsics,
+                                video.feature_rows("nets", ct["ii"])))
     t_new, w_new = _rebuild_inactive(t_inac, w_inac, torch.where(pc, ct["inact_perm_old"], ar(I)),
                                      no_act_i, zero_i, edges.target, edges.weight)
     t_inac.copy_(t_new)
@@ -360,7 +361,7 @@ def coupled_step(ustep: UpdateStep, cfg: DBAFusionConfig, NW: int, video: DepthV
     t_inac.copy_(t_new)
     w_inac.copy_(w_new)
     edges.assign(_rebuild_edges(edges, tr["perm"], tr["is_new"], tr["ii"], tr["jj"], video.poses,
-                                video.disps, video.intrinsics, video.nets))
+                                video.disps, video.intrinsics, video.feature_rows("nets", tr["ii"])))
     ii2, jj2, age2, e_valid2 = tr["ii"], tr["jj"], tr["age"], tr["valid"]
     ii_i2, jj_i2, i_valid2 = tr["ii_i"], tr["jj_i"], tr["i_valid"]
 

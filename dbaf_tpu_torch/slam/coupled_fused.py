@@ -82,8 +82,8 @@ def run_coupled_rounds(step: UpdateStep, cfg: DBAFusionConfig, video: DepthVideo
     fg = prep["fg"]
     sel_pose = dg.sel_pose_for(NW, dev)
     # round-invariant correlation operands and context features
-    corr_prep = corr_operands(cfg, video.fmaps, video.fmaps_right, ii, jj)
-    inp_e = video.inps[ii]
+    corr_prep = corr_operands(cfg, video, ii, jj)
+    inp_e = video.feature_rows("inps", ii)
     lm_stats = []
     pack = cur_target = cur_weight = None
 

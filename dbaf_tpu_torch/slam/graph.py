@@ -37,17 +37,21 @@ class UpdateResult(NamedTuple):
     traj_row: Optional[torch.Tensor]  # camera-to-world 7-vec (mega step)
 
 
-def corr_operands(cfg: DBAFusionConfig, fmaps_buf: torch.Tensor,
-                  fmaps_right_buf: Optional[torch.Tensor], ii: torch.Tensor, jj: torch.Tensor):
+def corr_operands(cfg: DBAFusionConfig, video, ii: torch.Tensor, jj: torch.Tensor,
+                  right: bool = True):
     """Round-invariant correlation operands of an edge set: the prepared
     bf16 features and the int8 tile (None: bf16) for K1 or K1-int8, or the
     bf16 volume for ``lookup_fused`` on the CPU without int8.  With a stereo
-    rig's right buffer, a self-edge (``ii == jj``) correlates the left
-    features with the right camera's (dbaf_tpu/slam/graph.py:100-118)."""
-    f1 = fmaps_buf[ii]
-    f2 = fmaps_buf[jj]
-    if fmaps_right_buf is not None:
-        f2 = torch.where((ii == jj)[:, None, None, None], fmaps_right_buf[jj], f2)
+    rig's right buffer (and ``right``), a self-edge (``ii == jj``)
+    correlates the left features with the right camera's
+    (dbaf_tpu/slam/graph.py:100-118).  The features are the video's rows
+    (``feature_rows``: gathered from their ranks under ``shard_video``)."""
+    E = ii.shape[0]
+    f = video.feature_rows("fmaps", torch.cat([ii, jj]))
+    f1, f2 = f[:E], f[E:]
+    if right and video.fmaps_right is not None:
+        f2 = torch.where((ii == jj)[:, None, None, None], video.feature_rows("fmaps_right", jj),
+                         f2)
     tile = None
     if cfg.graph.corr_int8:
         tile = corr_cuda.int8_tile(f1.shape[1], f1.shape[2], cfg.graph.corr_group)
@@ -217,8 +221,8 @@ class UpdateStep:
             pack, traj_row, _, _ = self.mega(video, edges, ii_t, jj_t, e_mask_t, t_inac, w_inac,
                                              sets, t0, t1, s0, rounds, rounds_b, iters, aux)
             return UpdateResult(host_pack=pack, traj_row=traj_row)
-        inp_e = video.inps[ii_t]
-        prep = corr_operands(self.cfg, video.fmaps, video.fmaps_right, ii_t, jj_t)
+        inp_e = video.feature_rows("inps", ii_t)
+        prep = corr_operands(self.cfg, video, ii_t, jj_t)
         for _ in range(rounds):
             t_all, w_ba = self.update_round(video, edges, ii_t, jj_t, e_mask_t, t_inac, w_inac,
                                             sets, prep, inp_e, aux, use_inactive)
@@ -248,8 +252,8 @@ class UpdateStep:
         masked)."""
         polls = polls or blocking_mega_polls()
         B = video.poses.shape[0]
-        inp_e = video.inps[ii]
-        prep = corr_operands(self.cfg, video.fmaps, video.fmaps_right, ii, jj)
+        inp_e = video.feature_rows("inps", ii)
+        prep = corr_operands(self.cfg, video, ii, jj)
         bufs = (video.poses, video.disps, edges.net, edges.target, edges.weight)
 
         def rounds(n: int, gate: Optional[torch.Tensor], poll: FlagPoll) -> int:
@@ -342,17 +346,17 @@ class EdgeArrays:
             dst.copy_(src)
 
 
-def _rebuild_edges(edges: EdgeArrays, perm, is_new, ii, jj, poses, disps, intrinsics, nets_buf):
+def _rebuild_edges(edges: EdgeArrays, perm, is_new, ii, jj, poses, disps, intrinsics, nets_e):
     """The edge stores after a membership change, as new tensors
     (dbaf_tpu/slam/graph.py:45): slot ``s`` takes old slot ``perm[s]``
     (clipped), except where ``is_new``, where a new edge starts from
-    ``nets_buf[ii]``, its reprojection and zero weight
-    (covisible_graph.py:124-149).  perm, is_new, ii, jj: (E_CAP,) device
-    tensors."""
+    ``nets_e[s]`` (the keyframe state ``nets[ii[s]]``), its reprojection and
+    zero weight (covisible_graph.py:124-149).  perm, is_new, ii, jj:
+    (E_CAP,) device tensors."""
     perm = torch.clamp(perm, 0, edges.net.shape[0] - 1)
     coords, _ = pj.projective_transform(poses, disps, intrinsics, ii, jj)
     sel = is_new[:, None, None, None]
-    return (torch.where(sel, nets_buf[ii].to(edges.net.dtype), edges.net[perm]),
+    return (torch.where(sel, nets_e.to(edges.net.dtype), edges.net[perm]),
             torch.where(sel, coords, edges.target[perm]),
             torch.where(sel, 0.0, edges.weight[perm]))
 
@@ -471,10 +475,11 @@ class CovisibleGraph:
         if not self._dirty:
             return
         v = self.video
+        ii = self._padded(self.ii, self.e_cap)
         self.edges.assign(_rebuild_edges(
-            self.edges, self._dev(self._perm), self._dev(self._is_new),
-            self._padded(self.ii, self.e_cap), self._padded(self.jj, self.e_cap),
-            v.poses, v.disps, v.intrinsics, v.nets))
+            self.edges, self._dev(self._perm), self._dev(self._is_new), ii,
+            self._padded(self.jj, self.e_cap), v.poses, v.disps, v.intrinsics,
+            v.feature_rows("nets", ii)))
         self._perm = np.arange(self.e_cap, dtype=np.int64)
         self._is_new[:] = False
         self._dirty = False
@@ -626,9 +631,8 @@ class CovisibleGraph:
                               self._pad_np(self.jj_inac, self.i_cap), i_mask, t0, use_inactive,
                               dev)
         ii_t, jj_t = torch.as_tensor(ii, device=dev), torch.as_tensor(jj, device=dev)
-        prep = corr_operands(self.cfg, self.video.fmaps, self.video.fmaps_right, ii_t,
-                             jj_t)
-        inp_e = self.video.inps[ii_t]
+        prep = corr_operands(self.cfg, self.video, ii_t, jj_t)
+        inp_e = self.video.feature_rows("inps", ii_t)
         for r in range(rounds):
             t_all, w_ba = step.update_round(self.video, self.edges, ii_t, jj_t,
                                             torch.as_tensor(e_mask, device=dev), self.t_inac,

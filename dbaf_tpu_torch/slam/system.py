@@ -189,7 +189,8 @@ class DBAFusion:
         for n, k in enumerate(dev_idx):
             traj_np[k] = (traj[k][0], rows[n])
         state = {
-            "video": {name: (None if getattr(v, name) is None else _state_array(getattr(v, name)))
+            "video": {name: (None if getattr(v, name) is None
+                             else _state_array(v.full_buffer(name)))
                       for name in self._VIDEO_ARRAYS},
             "video_host": {
                 "tstamp": v.tstamp.copy(),
@@ -223,7 +224,7 @@ class DBAFusion:
         v, g, fe = self.video, self.graph, self.frontend
         for name, arr in state["video"].items():
             if arr is not None:
-                _load_array(getattr(v, name), arr)
+                _load_array(getattr(v, name), v.owned_rows(name, arr))
         vh = state["video_host"]
         v.tstamp = vh["tstamp"]
         v.images_small = vh["images_small"]
@@ -245,7 +246,7 @@ class DBAFusion:
             # the motion gate's last keyframe: the newest row (a cull never
             # removes it), which the JAX file leaves out
             last = v.counter - 1
-            self.filter._store(v.fmaps[last], v.nets[last], v.inps[last])
+            self.filter._store(*(v.feature_rows(name, last) for name in ("fmaps", "nets", "inps")))
         if state["coupled"] is not None:
             state["coupled"].attach(v)
             g.coupled = state["coupled"]

@@ -16,18 +16,60 @@ full-resolution ``disps_up`` rows (filled by the GraphAgg head,
 the depth sensor's disparities (``disps_sens``, written by ``append`` from an
 RGB-D frame) and, with ``cfg.stereo``, the right camera's features
 (``fmaps_right``).
+
+With ``cfg.shard_video`` in a job of more than one rank, the feature
+buffers (``fmaps``, ``nets``, ``inps``, ``fmaps_right``: the large ones)
+are split over the ranks by keyframe slot, rank r holding slots
+``[r B/n, (r + 1) B/n)``, as the JAX package's ``kf`` mesh splits them
+(``dbaf_tpu/slam/video.py:148-175``).  Every rank runs the same frames;
+poses, disparities and the solver state stay replicated.  The buffers are
+read through :meth:`DepthVideo.feature_rows` (each rank reads the rows it
+owns and a gather combines them, exact) and written by their owner
+(:meth:`DepthVideo.write_feature`); the row moves of culls and rollups
+gather their source rows the same way.  With one rank, or the flag off,
+these are the plain indexing.  The gathers of ranks that share a card go
+through the host (gloo), so the sharded asynchronous steps read the
+device.
+
+Every rank must issue the same gathers, so the library holds the ranks to
+one set of host decisions: while a sharded video lives, every counted
+host read of the process is the first rank's value
+(``utils/device.py::HOST_SYNC``; the newest ``DepthVideo`` sets it).  On
+the card the flag also turns on PyTorch's deterministic algorithms for
+the process (``torch.use_deterministic_algorithms``; in one process too,
+so that a run of one rank has the numerics of a run of n): the ranks each
+compute the replicated state, and deterministic kernels keep it bit-equal
+across them on cards of one model (``index_add_``'s atomic order
+otherwise varies, see ``ops/dba.py``).  An operation without a
+deterministic algorithm then raises.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..ops import projective as pj
+from ..parallel.collectives import gather_rows
 from ..utils.config import DBAFusionConfig
-from ..utils.device import resolve_device, to_host
+from ..utils.device import HOST_SYNC, resolve_device, rows_at, set_row, to_host
+
+# the keyframe buffers that cfg.shard_video splits over the ranks
+FEATURE_BUFFERS = ("fmaps", "nets", "inps", "fmaps_right")
+
+
+def _kf_group():
+    """The job's process group when it has more than one rank, else None."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1):
+        return None
+    from ..parallel.mesh import make_mesh
+
+    return make_mesh(axis="kf").get_group("kf")
 
 
 def slot_keyed(a, B: int) -> bool:
@@ -74,14 +116,31 @@ class DepthVideo:
         self.disps = torch.ones((B, h8, w8), dtype=torch.float32, **kw)
         self.disps_sens = torch.zeros((B, h8, w8), dtype=torch.float32, **kw)
         self.damping = torch.full((B, h8, w8), 1e-6, dtype=torch.float32, **kw)
-        self.fmaps = torch.zeros((B, h8, w8, 128), dtype=torch.bfloat16, **kw)
-        self.nets = torch.zeros((B, h8, w8, 128), dtype=torch.bfloat16, **kw)
-        self.inps = torch.zeros((B, h8, w8, 128), dtype=torch.bfloat16, **kw)
+        # keyframe-sharded feature buffers: this rank's slots [kf_lo, kf_lo + rows)
+        self.kf_group, self.kf_lo, rows = None, 0, B
+        group = _kf_group() if cfg.shard_video else None
+        if group is not None:
+            import torch.distributed as dist
+
+            n = dist.get_world_size(group)
+            if B % n:
+                raise ValueError(f"shard_video needs buffer ({B}) divisible by the rank "
+                                 f"count ({n})")
+            rows = B // n
+            self.kf_group, self.kf_lo = group, dist.get_rank(group) * rows
+        if cfg.shard_video and device.type == "cuda":
+            # cuBLAS takes a fixed workspace for deterministic results
+            os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+            torch.use_deterministic_algorithms(True)
+        HOST_SYNC["group"] = self.kf_group
+        self.fmaps = torch.zeros((rows, h8, w8, 128), dtype=torch.bfloat16, **kw)
+        self.nets = torch.zeros((rows, h8, w8, 128), dtype=torch.bfloat16, **kw)
+        self.inps = torch.zeros((rows, h8, w8, 128), dtype=torch.bfloat16, **kw)
         # the right camera's features of a stereo rig (the c=2 axis of the
         # reference's fmaps buffer, depth_video.py:64)
         self.fmaps_right = None
         if cfg.stereo:
-            self.fmaps_right = torch.zeros((B, h8, w8, 128), dtype=torch.bfloat16, **kw)
+            self.fmaps_right = torch.zeros((rows, h8, w8, 128), dtype=torch.bfloat16, **kw)
             self._SHIFT_BUFFERS = self._SHIFT_BUFFERS + ("fmaps_right",)
         self.disps_up = None
         if cfg.upsample:  # convex-upsampled disparities, 8x the features (depth_video.py:57)
@@ -131,12 +190,78 @@ class DepthVideo:
             self.disps_sens[idx] = torch.where(d8 > 0, 1.0 / d8, d8)
             self.has_depth = True
         if fmap_right is not None and self.fmaps_right is not None:
-            self.fmaps_right[idx] = fmap_right
+            self.write_feature("fmaps_right", idx, fmap_right)
 
     def set_features(self, idx: int, fmap, net, inp):
-        self.fmaps[idx] = fmap
-        self.nets[idx] = net
-        self.inps[idx] = inp
+        self.write_feature("fmaps", idx, fmap)
+        self.write_feature("nets", idx, net)
+        self.write_feature("inps", idx, inp)
+
+    # ------------------------------------------------------------------
+    # the feature buffers, sharded or not
+    def _sharded(self, name: str) -> bool:
+        return self.kf_group is not None and name in FEATURE_BUFFERS
+
+    def feature_rows(self, name: str, idx) -> torch.Tensor:
+        """``buf[idx]`` of a feature buffer for a device index tensor (any
+        shape), or for an int (one row); gathered from the owning ranks
+        when the buffer is sharded."""
+        buf = getattr(self, name)
+        if not self._sharded(name):
+            return buf[idx]
+        if isinstance(idx, int):
+            return gather_rows(buf, torch.tensor([idx], device=buf.device), self.kf_group)[0]
+        return gather_rows(buf, idx, self.kf_group).reshape(idx.shape + buf.shape[1:])
+
+    def write_feature(self, name: str, idx, row: torch.Tensor,
+                      on: Optional[torch.Tensor] = None) -> None:
+        """``buf[idx] = row`` for an int or a 0-d device index, where ``on``
+        (a 0-d device bool; always without it), by the rank that owns the
+        slot when the buffer is sharded."""
+        buf = getattr(self, name)
+        if self._sharded(name):
+            n = buf.shape[0]
+            if isinstance(idx, torch.Tensor):
+                local = idx - self.kf_lo
+                mine = (local >= 0) & (local < n)
+                on = mine if on is None else on & mine
+                idx = torch.clamp(local, 0, n - 1)
+            elif not self.kf_lo <= idx < self.kf_lo + n:
+                return
+            else:
+                idx = idx - self.kf_lo
+        if on is not None:
+            row = torch.where(on, row.to(buf.dtype), rows_at(buf, idx))
+        set_row(buf, idx, row)
+
+    def _move_sharded(self, name: str, dst: torch.Tensor, src: torch.Tensor,
+                      on: Optional[torch.Tensor] = None) -> None:
+        """Rows ``src`` -> rows ``dst`` of a sharded buffer, where ``on``:
+        the source rows are gathered, then each rank writes the ones it
+        owns (a destination slot named twice takes its first source)."""
+        buf = getattr(self, name)
+        dst, src = dst.reshape(-1), src.reshape(-1)
+        rows = gather_rows(buf, src, self.kf_group)
+        mine = self.kf_lo + torch.arange(buf.shape[0], device=buf.device)
+        match = dst[None, :] == mine[:, None]
+        take = match.any(1) if on is None else match.any(1) & on
+        src_of = match.to(torch.int64).argmax(1)
+        shape = (-1,) + (1,) * (buf.dim() - 1)
+        buf.copy_(torch.where(take.reshape(shape), rows[src_of], buf))
+
+    def full_buffer(self, name: str) -> torch.Tensor:
+        """Every slot of a buffer (gathered when it is sharded)."""
+        buf = getattr(self, name)
+        if not self._sharded(name):
+            return buf
+        return self.feature_rows(name, torch.arange(self.poses.shape[0], device=buf.device))
+
+    def owned_rows(self, name: str, full):
+        """This rank's rows of a full-size array for buffer ``name``."""
+        if not self._sharded(name):
+            return full
+        n = getattr(self, name).shape[0]
+        return full[self.kf_lo:self.kf_lo + n]
 
     def set_pose(self, idx: int, pose: torch.Tensor):
         self.poses[idx] = pose
@@ -158,6 +283,10 @@ class DepthVideo:
         """Copy every per-frame row src -> dst (host rows included)."""
         for name in self._SHIFT_BUFFERS:
             buf = getattr(self, name)
+            if self._sharded(name):
+                self._move_sharded(name, torch.tensor([dst], device=buf.device),
+                                   torch.tensor([src], device=buf.device))
+                continue
             buf[dst] = buf[src]
         self.tstamp[dst] = self.tstamp[src]
         self.images_small[dst] = self.images_small[src]
@@ -209,8 +338,13 @@ class DepthVideo:
         """Shift the whole buffer down by ``shift`` slots (dbaf_frontend.py:89-151),
         archiving the rows it retires that are not archived yet."""
         self.archive(self.archive_mark, shift)
+        B = self.poses.shape[0]
         for name in self._SHIFT_BUFFERS:
             buf = getattr(self, name)
+            if self._sharded(name):
+                ar = torch.arange(B, device=buf.device)
+                self._move_sharded(name, ar, (ar + shift) % B)
+                continue
             buf.copy_(torch.roll(buf, -shift, dims=0))
         self.tstamp = np.roll(self.tstamp, -shift)
         self.images_small = np.roll(self.images_small, -shift, axis=0)
@@ -239,7 +373,10 @@ class DepthVideo:
         ``aux``'s slot-keyed leaves (the asynchronous steps' culls, at
         device indices); returns the new aux.  Host rows are the drain's."""
         for name in self._SHIFT_BUFFERS:
-            move_rows(getattr(self, name), dst, src, on)
+            if self._sharded(name):
+                self._move_sharded(name, dst, src, on)
+            else:
+                move_rows(getattr(self, name), dst, src, on)
         return self._moved_aux(aux, lambda a: move_rows(a, dst, src, on))
 
     def rollup_device(self, shift: torch.Tensor, aux: Optional[dict] = None) -> dict:
@@ -256,7 +393,12 @@ class DepthVideo:
         B = self.poses.shape[0]
         n = min(fc.rollup_start + 1, B) - fc.rollup_shift
         for name in self._SHIFT_BUFFERS:
-            roll_rows(getattr(self, name), shift, n)
+            if self._sharded(name):
+                if n > 0:
+                    ar = torch.arange(n, device=self.poses.device)
+                    self._move_sharded(name, ar, (ar + shift) % B)
+            else:
+                roll_rows(getattr(self, name), shift, n)
         return self._moved_aux(aux, lambda a: roll_rows(a, shift, B))
 
     # ------------------------------------------------------------------

@@ -3,7 +3,10 @@
 
 The reference's training objectives (geom/losses.py:9-118): sums over the
 unrolled update iterations weighted by gamma^(n-i-1).  Metrics come back as
-0-d tensors on the losses' device (no host read).
+0-d tensors on the losses' device (no host read).  With a process ``group``
+the edges are this rank's share of the tuple's: every sum and mean over
+edges runs over the group (differentiably), and the results are the same
+on every rank.
 """
 
 from __future__ import annotations
@@ -13,38 +16,42 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from ..ops import lie, projective as pj, sim3
+from ..parallel.collectives import all_sum, mean
 
 
-def fit_scale(Ps: torch.Tensor, Gs: torch.Tensor) -> torch.Tensor:
+def fit_scale(Ps: torch.Tensor, Gs: torch.Tensor, group=None) -> torch.Tensor:
     """Least-squares translation scale between pose sets (losses.py:22-28)."""
     t1 = Ps[..., :3].reshape(-1)
     t2 = Gs[..., :3].reshape(-1)
-    return torch.sum(t1 * t2) / (torch.sum(t2 * t2) + 1e-8)
+    if group is None:
+        return torch.sum(t1 * t2) / (torch.sum(t2 * t2) + 1e-8)
+    s = all_sum(torch.stack([torch.sum(t1 * t2), torch.sum(t2 * t2)]), group)
+    return s[0] / (s[1] + 1e-8)
 
 
-def pose_metrics(dE: torch.Tensor) -> Dict[str, torch.Tensor]:
+def pose_metrics(dE: torch.Tensor, group=None) -> Dict[str, torch.Tensor]:
     """Translation / rotation (/ scale) error metrics (losses.py:9-18).
     SE3 7-vectors or Sim3 8-vectors; the Sim3 form adds ``|s - 1|``."""
     r_err = torch.rad2deg(torch.linalg.norm(lie.so3_log(dE[..., 3:7]), dim=-1))
     t_err = torch.linalg.norm(dE[..., :3], dim=-1)
     out = {
-        "rot_error": torch.mean(r_err),
-        "tr_error": torch.mean(t_err),
-        "bad_rot": torch.mean((r_err < 0.1).float()),
-        "bad_tr": torch.mean((t_err < 0.01).float()),
+        "rot_error": mean(r_err, group),
+        "tr_error": mean(t_err, group),
+        "bad_rot": mean((r_err < 0.1).float(), group),
+        "bad_tr": mean((t_err < 0.01).float(), group),
     }
     if dE.shape[-1] == 8:
-        out["scale_error"] = torch.mean(torch.abs(dE[..., 7] - 1.0))
+        out["scale_error"] = mean(torch.abs(dE[..., 7] - 1.0), group)
     return out
 
 
-def _norm_mean(x: torch.Tensor) -> torch.Tensor:
-    return torch.mean(torch.linalg.norm(x, dim=-1))
+def _norm_mean(x: torch.Tensor, group=None) -> torch.Tensor:
+    return mean(torch.linalg.norm(x, dim=-1), group)
 
 
 def geodesic_loss(Ps: torch.Tensor, Gs_list: Sequence[torch.Tensor], ii: torch.Tensor,
-                  jj: torch.Tensor, gamma: float = 0.9,
-                  do_scale: bool = True) -> Tuple[torch.Tensor, Dict]:
+                  jj: torch.Tensor, gamma: float = 0.9, do_scale: bool = True,
+                  group=None) -> Tuple[torch.Tensor, Dict]:
     """Relative-pose geodesic loss over the unrolled estimates
     (losses.py:30-74).  Ps: (N, 7) ground truth; Gs_list: the iterates,
     each (N, 7) SE3 or (N, 8) Sim3 (Sim3 adds the ``0.05 * |sigma|``
@@ -62,30 +69,30 @@ def geodesic_loss(Ps: torch.Tensor, Gs_list: Sequence[torch.Tensor], ii: torch.T
         if is_sim3:
             dG = sim3.rel(Gs[ii], Gs[jj])
             if do_scale:
-                dG = sim3.scale(dG, fit_scale(dP, dG))
+                dG = sim3.scale(dG, fit_scale(dP, dG, group))
             dE = sim3.mul(dG, sim3.inv(dP))
             d = sim3.log(dE)
-            total = total + w * (_norm_mean(d[..., :3]) + _norm_mean(d[..., 3:6])
-                                 + 0.05 * _norm_mean(d[..., 6:]))
+            total = total + w * (_norm_mean(d[..., :3], group) + _norm_mean(d[..., 3:6], group)
+                                 + 0.05 * _norm_mean(d[..., 6:], group))
         else:
             dG = lie.se3_rel(Gs[ii], Gs[jj])
             if do_scale:
-                s = fit_scale(dP, dG)
+                s = fit_scale(dP, dG, group)
                 dG = torch.cat([dG[..., :3] * s, dG[..., 3:]], dim=-1)
             dE = lie.se3_mul(dG, lie.se3_inv(dP))
             d = lie.se3_log(dE)
-            total = total + w * (_norm_mean(d[..., :3]) + _norm_mean(d[..., 3:]))
+            total = total + w * (_norm_mean(d[..., :3], group) + _norm_mean(d[..., 3:], group))
             dE = sim3.from_se3(dE)
-        metrics = pose_metrics(dE)
+        metrics = pose_metrics(dE, group)
     return total, metrics
 
 
-def residual_loss(residuals: Sequence[torch.Tensor], gamma: float = 0.9):
+def residual_loss(residuals: Sequence[torch.Tensor], gamma: float = 0.9, group=None):
     """Weighted mean-abs system residuals (losses.py:77-86)."""
     n = len(residuals)
     total = 0.0
     for i, r in enumerate(residuals):
-        total = total + gamma ** (n - i - 1) * torch.mean(torch.abs(r))
+        total = total + gamma ** (n - i - 1) * mean(torch.abs(r), group)
     return total, {"residual": total}
 
 

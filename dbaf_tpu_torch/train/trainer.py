@@ -7,8 +7,16 @@ matches one step of the JAX package: ``torch.optim.AdamW`` (optax's
 ``optax.linear_onecycle_schedule`` with the JAX package's segment guards,
 and a global-norm clip that scales by ``max / norm`` (optax's
 ``clip_by_global_norm``; ``clip_grad_norm_`` adds 1e-6 to the norm).
-Where the JAX step vmaps over the batch of tuples, the port loops.  The
-mesh-sharded step is not ported.
+Where the JAX step vmaps over the batch of tuples, the port loops.
+
+On a ``(dp, edge)`` mesh (``parallel/mesh.make_mesh_2d``) each rank holds
+its dp row's tuples and, of each, its edge column's share of the edges
+(:func:`shard_batch`); the collectives of the unroll make the losses the
+same on every rank of an edge group.  Every rank backpropagates its loss
+scaled by 1/ranks, the gradients are summed over the edge and then the dp
+group (``parallel/collectives.py`` says why that is the mean gradient),
+and each rank then takes the same clipped AdamW step, so the parameters
+and the optimizer state stay replicated.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ import numpy as np
 import torch
 
 from ..models.net import DroidNet
+from ..parallel.collectives import all_reduce_, all_sum_packed, group_size
 from . import losses
 from .unroll import forward
 
@@ -91,14 +100,16 @@ def make_optimizer(params, lr: float = 2.5e-4, total_steps: int = 250_000,
 
 
 def loss_sample(model: DroidNet, sample: Dict[str, torch.Tensor], num_steps: int,
-                fixedp: int = 2):
+                fixedp: int = 2, group=None):
     """Loss of ONE covisible tuple (dict of tensors, leading dim = frames
-    except ii/jj, which are per edge)."""
+    except ii/jj, which are per edge: this rank's share of them with a
+    process ``group``)."""
     poses_list, disps_list, residuals = forward(
         model, sample["images"], sample["poses0"], sample["disps0"], sample["intrinsics"],
-        sample["ii"], sample["jj"], num_steps=num_steps, fixedp=fixedp)
-    lg, pm = losses.geodesic_loss(sample["poses_gt"], poses_list, sample["ii"], sample["jj"])
-    lr_, _ = losses.residual_loss(residuals)
+        sample["ii"], sample["jj"], num_steps=num_steps, fixedp=fixedp, group=group)
+    lg, pm = losses.geodesic_loss(sample["poses_gt"], poses_list, sample["ii"], sample["jj"],
+                                  group=group)
+    lr_, _ = losses.residual_loss(residuals, group=group)
     lf, fm = losses.flow_loss(sample["poses_gt"], sample["disps_gt"], poses_list,
                               [d[:, 3::8, 3::8] for d in disps_list], sample["intrinsics"])
     loss = W_POSE * lg + W_RES * lr_ + W_FLOW * lf
@@ -108,26 +119,88 @@ def loss_sample(model: DroidNet, sample: Dict[str, torch.Tensor], num_steps: int
     return loss, metrics
 
 
+def _sum_gradients(params: Sequence[torch.Tensor], groups) -> None:
+    """In place: every gradient summed over each group in turn, in one
+    collective a group (the gradients flattened together)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    for g in groups:
+        all_reduce_(flat, g)
+    k = 0
+    for g in grads:
+        g.copy_(flat[k:k + g.numel()].reshape(g.shape))
+        k += g.numel()
+
+
 def make_train_step(model: DroidNet, opt: Optimizer, num_steps: int = 12, fixedp: int = 2,
-                    mesh: Optional[object] = None) -> Callable[[Dict], Dict[str, torch.Tensor]]:
+                    mesh: Optional[object] = None, dp_axis: str = "dp",
+                    edge_axis: str = "edge") -> Callable[[Dict], Dict[str, torch.Tensor]]:
     """``step(batch) -> metrics`` over a batch dict with a leading tuple
     dimension B: the mean loss over the B tuples, one backward pass and one
     optimizer step, in place on ``model``.  Metrics are the batch means,
-    0-d tensors on the model's device."""
+    0-d tensors on the model's device.
+
+    With ``mesh`` (a ``(dp, edge)`` DeviceMesh), ``batch`` is this rank's
+    share (:func:`shard_batch`), and the step and its metrics are those of
+    the whole batch, the same on every rank."""
+    dp_group = edge_group = None
     if mesh is not None:
-        raise NotImplementedError(
-            "dbaf_tpu_torch: the mesh-sharded training step (ROADMAP Queue 1 item 8) is not "
-            "ported yet")
+        # an axis of one rank needs no collective: its group stays None
+        names = mesh.mesh_dim_names
+        dp_group, edge_group = (mesh.get_group(a) if mesh.size(names.index(a)) > 1 else None
+                                for a in (dp_axis, edge_axis))
+    ranks = group_size(dp_group) * group_size(edge_group)
+    params = [p for g in opt.adamw.param_groups for p in g["params"]]
 
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         B = next(iter(batch.values())).shape[0]
         opt.adamw.zero_grad(set_to_none=True)
-        per = [loss_sample(model, {k: v[b] for k, v in batch.items()}, num_steps, fixedp)
-               for b in range(B)]
+        per = [loss_sample(model, {k: v[b] for k, v in batch.items()}, num_steps, fixedp,
+                           edge_group) for b in range(B)]
         loss = torch.stack([lo for lo, _ in per]).mean()
-        loss.backward()
+        if ranks == 1:
+            loss.backward()
+        else:
+            (loss / ranks).backward()
+            _sum_gradients(params, [g for g in (edge_group, dp_group) if g is not None])
         opt.step()
-        return {k: torch.stack([torch.as_tensor(m[k]) for _, m in per]).mean().detach()
-                for k in per[0][1]}
+        names = list(per[0][1])
+        means = [torch.stack([torch.as_tensor(m[k]) for _, m in per]).mean().detach()
+                 for k in names]
+        if dp_group is not None:
+            n_dp = group_size(dp_group)
+            means = [m / n_dp for m in all_sum_packed([m.float() for m in means], dp_group)]
+        return dict(zip(names, means))
 
     return step
+
+
+_EDGE_KEYS = ("ii", "jj", "targets")
+
+
+def shard_batch(batch: Dict, mesh, dp_axis: str = "dp", edge_axis: str = "edge",
+                device=None) -> Dict[str, torch.Tensor]:
+    """This rank's share of a host batch dict (leading tuple dimension B):
+    its dp row's B / dp tuples, and of the per-edge arrays (``ii``, ``jj``,
+    ``targets``: (B, E, ...)) its edge column's E / edge edges, on the
+    rank's device (:func:`dbaf_tpu_torch.parallel.dist.rank_device`)."""
+    from ..parallel.dist import rank_device
+
+    dev = rank_device(device)
+    n_dp, n_edge = mesh.size(mesh.mesh_dim_names.index(dp_axis)), \
+        mesh.size(mesh.mesh_dim_names.index(edge_axis))
+    d, e = mesh.get_local_rank(dp_axis), mesh.get_local_rank(edge_axis)
+    out = {}
+    for k, v in batch.items():
+        v = torch.as_tensor(np.asarray(v)) if not isinstance(v, torch.Tensor) else v
+        B = v.shape[0]
+        if B % n_dp:
+            raise ValueError(f"batch of {B} tuples does not divide the dp axis ({n_dp})")
+        v = v[d * (B // n_dp):(d + 1) * (B // n_dp)]
+        if k in _EDGE_KEYS:
+            E = v.shape[1]
+            if E % n_edge:
+                raise ValueError(f"{E} edges do not divide the edge axis ({n_edge})")
+            v = v[:, e * (E // n_edge):(e + 1) * (E // n_edge)]
+        out[k] = v.to(dev)
+    return out

@@ -43,14 +43,17 @@ def upsample_disp(disp: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def forward(model: DroidNet, images: torch.Tensor, poses0: torch.Tensor, disps0: torch.Tensor,
             intrinsics: torch.Tensor, ii: torch.Tensor, jj: torch.Tensor, num_steps: int = 12,
-            fixedp: int = 2) -> Tuple[List, List, List]:
+            fixedp: int = 2, group=None) -> Tuple[List, List, List]:
     """Unrolled estimation (droid_net.py:171-221).
 
     images: (N, H, W, 3) BGR-valued; poses0: (N, 7); disps0: (N, H/8, W/8);
     intrinsics: (4,) at 1/8 scale; ii, jj: (E,) int64.  Returns
     (poses_list, disps_up_list, residuals_list) for the training losses.
     The pose, disparity and target iterates are detached at the top of
-    every step, where the JAX unroll stops their gradients."""
+    every step, where the JAX unroll stops their gradients.  With a process
+    ``group``, ``ii``/``jj`` are this rank's share of the edges: GraphAgg's
+    per-frame mean and the BA layer reduce over the group, and the poses,
+    disparities and GraphAgg's outputs come out the same on every rank."""
     fmaps, net_c, inp_c = model.extract_features(images)
     net = net_c[ii]
     inp = inp_c[ii]
@@ -71,13 +74,13 @@ def forward(model: DroidNet, images: torch.Tensor, poses0: torch.Tensor, disps0:
 
         corr = corr_ops.lookup_fused(vol, coords1).permute(0, 2, 3, 1)
         motn = torch.cat([coords1 - grid, target - coords1], dim=-1).clamp(-64.0, 64.0)
-        net, delta, weight, eta, upmask = model.update_with_agg(net, inp, corr, motn, ii, N)
+        net, delta, weight, eta, upmask = model.update_with_agg(net, inp, corr, motn, ii, N, group)
         target = coords1 + delta
 
         eta_frames = eta.reshape(N, h8 * w8)
         for _inner in range(2):
             poses, disps = ba_step(target, weight, eta_frames, poses, disps, intrinsics, ii, jj,
-                                   fixedp=fixedp)
+                                   fixedp=fixedp, group=group)
 
         coords1, valid = pj.projective_transform(poses, disps, intrinsics, ii, jj)
         poses_list.append(poses)

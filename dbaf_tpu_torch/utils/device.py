@@ -48,11 +48,34 @@ def configure_cuda_numerics() -> None:
 # smoke test reports them per keyframe
 HOST_READS = {"count": 0}
 
+# The process group of the live keyframe-sharded video
+# (``slam/video.py::DepthVideo`` sets it, None without one).  While it is
+# set, every counted read (:func:`to_host`, :class:`PendingRead`) returns
+# the group's first rank's value: the ranks run the same frames and read
+# the same replicated tensors at the same points, so the host decisions
+# taken from the reads (admission, edge selection, culls, rollups) are the
+# first rank's on every rank, and the ranks' feature gathers stay in step
+# even where their replicated values differ in the last bits.  A
+# non-blocking :class:`FlagPoll` answers by timing on each rank; the rounds
+# it gates issue no gather and run masked until it answers, so it needs
+# no such read.
+HOST_SYNC = {"group": None}
+
+
+def _first_rank_value(x: torch.Tensor) -> torch.Tensor:
+    group = HOST_SYNC["group"]
+    if group is None:
+        return x
+    from ..parallel.collectives import broadcast_first
+
+    return broadcast_first(x, group)
+
 
 def to_host(x: torch.Tensor):
     """One counted device -> host read: a Python scalar for a 0-d tensor,
-    else a numpy array."""
+    else a numpy array (the first rank's, see ``HOST_SYNC``)."""
     HOST_READS["count"] += 1
+    x = _first_rank_value(x)
     if x.dim() == 0:
         return x.item()
     return x.detach().cpu().numpy()
@@ -149,10 +172,12 @@ class FlagPoll:
 class PendingRead:
     """A device tensor on its way to the host: a ``non_blocking`` copy into
     pinned memory behind a CUDA event (on the CPU, the tensor itself), with
-    the caller's ``meta`` riding along."""
+    the caller's ``meta`` riding along (the first rank's tensor, see
+    ``HOST_SYNC``)."""
 
     def __init__(self, x: torch.Tensor, *meta):
         self.meta = meta
+        x = _first_rank_value(x)
         if x.is_cuda:
             self.host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
             self.host.copy_(x, non_blocking=True)

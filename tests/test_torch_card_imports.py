@@ -1,6 +1,8 @@
 """Every module of the port's output surface imports where cv2, h5py and
 matplotlib are missing (the card's machine has none of them), and the
-functions that need one raise ``ImportError`` naming it when called.
+functions that need one raise ``ImportError`` naming it when called.  The
+parallel layer's modules import without JAX and without creating a process
+group.
 
 Each case runs in a fresh interpreter whose ``sys.modules`` maps the three
 libraries to ``None`` (an import of them raises), so a module that imported
@@ -40,6 +42,25 @@ def test_new_modules_import_without_cv2_h5py_matplotlib():
     code = "import importlib\n" + "".join(f"importlib.import_module({m!r})\n" for m in MODULES)
     code += ("assert not any(m in sys.modules and sys.modules[m] is not None "
              "for m in ('cv2', 'h5py', 'matplotlib', 'jax', 'dbaf_tpu'))\nprint('ok')\n")
+    assert _run(code).strip() == "ok"
+
+
+PARALLEL = ["dbaf_tpu_torch.parallel", "dbaf_tpu_torch.parallel.dist",
+            "dbaf_tpu_torch.parallel.mesh", "dbaf_tpu_torch.parallel.shard_ba",
+            "dbaf_tpu_torch.parallel.dist_worker", "dbaf_tpu_torch.parallel.collectives",
+            "dbaf_tpu_torch.parallel.launch"]
+
+
+def test_parallel_modules_import_without_jax_or_a_process_group():
+    """``dbaf_tpu_torch.parallel.*`` (and its lazy exports) import without
+    JAX and create no process group: one must exist only once a job is
+    joined (``dist.initialize``) or a mesh is made."""
+    code = "import importlib\n" + "".join(f"importlib.import_module({m!r})\n" for m in PARALLEL)
+    code += ("import dbaf_tpu_torch.parallel as par\n"
+             "for name in par._EXPORTS:\n    getattr(par, name)\n"
+             "import torch.distributed as dist\n"
+             "assert not dist.is_initialized()\n"
+             "assert not any(m in sys.modules for m in ('jax', 'dbaf_tpu'))\nprint('ok')\n")
     assert _run(code).strip() == "ok"
 
 

@@ -186,7 +186,8 @@ def test_edge_transition_matches_host_and_jax(seed):
     edges = EdgeArrays(g.e_cap, video.h8, video.w8, "cpu")
     edges.assign((pre["net"], pre["target"], pre["weight"]))
     net, target, _ = _rebuild_edges(edges, out["perm"], out["is_new"], out["ii"], out["jj"],
-                                    video.poses, video.disps, video.intrinsics, video.nets)
+                                    video.poses, video.disps, video.intrinsics,
+                                    video.nets[out["ii"]])
     np.testing.assert_array_equal(net[:n].float().numpy(), g.edges.net[:n].float().numpy())
     np.testing.assert_allclose(target[:n].numpy(), g.edges.target[:n].numpy(), atol=1e-5)
     t2, w2 = _rebuild_inactive(pre["t_inac"], pre["w_inac"], out["inact_perm_old"],
@@ -221,7 +222,8 @@ def test_cull_transition_matches_host_and_jax(seed):
     edges.assign((pre["net"], pre["target"], pre["weight"]))
     E, I = g.e_cap, g.i_cap
     rebuilt = _rebuild_edges(edges, out["perm"], torch.zeros(E, dtype=torch.bool), out["ii"],
-                             out["jj"], video.poses, video.disps, video.intrinsics, video.nets)
+                             out["jj"], video.poses, video.disps, video.intrinsics,
+                             video.nets[out["ii"]])
     for got, ref in zip(rebuilt, (g.edges.net, g.edges.target, g.edges.weight)):
         np.testing.assert_array_equal(got[:n].float().numpy(), ref[:n].float().numpy())
     t2, w2 = _rebuild_inactive(pre["t_inac"], pre["w_inac"], out["inact_perm_old"],

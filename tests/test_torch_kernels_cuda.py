@@ -23,6 +23,7 @@ only in the order of f32 sums; a skipped bf16 rounding would show at about
 2^-9 of the output).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -326,3 +327,24 @@ def test_train_step_card_matches_cpu(dev):
     assert res["loss_rel"] <= chip_smoke.TRAIN_LOSS_RTOL
     assert res["grad_rel"] <= chip_smoke.TRAIN_GRAD_TOL
     assert res["param_err"] <= chip_smoke.TRAIN_PARAM_ATOL
+
+
+@pytest.mark.cuda
+def test_sharded_ba_two_ranks_on_the_card(dev):
+    """Phase 12a of ``chip_smoke.py``: ``sharded_ba_step`` on two gloo
+    ranks spawned on this card (NCCL takes no two ranks on one card), each
+    with half of the 170 edges of bench.py's coupled window (P = 44, 48 x
+    64), in f64, against one process's ``dba.ba`` in f64: within
+    ``tests/test_parallel.py``'s 2e-5 (poses) and 2e-4 (disparities)."""
+    import chip_smoke
+    from dbaf_tpu_torch.ops import dba
+
+    w = chip_smoke.sharded_ba_window()
+    (p, d, intr), (tg, wg), eta, (ii, jj, m) = chip_smoke._ba_args(w, dev, dtype=torch.float64)
+    r = dba.ba(p, d, intr, tg, wg, eta, ii, jj, m, 1, p.shape[0], iterations=2)
+    p64, d64 = r.poses.cpu().numpy(), r.disps.cpu().numpy()
+    out = chip_smoke.run_ranks(dev, 2, [("ba", (w, 2))], "gloo", 300)
+    for r in out:
+        assert r["ba"]["edges"] == w["ii"].shape[0] // 2
+        assert float(np.max(np.abs(r["ba"]["poses"] - p64))) <= chip_smoke.BA_TOL_POSES
+        assert float(np.max(np.abs(r["ba"]["disps"] - d64))) <= chip_smoke.BA_TOL_DISPS

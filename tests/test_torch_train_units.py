@@ -210,11 +210,6 @@ def test_adamw_and_clip_match_optax(clip):
                                        atol=1e-7, err_msg=k)
 
 
-def test_make_train_step_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        trainer.make_train_step(None, None, mesh=object())
-
-
 def _scene(seed=0, n=12, h=48, w=64):
     """A camera moving along a line over a fronto-parallel wall."""
     rng = np.random.default_rng(seed)
