@@ -204,6 +204,40 @@ Phases, each fatal on failure:
              1e-5 / 1e-4, and the ranks' distance from each other; each
              rank holds half of fmaps+nets+inps; kf/s with the gloo staging; K1 and K2
              launches of both ranks.  Any failed rank fails the phase.
+  13. multisensor  the multi-sensor flagship on phase 6's configuration
+             (the device factor graph, the fused step; the synchronous flow,
+             then the asynchronous pipeline on the same frames), full width.
+             13a: tests/test_georef.py's scene (52 frames, a 12 m/s drift,
+             GNSS at every frame as ECEF rows of a yawed, offset ENU frame,
+             ten0 the first fix, body-frame odometry; phase 11's WHU
+             camera): fatal unless init_gnss fires, the pipeline waits for
+             it and reactivates after it (>= 5 async steps), the live
+             window's georeferenced positions hold tests/test_georef.py's
+             bounds on both flows, ECEF rows are written, and the async run
+             has the sync run's keyframe stamps, solved positions and
+             trajectory rows within 2e-2 m with <= 3 blocking reads a step.
+             13b: tests/test_zupt.py's stop-and-go (100 frames, the plateau
+             admitted at its sparse cadence, 64 feeds; its camera; ZUPT on
+             with its 0.12 m/s gate, its 0.2 m hysteresis, its cull
+             threshold scaled to this grid): fatal unless, as
+             tests/test_zupt.py:279 and :317 hold, the plateau culls, ZUPT
+             fires at least 3 times between T_STOP + 3 s and T_RESUME +
+             TAU, the plateau's trajectory rows (aligned from VI init) stay
+             within 0.10 m of the stop point, the ATE of both runs is under
+             0.08 x span, and the async run (>= 10 steps, >= 6 culls inside
+             it) has the sync run's keyframes, ZUPT fires within 2 of the
+             sync run's and its first fire within two frames of theirs.
+             The test's async-against-sync positions (5e-2 m) and ATE rule
+             are printed, not held: at this BA window of 44 the JAX package
+             misses both (tests/test_torch_async_zupt_window44.py).  Every async
+             steady-state frame runs under sync-debug "error".  Then K1 and
+             K2 on the operands of 13a's async run's last launches against
+             their plain versions (2^-7 and 1e-6 of the largest output),
+             with their ms and bounds.  Prints kf/s after VI init, host
+             reads (sync) or blocking reads (async) and LM passes a
+             keyframe, ZUPT fires, the GNSS init frame and the ATE share of
+             each run; the idle share of each run's last frame under
+             torch.profiler (tables in chiprun_out/profile_multisensor_*).
 Phase 2 also holds K1-int8 (one launch, its tile scales inside it) at
 (E=48, 48x64, C=128, tile 256), at tiles of 128, 192 and 768 pixels, off
 the image and with a NaN row, and its returned scales, against their plain
@@ -218,8 +252,9 @@ Phase 2 prints a digest of every case's kernel output ("[digest]" lines):
 with --root, two packages' digests show whether a kernel's outputs changed.
 Then one JSON line listing the kernels (launches summed over the main,
 coupled, coupled_async, visual_async, int8, export, upsample, stereo,
-oracle_stereo, oracle_rgbd, resume, the four demo paths and phase 12d's
-sharded_main and sharded_coupled_async (both ranks' launches), each counted
+oracle_stereo, oracle_rgbd, resume, the four demo paths, phase 12d's
+sharded_main and sharded_coupled_async (both ranks' launches) and phase
+13's multisensor_sync and multisensor_async (13a and 13b), each counted
 from 0 just before its run; "launches_by_path" splits them), and last the
 ok line.
 
@@ -639,7 +674,7 @@ class Profile:
         self.prof.__enter__()
         self.t0 = time.perf_counter()
 
-    def stop(self, tag: str, table_name: str) -> dict:
+    def stop(self, tag: str, table_name: str, frames: int = N_PROFILED) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - self.t0) * 1e3
         self.prof.__exit__(None, None, None)
@@ -648,7 +683,7 @@ class Profile:
                    if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation}
         busy = sum(kernels.values())
         idle = 1.0 - busy / wall
-        log(f"[{tag}] profile of the last {N_PROFILED} frames: device busy {busy:.3f} ms of "
+        log(f"[{tag}] profile of the last {frames} frame(s): device busy {busy:.3f} ms of "
             f"{wall:.3f} ms wall, idle share {idle:.3f} (profiler on)")
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
         for name, ms in top:
@@ -784,7 +819,11 @@ class CoupledRun:
     update rounds (the motion gate keeps the network's own), a simulated
     200 Hz IMU, procedural frames."""
 
-    def __init__(self, dev, cfg, n_frames: int):
+    def __init__(self, dev, cfg, n_frames: int, scene=None, sensors=None):
+        """``scene``: (IMU rows, {frame: (R, p)}, focal over the feature
+        grid's width, plane depth), by default eval/synthetic's motion seen
+        by a camera of focal 2 at 4 m; ``sensors``: set_multisensor's GNSS
+        and odometry keywords."""
         from dbaf_tpu_torch.eval.synthetic import (make_oracle, scene_from_poses,
                                                    simulate_imu_and_poses)
         from dbaf_tpu_torch.models.net import DroidNet
@@ -793,9 +832,11 @@ class CoupledRun:
         self.dev, self.cfg, self.fps = dev, cfg, COUPLED_FPS
         HT, WD = self.image_size = cfg.image_size
         H8, W8 = cfg.feat_size
-        self.intr8 = np.asarray([2.0 * W8, 2.0 * W8, W8 / 2, H8 / 2], np.float32)
-        imu_rows, self.poses_at = simulate_imu_and_poses(n_frames / self.fps + 0.5, fps=self.fps)
-        gt_cw, gt_disps = scene_from_poses(self.poses_at, n_frames, self.intr8, H8, W8)
+        if scene is None:
+            scene = simulate_imu_and_poses(n_frames / self.fps + 0.5, fps=self.fps) + (2.0, 4.0)
+        imu_rows, self.poses_at, focal, z0 = scene
+        self.intr8 = np.asarray([focal * W8, focal * W8, W8 / 2, H8 / 2], np.float32)
+        gt_cw, gt_disps = scene_from_poses(self.poses_at, n_frames, self.intr8, H8, W8, z0=z0)
         model = DroidNet(device=dev)
         model.load_state_dict(seeded_params(20260820))
         model.eval()
@@ -811,7 +852,8 @@ class CoupledRun:
 
         self.system = DBAFusion(cfg, device=dev, feat_fn=model.features_only,
                                 ctx_fn=model.context_only, update_fn=update_fn)
-        self.system.set_multisensor(imu_rows, np.eye(4), imu_noise=[0.05, 0.005, 1e-4, 1e-6])
+        self.system.set_multisensor(imu_rows, np.eye(4), imu_noise=[0.05, 0.005, 1e-4, 1e-6],
+                                    **(sensors or {}))
         rng = np.random.default_rng(1)
         self.base = rng.integers(0, 255, size=(HT + 64, WD + 64, 3)).astype(np.uint8)
         self.id_map = np.zeros(cfg.buffer, np.int64)
@@ -2263,13 +2305,10 @@ DEMO_CALIB = {  # fx fy cx cy [distortion] in each dataset's calib layout
 
 
 def whu_body_state(t: float):
-    """tests/test_georef.py:_body_state_fast: eval/synthetic.body_state's
-    rotation with a 12 m/s forward drift."""
-    p = np.array([WHU_SPEED * t + 1.2 * np.sin(1.3 * t), 0.9 * np.cos(1.7 * t), 0.25 * t])
-    v = np.array([WHU_SPEED + 1.56 * np.cos(1.3 * t), -1.53 * np.sin(1.7 * t), 0.25])
-    a = np.array([-2.03 * np.sin(1.3 * t), -2.60 * np.cos(1.7 * t), 0.0])
-    w = np.array([0.25 * np.sin(0.9 * t), 0.2 * np.cos(0.7 * t), 0.15])
-    return p, v, a, w
+    """tests/test_georef.py:_body_state_fast: ms_body_state with a 12 m/s
+    forward drift."""
+    p, v, a, w = ms_body_state(t)
+    return p + np.array([WHU_SPEED * t, 0.0, 0.0]), v + np.array([WHU_SPEED, 0.0, 0.0]), a, w
 
 
 def whu_ecef(p_world: np.ndarray) -> np.ndarray:
@@ -2750,6 +2789,461 @@ def phase_demos(dev) -> dict:
 # collectives go through the host; a world of one runs over NCCL.  No
 # scaling number can be taken on one card: the phase measures agreement,
 # memory per rank and what the host-staged collectives cost.
+
+# phase 13: the multi-sensor flagship (GNSS, odometry, ZUPT) on phase 6's
+# configuration.  13a: tests/test_georef.py's scene (WHU_* above, a 12 m/s
+# drift, GNSS as ECEF rows of a yawed, offset ENU frame), phase 11's WHU
+# camera (focal 0.5 of the grid's width, plane at 8 m), body-frame odometry.
+# 13b: tests/test_zupt.py's stop-and-go and its camera (focal 16 pixels on
+# its 16-wide grid: the grid's width; plane at 4 m).  With phase 5's camera
+# (focal twice the width) the stationary velocity estimate stays over the
+# gate's 0.12 m/s and no ZUPT fires.
+ZUPT_FOCAL, ZUPT_Z0 = 1.0, 4.0
+MS_GEO_FRAMES = 52
+MS_ZUPT_FRAMES = 100
+MS_ASYNC_TOL = 2e-2   # 13a: async against sync, phase 6's bound against phase 5
+ZUPT_T_STOP, ZUPT_T_RESUME, ZUPT_TAU = 4.0, 9.4, 0.5  # tests/test_zupt.py:61-63
+ZUPT_VEL_THRESH = 0.12  # tests/test_zupt.py's scene-level gate (its docstring says why)
+K2_REL_TOL = 1e-6     # K2 on a path's operands: of its largest output (f32 sums)
+MS_PROFILED = 1       # frames under torch.profiler at a run's end (its stop costs 5-13 s a frame)
+
+
+def ms_body_state(t: float):
+    """The multisensor tests' trajectory (tests/test_slam_multisensor.py:33-39)."""
+    p = np.array([1.2 * np.sin(1.3 * t), 0.9 * np.cos(1.7 * t), 0.25 * t])
+    v = np.array([1.56 * np.cos(1.3 * t), -1.53 * np.sin(1.7 * t), 0.25])
+    a = np.array([-2.03 * np.sin(1.3 * t), -2.60 * np.cos(1.7 * t), 0.0])
+    w = np.array([0.25 * np.sin(0.9 * t), 0.2 * np.cos(0.7 * t), 0.15])
+    return p, v, a, w
+
+
+def zupt_warp(t: float):
+    """tests/test_zupt.py:_warp: unit speed, a cosine ramp to a dead stop at
+    ZUPT_T_STOP, a plateau until ZUPT_T_RESUME, a ramp back; (s, s', s'')."""
+    s0, tau = ZUPT_T_STOP, ZUPT_TAU
+    if t < s0:
+        return t, 1.0, 0.0
+    if t < s0 + tau:
+        x = t - s0
+        return (s0 + 0.5 * (x + tau / np.pi * np.sin(np.pi * x / tau)),
+                0.5 * (1 + np.cos(np.pi * x / tau)), -0.5 * np.pi / tau * np.sin(np.pi * x / tau))
+    s1 = s0 + 0.5 * tau
+    if t < ZUPT_T_RESUME:
+        return s1, 0.0, 0.0
+    if t < ZUPT_T_RESUME + tau:
+        x = t - ZUPT_T_RESUME
+        return (s1 + 0.5 * (x - tau / np.pi * np.sin(np.pi * x / tau)),
+                0.5 * (1 - np.cos(np.pi * x / tau)), 0.5 * np.pi / tau * np.sin(np.pi * x / tau))
+    return s1 + 0.5 * tau + (t - ZUPT_T_RESUME - tau), 1.0, 0.0
+
+
+def zupt_admit(k: int) -> bool:
+    """tests/test_zupt.py:_admit: every frame in motion, one frame in eight
+    on the plateau (the motion filter's cadence), every frame from 8.8 s."""
+    return k <= 45 or k >= 88 or (k - 46) % 8 == 0
+
+
+def zupt_scene(n_frames: int, fps: float = COUPLED_FPS, imu_hz: float = 200.0):
+    """tests/test_zupt.py:_simulate_warped: IMU rows consistent with the
+    preintegrator's rule (midpoint rates, finite-difference specific force)
+    and the frames' (R, p) of ms_body_state through zupt_warp."""
+    from dbaf_tpu_torch.eval.synthetic import GRAVITY_W
+    from dbaf_tpu_torch.fusion.se3np import so3_exp
+
+    dt = 1.0 / imu_hz
+
+    def vel(t):
+        s, sp, _ = zupt_warp(t)
+        return ms_body_state(s)[1] * sp
+
+    def rate(t):
+        s, sp, _ = zupt_warp(t)
+        return ms_body_state(s)[3] * sp
+
+    R = np.eye(3)
+    rows = [np.concatenate([[0.0], np.rad2deg(rate(0.0)), -GRAVITY_W])]
+    poses_at = {0: (R.copy(), ms_body_state(0.0)[0])}
+    for k in range(int(round((n_frames / fps + 0.5) / dt))):
+        t0k, t1k = k * dt, (k + 1) * dt
+        w_m = rate(t0k + dt / 2)
+        rows.append(np.concatenate([[t1k], np.rad2deg(w_m),
+                                    R.T @ ((vel(t1k) - vel(t0k)) / dt - GRAVITY_W)]))
+        R = R @ so3_exp(w_m * dt)
+        fid = t1k * fps
+        if abs(fid - round(fid)) < 1e-6:
+            poses_at[int(round(fid))] = (R.copy(), ms_body_state(zupt_warp(t1k)[0])[0])
+    return np.asarray(rows), poses_at
+
+
+def georef_scene(n_frames: int, fps: float = COUPLED_FPS):
+    """13a's scene and sensors: eval/synthetic's IMU simulation of
+    whu_body_state, GNSS fixes at every frame (ECEF through the yawed ENU
+    frame, no lever arm) and the body-frame velocity as odometry; ten0 is
+    the first fix, as apps/demo_whu.py seeds it."""
+    from unittest import mock
+
+    from dbaf_tpu_torch.eval import synthetic
+
+    with mock.patch.object(synthetic, "body_state", whu_body_state):
+        rows, poses_at = synthetic.simulate_imu_and_poses(n_frames / fps + 0.5, fps=fps)
+    gnss = np.asarray([[k / fps, *whu_ecef(poses_at[k][1])] for k in range(n_frames)])
+    odo = np.asarray([[k / fps, *(poses_at[k][0].T @ whu_body_state(k / fps)[1])]
+                      for k in range(n_frames)])
+    sensors = dict(all_gnss=gnss, all_odo=odo, ten0=gnss[0, 1:4].copy())
+    return (rows, poses_at, DEMO_FOCAL["whu"], DEMO_Z0["whu"]), sensors
+
+
+def multisensor_config(kind: str, coupled_async: bool):
+    """Phase 6's configuration; 13b with tests/test_zupt.py's cull and ZUPT
+    settings (its keyframe threshold, in pixels of its 16-wide grid, scaled
+    to this grid's width)."""
+    cfg = coupled_config(coupled_async)
+    if kind == "zupt":
+        cfg.frontend.keyframe_thresh = 0.1 * cfg.feat_size[1] / 16.0
+        cfg.frontend.translation_threshold = 0.2
+        cfg.sensors.use_zupt = True
+        cfg.sensors.zupt_vel_thresh = ZUPT_VEL_THRESH
+    return cfg
+
+
+def run_multisensor(dev, kind: str, coupled_async: bool) -> dict:
+    """One 13a ("georef") or 13b ("zupt") run through DBAFusion's entry
+    points.  The async run's steady-state frames run under sync-debug
+    "error" (not the bias reinitialization's, nor the profiled last
+    frames); counted: on the sync flow the keyframe steps and host reads
+    from VI initialization on (phase 5's rate), on the async flow the async
+    steps, blocking reads and host time of the guarded frames (phase 6's
+    rate); LM passes, ZUPT fires (a wrapped Frontend._zupt_gate, as
+    tests/test_zupt.py records them), the frame where init_gnss fired and
+    the async steps before it; the last K1 and K2 launches' operands."""
+    from dbaf_tpu_torch.ops import corr_cuda as cc
+    from dbaf_tpu_torch.utils import device as devmod
+
+    t_setup = time.perf_counter()
+    n = MS_GEO_FRAMES if kind == "georef" else MS_ZUPT_FRAMES
+    if kind == "georef":
+        scene, sensors = georef_scene(n)
+    else:
+        scene, sensors = zupt_scene(n) + (ZUPT_FOCAL, ZUPT_Z0), None
+    run = CoupledRun(dev, multisensor_config(kind, coupled_async), n, scene, sensors)
+    system = run.system
+    fe, g, coupled = system.frontend, system.graph, system.graph.coupled
+    frames = [k for k in range(n) if kind == "georef" or zupt_admit(k)]
+    fires, ops = [], {}
+    gate = fe._zupt_gate
+
+    def recording_gate(cur_t):
+        fired = gate(cur_t)
+        if fired:
+            fires.append(float(cur_t))
+        return fired
+
+    k1, k2 = cc.corr_fused_xy, cc.corr_lookup
+
+    def k1_kept(f1p, f2p, coords, H, W, *a, **kw):
+        ops["k1"] = (f1p, f2p, coords, H, W)
+        return k1(f1p, f2p, coords, H, W, *a, **kw)
+
+    def k2_kept(vol, coords):
+        ops["k2"] = (vol, coords)
+        return k2(vol, coords)
+
+    fe._zupt_gate = recording_gate
+    secs = dict(setup=time.perf_counter() - t_setup, frames=[])
+    cc.reset_launch_counts()
+    cc.corr_fused_xy, cc.corr_lookup = k1_kept, k2_kept
+    clock = dict(steps=0, reads=0, guarded=0, guarded_wall=0.0)  # the guarded async frames
+    vi_frame = gnss_frame = steps_at_gnss = prof = None
+    active_before_gnss = False
+    lm_passes = 0
+    try:
+        for k in frames:
+            ca = fe._casync
+            active = ca is not None and ca.active
+            reinit = coupled.vi_init_time > 0 and k / run.fps - coupled.vi_init_time > 5.0
+            if k == frames[-MS_PROFILED]:
+                if vi_frame is None:
+                    raise SystemExit(f"multisensor {kind}: VI initialization did not trigger")
+                torch.cuda.synchronize()
+                clock.update(wall=time.perf_counter() - clock["t0"],
+                             kf_steps=fe.keyframe_steps - clock["kf0"],
+                             kf_reads=devmod.HOST_READS["count"] - clock["reads0"])
+                prof = Profile()
+            guard = coupled_async and active and not reinit and prof is None
+            steps0, reads0 = (ca.total_steps if active else 0), devmod.HOST_READS["count"]
+            megas0 = g.mega_count
+            if guard:
+                torch.cuda.set_sync_debug_mode("error")
+            t_frame = time.perf_counter()
+            try:
+                run.track(k, devmod.upload)
+            finally:
+                if guard:
+                    torch.cuda.set_sync_debug_mode(0)
+            secs["frames"].append(time.perf_counter() - t_frame)
+            if guard and ca.active:
+                clock["guarded_wall"] += secs["frames"][-1]
+                clock["steps"] += ca.total_steps - steps0
+                clock["reads"] += devmod.HOST_READS["count"] - reads0
+                clock["guarded"] += 1
+            if not coupled_async and g.mega_count > megas0:
+                lm_passes += int(torch.count_nonzero(g.lm_stats.cpu()))
+            active_before_gnss |= (fe._casync is not None and fe._casync.active
+                                   and coupled.gnss_init_t1 <= 0)
+            if vi_frame is None and system.video.imu_enabled:
+                vi_frame = k
+                torch.cuda.synchronize()
+                clock.update(t0=time.perf_counter(), kf0=fe.keyframe_steps,
+                             reads0=devmod.HOST_READS["count"])
+            if gnss_frame is None and coupled.gnss_init_t1 > 0:
+                gnss_frame = k
+                steps_at_gnss = fe._casync.total_steps if fe._casync is not None else 0
+    finally:
+        cc.corr_fused_xy, cc.corr_lookup = k1, k2
+        fe._zupt_gate = gate
+    torch.cuda.synchronize()
+    t_prof = time.perf_counter()
+    pr = prof.stop(f"multisensor_{kind}_{'async' if coupled_async else 'sync'}",
+                   f"profile_multisensor_{kind}_{'async' if coupled_async else 'sync'}.txt",
+                   MS_PROFILED)
+    t_prof = time.perf_counter() - t_prof
+    launches = dict(cc.LAUNCHES)
+    ca = fe._casync
+    active_at_end = ca is not None and ca.active
+    stats = ca.stats() if ca is not None else None
+    traj = system.terminate()
+    t1, lo = fe.t1, coupled.last_t0
+    st = coupled.state
+    stamps = np.asarray(system.video.tstamp[:t1])
+    ids = np.round(stamps * run.fps).astype(int)
+    res = dict(kind=kind, coupled_async=coupled_async, frames=len(frames), vi_frame=vi_frame,
+               keyframe_steps=fe.keyframe_steps, update_rounds=fe.update_rounds,
+               culls=fe.culls, rollups=fe.rollup_count, t1=t1, lo=lo,
+               # phase 5's rate on the sync flow, phase 6's on the async one
+               kf_per_s=(clock["steps"] / max(clock["guarded_wall"], 1e-9) if coupled_async
+                         else clock["kf_steps"] / clock["wall"]),
+               timed_steps=clock["steps"] if coupled_async else clock["kf_steps"],
+               idle_share=pr["idle_share"], launches=launches, zupt_fires=fires,
+               gnss_init_frame=gnss_frame, ecef_rows=len(system.trajectory_ecef),
+               seconds=dict(setup=secs["setup"], profile_stop=t_prof,
+                            to_vi_init=sum(secs["frames"][:frames.index(vi_frame) + 1]),
+                            after_vi_init=sum(secs["frames"][frames.index(vi_frame) + 1:]),
+                            slowest_frame=max(secs["frames"]),
+                            slowest_at=frames[int(np.argmax(secs["frames"]))]))
+    if coupled_async:
+        res.update(async_steps=ca.total_steps if ca else 0, async_culls=ca.culls if ca else 0,
+                   async_rollups=ca.rollups if ca else 0, active_at_end=active_at_end,
+                   guarded_frames=clock["guarded"],
+                   blocking_reads_per_step=clock["reads"] / max(clock["steps"], 1),
+                   lm_passes_per_kf=stats["lm_passes"] / max(ca.total_steps, 1) if ca else 0.0,
+                   steps_at_gnss_init=steps_at_gnss, active_before_gnss=active_before_gnss)
+    else:
+        res.update(host_reads_per_kf=clock["kf_reads"] / max(clock["kf_steps"], 1),
+                   lm_passes_per_kf=lm_passes / max(g.mega_count, 1))
+    # out of the printed line: what the checks compare
+    res.update(traj=traj, stamps=stamps, poses_at=run.poses_at, ids=ids, ops=ops,
+               pos=run.positions(), est=np.asarray([st.wTbs[i].t for i in range(lo, t1)]),
+               ten0=None if coupled.ten0 is None else np.asarray(coupled.ten0),
+               gnss_init_time=coupled.gnss_init_time, imu_enabled=system.video.imu_enabled)
+    return res
+
+
+def k2_path_check(operands) -> dict:
+    """K2 on a path's gate operands (``(volume, coords)`` of a launch the run
+    made) against its plain version, within K2_REL_TOL of its largest
+    output (and phase 2's absolute K2_TOL), and its ms beside its bound."""
+    from dbaf_tpu_torch.ops import corr_cuda as cc
+
+    vol, coords = operands
+    out = cc.corr_lookup(vol, coords)
+    ref = cc.corr_lookup_plain(vol, coords)
+    err = float((out - ref).abs().max())
+    max_out = float(ref.abs().max())
+    E, P, H2, W2 = vol.shape
+    _, H, W, _ = coords.shape
+    ms = graph_ms(lambda: cc.corr_lookup(vol, coords), 100)
+    plain_ms = cuda_ms(lambda: cc.corr_lookup_plain(vol, coords), 3, warmup=1)
+    peak = PEAK_BF16 if vol.dtype == torch.bfloat16 else PEAK_F32
+    bms, by = bound(vol.numel() * vol.element_size() + E * P * 2 * 4 + E * P * 196 * 4,
+                    lookup_flops(coords, H, W, False) / peak)
+    return dict(E=E, grid=f"{H}x{W}", k2_err=err, k2_tol=max(K2_TOL, K2_REL_TOL * max_out),
+                max_out=max_out, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+
+
+def georef_check(r: dict) -> dict:
+    """tests/test_georef.py:146-170 on a 13a run's live window: positions in
+    the local frame at the system's ten0 against the truth there (max under
+    0.08 x span, median under 0.05 x span) and the SE3-aligned ATE against
+    the world truth under 0.05 x span."""
+    from dbaf_tpu_torch.eval.ate import ate_rmse
+    from dbaf_tpu_torch.utils import geodesy
+
+    C0 = geodesy.Cen(r["ten0"])
+    truth = [r["poses_at"][i][1] for i in r["ids"][r["lo"]:r["t1"]]]
+    ref = np.asarray([C0.T @ (whu_ecef(p) - r["ten0"]) for p in truth])
+    err = np.linalg.norm(r["est"] - ref, axis=1)
+    span = float(np.linalg.norm(ref.max(0) - ref.min(0)))
+    rmse = ate_rmse(r["est"], np.asarray(truth), align="se3")
+    return dict(rows=len(ref), span=span, err_max=float(err.max()),
+                err_median=float(np.median(err)), ate_se3=rmse,
+                ok=bool(err.max() < 0.08 * span and np.median(err) < 0.05 * span
+                        and rmse < 0.05 * span))
+
+
+def window_ate(r: dict):
+    """(SE3-aligned ATE of a run's live window, the window's span)."""
+    from dbaf_tpu_torch.eval.ate import ate_rmse
+
+    ref = np.stack([r["poses_at"][i][1] for i in r["ids"][r["lo"]:r["t1"]]])
+    return ate_rmse(r["est"], ref, align="se3"), float(np.linalg.norm(ref.max(0) - ref.min(0)))
+
+
+def plateau_rows(r: dict) -> dict:
+    """13b's trajectory rows stamped on the plateau (ZUPT_T_STOP +
+    ZUPT_TAU, ZUPT_T_RESUME) against the true stop point, the rows from VI
+    initialization on SE3-aligned to the truth (the estimate's world frame
+    is not the truth's): their number and largest distance."""
+    from dbaf_tpu_torch.eval.ate import umeyama
+
+    traj = r["traj"]
+    t, pos = traj[:, 0], traj[:, 1:4].astype(np.float64)
+    truth = np.stack([r["poses_at"][i][1] for i in np.round(t * COUPLED_FPS).astype(int)])
+    vi = t >= r["vi_frame"] / COUPLED_FPS
+    _, R, tw = umeyama(pos[vi], truth[vi], with_scale=False)
+    on = (t > ZUPT_T_STOP + ZUPT_TAU) & (t < ZUPT_T_RESUME)
+    stop_p = ms_body_state(zupt_warp(ZUPT_T_STOP + ZUPT_TAU)[0])[0]
+    dev = np.linalg.norm(pos[on] @ R.T + tw - stop_p, axis=1)
+    return dict(rows=int(on.sum()), max_dev=float(dev.max()) if on.any() else None)
+
+
+def against_sync(a: dict, s: dict, tol: float) -> dict:
+    """The async run against the sync run on the same frames: the keyframe
+    stamps, the solved positions and the trajectory rows (phase 6's
+    comparison with phase 5)."""
+    same = a["traj"].shape == s["traj"].shape and np.array_equal(a["traj"][:, 0], s["traj"][:, 0])
+    same &= np.array_equal(a["stamps"], s["stamps"])
+    pos = (float(np.abs(a["pos"] - s["pos"]).max()) if a["pos"].shape == s["pos"].shape
+           else float("inf"))
+    rows = float(np.abs(a["traj"][:, 1:4] - s["traj"][:, 1:4]).max()) if same else float("inf")
+    return dict(same_stamps=bool(same), max_pos_diff=pos, max_row_diff=rows,
+                ok=bool(same and pos <= tol and rows <= tol))
+
+
+def phase_multisensor(dev, card: str) -> dict:
+    """Phase 13: the multi-sensor flagship on phase 6's configuration at
+    full width.  13a: the georeferencing handoff with odometry
+    (tests/test_georef.py:75), synchronous then asynchronous; 13b: ZUPT
+    stop-and-go (tests/test_zupt.py:279,317), synchronous then asynchronous.
+    Then K1 and K2 on a 13a run's last operands against their plain
+    versions."""
+    out = {}
+    for kind in ("georef", "zupt"):
+        for coupled_async in (False, True):
+            t = time.perf_counter()
+            r = run_multisensor(dev, kind, coupled_async)
+            tag = f"{kind}_{'async' if coupled_async else 'sync'}"
+            out[tag] = r
+            log(f"[multisensor_{tag}] " + json.dumps(
+                {k: v for k, v in r.items() if k not in ("traj", "stamps", "poses_at", "ids",
+                                                         "ops", "pos", "est", "ten0")}))
+            log(f"[time] 13 {tag} took {time.perf_counter() - t:.1f} s")
+    gs, ga, zs, za = (out[k] for k in ("georef_sync", "georef_async", "zupt_sync", "zupt_async"))
+    checks = []
+    for r in (gs, ga, zs, za):
+        tag = f"{r['kind']}_{'async' if r['coupled_async'] else 'sync'}"
+        L = r["launches"]
+        checks += [
+            (r["imu_enabled"], f"{tag}: VI initialization did not trigger"),
+            (np.all(np.isfinite(r["traj"])) and np.all(np.isfinite(r["est"])),
+             f"{tag}: a pose is not finite"),
+            (L["corr_fused_xy"] >= r["update_rounds"] > 0,
+             f"{tag}: K1 launched {L['corr_fused_xy']} times for {r['update_rounds']} rounds"),
+            (L["corr_lookup"] >= r["frames"] - 1,
+             f"{tag}: K2 launched {L['corr_lookup']} times for {r['frames'] - 1} gated frames"),
+        ]
+    # 13a: tests/test_georef.py's assertions on both flows, async against sync
+    geo = {k: georef_check(r) for k, r in (("sync", gs), ("async", ga))}
+    geo_vs = against_sync(ga, gs, MS_ASYNC_TOL)
+    checks += [
+        (gs["gnss_init_frame"] is not None and ga["gnss_init_frame"] is not None,
+         "13a: init_gnss did not fire"),
+        (ga["steps_at_gnss_init"] == 0 and not ga["active_before_gnss"],
+         "13a: the pipeline ran before georeferencing"),
+        (ga["active_at_end"] and ga["async_steps"] >= 5,
+         f"13a: the pipeline did not reactivate ({ga['async_steps']} async steps)"),
+        (geo["sync"]["ok"] and geo["async"]["ok"], f"13a: georeferenced rows off: {geo}"),
+        (gs["ecef_rows"] > 0 and ga["ecef_rows"] > 0, "13a: no ECEF trajectory row"),
+        (geo_vs["ok"], f"13a: async against sync: {geo_vs}"),
+        (ga["blocking_reads_per_step"] <= 3,
+         f"13a: {ga['blocking_reads_per_step']} blocking reads per async step (bound 3)"),
+    ]
+    # 13b: tests/test_zupt.py:279's assertions on the sync flow, :317's on
+    # async; the plateau bound on the trajectory rows, which cover the stop
+    # (the live window, [lo, t1), holds only keyframes after the resume)
+    n_feeds = sum(zupt_admit(k) for k in range(MS_ZUPT_FRAMES))
+    plateau = {k: plateau_rows(r) for k, r in (("sync", zs), ("async", za))}
+    (ate_s, span_s), (ate_a, _) = window_ate(zs), window_ate(za)
+    fa, fs = set(np.round(za["zupt_fires"], 6)), set(np.round(zs["zupt_fires"], 6))
+    zupt = dict(fires_sync=len(fs), fires_async=len(fa), fire_diff=len(fa ^ fs),
+                first_fire=min(zs["zupt_fires"], default=None),
+                last_fire=max(zs["zupt_fires"], default=None),
+                first_fire_async=min(za["zupt_fires"], default=None), plateau=plateau,
+                ate_share_sync=ate_s / span_s, ate_share_async=ate_a / span_s,
+                ate_rule=max(1.3 * ate_s, ate_s + 0.005 * span_s) / span_s,
+                max_pos_diff=(float(np.abs(za["est"] - zs["est"]).max())
+                              if za["est"].shape == zs["est"].shape else float("inf")))
+    first_gap = (abs(zupt["first_fire_async"] - zupt["first_fire"])
+                 if zupt["first_fire"] is not None and zupt["first_fire_async"] is not None
+                 else float("inf"))
+    checks += [
+        (zs["t1"] <= n_feeds - 8, f"13b: the plateau did not cull ({zs['t1']} of {n_feeds})"),
+        (len(fs) >= 3 and len(fa) >= 3, f"13b: ZUPT fired {len(fs)} and {len(fa)} times"),
+        (zupt["first_fire"] is not None and zupt["first_fire"] >= ZUPT_T_STOP + 3.0
+         and zupt["last_fire"] <= ZUPT_T_RESUME + ZUPT_TAU, f"13b: ZUPT fired off the plateau "
+         f"({zupt['first_fire']}, {zupt['last_fire']})"),
+        (all(p["rows"] > 0 and p["max_dev"] < 0.10 for p in plateau.values()),
+         f"13b: plateau rows off the stop point: {plateau}"),
+        (ate_s < 0.08 * span_s and ate_a < 0.08 * span_s,
+         f"13b: ATE {ate_s} m (sync), {ate_a} m (async) not under 0.08 x span ({span_s} m)"),
+        (za["async_steps"] >= 10 and za["async_culls"] >= 6,
+         f"13b: {za['async_steps']} async steps, {za['async_culls']} culls in the pipeline"),
+        (za["t1"] == zs["t1"] and np.array_equal(za["stamps"], zs["stamps"]),
+         "13b: the async run's keyframes differ from the sync run's"),
+        (len(fa ^ fs) <= 2, f"13b: ZUPT fires differ: {sorted(fa ^ fs)}"),
+        (first_gap <= 2.0 / COUPLED_FPS + 1e-9,
+         f"13b: first ZUPT fires {zupt['first_fire_async']} (async) and {zupt['first_fire']} "
+         "(sync) more than two frames apart"),
+        # tests/test_zupt.py:345-347's async-against-sync bounds (positions
+        # within 5e-2 m, the ATE rule) are not held at this BA window of 44:
+        # there the JAX package's own async run misses both
+        # (tests/test_torch_async_zupt_window44.py, ROADMAP Queue 3); printed
+    ]
+    for ok, msg in checks:
+        if not ok:
+            raise SystemExit("multisensor: " + msg)
+    # K1 and K2 on the operands of 13a's async run's last launches
+    k1c = k1_round_check(ga["ops"]["k1"])
+    k2c = k2_path_check(ga["ops"]["k2"])
+    log(f"[multisensor] K1 on a 13a round's operands: {json.dumps(k1c)}")
+    log(f"[multisensor] K2 on a 13a gate's operands: {json.dumps(k2c)}")
+    if not k1c["k1_err"] <= k1c["k1_tol"]:
+        raise SystemExit(f"multisensor: K1 off its plain version on 13a's operands: {k1c}")
+    if not k2c["k2_err"] <= k2c["k2_tol"]:
+        raise SystemExit(f"multisensor: K2 off its plain version on 13a's operands: {k2c}")
+    for r in (gs, ga, zs, za):
+        tag = f"{r['kind']}_{'async' if r['coupled_async'] else 'sync'}"
+        extra = (f"{r['blocking_reads_per_step']:.3f} blocking reads an async step"
+                 if r["coupled_async"] else f"{r['host_reads_per_kf']:.3f} host reads a keyframe")
+        log(f"[multisensor_{tag}] {r['kf_per_s']:.3f} kf/s after VI init ({r['timed_steps']} "
+            f"steps), {extra}, {r['lm_passes_per_kf']:.3f} LM passes a keyframe, idle share "
+            f"{r['idle_share']:.3f}, ZUPT fires {len(r['zupt_fires'])}, GNSS init frame "
+            f"{r['gnss_init_frame']} on {card}")
+    log(f"[multisensor] 13a georeferenced: {json.dumps(geo)}; async against sync "
+        f"{json.dumps(geo_vs)}; ATE {geo['sync']['ate_se3'] / geo['sync']['span']:.4f} (sync) "
+        f"and {geo['async']['ate_se3'] / geo['async']['span']:.4f} (async) of the span on {card}")
+    log(f"[multisensor] 13b ZUPT: {json.dumps(zupt)} on {card}")
+    return dict(runs=out, k1=k1c, k2=k2c, georef=geo, georef_vs_sync=geo_vs, zupt=zupt)
+
 
 RANKS = 2
 BA_ITERS_TIMED = 10
@@ -3346,6 +3840,9 @@ def main() -> int:
     ap.add_argument("--root", default=ROOT,
                     help="directory holding the dbaf_tpu_torch package (default: this checkout)")
     ap.add_argument("--kernels-only", action="store_true", help="stop after phase 2")
+    ap.add_argument("--main-and-coupled", action="store_true",
+                    help="run phases 3-5 only, with no kernel check (their rates, for an A/B "
+                         "of two package trees through --root)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3363,7 +3860,7 @@ def main() -> int:
     cuda_build.build_kernels(verbose=True)
     log(f"[build] kernels built in {time.perf_counter() - t:.1f} s")
 
-    rows = phase_kernels(dev)
+    rows = None if args.main_and_coupled else phase_kernels(dev)
     if args.kernels_only:
         return 0
     t = time.perf_counter()
@@ -3373,6 +3870,10 @@ def main() -> int:
     t = time.perf_counter()
     coupled_res = phase_coupled(dev, N_COUPLED)
     log(f"[time] phase 5 (coupled) took {time.perf_counter() - t:.1f} s")
+    if args.main_and_coupled:
+        log(f"[main] {main_res['kf_per_s']:.3f} kf/s, [coupled] {coupled_res['kf_per_s']:.3f} "
+            f"kf/s after VI init on {card}")
+        return 0
     t = time.perf_counter()
     async_res = phase_coupled_async(dev, N_COUPLED, coupled_res)
     log(f"[time] phase 6 (coupled_async) took {time.perf_counter() - t:.1f} s")
@@ -3409,6 +3910,9 @@ def main() -> int:
     t = time.perf_counter()
     multi_res = phase_multi_device(dev, train_res["peak_bytes"], card)
     log(f"[time] phase 12 (multi-device) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    ms_res = phase_multisensor(dev, card)
+    log(f"[time] phase 13 (multi-sensor flagship) took {time.perf_counter() - t:.1f} s")
     visual_launches = {name: sum(visual_res[m]["launches"][name]
                                  for m in ("visual", "cull", "gateonly"))
                        for name in int8_res["launches"]}
@@ -3421,6 +3925,11 @@ def main() -> int:
     paths.update({f"demo_{kind}": r["launches"] for kind, r in demo_res.items()})
     paths.update(sharded_main=multi_res["video_main"]["launches"],
                  sharded_coupled_async=multi_res["video_coupled"]["launches"])
+    msr = ms_res["runs"]
+    paths.update({f"multisensor_{flow}": {name: msr[f"georef_{flow}"]["launches"][name]
+                                          + msr[f"zupt_{flow}"]["launches"][name]
+                                          for name in msr["georef_sync"]["launches"]}
+                  for flow in ("sync", "async")})
 
     src = "dbaf_tpu_torch/csrc/"
     kernels = [

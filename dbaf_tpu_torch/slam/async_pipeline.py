@@ -43,7 +43,7 @@ import torch
 
 from ..utils.config import DBAFusionConfig
 from ..utils.device import FlagPoll, PendingRead, host_wait, rows_at, set_row, to_host, upload
-from .coupled_async import BAD_CAP
+from .coupled_async import pad_bad_store, restore_bad_store
 from .edge_select import cull_transition, edge_transition, roll_transition
 from .graph import MegaPolls, UpdateStep, _rebuild_edges, _rebuild_inactive
 from .motion_filter import gate
@@ -256,9 +256,7 @@ class AsyncPipeline:
             ii=pad(g.ii, E), jj=pad(g.jj, E), age=pad(g.age, E), e_valid=upload(np.arange(E) < g.n, dev),
             ii_i=pad(g.ii_inac, I), jj_i=pad(g.jj_inac, I),
             i_valid=upload(np.arange(I) < len(g.ii_inac), dev),
-            # the port quarantines no edge, so the carried bad store is empty
-            bad_ii=pad([], BAD_CAP), bad_jj=pad([], BAD_CAP),
-            bad_valid=upload(np.zeros(BAD_CAP, bool), dev),
+            **pad_bad_store(g, dev),
             kf_fmap=flt._kf_fmap, kf_net=flt._kf_net, kf_inp=flt._kf_inp,
             t1=upload(np.asarray(fe.t1, np.int64), dev), prox_d=prox,
             prev_cull=upload(np.asarray(False), dev))
@@ -358,7 +356,8 @@ class AsyncPipeline:
         sysm = self.sys
         g, v, fe, flt = sysm.graph, sysm.video, sysm.frontend, sysm.filter
         st = self.state
-        names = ("prev_cull", "t1", "e_valid", "i_valid", "ii", "jj", "age", "ii_i", "jj_i")
+        names = ("prev_cull", "t1", "e_valid", "i_valid", "ii", "jj", "age", "ii_i", "jj_i",
+                 "bad_ii", "bad_jj", "bad_valid")
         flat = to_host(torch.cat([st[k].reshape(-1).to(torch.int64) for k in names]))
         h, o = {}, 0
         for k in names:
@@ -368,6 +367,7 @@ class AsyncPipeline:
         n, ni, t1 = int(h["e_valid"].sum()), int(h["i_valid"].sum()), int(h["t1"][0])
         g.ii, g.jj, g.age = h["ii"][:n], h["jj"][:n], h["age"][:n]
         g.ii_inac, g.jj_inac = h["ii_i"][:ni], h["jj_i"][:ni]
+        restore_bad_store(g, h)
         g._perm = np.arange(g.e_cap, dtype=np.int64)
         g._is_new = np.zeros(g.e_cap, dtype=bool)
         g._dirty = False

@@ -72,7 +72,25 @@ from .edge_select import cull_transition, edge_transition, roll_transition
 from .graph import EdgeArrays, EdgeSets, UpdateStep, _rebuild_edges, _rebuild_inactive
 from .video import DepthVideo, slot_keyed
 
-BAD_CAP = 64  # bad-edge store capacity (the port quarantines no edge: it stays empty)
+BAD_CAP = 64  # quarantined-edge store capacity (CovisibleGraph.filter_edges)
+
+
+def pad_bad_store(g, dev) -> dict:
+    """The graph's quarantined edges as the steps' carried store: the first
+    ``BAD_CAP`` of them, padded, with their valid mask."""
+    nb = min(len(g.ii_bad), BAD_CAP)
+    out = np.zeros((2, BAD_CAP), np.int64)
+    out[0, :nb], out[1, :nb] = g.ii_bad[:nb], g.jj_bad[:nb]
+    return dict(bad_ii=upload(out[0], dev), bad_jj=upload(out[1], dev),
+                bad_valid=upload(np.arange(BAD_CAP) < nb, dev))
+
+
+def restore_bad_store(g, h: dict):
+    """Write the carried store back into the graph at a drain (``h``: the
+    drain's host copies of ``bad_ii``, ``bad_jj`` and ``bad_valid``); the
+    steps' rollups shifted and pruned it."""
+    nb = int(h["bad_valid"].sum())
+    g.ii_bad, g.jj_bad = h["bad_ii"][:nb], h["bad_jj"][:nb]
 
 
 def _with_row(arr: torch.Tensor, idx: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
@@ -222,7 +240,9 @@ def _roll_pg(pg: dg.PackedGraph, shift, NW: int) -> dg.PackedGraph:
 def _predict_row(row_prev: torch.Tensor, pg: dg.PackedGraph, k, g_vec) -> torch.Tensor:
     """NavState propagation of one 21-wide state row through IMU factor
     slot ``k`` (an int or a 0-d device tensor) with first-order bias
-    correction (fusion/preintegration.py::predict, multi_sensor.py:114-134)."""
+    correction (fusion/preintegration.py::predict, multi_sensor.py:114-134),
+    and the host's long-gap reset (``MultiSensorState.append_img``): over an
+    interval of more than 1 s the state is carried, not propagated."""
     R_i, p_i, v_i, b = row_prev[:9].reshape(3, 3), row_prev[9:12], row_prev[12:15], row_prev[15:21]
     at = lambda a: rows_at(a, k)  # noqa: E731
     db = b - at(pg.imu_bias0)
@@ -232,7 +252,7 @@ def _predict_row(row_prev: torch.Tensor, pg: dg.PackedGraph, k, g_vec) -> torch.
     dt = at(pg.imu_dt)
     p_j = p_i + v_i * dt + 0.5 * g_vec * dt * dt + R_i @ dp
     v_j = v_i + g_vec * dt + R_i @ dv
-    return torch.cat([(R_i @ dR).reshape(9), p_j, v_j, b])
+    return torch.where(dt > 1.0, row_prev, torch.cat([(R_i @ dR).reshape(9), p_j, v_j, b]))
 
 
 def _pose7_cw(R_wb: torch.Tensor, t_wb: torch.Tensor, Tbc12: torch.Tensor) -> torch.Tensor:
@@ -563,9 +583,7 @@ class CoupledAsync:
             ii=pad(g.ii, E), jj=pad(g.jj, E), age=pad(g.age, E), e_valid=t(np.arange(E) < g.n),
             ii_i=pad(g.ii_inac, I), jj_i=pad(g.jj_inac, I),
             i_valid=t(np.arange(I) < len(g.ii_inac)),
-            # the port keeps no bad-edge store (nothing on the path
-            # quarantines an edge), so the carried one starts empty
-            bad_ii=pad([], BAD_CAP), bad_jj=pad([], BAD_CAP), bad_valid=t(np.zeros(BAD_CAP, bool)),
+            **pad_bad_store(g, dev),
             prox_d=g._host_pack_dev[off:off + 5 * wf + n_skip].float().clone(),
             fg_flat=coupled._fg_state.reshape(-1).clone(), o_prev=t(np.int64(coupled.last_t0)),
             mgd_mask=mgd.mask, mgd_lin=mgd.lin, mgd_H=mgd.H, mgd_v=mgd.v,
@@ -784,7 +802,7 @@ class CoupledAsync:
         self.pending.clear()
         self._resolve_archives(wait=True)
         names = ("prev_cull", "e_valid", "i_valid", "ii", "jj", "age", "ii_i", "jj_i", "o_prev",
-                 "cur_mask", "cur_ii", "cur_jj")
+                 "cur_mask", "cur_ii", "cur_jj", "bad_ii", "bad_jj", "bad_valid")
         flat = to_host(torch.cat([st[k].reshape(-1).to(torch.int64) for k in names]))
         h, o = {}, 0
         for k in names:
@@ -795,6 +813,7 @@ class CoupledAsync:
         n, ni = int(h["e_valid"].sum()), int(h["i_valid"].sum())
         g.ii, g.jj, g.age = h["ii"][:n], h["jj"][:n], h["age"][:n]
         g.ii_inac, g.jj_inac = h["ii_i"][:ni], h["jj_i"][:ni]
+        restore_bad_store(g, h)
         g._perm = np.arange(g.e_cap, dtype=np.int64)
         g._is_new = np.zeros(g.e_cap, dtype=bool)
         g._dirty = False

@@ -37,6 +37,12 @@ class UpdateResult(NamedTuple):
     traj_row: Optional[torch.Tensor]  # camera-to-world 7-vec (mega step)
 
 
+def edge_confidence(weight: torch.Tensor) -> torch.Tensor:
+    """Mean confidence of each edge row of an (E, H, W, 2) weight store
+    (dbaf_tpu/slam/graph.py:358)."""
+    return weight.mean(dim=(1, 2, 3))
+
+
 def corr_operands(cfg: DBAFusionConfig, video, ii: torch.Tensor, jj: torch.Tensor,
                   right: bool = True):
     """Round-invariant correlation operands of an edge set: the prepared
@@ -386,6 +392,9 @@ class CovisibleGraph:
         self.age = np.zeros(0, dtype=np.int64)
         self.ii_inac = np.zeros(0, dtype=np.int64)
         self.jj_inac = np.zeros(0, dtype=np.int64)
+        # quarantined edges (filter_edges): never selected again
+        self.ii_bad = np.zeros(0, dtype=np.int64)
+        self.jj_bad = np.zeros(0, dtype=np.int64)
         self.edges = EdgeArrays(self.e_cap, h8, w8, self.device)
         self.t_inac = torch.zeros((self.i_cap, h8, w8, 2), dtype=torch.float32, device=self.device)
         self.w_inac = torch.zeros((self.i_cap, h8, w8, 2), dtype=torch.float32, device=self.device)
@@ -530,6 +539,23 @@ class CovisibleGraph:
         self.age = self.age[keep_idx]
         self._queue_perm(keep_idx)
 
+    @property
+    def last_conf(self) -> np.ndarray:
+        """The mean confidence of each edge row, as the last update left the
+        weights (one host read)."""
+        return to_host(edge_confidence(self.edges.weight))
+
+    def filter_edges(self):
+        """Quarantine low-confidence long-range edges (covisible_graph.py:88-95):
+        they leave the graph and seed the proximity selection's suppression
+        from then on.  As in the reference, no path calls it."""
+        conf = self.last_conf[:self.n]
+        mask = (np.abs(self.ii - self.jj) > 2) & (conf < 0.001)
+        if mask.any():
+            self.ii_bad = np.concatenate([self.ii_bad, self.ii[mask]])
+            self.jj_bad = np.concatenate([self.jj_bad, self.jj[mask]])
+            self.rm_factors(mask, store=False)
+
     def rm_keyframe(self, ix: int):
         """Remove keyframe ix and re-index every edge store
         (covisible_graph.py:180-211)."""
@@ -553,6 +579,10 @@ class CovisibleGraph:
         keep = np.nonzero((self.ii_inac >= 0) & (self.jj_inac >= 0))[0]
         if len(keep) != len(self.ii_inac):
             self._compact_inactive(keep)
+        self.ii_bad = self.ii_bad - roll
+        self.jj_bad = self.jj_bad - roll
+        bad_keep = (self.ii_bad >= 0) & (self.jj_bad >= 0)
+        self.ii_bad, self.jj_bad = self.ii_bad[bad_keep], self.jj_bad[bad_keep]
         # the coupled state keys frames by index: an active edge left below 0
         # would silently corrupt it (the config must keep rollup_start -
         # rollup_shift >= active_window)
@@ -809,8 +839,9 @@ class CovisibleGraph:
             ii = np.concatenate([ii, np.full_like(jj_add, ii.max())])
             jj = np.concatenate([jj, jj_add])
         d = self._candidate_distances(t0, t1, t, ii, jj, beta)
-        exist_ii = np.concatenate([self.ii, self.ii_inac])
-        exist_jj = np.concatenate([self.jj, self.jj_inac])
+        # active, quarantined and inactive edges suppress their neighbours
+        exist_ii = np.concatenate([self.ii, self.ii_bad, self.ii_inac])
+        exist_jj = np.concatenate([self.jj, self.jj_bad, self.jj_inac])
         res = select_proximity_edges(d, ii, jj, cc, exist_ii, exist_jj, t0, t1, t, rad, nms,
                                      thresh, self.cfg.graph.max_factors)
         if res is None:  # no native scheduler: the Python route

@@ -159,7 +159,7 @@ class DBAFusion:
     # ------------------------------------------------------------------
     _VIDEO_ARRAYS = ("poses", "disps", "disps_sens", "damping", "fmaps", "nets", "inps",
                      "fmaps_right", "disps_up", "intrinsics")
-    _GRAPH_HOST = ("ii", "jj", "age", "ii_inac", "jj_inac")
+    _GRAPH_HOST = ("ii", "jj", "age", "ii_inac", "jj_inac", "ii_bad", "jj_bad")
 
     def _graph_dev(self) -> dict:
         """The edge stores a state file keeps, by its names."""
@@ -172,9 +172,10 @@ class DBAFusion:
         167-218, in its dict layout): the asynchronous pipelines are drained
         first, and every video, edge and trajectory array is a numpy array
         (bf16 buffers as their 16-bit patterns, ``int16``), so the file
-        loads without a card.  ``video_host`` also keeps ``has_depth``,
-        which the JAX file leaves out; the port's graph has no quarantined
-        edges, so ``ii_bad``/``jj_bad`` are not in it."""
+        loads without a card.  ``graph`` holds the quarantined edges
+        (``ii_bad``/``jj_bad``) beside the active and inactive ones, as the
+        JAX file does; ``video_host`` also keeps ``has_depth``, which the
+        JAX file leaves out."""
         import pickle
 
         if self._async is not None and self._async.active:

@@ -55,10 +55,12 @@ class NoHostRead(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def scene(n_frames):
+def scene(n_frames, simulate_fn=simulate):
+    """The IMU rows, true poses, camera poses and plane disparities of
+    ``n_frames`` frames of ``simulate_fn``'s trajectory."""
     from dbaf_tpu_torch.ops import lie_np
 
-    imu_rows, poses_at = simulate(n_frames / FPS + 0.5)
+    imu_rows, poses_at = simulate_fn(n_frames / FPS + 0.5)
     gt_cw, gt_disps = [], []
     for k in range(n_frames + 1):
         R, p = poses_at[k]
@@ -100,7 +102,8 @@ def summary(h, poses_at):
         ii=np.sort(np.asarray(h.graph.ii)), jj=np.sort(np.asarray(h.graph.jj)),
         disps=np.asarray(disps.numpy() if isinstance(disps, torch.Tensor) else disps),
         steps=ca.total_steps if ca else 0, culls=ca.culls if ca else 0,
-        active_steps=ca.steps if ca else 0, rollups=h.frontend.rollup_count)
+        active_steps=ca.steps if ca else 0, rollups=h.frontend.rollup_count,
+        gnss=int(sum(map(bool, c.state.gnss_valid))), odo=int(sum(map(bool, c.state.odo_valid))))
 
 
 def move_reinit(h, done: bool, reinit_after) -> bool:
@@ -113,16 +116,33 @@ def move_reinit(h, done: bool, reinit_after) -> bool:
     return True
 
 
-def run_port(n_frames, poll=None, guard=0, reinit_after=None, **kw):
+def attach_sensors(h, imu_rows, sensors):
+    """Give a harness GNSS and odometry rows (``sensors``: ``gnss``, ``odo``
+    and ``ten0``).  The GNSS rows are in the estimated world frame, so the
+    run starts georeferenced, as ``test_coupled_async.py:246-249`` sets it
+    (init_gnss's 10 m baseline is out of a room-scale scene's reach)."""
+    if sensors is None:
+        return
+    h.frontend.set_multisensor(imu_rows, all_gnss=sensors["gnss"], all_odo=sensors["odo"],
+                               visual_only=False)
+    c = h.graph.coupled
+    c.gnss_init_t1 = 1
+    c.gnss_init_time = 1e-6
+    c.ten0 = np.asarray(sensors["ten0"], float)
+
+
+def run_port(n_frames, poll=None, guard=0, reinit_after=None, sensors=None, **kw):
     """The port's async run and, from a copy taken at the pipeline's
     activation, its sync run.  ``poll`` replaces the pipeline's FlagPolls;
     the first ``guard`` steady-state async frames run under NoHostRead;
-    ``reinit_after`` moves the bias reinitialization (move_reinit)."""
+    ``reinit_after`` moves the bias reinitialization (move_reinit);
+    ``sensors`` attaches GNSS and odometry rows (attach_sensors)."""
     from dbaf_tpu_torch.slam.coupled_fused import RoundPolls
     from dbaf_tpu_torch.utils import config as tconfig
 
     imu_rows, poses_at, gt_cw, gt_disps = scene(n_frames)
     h = PortHarness(config(tconfig, **kw), gt_cw, gt_disps, imu_rows)
+    attach_sensors(h, imu_rows, sensors)
     sync = None
     guarded = 0
     moved = False
@@ -157,12 +177,13 @@ def run_port(n_frames, poll=None, guard=0, reinit_after=None, **kw):
     return out
 
 
-def run_jax(n_frames, reinit_after=None, **kw):
+def run_jax(n_frames, reinit_after=None, sensors=None, **kw):
     from dbaf_tpu.utils import config as jconfig
 
     imu_rows, poses_at, gt_cw, gt_disps = scene(n_frames)
     cfg = config(jconfig, **kw)
     h = MsHarness(cfg, jnp.asarray(gt_cw), jnp.asarray(gt_disps), INTR, imu_rows)
+    attach_sensors(h, imu_rows, sensors)
     moved = False
     for k in range(n_frames):
         h.feed(k)

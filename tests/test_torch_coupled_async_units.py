@@ -82,14 +82,19 @@ def _assert_graph(tg, jg, atol=0.0, fields=None):
             np.testing.assert_array_equal(a, b.astype(a.dtype), err_msg=name)
 
 
-def test_predict_row_matches_host_and_jax():
+@pytest.mark.parametrize("n_imu", [40, 210])
+def test_predict_row_matches_host_and_jax(n_imu):
+    """Over an interval of more than 1 s (210 samples at 200 Hz) the host
+    carries the state (``MultiSensorState.append_img``), and so does the
+    port's step; the JAX step propagates it (ROADMAP Queue 3)."""
     rng = np.random.default_rng(0)
     bias_int = np.array([0.01, -0.02, 0.015, 0.001, -0.002, 0.0005])
-    pim = _pim(rng, bias=bias_int)
+    pim = _pim(rng, n=n_imu, bias=bias_int)
     R0 = so3_exp(np.array([0.2, -0.1, 0.3]))
     p0, v0 = np.array([1.0, -2.0, 0.5]), np.array([0.3, 0.1, -0.2])
     bias_now = bias_int + np.array([2e-3, -1e-3, 5e-4, 1e-4, -2e-4, 3e-4])
-    out = pim.predict(NavState(Pose(R0, p0), v0), bias_now)
+    prev = NavState(Pose(R0, p0), v0)
+    out = prev if pim.dt > 1.0 else pim.predict(prev, bias_now)
     jg, tg = _graphs(rng)
     k = 3
     fields = dict(imu_dR=pim.dR, imu_dv=pim.dv, imu_dp=pim.dp, imu_dt=pim.dt, imu_dRg=pim.dRg,
@@ -106,6 +111,11 @@ def test_predict_row_matches_host_and_jax():
         np.testing.assert_allclose(row[12:15], out.vel, atol=2e-5)
         np.testing.assert_allclose(row[15:21], bias_now, atol=1e-7)
     jrow = np.asarray(jca._predict_row(J(row_prev), jg, jnp.asarray(k), jg.g_vec))
+    if pim.dt > 1.0:
+        np.testing.assert_array_equal(row, row_prev)
+        # the JAX step moves the state by metres where the host keeps it
+        assert np.abs(jrow[9:12] - row_prev[9:12]).max() > 1.0, jrow[9:12]
+        return
     np.testing.assert_allclose(row, jrow, atol=2e-5)
 
 
