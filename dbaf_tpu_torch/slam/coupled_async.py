@@ -67,6 +67,7 @@ from ..ops import projective as pj
 from ..utils.config import DBAFusionConfig
 from ..utils.device import (FlagPoll, PendingRead, device_const, rows_at, set_row, to_host,
                             upload)
+from ..utils.profiling import TRACER
 from .coupled_fused import RoundPolls, run_coupled_rounds
 from .edge_select import cull_transition, edge_transition, roll_transition
 from .graph import EdgeArrays, EdgeSets, UpdateStep, _rebuild_edges, _rebuild_inactive
@@ -321,23 +322,26 @@ def coupled_step(ustep: UpdateStep, cfg: DBAFusionConfig, NW: int, video: DepthV
     # slot-keyed aux leaves (a test oracle's id_map) were uploaded pre-shift
     aux = video.move_rows_device(torch.clamp(c + ar(2), 0, B - 1),
                                  torch.clamp(c + 1 + ar(2), 0, B - 1), pc, aux)
-    # (c) edge re-indexing (graph.rm_keyframe)
-    ct = cull_transition(st["ii"], st["jj"], st["age"], st["e_valid"], st["ii_i"], st["jj_i"],
-                         st["i_valid"], c)
-    no_new_e = torch.zeros(E, dtype=torch.bool, device=dev)
-    no_act_i = torch.zeros(I, dtype=torch.bool, device=dev)
-    zero_i = torch.zeros(I, dtype=torch.int64, device=dev)
-    edges.assign(_rebuild_edges(edges, torch.where(pc, ct["perm"], ar(E)), no_new_e, ct["ii"],
-                                ct["jj"], video.poses, video.disps, video.intrinsics,
-                                video.feature_rows("nets", ct["ii"])))
-    t_new, w_new = _rebuild_inactive(t_inac, w_inac, torch.where(pc, ct["inact_perm_old"], ar(I)),
-                                     no_act_i, zero_i, edges.target, edges.weight)
-    t_inac.copy_(t_new)
-    w_inac.copy_(w_new)
-    ii, jj, age, e_valid, ii_i, jj_i, i_valid = (
-        torch.where(pc, ct[k], st[s]) for k, s in (
-            ("ii", "ii"), ("jj", "jj"), ("age", "age"), ("valid", "e_valid"), ("ii_i", "ii_i"),
-            ("jj_i", "jj_i"), ("i_valid", "i_valid")))
+    # (c) edge re-indexing (graph.rm_keyframe); the edge lifecycle's
+    # device selection is four ``select`` spans a step: (c), 2, 2b and 6
+    with TRACER("select"):
+        ct = cull_transition(st["ii"], st["jj"], st["age"], st["e_valid"], st["ii_i"],
+                             st["jj_i"], st["i_valid"], c)
+        no_new_e = torch.zeros(E, dtype=torch.bool, device=dev)
+        no_act_i = torch.zeros(I, dtype=torch.bool, device=dev)
+        zero_i = torch.zeros(I, dtype=torch.int64, device=dev)
+        edges.assign(_rebuild_edges(edges, torch.where(pc, ct["perm"], ar(E)), no_new_e,
+                                    ct["ii"], ct["jj"], video.poses, video.disps,
+                                    video.intrinsics, video.feature_rows("nets", ct["ii"])))
+        t_new, w_new = _rebuild_inactive(t_inac, w_inac,
+                                         torch.where(pc, ct["inact_perm_old"], ar(I)),
+                                         no_act_i, zero_i, edges.target, edges.weight)
+        t_inac.copy_(t_new)
+        w_inac.copy_(w_new)
+        ii, jj, age, e_valid, ii_i, jj_i, i_valid = (
+            torch.where(pc, ct[k], st[s]) for k, s in (
+                ("ii", "ii"), ("jj", "jj"), ("age", "age"), ("valid", "e_valid"),
+                ("ii_i", "ii_i"), ("jj_i", "jj_i"), ("i_valid", "i_valid")))
     # (d) the factor-graph window state drops the culled row
     arW = ar(NW)
     rc = c - o_prev
@@ -370,18 +374,21 @@ def coupled_step(ustep: UpdateStep, cfg: DBAFusionConfig, NW: int, video: DepthV
 
     # ---- 2. edge lifecycle (frontend.py multi-sensor stale rule +
     # proximity selection)
-    tr = edge_transition(
-        ii, jj, age, e_valid, ii_i, jj_i, i_valid, st["bad_ii"], st["bad_jj"], st["bad_valid"],
-        prox_d, t1, gc.frontend_thresh, src=5, wf=wf, n_skip=n_skip, skip_offsets=skip,
-        rad=gc.frontend_radius, nms=gc.frontend_nms, max_factors=gc.max_factors,
-        max_age=gc.max_age, active_window=fc.active_window, visual_only=False,
-        max_out=4 * (gc.max_factors + 60))
-    t_new, w_new = _rebuild_inactive(t_inac, w_inac, tr["inact_perm_old"], tr["inact_from_act"],
-                                     tr["inact_act_idx"], edges.target, edges.weight)
-    t_inac.copy_(t_new)
-    w_inac.copy_(w_new)
-    edges.assign(_rebuild_edges(edges, tr["perm"], tr["is_new"], tr["ii"], tr["jj"], video.poses,
-                                video.disps, video.intrinsics, video.feature_rows("nets", tr["ii"])))
+    with TRACER("select"):
+        tr = edge_transition(
+            ii, jj, age, e_valid, ii_i, jj_i, i_valid, st["bad_ii"], st["bad_jj"],
+            st["bad_valid"], prox_d, t1, gc.frontend_thresh, src=5, wf=wf, n_skip=n_skip,
+            skip_offsets=skip, rad=gc.frontend_radius, nms=gc.frontend_nms,
+            max_factors=gc.max_factors, max_age=gc.max_age, active_window=fc.active_window,
+            visual_only=False, max_out=4 * (gc.max_factors + 60))
+        t_new, w_new = _rebuild_inactive(t_inac, w_inac, tr["inact_perm_old"],
+                                         tr["inact_from_act"], tr["inact_act_idx"],
+                                         edges.target, edges.weight)
+        t_inac.copy_(t_new)
+        w_inac.copy_(w_new)
+        edges.assign(_rebuild_edges(edges, tr["perm"], tr["is_new"], tr["ii"], tr["jj"],
+                                    video.poses, video.disps, video.intrinsics,
+                                    video.feature_rows("nets", tr["ii"])))
     ii2, jj2, age2, e_valid2 = tr["ii"], tr["jj"], tr["age"], tr["valid"]
     ii_i2, jj_i2, i_valid2 = tr["ii_i"], tr["jj_i"], tr["i_valid"]
 
@@ -401,17 +408,19 @@ def coupled_step(ustep: UpdateStep, cfg: DBAFusionConfig, NW: int, video: DepthV
     # inactive and bad stores: drop negatives, compact, re-index; active
     # edges stay nonnegative by rollup_start - rollup_shift >= active_window
     # (checked at activation)
-    rt = roll_transition(ii_i2, jj_i2, i_valid2, st["bad_ii"], st["bad_jj"], st["bad_valid"],
-                         fc.rollup_shift)
-    ii_i2, jj_i2, i_valid2, bad_ii, bad_jj, bad_valid = (
-        torch.where(do_roll, rt[k], old) for k, old in (
-            ("ii_i", ii_i2), ("jj_i", jj_i2), ("i_valid", i_valid2), ("bad_ii", st["bad_ii"]),
-            ("bad_jj", st["bad_jj"]), ("bad_valid", st["bad_valid"])))
-    t_new, w_new = _rebuild_inactive(t_inac, w_inac,
-                                     torch.where(do_roll, rt["inact_perm_old"], ar(I)),
-                                     no_act_i, zero_i, edges.target, edges.weight)
-    t_inac.copy_(t_new)
-    w_inac.copy_(w_new)
+    with TRACER("select"):
+        rt = roll_transition(ii_i2, jj_i2, i_valid2, st["bad_ii"], st["bad_jj"],
+                             st["bad_valid"], fc.rollup_shift)
+        ii_i2, jj_i2, i_valid2, bad_ii, bad_jj, bad_valid = (
+            torch.where(do_roll, rt[k], old) for k, old in (
+                ("ii_i", ii_i2), ("jj_i", jj_i2), ("i_valid", i_valid2),
+                ("bad_ii", st["bad_ii"]), ("bad_jj", st["bad_jj"]),
+                ("bad_valid", st["bad_valid"])))
+        t_new, w_new = _rebuild_inactive(t_inac, w_inac,
+                                         torch.where(do_roll, rt["inact_perm_old"], ar(I)),
+                                         no_act_i, zero_i, edges.target, edges.weight)
+        t_inac.copy_(t_new)
+        w_inac.copy_(w_new)
     ii2, jj2 = ii2 - shift, jj2 - shift
     cur_ii, cur_jj = st["cur_ii"] - shift, st["cur_jj"] - shift
     o_prev, h0, t1, t1r = o_prev - shift, h0 - shift, t1 - shift, t1r - shift
@@ -452,11 +461,13 @@ def coupled_step(ustep: UpdateStep, cfg: DBAFusionConfig, NW: int, video: DepthV
     pg_c = _roll_pg(pg_h0, t0_c - h0, NW)
 
     # ---- 6. compaction of the coupled edge selection
-    order = torch.argsort((~valid_full).to(torch.int32), stable=True)
-    mask_d = ar(I + E) < valid_full.long().sum()
-    prep = dict(t0=t0_c, n=n_fg, fg=fg, sel=order, ii=torch.clamp(ii_full[order] - t0_c, 0, P - 1),
-                jj=torch.clamp(jj_full[order] - t0_c, 0, P - 1), mask=mask_d, pg=pg_c, mgd=mgd2,
-                A=A)
+    with TRACER("select"):
+        order = torch.argsort((~valid_full).to(torch.int32), stable=True)
+        mask_d = ar(I + E) < valid_full.long().sum()
+        prep = dict(t0=t0_c, n=n_fg, fg=fg, sel=order,
+                    ii=torch.clamp(ii_full[order] - t0_c, 0, P - 1),
+                    jj=torch.clamp(jj_full[order] - t0_c, 0, P - 1), mask=mask_d, pg=pg_c,
+                    mgd=mgd2, A=A)
 
     # ---- 7. rounds and the cull decision (the fused step's core)
     res = run_coupled_rounds(ustep, cfg, video, edges, ii2, jj2, e_valid2, t_inac, w_inac,
@@ -607,7 +618,11 @@ class CoupledAsync:
     def step(self, cur_t: float):
         """One keyframe (the frontend has ingested the sensors and bumped
         t1).  No host read but the previous step's drain; the trajectory
-        row stays on the device."""
+        row stays on the device.  A ``step`` span."""
+        with TRACER("step"):
+            self._step(cur_t)
+
+    def _step(self, cur_t: float):
         fe = self.fe
         g, v, coupled = fe.graph, fe.video, fe.coupled
         cfg = self.cfg
@@ -630,7 +645,8 @@ class CoupledAsync:
         self.steps += 1
         self.total_steps += 1
         fe.keyframe_steps += 1
-        self.pending.append(PendingRead(pack, t1, cur_t))
+        # the drain's span names this frame as its cause
+        self.pending.append(PendingRead(pack, t1, cur_t, TRACER.frame))
         if len(self.pending) > 1:
             self._drain_one()
         # replay the step's rollup decision (post-cull count > rollup_start;
@@ -670,20 +686,22 @@ class CoupledAsync:
 
     def _drain_one(self):
         p = self.pending.pop(0)
-        pack = p.read()
-        self._resolve_archives(wait=False)
-        t1_at, cur_t = p.meta
-        self._refresh_mirrors_from_pack(pack, t1_at)
-        self._monitor_from_pack(pack, t1_at, cur_t)
-        culled = bool(pack[0] > 0.5)
-        fe = self.fe
-        fe.update_rounds += fe.iters1 + (0 if culled else fe.iters2)
-        if culled:
-            # the culled frame is ALWAYS the third-newest at drain time: the
-            # cull removed the then-second-newest keyframe, exactly one frame
-            # has been appended since (lag 1), and drains are in order
-            self._host_apply_cull(fe.t1 - 3)
-        self._drained_cull = culled
+        t1_at, cur_t, frame = p.meta
+        with TRACER("drain", cause=frame):
+            pack = p.read()
+            self._resolve_archives(wait=False)
+            self._refresh_mirrors_from_pack(pack, t1_at)
+            self._monitor_from_pack(pack, t1_at, cur_t)
+            culled = bool(pack[0] > 0.5)
+            fe = self.fe
+            fe.update_rounds += fe.iters1 + (0 if culled else fe.iters2)
+            if culled:
+                # the culled frame is ALWAYS the third-newest at drain time:
+                # the cull removed the then-second-newest keyframe, exactly
+                # one frame has been appended since (lag 1), and drains are
+                # in order
+                self._host_apply_cull(fe.t1 - 3)
+            self._drained_cull = culled
 
     def _parse_pack(self, pack: np.ndarray, t1_at: int):
         """The drained pack's tail: [... | state(NW*21) | pose(12) | t0_c].
@@ -798,7 +816,7 @@ class CoupledAsync:
         # prev_cull, finished below; its monitor row is recorded here (a
         # read the drain makes only with the monitor on)
         if fe.monitor is not None and self.pending:
-            self._monitor_from_pack(self.pending[-1].read(), *self.pending[-1].meta)
+            self._monitor_from_pack(self.pending[-1].read(), *self.pending[-1].meta[:2])
         self.pending.clear()
         self._resolve_archives(wait=True)
         names = ("prev_cull", "e_valid", "i_valid", "ii", "jj", "age", "ii_i", "jj_i", "o_prev",

@@ -23,6 +23,7 @@ from ..fusion import device_graph as dg
 from ..ops import lie
 from ..utils.config import DBAFusionConfig
 from ..utils.device import FlagPoll, clip, rows_at
+from ..utils.profiling import TRACER
 from .graph import EdgeSets, UpdateStep, corr_operands
 from .video import DepthVideo
 
@@ -89,19 +90,21 @@ def run_coupled_rounds(step: UpdateStep, cfg: DBAFusionConfig, video: DepthVideo
 
     def one(r: int):
         nonlocal fg, pack, cur_target, cur_weight
-        t_all, w_ba = step.update_round(video, edges, ii, jj, e_mask, t_inac, w_inac, sets,
-                                        corr_prep, inp_e, aux, use_inactive)
+        with TRACER("round"):
+            t_all, w_ba = step.update_round(video, edges, ii, jj, e_mask, t_inac, w_inac, sets,
+                                            corr_prep, inp_e, aux, use_inactive)
         if r in (rounds_a - 1, rounds_a + rounds_b - 1):
             # the cull distance and the next keyframe's proximity
             # distances, on the pre-solve state of the deciding/last round
             pack = step.host_metrics(video, t1)
         cur_target = t_all[prep["sel"]]
         cur_weight = w_ba[prep["sel"]]
-        _, _, fg, its = dg.coupled_rounds_body(
-            video.poses, video.disps, video.damping, video.intrinsics, cur_target, cur_weight,
-            prep["ii"], prep["jj"], prep["mask"], fg_t0, n_fg, fg, prep["pg"], prep["mgd"],
-            prep["A"], sel_pose, P=P, NW=NW, n_iters=cfg.ba.lm_iters,
-            eps_damping=cfg.ba.eps_damping, poll=polls.lm)
+        with TRACER("lm"):
+            _, _, fg, its = dg.coupled_rounds_body(
+                video.poses, video.disps, video.damping, video.intrinsics, cur_target,
+                cur_weight, prep["ii"], prep["jj"], prep["mask"], fg_t0, n_fg, fg, prep["pg"],
+                prep["mgd"], prep["A"], sel_pose, P=P, NW=NW, n_iters=cfg.ba.lm_iters,
+                eps_damping=cfg.ba.eps_damping, poll=polls.lm)
         lm_stats.append(torch.stack(its))
 
     for r in range(rounds_a):

@@ -33,6 +33,7 @@ from ..ops import lie, lie_np
 from ..ops import projective as pj
 from ..utils.config import DBAFusionConfig
 from ..utils.device import to_host
+from ..utils.profiling import TRACER
 from .graph import CovisibleGraph
 from .initialization import init_gnss, init_imu_states, visual_imu_alignment
 from .video import DepthVideo
@@ -251,7 +252,8 @@ class Frontend:
             if v.imu_enabled and cur_t - self.coupled.vi_init_time > 5.0:
                 self.coupled.reinit = True
                 self.coupled.vi_init_time = 1e9
-            self._ingest_sensors(cur_t)
+            with TRACER("sensors"):
+                self._ingest_sensors(cur_t)
             # the zero-pull device keyframe step (slam/coupled_async.py): the
             # rollup runs inside it, so only a reinit drains back to the
             # synchronous flow below
@@ -269,18 +271,19 @@ class Frontend:
                 v.set_pose(self.t1 - 1, torch.as_tensor(lie_np.se3_from_matrix(Tcw),
                                                         dtype=torch.float32))
 
-        if g.n > 0:  # edge lifecycle (dbaf_frontend.py:233-242)
-            old = (g.ii < self.t1 - self.active_window) | (g.jj < self.t1 - self.active_window)
-            if self.visual_only:
-                stale = (g.age > self.max_age) & old
-            else:
-                stale = (g.age > self.max_age) | old
-            g.rm_factors(stale, store=True)
+        with TRACER("select"):
+            if g.n > 0:  # edge lifecycle (dbaf_frontend.py:233-242)
+                old = (g.ii < self.t1 - self.active_window) | (g.jj < self.t1 - self.active_window)
+                if self.visual_only:
+                    stale = (g.age > self.max_age) & old
+                else:
+                    stale = (g.age > self.max_age) | old
+                g.rm_factors(stale, store=True)
 
-        g.add_proximity_factors(
-            self.t1 - 5, max(self.t1 - self.cfg.graph.frontend_window, 0),
-            rad=self.cfg.graph.frontend_radius, nms=self.cfg.graph.frontend_nms,
-            thresh=self.cfg.graph.frontend_thresh, beta=self.beta, remove=True)
+            g.add_proximity_factors(
+                self.t1 - 5, max(self.t1 - self.cfg.graph.frontend_window, 0),
+                rad=self.cfg.graph.frontend_radius, nms=self.cfg.graph.frontend_nms,
+                thresh=self.cfg.graph.frontend_thresh, beta=self.beta, remove=True)
         if v.has_depth:  # RGB-D: seed from the sensor (dbaf_frontend.py:247-248)
             v.seed_depth(self.t1 - 1)
 

@@ -29,6 +29,7 @@ from ..ops import projective as pj
 from ..train.unroll import upsample_disp
 from ..utils.config import DBAFusionConfig
 from ..utils.device import FlagPoll, clip, device_const, rows_at, set_row, to_host
+from ..utils.profiling import TRACER
 from .video import DepthVideo
 
 
@@ -698,15 +699,17 @@ class CovisibleGraph:
         update+solve rounds, the multi-sensor cull decision (flow distance +
         translation hysteresis), rounds_b more unless culled.  Returns
         (culled, cull_distance), or None to fall back to the two-call flow
-        (window exceeds fg_cap / unsupported factors / coupled mode off)."""
+        (window exceeds fg_cap / unsupported factors / coupled mode off).
+        A ``step`` span."""
         if (self.n == 0 or self.coupled is None or not self.video.imu_enabled
                 or not self.cfg.sensors.device_solver or not self.cfg.sensors.coupled_mega):
             return None
-        self._flush()
-        t0 = max(1, int(self.ii.min()) + 1)
-        t1 = int(max(self.ii.max(), self.jj.max())) + 1
-        s0 = max(0, t1 - self.cfg.ba.window)
-        out = self._update_coupled_fused(rounds_a, rounds_b, iters, True, t0, t1, s0)
+        with TRACER("step"):
+            self._flush()
+            t0 = max(1, int(self.ii.min()) + 1)
+            t1 = int(max(self.ii.max(), self.jj.max())) + 1
+            s0 = max(0, t1 - self.cfg.ba.window)
+            out = self._update_coupled_fused(rounds_a, rounds_b, iters, True, t0, t1, s0)
         if out is None:
             return None
         culled, d = out

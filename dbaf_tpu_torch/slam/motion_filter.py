@@ -22,6 +22,7 @@ from ..ops import lie
 from ..ops import projective as pj
 from ..utils.config import DBAFusionConfig
 from ..utils.device import host_wait, to_host, upload
+from ..utils.profiling import TRACER
 from .video import DepthVideo
 
 
@@ -68,7 +69,11 @@ class MotionFilter:
         gate sees the left image only; an admitted frame's ``depth`` (H, W)
         goes to ``disps_sens`` and, with ``cfg.stereo``, the features of
         ``image_right`` to ``fmaps_right`` (motion_filter.py:111-191 of the
-        JAX package), both uploaded without a read."""
+        JAX package), both uploaded without a read.  A ``gate`` span."""
+        with TRACER("gate"):
+            return self._admit(tstamp, image, depth, intrinsics, image_right)
+
+    def _admit(self, tstamp, image, depth, intrinsics, image_right) -> bool:
         v = self.video
         img = upload(np.asarray(image, dtype=np.uint8), v.device)[None]
         intr8 = upload(np.asarray(intrinsics, np.float32), v.device) / 8.0

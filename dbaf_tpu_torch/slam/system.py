@@ -16,6 +16,7 @@ from ..models.net import DroidNet
 from ..ops.corr_cuda import check_int8_tile, check_k1_shape, int8_tile
 from ..utils.config import DBAFusionConfig
 from ..utils.device import resolve_device, to_host
+from ..utils.profiling import TRACER
 from .frontend import Frontend
 from .graph import CovisibleGraph
 from .motion_filter import MotionFilter
@@ -135,16 +136,17 @@ class DBAFusion:
         asynchronous visual pipeline is drained first (the JAX package hands
         the pipeline the image alone and drops the depth map), and once a
         depth frame is in, the pipeline no longer activates."""
-        a = self._async
-        if a is not None and depth is not None and a.active:
-            a.sync()
-        if a is not None and depth is None and (a.active or a.can_activate()):
-            if not a.active:
-                a.activate()
-            a.track(tstamp, image)
-            return
-        self.filter.track(tstamp, image, depth, intrinsics, image_right)
-        self.frontend()
+        with TRACER("track", root=True):  # the frame's root span
+            a = self._async
+            if a is not None and depth is not None and a.active:
+                a.sync()
+            if a is not None and depth is None and (a.active or a.can_activate()):
+                if not a.active:
+                    a.activate()
+                a.track(tstamp, image)
+                return
+            self.filter.track(tstamp, image, depth, intrinsics, image_right)
+            self.frontend()
 
     @property
     def trajectory(self):

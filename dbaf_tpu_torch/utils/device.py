@@ -14,6 +14,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from .profiling import TRACER
+
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """``None`` means the card; a CUDA device without a card raises."""
@@ -73,12 +75,14 @@ def _first_rank_value(x: torch.Tensor) -> torch.Tensor:
 
 def to_host(x: torch.Tensor):
     """One counted device -> host read: a Python scalar for a 0-d tensor,
-    else a numpy array (the first rank's, see ``HOST_SYNC``)."""
+    else a numpy array (the first rank's, see ``HOST_SYNC``); a ``wait``
+    span."""
     HOST_READS["count"] += 1
-    x = _first_rank_value(x)
-    if x.dim() == 0:
-        return x.item()
-    return x.detach().cpu().numpy()
+    with TRACER("wait"):
+        x = _first_rank_value(x)
+        if x.dim() == 0:
+            return x.item()
+        return x.detach().cpu().numpy()
 
 
 # deliberate waits for the card in progress (host_wait): a test guard that
@@ -92,13 +96,14 @@ def host_wait():
     mode (``torch.cuda.set_sync_debug_mode``) is off, so a caller that
     guards a steady-state stretch with ``"error"`` lets through the waits
     that belong there (the motion gate's per-frame read, the lagged drain of
-    the asynchronous coupled pipeline)."""
+    the asynchronous coupled pipeline).  Its body is a ``wait`` span."""
     mode = torch.cuda.get_sync_debug_mode() if torch.cuda.is_available() else None
     if mode is not None:
         torch.cuda.set_sync_debug_mode(0)
     WAITING["depth"] += 1
     try:
-        yield
+        with TRACER("wait"):
+            yield
     finally:
         WAITING["depth"] -= 1
         if mode is not None:
@@ -188,12 +193,13 @@ class PendingRead:
 
     def read(self) -> np.ndarray:
         """Waits for this copy alone (never for later work) and counts one
-        host read."""
+        host read; a ``wait`` span."""
         HOST_READS["count"] += 1
-        if self.event is not None:
-            with host_wait():
-                self.event.synchronize()
-        return self.landed()
+        with TRACER("wait"):
+            if self.event is not None:
+                with host_wait():
+                    self.event.synchronize()
+            return self.landed()
 
     def landed(self) -> np.ndarray:
         """The copy, which must have landed: a :meth:`read` waited for it

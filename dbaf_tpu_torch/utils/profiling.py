@@ -1,10 +1,18 @@
 """Tracing and profiling (port of ``dbaf_tpu/utils/profiling.py``).
 
-* ``StageTimer``: per-stage wall-clock accounting with a one-line report
-  (in place of the reference's log-timestamp reading, dbaf_frontend.py:164+).
+* ``StageTimer``: the program's tracer.  Each span (``with timer("stage"):``)
+  records its stage, start and end (one ``time.perf_counter()`` read each),
+  its parent span, the frame it ran under and, where given, the frame whose
+  work it finishes (``cause``), into a preallocated ring in memory; the
+  one-line report gives each stage's self time (its spans less the part their
+  child spans cover; in place of the reference's log-timestamp reading,
+  dbaf_frontend.py:164+).  ``TRACER`` is the process-wide instance the
+  program's span sites use; it is off until :func:`set_tracing` turns it on,
+  and off, a span site costs an attribute read and a branch.
 * ``device_trace``: a context manager around ``torch.profiler``, with CUDA
   activities when a card is present; it writes a Chrome trace into
-  ``logdir``.
+  ``logdir``.  With tracing on, every span is also a ``record_function``
+  range there, beside the kernels it launched.
 * ``get_logger``: the ``dba_fusion`` file logger of the reference's logging
   surface (depth_video.py:117-124).
 """
@@ -15,8 +23,17 @@ import contextlib
 import logging
 import os
 import time
+import warnings
 from collections import defaultdict
 from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+RING = 65536  # spans kept; a 51 s window of 15-40 spans a frame needs at most about 4,100
+WAIT = "wait"  # the stage of a deliberate wait for the card
+SYNC_WARNING = "called a synchronizing CUDA operation"  # CUDA's sync debug mode "warn"
+SYNC_SITES = 8  # call sites of unplanned synchronisations kept
 
 
 def get_logger(path: Optional[str] = None) -> logging.Logger:
@@ -30,27 +47,119 @@ def get_logger(path: Optional[str] = None) -> logging.Logger:
     return logger
 
 
+class _Off:
+    """The span a site enters while its timer is off: nothing."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
 class StageTimer:
-    """Accumulating per-stage timer.
+    """Per-stage timer and span recorder.
 
     >>> timer = StageTimer()
     >>> with timer("update"):
     ...     ...
     >>> timer.report()
+
+    A span opened with ``root=True`` starts a new frame (``frame``, the
+    sequence number of the root spans) and counts the unplanned
+    synchronisations inside it (:func:`set_tracing`).  A span of the stage
+    of the span it opens in records nothing of its own (a wait inside a
+    wait is counted once).  The ring holds the newest ``RING`` spans; their
+    sequence numbers (``seq``) keep counting, and :meth:`spans` returns the
+    spans since a sequence number that are still there.
     """
 
-    def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
+    def __init__(self, on: bool = True):
+        self.on = on
+        self.totals: Dict[str, float] = defaultdict(float)  # self seconds
         self.counts: Dict[str, int] = defaultdict(int)
+        self.ring = dict(stage=np.zeros(RING, np.int32), start=np.zeros(RING),
+                         end=np.zeros(RING), child=np.zeros(RING),
+                         parent=np.zeros(RING, np.int64), frame=np.zeros(RING, np.int64),
+                         cause=np.zeros(RING, np.int64))
+        self.stages = []  # stage names by id
+        self._ids: Dict[str, int] = {}
+        self.seq = 0       # spans recorded
+        self.frame = -1    # the newest root span's frame id
+        self.syncs = 0     # unplanned synchronisations counted
+        self.sync_sites: Dict[str, int] = {}
+        self._stack = []   # open spans: (seq, stage, record_function or None, kind)
+        self._next = (None, -1, False)
+        self._roots = 0    # open root spans
+        self._waits = 0    # open wait spans
+        self._profiled = False  # torch.profiler recording, read at each root span
+        self._warnings = None   # (catch_warnings, showwarning) while syncs are watched
+        self._sync_mode = 0     # CUDA's sync debug mode before they were
 
-    @contextlib.contextmanager
-    def __call__(self, stage: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[stage] += time.perf_counter() - t0
-            self.counts[stage] += 1
+    def __call__(self, stage: str, cause: int = -1, root: bool = False):
+        if not self.on:
+            return _OFF
+        self._next = (stage, cause, root)
+        return self
+
+    def __enter__(self):
+        stage, cause, root = self._next
+        stack = self._stack
+        if stack and stack[-1][1] == stage:
+            stack.append((stack[-1][0], stage, None, 0))
+            return self
+        if root:
+            self.frame += 1
+            self._roots += 1
+            self._profiled = torch._C._autograd._profiler_enabled()
+        if stage == WAIT:
+            self._waits += 1
+        sid = self._ids.get(stage)
+        if sid is None:
+            sid = self._ids[stage] = len(self.stages)
+            self.stages.append(stage)
+        seq = self.seq
+        self.seq += 1
+        i = seq % RING
+        r = self.ring
+        r["stage"][i] = sid
+        r["child"][i] = 0.0
+        r["parent"][i] = stack[-1][0] if stack else -1
+        r["frame"][i] = self.frame
+        r["cause"][i] = cause
+        rf = None
+        if self._profiled:
+            rf = torch.autograd.profiler.record_function(stage)
+            rf.__enter__()
+        stack.append((seq, stage, rf, 2 if root else 1))
+        r["start"][i] = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        t = time.perf_counter()
+        if not self._stack:  # opened before a reset
+            return False
+        seq, stage, rf, kind = self._stack.pop()
+        if not kind:
+            return False
+        r = self.ring
+        i = seq % RING
+        r["end"][i] = t
+        d = t - r["start"][i]
+        self.totals[stage] += d - r["child"][i]
+        self.counts[stage] += 1
+        if self._stack:
+            r["child"][self._stack[-1][0] % RING] += d
+        if rf is not None:
+            rf.__exit__(None, None, None)
+        if stage == WAIT:
+            self._waits -= 1
+        if kind == 2:
+            self._roots -= 1
+        return False
 
     def report(self) -> str:
         rows = sorted(self.totals.items(), key=lambda kv: -kv[1])
@@ -64,15 +173,85 @@ class StageTimer:
     def reset(self):
         self.totals.clear()
         self.counts.clear()
+        self._stack.clear()
+        self._roots = self._waits = 0
+        self.seq = 0
+        self.frame = -1
+        self.syncs = 0
+        self.sync_sites.clear()
+
+    # -- reading the ring -------------------------------------------------------
+    def mark(self) -> dict:
+        """Where the ring and the counters stand (for :meth:`spans`)."""
+        return dict(seq=self.seq, frame=self.frame, syncs=self.syncs)
+
+    def spans(self, since: int = 0) -> dict:
+        """The closed spans from sequence number ``since`` on that the ring
+        still holds, as arrays: ``seq``, ``stage`` (names), ``start``, ``end``,
+        ``self`` (seconds less the children), ``parent`` (its sequence number,
+        -1 at the root), ``frame`` and ``cause`` (-1 where none)."""
+        seq = np.arange(max(since, self.seq - RING), self.seq)
+        i = seq % RING
+        r = self.ring
+        open_ = {s for s, _, _, kind in self._stack if kind}
+        keep = np.array([s not in open_ for s in seq], bool) if open_ else slice(None)
+        out = dict(seq=seq, stage=np.asarray(self.stages + [""], object)[r["stage"][i]],
+                   **{k: r[k][i] for k in ("start", "end", "parent", "frame", "cause")})
+        out["self"] = r["end"][i] - r["start"][i] - r["child"][i]
+        return {k: v[keep] for k, v in out.items()}
+
+    # -- unplanned synchronisations ---------------------------------------------
+    def _show(self, message, category, filename, lineno, file=None, line=None):
+        """``warnings.showwarning`` while tracing: CUDA's sync warnings are
+        counted inside a root span and outside a wait, and never shown."""
+        if not str(message).startswith(SYNC_WARNING):
+            return self._warnings[1](message, category, filename, lineno, file, line)
+        if self._roots and not self._waits:
+            self.syncs += 1
+            site = f"{filename}:{lineno}"
+            if site in self.sync_sites or len(self.sync_sites) < SYNC_SITES:
+                self.sync_sites[site] = self.sync_sites.get(site, 0) + 1
+        return None
+
+    def _watch_syncs(self, on: bool):
+        if on and self._warnings is None:
+            ctx = warnings.catch_warnings()
+            ctx.__enter__()
+            warnings.filterwarnings("always", message=SYNC_WARNING)
+            self._warnings = (ctx, warnings.showwarning)
+            warnings.showwarning = self._show
+            if torch.cuda.is_available():
+                self._sync_mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("warn")
+        elif not on and self._warnings is not None:
+            if torch.cuda.is_available():
+                torch.cuda.set_sync_debug_mode(self._sync_mode)
+            self._warnings[0].__exit__(None, None, None)
+            self._warnings = None
+
+
+# the program's tracer: every span site of the port enters it
+TRACER = StageTimer(on=False)
+
+
+def set_tracing(on: bool = True) -> StageTimer:
+    """Turn the program's tracer on or off.  On, every span site records
+    into ``TRACER``'s ring, each span is a ``record_function`` range while
+    ``torch.profiler`` records, and CUDA's sync debug mode is ``"warn"``:
+    each synchronising call inside a ``DBAFusion.track`` (a root span),
+    outside a deliberate wait (``utils/device.host_wait``, ``to_host``,
+    ``PendingRead.read``), counts one in ``TRACER.syncs``, silently."""
+    TRACER._watch_syncs(on)
+    TRACER.on = on
+    return TRACER
 
 
 @contextlib.contextmanager
 def device_trace(logdir: str):
     """``torch.profiler`` trace of the block, CPU activities and, with a
     card, CUDA ones; written to ``logdir/trace.json`` (open it in Perfetto
-    or ``chrome://tracing``)."""
-    import torch
-
+    or ``chrome://tracing``).  With :func:`set_tracing` on, the program's
+    stages are ranges on the trace's host timeline."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
