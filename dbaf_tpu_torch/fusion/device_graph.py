@@ -20,7 +20,13 @@ Eager-PyTorch notes:
   with ``accumulate=True``, which sums repeated indices;
 * the LM ``while_loop`` is a Python loop that reads its ``done`` flag on the
   host once per iteration and stops there, so the state is frozen once done
-  and the iteration count is the realized one;
+  and the iteration count is the realized one.  On the card an iteration
+  is one replay of a captured CUDA graph (tens of microseconds of host
+  against hundreds of small launches), so where the flag is read without
+  waiting (the asynchronous pipeline) the loop bounds its run-ahead: before
+  launching iteration k + 1 it waits for iteration k - 1's flag, unless a
+  later one has answered.  The card then always has one iteration queued,
+  and a pass launches at most one iteration past its realized count;
 * a failed Cholesky factorization: ``cholesky_ex`` returns a partial factor
   and ``info > 0`` where ``cho_factor`` gives NaN, so the step is accepted
   only with ``info == 0`` as well as a finite step.
@@ -34,6 +40,7 @@ import numpy as np
 import torch
 
 from ..utils.device import FlagPoll
+from ..utils.profiling import TRACER
 
 # ---------------------------------------------------------------------------
 # f32-safe SO(3)/SE(3) (matrix form, [omega, v] tangents, right perturbation)
@@ -528,6 +535,127 @@ def lm_step(st: FgState, H, b, lam, err, relin, lambda_factor=10.0, lambda_max=1
                   converged | stalled, ok, accept)
 
 
+def _lm_iterate(st: FgState, H, b, lam, err, done, its, relin, *step_consts):
+    """One launched LM iteration: :func:`lm_step`, with everything frozen
+    where ``done`` already holds (a masked iteration writes nothing).
+    Returns (state, H, b, lam, err, done, its)."""
+    s = lm_step(st, H, b, lam, err, relin, *step_consts)
+    live = ~done
+    H, b, lam, err = (torch.where(live, new, old)
+                      for new, old in ((s.H, H), (s.b, b), (s.lam, lam), (s.err, err)))
+    return (_select_state(live, st, s.state), H, b, lam, err, done | s.done,
+            its + live.long())
+
+
+def _lm_tensors(state, pg, vis_H, vis_v, vis_linR, vis_lint, sel_pose, mgd) -> list:
+    """An LM pass's inputs as one list of tensors (:func:`_lm_inputs`
+    rebuilds them)."""
+    return [*state, *pg, vis_H, vis_v, vis_linR, vis_lint, sel_pose, *(mgd or ())]
+
+
+def _lm_inputs(ts: list):
+    n_s, n_g = len(FgState._fields), len(PackedGraph._fields)
+    mgd = MargDense(*ts[n_s + n_g + 5:]) if len(ts) > n_s + n_g + 5 else None
+    return (FgState(*ts[:n_s]), PackedGraph(*ts[n_s:n_s + n_g]), *ts[n_s + n_g:n_s + n_g + 5],
+            mgd)
+
+
+class _EagerLM:
+    """An LM pass launched op by op (the CPU)."""
+
+    replayed = False
+
+    def __init__(self, ts: list, lambda_initial: float, step_consts: tuple):
+        state, pg, vis_H, vis_v, vis_linR, vis_lint, sel_pose, mgd = _lm_inputs(ts)
+        self.relin = lambda st: linearize(st, pg, vis_H, vis_v, vis_linR, vis_lint, sel_pose,
+                                          mgd)
+        self.step_consts = step_consts
+        dev = state.t.device
+        self.st = state
+        self.H, self.b, self.err = self.relin(state)
+        self.lam = torch.full((), lambda_initial, dtype=state.t.dtype, device=dev)
+        self.done = torch.zeros((), dtype=torch.bool, device=dev)
+        self.its = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def iterate(self):
+        (self.st, self.H, self.b, self.lam, self.err, self.done,
+         self.its) = _lm_iterate(self.st, self.H, self.b, self.lam, self.err, self.done,
+                                 self.its, self.relin, *self.step_consts)
+
+    def result(self, valid: torch.Tensor):
+        return FgState(*self.st[:4], valid), (self.err, self.its)
+
+
+class _ReplayedLM(_EagerLM):
+    """An LM pass on the card, replayed from two captured CUDA graphs: one
+    relinearizes the pass's starting state and resets lambda, ``done`` and
+    the count, the other is one :func:`_lm_iterate` that ends by copying its
+    outputs over its inputs, so each replay continues from the last.  Both
+    read and write one set of static tensors: :meth:`load` copies a pass's
+    inputs in, :meth:`result` clones the solved state out.  Built (the
+    graphs captured) at the first pass of its key, reused by every later
+    one."""
+
+    replayed = True
+
+    def __init__(self, ts: list, lambda_initial: float, step_consts: tuple):
+        self.ins = [t.clone() for t in ts]
+        super().__init__(self.ins, lambda_initial, step_consts)
+        self.lambda_initial = lambda_initial
+        # warm up on the capture stream (library handles, workspaces), then
+        # capture; the warm-up's writes are overwritten by the first load
+        dev = ts[0].device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._iterate()
+            self.start, self.step = self._capture(self._start), self._capture(self._iterate)
+        torch.cuda.current_stream(dev).wait_stream(side)
+
+    @staticmethod
+    def _capture(fn) -> torch.cuda.CUDAGraph:
+        g = torch.cuda.CUDAGraph()
+        g.capture_begin(capture_error_mode="thread_local")
+        try:
+            fn()
+        finally:
+            g.capture_end()
+        return g
+
+    def _start(self):
+        H, b, err = self.relin(self.st)
+        for dst, src in ((self.H, H), (self.b, b), (self.err, err)):
+            dst.copy_(src)
+        self.lam.fill_(self.lambda_initial)
+        self.done.zero_()
+        self.its.zero_()
+
+    def _iterate(self):
+        loop = (*self.st[:4], self.H, self.b, self.lam, self.err, self.done, self.its)
+        st, *rest = _lm_iterate(self.st, self.H, self.b, self.lam, self.err, self.done,
+                                self.its, self.relin, *self.step_consts)
+        for dst, src in zip(loop, (*st[:4], *rest)):
+            dst.copy_(src)
+
+    def load(self, ts: list):
+        for dst, src in zip(self.ins, ts):
+            dst.copy_(src)
+        self.start.replay()
+
+    def iterate(self):
+        self.step.replay()
+
+    def result(self, valid: torch.Tensor):
+        return (FgState(*(x.clone() for x in self.st[:4]), valid),
+                (self.err.clone(), self.its.clone()))
+
+
+# the card's captured LM passes, by what fixes their graphs: the device, the
+# constants baked into them and the shape and dtype of every input (the
+# window, prior and marginal sizes)
+_REPLAYED = {}
+
+
 def lm_optimize(state: FgState, pg: PackedGraph, vis_H, vis_v, vis_linR, vis_lint, sel_pose,
                 mgd: Optional[MargDense] = None, lambda_initial=1e-5, lambda_factor=10.0,
                 lambda_max=1e5, max_iterations=24, relative_tol=1e-5, absolute_tol=1e-5,
@@ -536,37 +664,44 @@ def lm_optimize(state: FgState, pg: PackedGraph, vis_H, vis_v, vis_linR, vis_lin
     iterations, stopping at convergence or stall.  Returns (state, (err,
     iterations)).
 
-    ``done`` goes to ``poll`` (a :class:`~dbaf_tpu_torch.utils.device.FlagPoll`;
-    by default a blocking one, one host read per iteration) after each
+    On the card each iteration is a replay of one captured CUDA graph
+    (:class:`_ReplayedLM`); elsewhere it is launched op by op.  ``done`` goes
+    to ``poll`` (a :class:`~dbaf_tpu_torch.utils.device.FlagPoll`; by
+    default a blocking one, one host read per iteration) after each
     iteration, and the loop stops once a post has answered True.  With a
-    non-blocking poll no call waits for the card, and iterations launched
-    before the answer is in are masked: the state, system, lambda and error
-    stay as they were once done, as after the JAX ``while_loop``.  The
-    realized count is a 0-d device tensor."""
-
-    def relin(st):
-        return linearize(st, pg, vis_H, vis_v, vis_linR, vis_lint, sel_pose, mgd)
-
+    non-blocking poll the loop runs at most one iteration ahead of its
+    newest answer: before launching iteration k + 1 it waits for iteration
+    k - 1's post where that has not answered.  Iterations launched before
+    the answer is in are masked: the state, system, lambda and error stay
+    as they were once done, as after the JAX ``while_loop``.  The realized
+    count is a 0-d device tensor."""
     poll = poll or FlagPoll(blocking=True)
-    H, b, err = relin(state)
-    lam = torch.full((), lambda_initial, dtype=state.t.dtype, device=state.t.device)
-    st = state
-    done = torch.zeros((), dtype=torch.bool, device=state.t.device)
-    its = torch.zeros((), dtype=torch.int64, device=state.t.device)
+    lm = _lm_pass(_lm_tensors(state, pg, vis_H, vis_v, vis_linR, vis_lint, sel_pose, mgd),
+                  lambda_initial, (lambda_factor, lambda_max, relative_tol, absolute_tol))
+    TRACER.lm_passes += 1
     poll.reset()
     for _ in range(max_iterations):
-        if poll.value():
+        if poll.value_within(1):
             break
-        s = lm_step(st, H, b, lam, err, relin, lambda_factor, lambda_max, relative_tol,
-                    absolute_tol)
-        live = ~done
-        st = _select_state(live, st, s.state)
-        H, b, lam, err = (torch.where(live, new, old)
-                          for new, old in ((s.H, H), (s.b, b), (s.lam, lam), (s.err, err)))
-        its = its + live.long()
-        done = done | s.done
-        poll.post(done)
-    return st, (err, its)
+        lm.iterate()
+        TRACER.lm_launched += 1
+        TRACER.lm_replayed += lm.replayed
+        poll.post(lm.done)
+    return lm.result(state.valid)
+
+
+def _lm_pass(ts: list, lambda_initial: float, step_consts: tuple):
+    """A pass at its start (relinearized): on the card its key's
+    :class:`_ReplayedLM`, built at the key's first pass, loaded with
+    ``ts``; elsewhere an :class:`_EagerLM`."""
+    if not ts[0].is_cuda:
+        return _EagerLM(ts, lambda_initial, step_consts)
+    key = (ts[0].device, lambda_initial, step_consts, tuple((t.shape, t.dtype) for t in ts))
+    lm = _REPLAYED.get(key)
+    if lm is None:
+        lm = _REPLAYED[key] = _ReplayedLM(ts, lambda_initial, step_consts)
+    lm.load(ts)
+    return lm
 
 
 # ---------------------------------------------------------------------------

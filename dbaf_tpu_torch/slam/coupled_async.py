@@ -37,7 +37,10 @@ computed and the result is exact.  The LM loop and the rounds after the cull
 decision poll their flags without waiting
 (:class:`~dbaf_tpu_torch.utils.device.FlagPoll`) and run masked iterations
 while the answer is not in.  A steady-state :meth:`CoupledAsync.step` makes
-no synchronising CUDA call besides the drain's event wait.
+no synchronising CUDA call besides two event waits: the drain's, and the LM
+loop's on its own flag of one iteration back, which bounds how far its
+graph replays run ahead of the card
+(:func:`~dbaf_tpu_torch.fusion.device_graph.lm_optimize`).
 
 With ``cfg.save_pkl`` the step also returns the rows a rollup retires,
 captured before the roll (``roll_out``: pose and disparity), copied to

@@ -137,7 +137,7 @@ class FlagPoll:
     once.  ``blocking=True`` (the synchronous flow) makes :meth:`post` one
     counted :func:`to_host` read, so :meth:`value` always answers.
     ``posted`` counts posts over the object's life (the LM loop posts once
-    per launched iteration)."""
+    per launched iteration, and asks :meth:`value_within` before each)."""
 
     def __init__(self, blocking: bool = False):
         self.blocking = blocking
@@ -172,6 +172,19 @@ class FlagPoll:
                 del self._posts[:k + 1]
                 break
         return self._value
+
+    def value_within(self, lag: int) -> Optional[bool]:
+        """:meth:`value`, once at most ``lag`` posts are still unanswered:
+        where more are, first waits (a :func:`host_wait`) for the post
+        ``lag`` before the newest.  A loop that posts once per launch and
+        asks this before each launch runs at most ``lag`` launches past its
+        newest answer."""
+        known = self.value()
+        if not known and len(self._posts) > lag:
+            with host_wait():
+                self._posts[-1 - lag][1].synchronize()
+            known = self.value()
+        return known
 
 
 class PendingRead:

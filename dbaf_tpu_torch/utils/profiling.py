@@ -91,6 +91,10 @@ class StageTimer:
         self.frame = -1    # the newest root span's frame id
         self.syncs = 0     # unplanned synchronisations counted
         self.sync_sites: Dict[str, int] = {}
+        # the factor graph's LM passes and the iterations they launched
+        # (masked ones included), and of those the CUDA graph replays
+        # (``fusion/device_graph.lm_optimize``): counted whether on or off
+        self.lm_passes = self.lm_launched = self.lm_replayed = 0
         self._stack = []   # open spans: (seq, stage, record_function or None, kind)
         self._next = (None, -1, False)
         self._roots = 0    # open root spans
@@ -179,11 +183,14 @@ class StageTimer:
         self.frame = -1
         self.syncs = 0
         self.sync_sites.clear()
+        self.lm_passes = self.lm_launched = self.lm_replayed = 0
 
     # -- reading the ring -------------------------------------------------------
     def mark(self) -> dict:
         """Where the ring and the counters stand (for :meth:`spans`)."""
-        return dict(seq=self.seq, frame=self.frame, syncs=self.syncs)
+        return dict(seq=self.seq, frame=self.frame, syncs=self.syncs,
+                    lm_passes=self.lm_passes, lm_launched=self.lm_launched,
+                    lm_replayed=self.lm_replayed)
 
     def spans(self, since: int = 0) -> dict:
         """The closed spans from sequence number ``since`` on that the ring

@@ -11,9 +11,6 @@ the scale for the normal equations, 5e-3 for the LM optimum, 5e-4 of the
 scale for the marginal).
 """
 
-import importlib
-import types
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,9 +19,8 @@ import torch
 
 from dbaf_tpu.fusion import device_graph as jdg
 from dbaf_tpu_torch.fusion import device_graph as tdg
-from tests.test_device_graph import FakeMsba, perm_to_device
-
-NW = 8
+from tests.lm_windows import NW, PORT, _perturb, _pkg, build_window, host_values, make_vis
+from tests.test_device_graph import perm_to_device
 
 
 @pytest.fixture(autouse=True)
@@ -38,65 +34,7 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _pkg(name: str) -> types.SimpleNamespace:
-    ns = types.SimpleNamespace()
-    for sub in ("fusion.se3np", "fusion.preintegration", "fusion.factors", "fusion.graph",
-                "fusion.coupling", "slam.coupled"):
-        mod = importlib.import_module(f"{name}.{sub}")
-        vars(ns).update({k: v for k, v in vars(mod).items() if not k.startswith("__")})
-    return ns
-
-
-JAXP, PORT = _pkg("dbaf_tpu"), _pkg("dbaf_tpu_torch")
-
-
-def build_window(p, seed, n=5, with_marg=True):
-    """tests/test_device_graph.py::build_window with package ``p``'s
-    classes (the packers check the factor classes of their own package)."""
-    rng = np.random.default_rng(seed)
-    msba = FakeMsba()
-    params = p.ImuParams(accel_noise=0.1, gyro_noise=0.01)
-    g = params.g_vec
-    st = msba.state
-    for i in range(n):
-        t = i * 0.1
-        st.wTbs[i] = p.Pose(p.so3_exp(np.array([0.05 * t, -0.03 * t, 0.1 * t])),
-                            np.array([0.5 * t, 0.2 * np.sin(t), 0.1 * t]))
-        st.vs[i] = np.array([0.5, 0.2 * np.cos(t), 0.1])
-        st.bs[i] = np.array([0.01, -0.02, 0.015, 0.001, -0.002, 0.0005])
-        st.gnss_valid[i] = False
-        st.odo_valid[i] = i % 2 == 0
-        st.odo_vel[i] = st.wTbs[i].R.T @ st.vs[i] + 0.01 * rng.standard_normal(3)
-    for i in range(n - 1):
-        pim = p.PreintegratedImu(params, bias=st.bs[i])
-        for _ in range(20):
-            pim.integrate(st.wTbs[i].R.T @ (-g) + 0.05 * rng.standard_normal(3),
-                          np.array([0.05, -0.03, 0.1]) + 0.01 * rng.standard_normal(3), 0.005)
-        st.preintegrations[i] = pim
-    msba.prior_factor_map[0] = [
-        p.PriorPose(p.X(0), st.wTbs[0], p.Noise.sigmas([0.1, 0.1, 1e-3, 1e-3, 1e-3, 1e-3])),
-        p.PriorVec(p.B(0), st.bs[0], p.Noise.sigmas([1, 1, 1, .1, .1, .1])),
-    ]
-    if with_marg:
-        gm, vm = p.FactorGraph(), p.Values()
-        vm["x99"] = st.wTbs[0].retract(0.01 * rng.standard_normal(6))
-        vm[p.X(0)], vm[p.V(0)], vm[p.B(0)] = st.wTbs[0], st.vs[0], st.bs[0]
-        gm.add(p.PriorPose("x99", vm["x99"], p.Noise.sigmas([0.1] * 6)))
-        pim0 = p.PreintegratedImu(params, bias=st.bs[0])
-        for _ in range(10):
-            pim0.integrate(-g + 0.05 * rng.standard_normal(3), 0.01 * rng.standard_normal(3),
-                           0.005)
-        gm.add(p.CombinedImuFactor("x99", p.V(0), p.X(0), p.V(0), p.B(0), p.B(0), pim0))
-        gm.add(p.PriorVec(p.V(0), st.vs[0], p.Noise.sigmas([1.0] * 3)))
-        msba.marg_factor = p.marginalize_out(gm, vm, ["x99"])
-    return msba, rng
-
-
-def host_values(p, msba, n):
-    v = p.Values()
-    for i in range(n):
-        v[p.X(i)], v[p.V(i)], v[p.B(i)] = msba.state.wTbs[i], msba.state.vs[i], msba.state.bs[i]
-    return v
+JAXP = _pkg("dbaf_tpu")
 
 
 def host_graph(p, msba, n, vis_lcf):
@@ -113,29 +51,6 @@ def host_graph(p, msba, n, vis_lcf):
             g.add(p.VelFactor(p.X(i), p.V(i), msba.state.odo_vel[i], p.ODO_NOISE))
     g.add(vis_lcf)
     return g
-
-
-def make_vis(p, rng, msba, n):
-    """A body-frame visual hessian over the window, padded to NW frames."""
-    m = n * 6
-    A = rng.standard_normal((m, m * 2)) * 0.3
-    Hb, vb = p.convert_hessian(A @ A.T, rng.standard_normal(m) * 0.1, p.Pose())
-    lcf = p.hessian_factor(list(range(n)), host_values(p, msba, n), Hb, vb)
-    Hp = np.zeros((NW * 6, NW * 6), np.float32)
-    vp = np.zeros(NW * 6, np.float32)
-    Hp[:m, :m], vp[:m] = Hb, vb
-    linR = np.tile(np.eye(3, dtype=np.float32), (NW, 1, 1))
-    lint = np.zeros((NW, 3), np.float32)
-    for i in range(n):
-        linR[i], lint[i] = msba.state.wTbs[i].R, msba.state.wTbs[i].t
-    return lcf, (Hp, vp, linR, lint)
-
-
-def _perturb(p, msba, rng, n, first=0):
-    for i in range(first, n):
-        msba.state.wTbs[i] = msba.state.wTbs[i].retract(0.03 * rng.standard_normal(6))
-        msba.state.vs[i] = msba.state.vs[i] + 0.05 * rng.standard_normal(3)
-        msba.state.bs[i] = msba.state.bs[i] + 0.002 * rng.standard_normal(6)
 
 
 def _both(n=5, seed=7, perturb_from=0):
