@@ -1,9 +1,10 @@
 """Chip smoke test of the PyTorch/CUDA port (dbaf_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--root DIR] [--kernels-only]
+    python3 chip_smoke.py [--root DIR] [--kernels-only | --demos-only]
 
 ``--root`` names the directory that holds the ``dbaf_tpu_torch`` package to
-drive (default: this checkout); ``--kernels-only`` stops after phase 2.  With
+drive (default: this checkout); ``--kernels-only`` stops after phase 2;
+``--demos-only`` runs phase 11 alone after the build.  With
 both, an older commit's package unpacked under a gitignored directory has
 its kernels timed on the same inputs by the same code, so two versions are
 compared in one call by running the script in turns (old, new, new, old).
@@ -150,7 +151,7 @@ Phases, each fatal on failure:
   11. demos  each dataset demo (apps/demo_tumvi, demo_kitti360, demo_whu,
              demo_subt) built by its own parse_args and setup from the argv a
              user passes, at its preset's full width (TUM-VI and SubT
-             384x512, KITTI-360 320x896, WHU 320x640) and sensor defaults
+             384x512, KITTI-360 272x1032, WHU 320x640) and sensor defaults
              (device_solver False: the host f64 LM on the two-call flow), on
              sensor files written under chiprun_out/demos/ in the dataset's
              own layout and units (DemoScene: eval/synthetic's motion, the
@@ -167,7 +168,8 @@ Phases, each fatal on failure:
              frame, all_stamp adds rows (TUM-VI, WHU), and on WHU
              init_gnss fires and the ECEF rows hold tests/test_georef.py's
              bounds; K1 on the operands of the KITTI-360 run's last round at
-             E=48 and 40x112 against its plain version (2^-7 of the largest output), and
+             E=48 and 34x129 (K1's wide path, whole-block pooling)
+             against its plain version (2^-7 of the largest output), and
              its ms beside its bound.  One JSON line a demo (profile tables
              in chiprun_out/profile_demo_*.txt).
   12. multi-device  the parallel layer (dbaf_tpu_torch/parallel) with its
@@ -2602,25 +2604,27 @@ def count_host_lm():
 
 def k1_round_check(operands) -> dict:
     """K1 on one round's operands (``(f1p, f2p, coords1, H, W)`` of a launch
-    the run made) against its plain version at 2^-7 of the largest output
-    (phase 10a's bound), and its ms a launch at that shape beside its bound,
-    computed as phase 2 computes them."""
+    the run made, and its ``whole`` where given) against its plain version
+    at 2^-7 of the largest output (phase 10a's bound), and its ms a launch
+    at that shape beside its bound, computed as phase 2 computes them."""
     from dbaf_tpu_torch.ops import corr_cuda as cc
 
-    f1p, f2p, coords1, H, W = operands
+    f1p, f2p, coords1, H, W, *rest = operands
+    whole = bool(rest[0]) if rest else False
     E = int(coords1.shape[0])
-    out = cc.corr_fused_xy(f1p, f2p, coords1, H, W)
-    ref = cc.corr_fused_xy_plain(f1p, f2p, coords1, H, W)
+    out = cc.corr_fused_xy(f1p, f2p, coords1, H, W, whole=whole)
+    ref = cc.corr_fused_xy_plain(f1p, f2p, coords1, H, W, whole)
     err = float((out.float() - ref.float()).abs().max())
     max_out = float(ref.float().abs().max())
     tol = max(K1_TOL, 2.0 ** -7 * max_out)
-    ms = graph_ms(lambda: cc.corr_fused_xy(f1p, f2p, coords1, H, W), 20)
-    plain_ms = cuda_ms(lambda: cc.corr_fused_xy_plain(f1p, f2p, coords1, H, W), 2, warmup=1)
+    ms = graph_ms(lambda: cc.corr_fused_xy(f1p, f2p, coords1, H, W, whole=whole), 20)
+    plain_ms = cuda_ms(lambda: cc.corr_fused_xy_plain(f1p, f2p, coords1, H, W, whole), 2,
+                       warmup=1)
     P, C = H * W, 128
     bms, by = bound(E * P * C * 2 * 2 + E * P * 2 * 4 + E * P * 196 * 2,
                     (2.0 * E * P * P * C + lookup_flops(coords1, H, W, True)) / PEAK_BF16)
-    return dict(E=E, grid=f"{H}x{W}", k1_err=err, k1_tol=tol, max_out=max_out, ms=ms,
-                plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+    return dict(E=E, grid=f"{H}x{W}", whole=whole, k1_err=err, k1_tol=tol, max_out=max_out,
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
 
 
 def run_demo(kind: str, weights: str, out_root: str, build_root: str, dev) -> dict:
@@ -2648,7 +2652,7 @@ def run_demo(kind: str, weights: str, out_root: str, build_root: str, dev) -> di
     def k1_shapes(f1p, f2p, coords, H, W, *a, **kw):
         shapes.add((int(coords.shape[0]), H, W))
         if coords.shape[0] == 48:
-            full["ops"] = (f1p, f2p, coords, H, W)
+            full["ops"] = (f1p, f2p, coords, H, W, kw.get("whole", False))
         return k1(f1p, f2p, coords, H, W, *a, **kw)
 
     lm, restore = count_host_lm()
@@ -3835,11 +3839,25 @@ def phase_multi_device(dev, train_peak: int, card: str) -> dict:
 
 
 
+def log_demos(demo_res: dict, card: str) -> None:
+    """Phase 11's summary lines."""
+    for kind, r in demo_res.items():
+        log(f"[demo_{kind}] {r['image_size'][0]}x{r['image_size'][1]}, {r['kf_per_s']:.3f} kf/s "
+            f"after VI init, ATE {r['ate_share']:.4f} of the span, {r['host_reads_per_kf']:.3f} "
+            f"host reads and {r['lm_passes_per_kf']:.3f} LM passes a keyframe on {card}")
+    k1d = demo_res["kitti360"]["k1_check"]
+    log(f"[demo_kitti360] K1 at E={k1d['E']} {k1d['grid']} (whole blocks {k1d['whole']}): "
+        f"{k1d['ms']:.4f} ms (bound {k1d['bound_ms']:.4f} ms by {k1d['bound_by']}, plain "
+        f"{k1d['plain_ms']:.3f} ms), {k1d['k1_err']:.3e} from its plain version on {card}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--root", default=ROOT,
                     help="directory holding the dbaf_tpu_torch package (default: this checkout)")
     ap.add_argument("--kernels-only", action="store_true", help="stop after phase 2")
+    ap.add_argument("--demos-only", action="store_true",
+                    help="run phase 11 (the dataset demos) only, after the build")
     ap.add_argument("--main-and-coupled", action="store_true",
                     help="run phases 3-5 only, with no kernel check (their rates, for an A/B "
                          "of two package trees through --root)")
@@ -3859,6 +3877,12 @@ def main() -> int:
     t = time.perf_counter()
     cuda_build.build_kernels(verbose=True)
     log(f"[build] kernels built in {time.perf_counter() - t:.1f} s")
+    if args.demos_only:
+        t = time.perf_counter()
+        demo_res = phase_demos(dev)
+        log(f"[time] phase 11 (dataset demos) took {time.perf_counter() - t:.1f} s")
+        log_demos(demo_res, card)
+        return 0
 
     rows = None if args.main_and_coupled else phase_kernels(dev)
     if args.kernels_only:
@@ -3973,14 +3997,7 @@ def main() -> int:
             f"{r['scale']:.4f}, disparity ratio {r['ratio']:.4f} on {card}")
     log(f"[resume] {resume_res['resume_err']:.3e} after the resumed frames (spread of two runs "
         f"{resume_res['spread']:.3e}), file {resume_res['file_mib']:.1f} MiB on {card}")
-    for kind, r in demo_res.items():
-        log(f"[demo_{kind}] {r['image_size'][0]}x{r['image_size'][1]}, {r['kf_per_s']:.3f} kf/s "
-            f"after VI init, ATE {r['ate_share']:.4f} of the span, {r['host_reads_per_kf']:.3f} "
-            f"host reads and {r['lm_passes_per_kf']:.3f} LM passes a keyframe on {card}")
-    k1d = demo_res["kitti360"]["k1_check"]
-    log(f"[demo_kitti360] K1 at E={k1d['E']} {k1d['grid']}: {k1d['ms']:.4f} ms (bound "
-        f"{k1d['bound_ms']:.4f} ms by {k1d['bound_by']}, plain {k1d['plain_ms']:.3f} ms), "
-        f"{k1d['k1_err']:.3e} from its plain version on {card}")
+    log_demos(demo_res, card)
     mb, mt = multi_res["ba"], multi_res["train_dp"]
     log(f"[multi_device] sharded BA {mb['iter_ms']:.3f} ms an iteration on {RANKS} gloo ranks "
         f"({mb['single_ms']:.3f} ms in one process); dp {RANKS} training "

@@ -12,6 +12,8 @@ everything ``main`` does before the first frame.
 from __future__ import annotations
 
 import argparse
+import itertools
+import os
 
 import numpy as np
 
@@ -52,12 +54,22 @@ def parse_args(argv=None) -> argparse.Namespace:
 def setup(args: argparse.Namespace, device=None):
     """The system with the KITTI-360 preset and its IMU (whitespace rows
     in seconds and deg/s, moved by the camera's time offset), and the frame
-    stream (not yet read).  ``device`` defaults to the card."""
+    stream.  The system is built at the size of the stream's first frame
+    (read here, and yielded again first), as DROID-SLAM's demos size their
+    video; where the image folder is empty, at the preset's, which is what
+    the stream makes of a 376 x 1408 image.  ``device`` defaults to the
+    card."""
     from ..data.streams import kitti360_stream
     from ..slam.system import DBAFusion
     from ..utils.config import kitti360_config
 
+    stream = kitti360_stream(args.imagedir, args.calib, args.stride)
+    first = next(stream, None) if os.listdir(args.imagedir) else None
+    if first is not None:
+        stream = itertools.chain([first], stream)
     cfg = kitti360_config(weights_path=args.weights, save_pkl=args.save_pkl)
+    if first is not None:
+        cfg.image_size = tuple(first[1].shape[:2])
     cfg.frontend.monitor_dir = args.monitor
     system = DBAFusion(cfg, device=device)
 
@@ -68,7 +80,7 @@ def setup(args: argparse.Namespace, device=None):
     c.init_pose_sigma = np.array([1.0, 1.0, 0.0001, 1.0, 1.0, 1.0])
     c.init_bias_sigma = np.array([0.1] * 6)
 
-    return system, kitti360_stream(args.imagedir, args.calib, args.stride)
+    return system, stream
 
 
 def main(argv=None):

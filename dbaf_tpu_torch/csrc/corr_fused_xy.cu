@@ -44,8 +44,18 @@
 //    loads before its stores.
 //  * Epilogue: the sums are rounded to bf16 and written with 16-byte stores.
 // Limits of this design: W2 <= 128 (a chunk holds whole rows, so images up
-// to 1024 px wide) and C <= 128 (two channel boxes).  The wrapper raises
-// beyond them, and DBAFusion checks its feature grid when it is built.
+// to 1024 px wide) and C <= 128 (two channel boxes).  K1's wide path
+// (corr_fused_xy_kernel<false, true, *>, "K1's wide path" further down)
+// takes 128 < W2 <= 256: the same kernel and build over chunks of flat
+// positions, each lane carrying its partial row sums from chunk to chunk.
+// The wrapper raises beyond these limits, and DBAFusion checks its feature
+// grid when it is built; K1-int8 and K1-raw keep W2 <= 128.
+// Ragged grids: the tents above pool a level's partial block at the grid's
+// end (as the Pallas kernel does); with kWhole a level pools the whole 2^l
+// blocks only, level-0 columns [0, (W2 >> l) << l) and rows
+// [0, (H2 >> l) << l), and reads zero past them, as DROID-SLAM's
+// avg_pool2d pyramid does.  The two agree wherever 2^l divides H2 and W2;
+// kWhole = false compiles to the partial-block code as it was.
 //
 // K1-int8: the int8=True branch of the same Pallas kernel
 // (corr_pallas.py:232-259).  The volume rows stay f32; per (edge, tile of
@@ -386,8 +396,9 @@ __device__ __forceinline__ Level make_level(float x, float y, int l, int H2, int
 }
 
 // Sum of the bf16 values of block g (2^l columns) of one volume row, zero
-// outside [0, W2).  kVec: rows are 16-byte aligned and W2 % 8 == 0, so a
-// block of 2, 4 or 8 columns is one aligned vector load.
+// outside [0, W2) (the columns the level pools).  kVec: rows are 16-byte
+// aligned and W2 % 8 == 0, so a block of 2, 4 or 8 columns is one aligned
+// vector load.
 template <bool kVec>
 __device__ __forceinline__ float block_sum(const __nv_bfloat16* row, int g, int l, int W2) {
   const int s = 1 << l;
@@ -446,12 +457,14 @@ __device__ __forceinline__ void flush_rows(float* acc, const Level& lv, int a0, 
 // y block are summed in registers before they reach the shared sums.
 // int8: the values are quantized volume entries, the x weights int8 tents,
 // so wx0 * S0 + wx1 * S1 is an exact integer; `sc` = vmax / 127^2 scales it.
-template <int L, int kLanes, bool kVec, int kMode>
+template <int L, int kLanes, bool kVec, int kMode, bool kWhole>
 __device__ __forceinline__ void lookup_chunk(float* acc, const Level& lv, int q,
                                              const __nv_bfloat16* row0, int h0, int nrows,
-                                             int W2, float sc) {
+                                             int H2, int W2, float sc) {
   constexpr int nb = 8 / kLanes;
   const int a0 = q * nb;
+  const int wl = kWhole ? (W2 >> L) << L : W2;  // the columns and rows level L pools
+  const int hl = kWhole ? (H2 >> L) << L : H2;
   float Q[nb];
 #pragma unroll
   for (int t = 0; t < nb; ++t) Q[t] = 0.f;
@@ -462,12 +475,13 @@ __device__ __forceinline__ void lookup_chunk(float* acc, const Level& lv, int q,
     float S[2][nb + 1];
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
-      jy[k] = (r + k < nrows && lv.valid) ? ((h0 + r + k) >> L) - lv.gy0 : -1;
+      jy[k] = (r + k < nrows && lv.valid && (!kWhole || h0 + r + k < hl))
+                  ? ((h0 + r + k) >> L) - lv.gy0 : -1;
       if (jy[k] > 7) jy[k] = -1;
       const __nv_bfloat16* row = row0 + (r + k) * W2;
 #pragma unroll
       for (int t = 0; t < nb; ++t)
-        S[k][t] = jy[k] >= 0 ? block_sum<kVec>(row, lv.gx0 + a0 + t, L, W2) : 0.f;
+        S[k][t] = jy[k] >= 0 ? block_sum<kVec>(row, lv.gx0 + a0 + t, L, wl) : 0.f;
     }
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
@@ -494,14 +508,146 @@ __device__ __forceinline__ void lookup_chunk(float* acc, const Level& lv, int q,
 
 // This thread's part of one chunk's lookup: its level, with 4, 2, 2 or 2
 // lanes per pixel at levels 3, 2, 1, 0.
-template <bool kVec, int kMode>
+template <bool kVec, int kMode, bool kWhole>
 __device__ __forceinline__ void lookup_any(float* acc, const Level& lv, int lvl, int q,
-                                           const __nv_bfloat16* row0, int h0, int nrows, int W2,
-                                           float sc) {
-  if (lvl == 3) lookup_chunk<3, 4, kVec, kMode>(acc, lv, q, row0, h0, nrows, W2, sc);
-  else if (lvl == 2) lookup_chunk<2, 2, kVec, kMode>(acc, lv, q, row0, h0, nrows, W2, sc);
-  else if (lvl == 1) lookup_chunk<1, 2, kVec, kMode>(acc, lv, q, row0, h0, nrows, W2, sc);
-  else lookup_chunk<0, 2, kVec, kMode>(acc, lv, q, row0, h0, nrows, W2, sc);
+                                           const __nv_bfloat16* row0, int h0, int nrows, int H2,
+                                           int W2, float sc) {
+  if (lvl == 3)
+    lookup_chunk<3, 4, kVec, kMode, kWhole>(acc, lv, q, row0, h0, nrows, H2, W2, sc);
+  else if (lvl == 2)
+    lookup_chunk<2, 2, kVec, kMode, kWhole>(acc, lv, q, row0, h0, nrows, H2, W2, sc);
+  else if (lvl == 1)
+    lookup_chunk<1, 2, kVec, kMode, kWhole>(acc, lv, q, row0, h0, nrows, H2, W2, sc);
+  else
+    lookup_chunk<0, 2, kVec, kMode, kWhole>(acc, lv, q, row0, h0, nrows, H2, W2, sc);
+}
+
+// ---------------------------------------------------------------- K1's wide path
+
+// K1 for 128 < W2 <= 256 (images up to 2048 px wide), bf16 only.  A chunk
+// can no longer hold a whole row, so the chunks are the flat positions
+// c*128 .. c*128 + 127 of f2, and a row spans two or three of them.  A
+// chunk then holds the end of one row and the start of the next at most
+// (W2 > 128), and only one row is open at a time: each lane carries the f32
+// partial x sums of its taps for the open row (`carry`, wx0*S0 + wx1*S1 over
+// the columns seen so far) from chunk to chunk, and rounds them to bf16 when
+// the row ends, as the whole-row path rounds P2.  The y stage's row sums
+// (`Q`, y block `jq`) live in registers across chunks and reach the shared
+// sums when the y block changes and after the last chunk.  A block sum
+// takes the block's columns that lie in the chunk (block_sum_span): a block
+// split between two chunks is summed in two parts (the order of its f32
+// sum changes, no rounding point does).
+
+// Sum of the bf16 values of block g (2^L columns) of one volume row, over
+// its columns in [lo, hi); column w sits at chunk position rs + w of
+// `vrow`.  Levels 0 and 1: one or two loads.  Levels 2 and 3: the block's
+// positions, wherever a row starts, lie in the two aligned 16-byte vectors
+// from (first position) & ~7 on (a chunk row has 8 positions of padding
+// past its 128), summed under a mask.
+template <int L>
+__device__ __forceinline__ float block_sum_span(const __nv_bfloat16* vrow, int rs, int g, int lo,
+                                                int hi) {
+  constexpr int s = 1 << L;
+  const int pa = rs + max(g * s, lo), pb = rs + min(g * s + s, hi);
+  if (pa >= pb) return 0.f;
+  if (L < 2) {
+    float acc = __bfloat162float(vrow[pa]);
+    if (L == 1 && pb > pa + 1) acc += __bfloat162float(vrow[pa + 1]);
+    return acc;
+  }
+  const int base = pa & ~7;
+  const uint4 v0 = *reinterpret_cast<const uint4*>(vrow + base);
+  const uint32_t u0[4] = {v0.x, v0.y, v0.z, v0.w};
+  float acc = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int p = base + 2 * j;
+    acc += (p >= pa && p < pb ? bf_lo(u0[j]) : 0.f) + (p + 1 >= pa && p + 1 < pb ? bf_hi(u0[j]) : 0.f);
+  }
+  if (pb > base + 8) {
+    const uint4 v1 = *reinterpret_cast<const uint4*>(vrow + base + 8);
+    const uint32_t u1[4] = {v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int p = base + 8 + 2 * j;
+      acc += (p < pb ? bf_lo(u1[j]) : 0.f) + (p + 1 < pb ? bf_hi(u1[j]) : 0.f);
+    }
+  }
+  return acc;
+}
+
+// Level L of one wide chunk: positions c0 .. c0 + n - 1 of the pixel's
+// volume (`vrow`, chunk position 0), two row segments at most.  Lanes as in
+// lookup_chunk.
+template <int L, int kLanes, bool kWhole>
+__device__ __forceinline__ void lookup_chunk_wide(float* acc, const Level& lv, int q,
+                                                  const __nv_bfloat16* vrow, int c0, int n,
+                                                  int H2, int W2, float (&carry)[4],
+                                                  float (&Q)[4], int& jq) {
+  constexpr int nb = 8 / kLanes;
+  const int a0 = q * nb;
+  const int wl = kWhole ? (W2 >> L) << L : W2;  // the columns and rows level L pools
+  const int hl = kWhole ? (H2 >> L) << L : H2;
+  const int r0 = c0 / W2;
+  int jy[2], rs[2];
+  bool ends[2];
+  float S[2][nb + 1];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    rs[k] = (r0 + k) * W2 - c0;  // chunk position of the row's column 0
+    const int lo = max(0, -rs[k]), hi = min(W2, n - rs[k]);
+    ends[k] = hi > lo && hi == W2;
+    jy[k] = (hi > lo && lv.valid && (!kWhole || r0 + k < hl)) ? ((r0 + k) >> L) - lv.gy0 : -1;
+    if (jy[k] > 7) jy[k] = -1;
+    const int hp = min(hi, wl);  // the segment's pooled columns
+#pragma unroll
+    for (int t = 0; t < nb; ++t)
+      S[k][t] = jy[k] >= 0 ? block_sum_span<L>(vrow, rs[k], lv.gx0 + a0 + t, lo, hp) : 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    // lanes of one pixel agree on jy; every lane of the warp takes part
+    S[k][nb] = kLanes > 1 ? __shfl_down_sync(0xffffffffu, S[k][0], 1) : 0.f;
+    if (jy[k] >= 0) {
+#pragma unroll
+      for (int t = 0; t < nb; ++t)
+        if (a0 + t < kTaps) carry[t] += lv.wx0 * S[k][t] + lv.wx1 * S[k][t + 1];
+    }
+    if (ends[k]) {
+      if (jy[k] >= 0) {
+        if (jy[k] != jq) {
+          if (jq >= 0) flush_rows<L, nb>(acc, lv, a0, jq, reinterpret_cast<float(&)[nb]>(Q));
+#pragma unroll
+          for (int t = 0; t < nb; ++t) Q[t] = 0.f;
+          jq = jy[k];
+        }
+#pragma unroll
+        for (int t = 0; t < nb; ++t) Q[t] += round_bf16(carry[t]);
+      }
+#pragma unroll
+      for (int t = 0; t < nb; ++t) carry[t] = 0.f;
+    }
+  }
+}
+
+template <bool kWhole>
+__device__ __forceinline__ void lookup_any_wide(float* acc, const Level& lv, int lvl, int q,
+                                                const __nv_bfloat16* vrow, int c0, int n, int H2,
+                                                int W2, float (&carry)[4], float (&Q)[4], int& jq) {
+  if (lvl == 3) lookup_chunk_wide<3, 4, kWhole>(acc, lv, q, vrow, c0, n, H2, W2, carry, Q, jq);
+  else if (lvl == 2) lookup_chunk_wide<2, 2, kWhole>(acc, lv, q, vrow, c0, n, H2, W2, carry, Q, jq);
+  else if (lvl == 1) lookup_chunk_wide<1, 2, kWhole>(acc, lv, q, vrow, c0, n, H2, W2, carry, Q, jq);
+  else lookup_chunk_wide<0, 2, kWhole>(acc, lv, q, vrow, c0, n, H2, W2, carry, Q, jq);
+}
+
+// After the last chunk: the open y block's row sums into the shared sums.
+__device__ __forceinline__ void close_wide(float* acc, const Level& lv, int lvl, int q,
+                                           float (&Q)[4], int jq) {
+  if (jq < 0) return;
+  if (lvl == 3) flush_rows<3, 2>(acc, lv, q * 2, jq, reinterpret_cast<float(&)[2]>(Q));
+  else if (lvl == 2) flush_rows<2, 4>(acc, lv, q * 4, jq, Q);
+  else if (lvl == 1) flush_rows<1, 4>(acc, lv, q * 4, jq, Q);
+  else flush_rows<0, 4>(acc, lv, q * 4, jq, Q);
 }
 
 // ---------------------------------------------------------------- the kernel
@@ -595,9 +741,37 @@ __device__ __forceinline__ uint32_t pass1_slot(const K1Smem& m, int st) {
   return st < kStages ? m.s_f2 + st * kStageBytes : m.s_f1 + kOffVol;
 }
 
+// The epilogue of a K1 block: its 64 pixels' sums rounded to bf16, with
+// 16-byte stores where the block's output is aligned.
+__device__ __forceinline__ void k1_store(const K1Smem& m, __nv_bfloat16* __restrict__ out,
+                                         int tid, int e, int p0, int P) {
+  const int np = min(kM, P - p0);
+  const int n = np * kChannels;
+  __nv_bfloat16* dst = out + (static_cast<size_t>(e) * P + p0) * kChannels;
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    for (int i = tid * 8; i < n; i += kConsumers * 8) {
+      __align__(16) __nv_bfloat16 v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int idx = min(i + k, n - 1);
+        v[k] = __float2bfloat16(m.acc[(idx / kChannels) * kAccStride + idx % kChannels]);
+      }
+      if (i + 8 <= n) {
+        *reinterpret_cast<uint4*>(dst + i) = *reinterpret_cast<const uint4*>(v);
+      } else {
+        for (int k = 0; i + k < n; ++k) dst[i + k] = v[k];
+      }
+    }
+  } else {
+    for (int i = tid; i < n; i += kConsumers)
+      dst[i] = __float2bfloat16(m.acc[(i / kChannels) * kAccStride + i % kChannels]);
+  }
+}
+
 // The consumers' build + lookup of one block (64 pixels from p0, edge e);
-// int8 (kMode kInt8): the tile's step qs and scale sc.
-template <bool kVec, int kMode>
+// int8 (kMode kInt8): the tile's step qs and scale sc.  kWhole: the levels
+// pool whole blocks only.
+template <bool kVec, int kMode, bool kWhole>
 __device__ __forceinline__ void k1_block(const K1Smem& m, const float* __restrict__ coords,
                                          __nv_bfloat16* __restrict__ out, int tid, int e, int p0,
                                          int P, int H2, int W2, int nkb, float qs, float sc) {
@@ -632,48 +806,80 @@ __device__ __forceinline__ void k1_block(const K1Smem& m, const float* __restric
   // chunk's lookup runs alone
   for (int c = 0; c + 1 < nchunks; ++c) {
     if (mma) issue_chunk(d, c + 1, m.bar_full, m.s_f1, m.s_f2, wg, nkb);
-    lookup_any<kVec, kMode>(my_acc, lv, lvl, q,
-                            m.vol + (c & 1) * (kM * kVolStride) + pix * kVolStride, c * rc,
-                            min(rc, H2 - c * rc), W2, sc);
+    lookup_any<kVec, kMode, kWhole>(my_acc, lv, lvl, q,
+                                    m.vol + (c & 1) * (kM * kVolStride) + pix * kVolStride,
+                                    c * rc, min(rc, H2 - c * rc), H2, W2, sc);
     if (mma)
       finish_chunk<kMode>(d, c + 1, (c + 1) & 1, m.bar_empty, m.vol, wg, warp, lane, qs);
     consumer_sync<kConsumers>();
   }
   {
     const int c = nchunks - 1;
-    lookup_any<kVec, kMode>(my_acc, lv, lvl, q,
-                            m.vol + (c & 1) * (kM * kVolStride) + pix * kVolStride, c * rc,
-                            min(rc, H2 - c * rc), W2, sc);
+    lookup_any<kVec, kMode, kWhole>(my_acc, lv, lvl, q,
+                                    m.vol + (c & 1) * (kM * kVolStride) + pix * kVolStride,
+                                    c * rc, min(rc, H2 - c * rc), H2, W2, sc);
   }
 
   consumer_sync<kConsumers>();
 
-  // ---- epilogue: bf16, 16-byte stores where the block's output is aligned
-  const int np = min(kM, P - p0);
-  const int n = np * kChannels;
-  __nv_bfloat16* dst = out + (static_cast<size_t>(e) * P + p0) * kChannels;
-  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
-    for (int i = tid * 8; i < n; i += kConsumers * 8) {
-      __align__(16) __nv_bfloat16 v[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int idx = min(i + k, n - 1);
-        v[k] = __float2bfloat16(m.acc[(idx / kChannels) * kAccStride + idx % kChannels]);
-      }
-      if (i + 8 <= n) {
-        *reinterpret_cast<uint4*>(dst + i) = *reinterpret_cast<const uint4*>(v);
-      } else {
-        for (int k = 0; i + k < n; ++k) dst[i + k] = v[k];
-      }
-    }
-  } else {
-    for (int i = tid; i < n; i += kConsumers)
-      dst[i] = __float2bfloat16(m.acc[(i / kChannels) * kAccStride + i % kChannels]);
-  }
+  // ---- epilogue
+  k1_store(m, out, tid, e, p0, P);
 }
 
-// K1: one block per (64 source pixels, edge).
-template <bool kVec>
+// K1's wide path (W2 > 128): k1_block with the chunks of flat positions and
+// the lookup's carried row sums (see lookup_chunk_wide).
+template <bool kWhole>
+__device__ __forceinline__ void k1_block_wide(const K1Smem& m, const float* __restrict__ coords,
+                                              __nv_bfloat16* __restrict__ out, int tid, int e,
+                                              int p0, int P, int H2, int W2, int nkb) {
+  const int P2 = H2 * W2;
+  const int nchunks = (P2 + kN - 1) / kN;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const bool mma = tid < kMmaWarps * 32;
+  const int lvl = tid < 256 ? 3 : tid < 384 ? 2 : tid < 512 ? 1 : 0;
+  const int pix = lvl == 3 ? tid >> 2 : (tid - 256 - 128 * (2 - lvl)) >> 1;
+  const int q = lvl == 3 ? tid & 3 : tid & 1;
+
+  for (int i = tid; i < kM * kAccStride; i += kConsumers) m.acc[i] = 0.f;
+  float2 xy = make_float2(__int_as_float(0x7fc00000), 0.f);  // NaN: no support
+  if (p0 + pix < P) xy = reinterpret_cast<const float2*>(coords)[static_cast<size_t>(e) * P + p0 + pix];
+  const Level lv = make_level<kBf16>(xy.x, xy.y, lvl, H2, W2);
+  float* my_acc = m.acc + pix * kAccStride;
+  float carry[4] = {0.f, 0.f, 0.f, 0.f}, Q[4] = {0.f, 0.f, 0.f, 0.f};
+  int jq = -1;
+
+  float d[kAcc];
+  if (mma) {
+    mbar_wait(m.bar_f1, 0);
+    issue_chunk(d, 0, m.bar_full, m.s_f1, m.s_f2, wg, nkb);
+    finish_chunk<kBf16>(d, 0, 0, m.bar_empty, m.vol, wg, warp, lane, 0.f);
+  }
+  consumer_sync<kConsumers>();
+  for (int c = 0; c + 1 < nchunks; ++c) {
+    if (mma) issue_chunk(d, c + 1, m.bar_full, m.s_f1, m.s_f2, wg, nkb);
+    lookup_any_wide<kWhole>(my_acc, lv, lvl, q,
+                            m.vol + (c & 1) * (kM * kVolStride) + pix * kVolStride, c * kN, kN,
+                            H2, W2, carry, Q, jq);
+    if (mma)
+      finish_chunk<kBf16>(d, c + 1, (c + 1) & 1, m.bar_empty, m.vol, wg, warp, lane, 0.f);
+    consumer_sync<kConsumers>();
+  }
+  {
+    const int c = nchunks - 1;
+    lookup_any_wide<kWhole>(my_acc, lv, lvl, q,
+                            m.vol + (c & 1) * (kM * kVolStride) + pix * kVolStride, c * kN,
+                            P2 - c * kN, H2, W2, carry, Q, jq);
+  }
+  close_wide(my_acc, lv, lvl, q, Q, jq);
+  consumer_sync<kConsumers>();
+  k1_store(m, out, tid, e, p0, P);
+}
+
+// K1: one block per (64 source pixels, edge).  kWide (W2 > 128): f2 in
+// chunks of 128 flat positions, looked up by k1_block_wide; else chunks of
+// RC = 128 / W2 whole rows, by k1_block.  kWhole: whole-block pooling.
+template <bool kVec, bool kWide, bool kWhole>
 __global__ void __launch_bounds__(kThreads, 1)
 corr_fused_xy_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf16
                      const __grid_constant__ CUtensorMap map_f2,  // (E, P2, Cpad) bf16
@@ -686,7 +892,8 @@ corr_fused_xy_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad
   const int p0 = blockIdx.x * kM;
   const int tid = threadIdx.x;
   const int rc = kN / W2;
-  const int nchunks = (H2 + rc - 1) / rc;
+  const int span = kWide ? kN : rc * W2;  // f2 positions per chunk
+  const int nchunks = kWide ? (H2 * W2 + kN - 1) / kN : (H2 + rc - 1) / rc;
 
   if (tid == 0) {
     for (int i = 0; i < kStages; ++i) {
@@ -702,11 +909,14 @@ corr_fused_xy_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad
     // ---- producer warp: one lane issues every TMA load
     if (tid == kConsumers) {
       produce_f1(&map_f1, m.s_f1, m.bar_f1, p0, e, nkb);
-      produce_f2(&map_f2, m.s_f2, m.bar_full, m.bar_empty, nchunks, rc * W2, e, nkb);
+      produce_f2(&map_f2, m.s_f2, m.bar_full, m.bar_empty, nchunks, span, e, nkb);
     }
     return;
   }
-  k1_block<kVec, kBf16>(m, coords, out, tid, e, p0, P, H2, W2, nkb, 0.f, 0.f);
+  if constexpr (kWide)
+    k1_block_wide<kWhole>(m, coords, out, tid, e, p0, P, H2, W2, nkb);
+  else
+    k1_block<kVec, kBf16, kWhole>(m, coords, out, tid, e, p0, P, H2, W2, nkb, 0.f, 0.f);
 }
 
 // K1-int8: a block per 64 pixels of an edge, in ticket order (the
@@ -845,7 +1055,7 @@ corr_int8_kernel(const __grid_constant__ CUtensorMap map_f1,  // (E, P, Cpad) bf
   }
   consumer_sync<kConsumers>();
   const float vm = m.red[kMmaWarps];
-  k1_block<kVec, kInt8>(m, coords, out, tid, e, p0, P, H2, W2, nkb, kQ / vm, vm * kInvQ2);
+  k1_block<kVec, kInt8, false>(m, coords, out, tid, e, p0, P, H2, W2, nkb, kQ / vm, vm * kInvQ2);
 }
 
 // ---------------------------------------------------------------- K1-raw
@@ -1171,10 +1381,10 @@ bool make_maps(CUtensorMap* m1, CUtensorMap* m2, const void* f1, const void* f2,
 
 constexpr int kTooWide = -2;  // returned when a tile's blocks do not fit on the card at once
 
-template <bool kVec>
+template <bool kVec, bool kWide, bool kWhole>
 int launch_k1(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords,
               __nv_bfloat16* out, int E, int P, int H2, int W2, int nkb, cudaStream_t stream) {
-  const auto kernel = corr_fused_xy_kernel<kVec>;
+  const auto kernel = corr_fused_xy_kernel<kVec, kWide, kWhole>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1225,11 +1435,13 @@ int launch_raw(const CUtensorMap& m1, const CUtensorMap& m2, const float* coords
 }  // namespace
 
 // f1 (E, P, Cpad) and f2 (E, H2*W2, Cpad) bf16, 16-byte aligned, Cpad in
-// {64, 128}; W2 <= 128.  Launch on `stream`; returns cudaGetLastError() of
-// the launch (0 = ok), -1 if a tensor map could not be encoded, -2 if no
-// cluster of the kernel fits on the card.
+// {64, 128}; W2 <= 256 (above 128 the wide path).  whole != 0: each level
+// pools whole 2^l blocks only (DROID-SLAM's pyramid).  Launch on `stream`;
+// returns cudaGetLastError() of the launch (0 = ok), -1 if a tensor map
+// could not be encoded.
 extern "C" int corr_fused_xy_launch(const void* f1, const void* f2, const void* coords, void* out,
-                                    int E, int P, int H2, int W2, int Cpad, void* stream) {
+                                    int E, int P, int H2, int W2, int Cpad, int whole,
+                                    void* stream) {
   if (E == 0 || P == 0) return 0;
   CUtensorMap m1, m2;
   if (!make_maps(&m1, &m2, f1, f2, E, P, H2, W2, Cpad, kM)) return -1;
@@ -1237,8 +1449,15 @@ extern "C" int corr_fused_xy_launch(const void* f1, const void* f2, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* c = static_cast<const float*>(coords);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-  if (W2 % 8 == 0) return launch_k1<true>(m1, m2, c, o, E, P, H2, W2, nkb, s);
-  return launch_k1<false>(m1, m2, c, o, E, P, H2, W2, nkb, s);
+  if (W2 > 2 * kN) return static_cast<int>(cudaErrorInvalidValue);
+  if (W2 > kN)
+    return whole ? launch_k1<false, true, true>(m1, m2, c, o, E, P, H2, W2, nkb, s)
+                 : launch_k1<false, true, false>(m1, m2, c, o, E, P, H2, W2, nkb, s);
+  if (W2 % 8 == 0)
+    return whole ? launch_k1<true, false, true>(m1, m2, c, o, E, P, H2, W2, nkb, s)
+                 : launch_k1<true, false, false>(m1, m2, c, o, E, P, H2, W2, nkb, s);
+  return whole ? launch_k1<false, false, true>(m1, m2, c, o, E, P, H2, W2, nkb, s)
+               : launch_k1<false, false, false>(m1, m2, c, o, E, P, H2, W2, nkb, s);
 }
 
 // K1-int8 in one launch: as corr_fused_xy_launch, and vmax (E, P / tile)
@@ -1250,6 +1469,7 @@ extern "C" int corr_fused_xy_int8_launch(const void* f1, const void* f2, const v
                                          void* vmax, void* out, void* sync, int E, int P, int H2,
                                          int W2, int Cpad, int tile, void* stream) {
   if (E == 0 || P == 0) return 0;
+  if (W2 > kN) return static_cast<int>(cudaErrorInvalidValue);  // whole rows in a chunk
   CUtensorMap m1, m2;
   if (!make_maps(&m1, &m2, f1, f2, E, P, H2, W2, Cpad, kM)) return -1;
   const int nkb = Cpad / kBoxC;
@@ -1267,6 +1487,7 @@ extern "C" int corr_fused_xy_raw_launch(const void* f1, const void* f2, const vo
                                         void* out, int E, int P, int H2, int W2, int Cpad,
                                         void* stream) {
   if (E == 0 || P == 0) return 0;
+  if (W2 > kN) return static_cast<int>(cudaErrorInvalidValue);  // whole rows in a chunk
   CUtensorMap m1, m2;
   if (!make_maps(&m1, &m2, f1, f2, E, P, H2, W2, Cpad, kRawM)) return -1;
   const int nkb = Cpad / kBoxC;

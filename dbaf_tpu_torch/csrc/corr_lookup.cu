@@ -7,7 +7,11 @@
 //   out[l,a,b] = sum_w T(kx_{l,a}(w)) * tmp[w]
 // with T the volume's type (bf16 or f32), f32 sums, and the level-l tent
 // tri(floor(i / 2^l) - (c / 2^l + off)) / 2^l.  Output (E, 196, H, W) f32,
-// channel l*49 + a*7 + b (a = x tap), the reference order.
+// channel l*49 + a*7 + b (a = x tap), the reference order.  At a ragged
+// grid the tent pools a level's partial block at the end, as the Pallas
+// kernel does; with `whole` a level pools the whole 2^l blocks only, cells
+// [0, (size >> l) << l) of each axis, and reads zero past them, as
+// DROID-SLAM's avg_pool2d pyramid does.
 //
 // Bound on the H100: memory.  Each volume row is read once (18.9 MB in bf16
 // for E=1 at 48x64), against about 10k multiply-adds per pixel.
@@ -82,6 +86,8 @@ struct WarpSmem {
   }
 };
 
+// size: the level's pooled cells on the axis (the axis's, or its whole
+// 2^l blocks').
 template <typename T>
 __device__ __forceinline__ Tap make_tap(float c, int l, int t, int size) {
   const int s = 1 << l;
@@ -148,7 +154,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 corr_lookup_kernel(const T* __restrict__ volume,     // (E, P, H2, W2)
                    const float* __restrict__ coords,  // (E, P, 2)
                    float* __restrict__ out,           // (E, 196, P)
-                   int E, int P, int H2, int W2) {
+                   int E, int P, int H2, int W2, int whole) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int P2 = H2 * W2;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -181,8 +187,8 @@ corr_lookup_kernel(const T* __restrict__ volume,     // (E, P, H2, W2)
     const float2 xy = reinterpret_cast<const float2*>(coords)[q];
     if (lane < kEntries) {
       const int l = lane / kTaps, t = lane % kTaps;
-      tab[lane] = make_tap<T>(xy.x, l, t, W2);
-      tab[kEntries + lane] = make_tap<T>(xy.y, l, t, H2);
+      tab[lane] = make_tap<T>(xy.x, l, t, whole ? (W2 >> l) << l : W2);
+      tab[kEntries + lane] = make_tap<T>(xy.y, l, t, whole ? (H2 >> l) << l : H2);
     } else if (lane < kEntries + kLevels) {
       const int l = lane - kEntries;
       ustart[l] = union_start(xy.x, l, W2);
@@ -211,9 +217,10 @@ corr_lookup_kernel(const T* __restrict__ volume,     // (E, P, H2, W2)
         acc[b] = 0.f;
       }
       const int v0 = ustart[kLevels + l];
+      const int hl = whole ? (H2 >> l) << l : H2;  // the level's pooled rows
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int hlo = max(v0 + j * s, 0), hhi = min(v0 + (j + 1) * s, H2);
+        const int hlo = max(v0 + j * s, 0), hhi = min(v0 + (j + 1) * s, hl);
         for (int h = hlo; h < hhi; ++h) {
           const float v = to_f32(row[h * W2 + w]);
           if (j < kTaps) acc[j] += w0[j] * v;
@@ -246,7 +253,7 @@ corr_lookup_kernel(const T* __restrict__ volume,     // (E, P, H2, W2)
 
 template <typename T>
 int launch(const void* volume, const void* coords, void* out, int E, int P, int H2, int W2,
-           cudaStream_t stream) {
+           int whole, cudaStream_t stream) {
   const int P2 = H2 * W2;
   const bool async = reinterpret_cast<uintptr_t>(volume) % 16 == 0 &&
                      (static_cast<size_t>(P2) * sizeof(T)) % 16 == 0;
@@ -275,17 +282,18 @@ int launch(const void* volume, const void* coords, void* out, int E, int P, int 
                                         ? need : static_cast<long long>(per_sm) * sms);
   kernel<<<grid > 0 ? grid : 1, warps * 32, smem, stream>>>(
       static_cast<const T*>(volume), static_cast<const float*>(coords), static_cast<float*>(out),
-      E, P, H2, W2);
+      E, P, H2, W2, whole);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() of the launch (0 = ok).
+// whole != 0: each level pools whole 2^l blocks only.  Launch on `stream`;
+// returns cudaGetLastError() of the launch (0 = ok).
 extern "C" int corr_lookup_launch(const void* volume, const void* coords, void* out, int E, int P,
-                                  int H2, int W2, int is_bf16, void* stream) {
+                                  int H2, int W2, int is_bf16, int whole, void* stream) {
   if (E == 0 || P == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return launch<__nv_bfloat16>(volume, coords, out, E, P, H2, W2, s);
-  return launch<float>(volume, coords, out, E, P, H2, W2, s);
+  if (is_bf16) return launch<__nv_bfloat16>(volume, coords, out, E, P, H2, W2, whole, s);
+  return launch<float>(volume, coords, out, E, P, H2, W2, whole, s);
 }

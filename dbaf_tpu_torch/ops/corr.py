@@ -167,26 +167,33 @@ def lookup_crop(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
     return out.permute(0, 2, 1).reshape(E, -1, H, W)
 
 
-def pooled_tri_kernel(coord: torch.Tensor, size: int, radius: int, level: int) -> torch.Tensor:
+def pooled_tri_kernel(coord: torch.Tensor, size: int, radius: int, level: int,
+                      whole: bool = False) -> torch.Tensor:
     """Level-``level`` tent weights against the level-0 grid,
     ``tri(floor(h/2^l) - (coord/2^l - r + k)) / 2^l`` (the average-pool
-    pyramid folded into the weights).  Returns (..., 2r+1, size)."""
+    pyramid folded into the weights).  Where 2^l does not divide ``size``
+    the level's last cell pools the partial block, as the JAX package
+    does; ``whole``: only the whole blocks, cells h < (size >> l) << l, as
+    DROID-SLAM's ``CorrBlock`` pyramid (``F.avg_pool2d``) does.
+    Returns (..., 2r+1, size)."""
     scale = float(2 ** level)
     offs = torch.arange(2 * radius + 1, dtype=coord.dtype, device=coord.device) - radius
     taps = coord[..., None, None] / scale + offs[:, None]
-    grid = torch.floor(torch.arange(size, dtype=coord.dtype, device=coord.device) / scale)
-    return torch.clamp(1.0 - torch.abs(grid - taps), min=0.0) / scale
+    cells = torch.arange(size, dtype=coord.dtype, device=coord.device)
+    kern = torch.clamp(1.0 - torch.abs(torch.floor(cells / scale) - taps), min=0.0) / scale
+    return kern * (cells < (size >> level) << level) if whole else kern
 
 
 def lookup_fused(volume: torch.Tensor, coords: torch.Tensor, radius: int = DEFAULT_RADIUS,
-                 num_levels: int = DEFAULT_LEVELS) -> torch.Tensor:
+                 num_levels: int = DEFAULT_LEVELS, whole: bool = False) -> torch.Tensor:
     """Multi-level lookup straight from the level-0 volume, y contracted
     first (the plain version of kernel K2).
 
     volume: (E, P, H2, W2) in any float dtype; coords: (E, H, W, 2), P == H*W.
     Returns (E, L*(2r+1)^2, H, W) f32.  Tents and the y-contracted
     intermediate are rounded to the volume's dtype, as ``lookup_fused`` and
-    ``lookup_pallas`` do in the JAX package.
+    ``lookup_pallas`` do in the JAX package.  ``whole``: the levels pool
+    whole blocks only (:func:`pooled_tri_kernel`).
     """
     E, P, H2, W2 = volume.shape
     _, H, W, _ = coords.shape
@@ -196,8 +203,8 @@ def lookup_fused(volume: torch.Tensor, coords: torch.Tensor, radius: int = DEFAU
     vol = volume.float()
     outs = []
     for lvl in range(num_levels):
-        ky = _round(pooled_tri_kernel(flat[..., 1], H2, radius, lvl), dt)
-        kx = _round(pooled_tri_kernel(flat[..., 0], W2, radius, lvl), dt)
+        ky = _round(pooled_tri_kernel(flat[..., 1], H2, radius, lvl, whole), dt)
+        kx = _round(pooled_tri_kernel(flat[..., 0], W2, radius, lvl, whole), dt)
         tmp = _round(torch.einsum("epbh,ephw->epbw", ky, vol), dt)
         outs.append(torch.einsum("epaw,epbw->epab", kx, tmp).reshape(E, P, R * R))
     out = torch.cat(outs, dim=-1)

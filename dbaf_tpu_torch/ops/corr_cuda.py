@@ -5,7 +5,14 @@ K1 ``corr_fused_xy`` replaces the Pallas kernel ``_fused_xy_kernel``
 (``dbaf_tpu/ops/corr_pallas.py:206``, driven by ``corr_fused_xy_prepared``):
 the correlation rows are built in shared memory (``wgmma`` on TMA-fed
 tiles) and contracted with the 4-level tent weights, x first, without ever
-storing the volume.  It runs in every update round for every active edge.
+storing the volume.  It runs in every update round for every active edge.  Up to
+128 feature columns a chunk of f2 holds whole rows; its wide path
+(``corr_fused_xy_kernel<false, true, *>``, 128 < W2 <= 256, KITTI-360's 129
+among them) streams f2 in chunks of flat positions and carries each row's
+partial x sums from chunk to chunk.  At a grid that 8 does not divide, K1
+and K2 pool each level's partial block, as the JAX package does, or with
+``whole=True`` the whole blocks only, as DROID-SLAM's ``CorrBlock`` does
+(``DBAFusionConfig.corr_whole_blocks``).
 
 K1-int8 ``corr_fused_xy_int8`` replaces the ``int8=True`` branch of the
 same Pallas kernel (``corr_pallas.py:232-259``, ``cfg.graph.corr_int8``):
@@ -53,6 +60,7 @@ from .corr import DEFAULT_LEVELS, DEFAULT_RADIUS, _round, lookup_fused
 NUM_CHANNELS = DEFAULT_LEVELS * (2 * DEFAULT_RADIUS + 1) ** 2  # 196
 RAW_CHANNELS = 32 * 32  # K1-raw: the per-pixel 32 x 32 block
 K1_CHUNK = 128  # f2 positions per K1 chunk: whole rows, so W2 <= 128
+K1_WIDE = 256  # K1's wide path (bf16): rows carried across chunks, W2 <= 256
 K1_BOX_C = 64  # channels per K1 TMA box (128-byte rows)
 
 # launches of each kernel; a plain integer per wrapper, reset by the caller
@@ -103,24 +111,28 @@ def prepare_corr_fmaps(fmap1: torch.Tensor, fmap2: torch.Tensor):
     return f1p, f2p
 
 
-def _xy_tent(coord: torch.Tensor, size: int, level: int) -> torch.Tensor:
+def _xy_tent(coord: torch.Tensor, size: int, level: int, whole: bool = False) -> torch.Tensor:
     """Tent weights of the fused kernel's tables (corr_pallas.py:176-203):
-    ``max(0, 1 - |(floor(w/2^l) - off) - coord/2^l|) / 2^l``.
+    ``max(0, 1 - |(floor(w/2^l) - off) - coord/2^l|) / 2^l``; ``whole``:
+    zero past the level's whole blocks (:func:`.corr.pooled_tri_kernel`).
     coord: (E, P).  Returns (E, P, 2r+1, size) f32."""
     inv = 2.0 ** (-level)
     offs = torch.arange(2 * DEFAULT_RADIUS + 1, dtype=torch.float32,
                         device=coord.device) - DEFAULT_RADIUS
-    g = torch.floor(torch.arange(size, dtype=torch.float32, device=coord.device) * inv)
-    g0 = g[None, :] - offs[:, None]  # (R, size)
+    cells = torch.arange(size, dtype=torch.float32, device=coord.device)
+    g0 = torch.floor(cells * inv)[None, :] - offs[:, None]  # (R, size)
     cm = (coord * inv)[..., None, None]
-    return torch.clamp(1.0 - torch.abs(g0 - cm), min=0.0) * inv
+    kern = torch.clamp(1.0 - torch.abs(g0 - cm), min=0.0) * inv
+    return kern * (cells < (size >> level) << level) if whole else kern
 
 
 def corr_fused_xy_plain(f1p: torch.Tensor, f2p: torch.Tensor, coords: torch.Tensor,
-                        H2: int, W2: int) -> torch.Tensor:
+                        H2: int, W2: int, whole: bool = False) -> torch.Tensor:
     """Plain version of K1: what ``corr_fused_xy_prepared(..., raw=False,
     int8=False)`` computes.  The volume is rounded to bf16, then per level
     P2 = bf16(vol @ bf16(kx)) over x, then bf16(bf16(ky) @ P2) over y.
+    ``whole``: the levels pool whole blocks only, as DROID-SLAM's pyramid
+    does (:func:`.corr.pooled_tri_kernel`).
 
     f1p (E, P, C), f2p (E, H2*W2, C) bf16 from :func:`prepare_corr_fmaps`;
     coords (E, H, W, 2) f32 with H*W == P.  Returns (E, H, W, 196) bf16.
@@ -134,8 +146,8 @@ def corr_fused_xy_plain(f1p: torch.Tensor, f2p: torch.Tensor, coords: torch.Tens
     flat = coords.reshape(E, P, 2).float()
     outs = []
     for lvl in range(DEFAULT_LEVELS):
-        kx = _round(_xy_tent(flat[..., 0], W2, lvl), dt)  # (E,P,R,W2)
-        ky = _round(_xy_tent(flat[..., 1], H2, lvl), dt)  # (E,P,R,H2)
+        kx = _round(_xy_tent(flat[..., 0], W2, lvl, whole), dt)  # (E,P,R,W2)
+        ky = _round(_xy_tent(flat[..., 1], H2, lvl, whole), dt)  # (E,P,R,H2)
         p2 = _round(torch.einsum("ephw,epaw->epha", vol, kx), dt)
         o = torch.einsum("epbh,epha->epab", ky, p2)  # (E,P,x-tap,y-tap)
         outs.append(o.reshape(E, P, R * R))
@@ -143,18 +155,23 @@ def corr_fused_xy_plain(f1p: torch.Tensor, f2p: torch.Tensor, coords: torch.Tens
     return out.reshape(E, H, W, NUM_CHANNELS)
 
 
-def check_k1_shape(W2: int, C: int) -> None:
+def check_k1_shape(W2: int, C: int, wide: bool = True) -> None:
     """Raise ``ValueError`` unless K1 takes feature maps W2 wide with C
-    channels: W2 <= 128 (a chunk of f2 holds whole rows, so images up to
-    1024 px wide) and C <= 128 (two TMA boxes).  The plain version takes
-    any shape."""
-    _check(W2 <= K1_CHUNK, f"corr_fused_xy: feature width W2={W2} above {K1_CHUNK} "
-           f"(image width {8 * W2} px above {8 * K1_CHUNK}): K1 holds whole rows in a chunk")
+    channels: W2 <= 256 (images up to 2048 px wide; above 128 its wide
+    path, whose chunks of f2 carry a row's sums on to the next) and
+    C <= 128 (two TMA boxes).  ``wide=False``: K1-int8's and K1-raw's
+    limits, W2 <= 128 (a chunk of f2 holds whole rows, so images up to
+    1024 px wide).  The plain versions take any shape."""
+    limit = K1_WIDE if wide else K1_CHUNK
+    why = ("K1's wide path carries a row's sums across two chunks at most" if wide
+           else "K1-int8 and K1-raw hold whole rows in a chunk")
+    _check(W2 <= limit, f"corr_fused_xy: feature width W2={W2} above {limit} "
+           f"(image width {8 * W2} px above {8 * limit}): {why}")
     _check(C <= 2 * K1_BOX_C, f"corr_fused_xy: C={C} channels above {2 * K1_BOX_C}")
 
 
 def _k1_operands(name: str, f1p: torch.Tensor, f2p: torch.Tensor, coords: Optional[torch.Tensor],
-                 H2: int, W2: int):
+                 H2: int, W2: int, wide: bool = False):
     """Checks K1's operands and returns them as its kernels take them:
     channels zero-padded to whole 64-channel TMA boxes (zeros add nothing;
     rows beyond P or P2 are zero-filled by TMA), 16-byte aligned feature
@@ -177,7 +194,7 @@ def _k1_operands(name: str, f1p: torch.Tensor, f2p: torch.Tensor, coords: Option
         _check(coords.is_contiguous(), f"{name}: inputs must be contiguous")
         if coords.data_ptr() % 8:
             coords = coords.clone()
-    check_k1_shape(W2, C)
+    check_k1_shape(W2, C, wide)
     cpad = (-C) % K1_BOX_C
     if cpad:
         f1p = F.pad(f1p, (0, cpad))
@@ -190,27 +207,35 @@ def _k1_operands(name: str, f1p: torch.Tensor, f2p: torch.Tensor, coords: Option
 
 
 def corr_fused_xy(f1p: torch.Tensor, f2p: torch.Tensor, coords: torch.Tensor,
-                  H2: int, W2: int, raw: bool = False) -> torch.Tensor:
+                  H2: int, W2: int, raw: bool = False, whole: bool = False) -> torch.Tensor:
     """Fused correlation build + 4-level lookup, channels-last bf16.
 
     Same contract as :func:`corr_fused_xy_plain`, or with ``raw=True`` as
-    :func:`corr_fused_xy_raw_plain`.  A CUDA input launches kernel K1 (or
-    K1-raw), within the limits of :func:`check_k1_shape`, and raises beyond
-    them; a CPU input takes the plain version.
+    :func:`corr_fused_xy_raw_plain`.  A CUDA input launches kernel K1 (its
+    wide path where W2 > 128) or K1-raw, within the limits of
+    :func:`check_k1_shape` (K1-raw's with ``wide=False``), and raises beyond
+    them; a CPU input takes the plain version.  ``whole`` (not with
+    ``raw``): the levels pool whole blocks only.
     """
+    _check(not (raw and whole), "corr_fused_xy: K1-raw pools the partial blocks (whole=False)")
     if not f1p.is_cuda:
-        plain = corr_fused_xy_raw_plain if raw else corr_fused_xy_plain
-        return plain(f1p, f2p, coords, H2, W2)
+        if raw:
+            return corr_fused_xy_raw_plain(f1p, f2p, coords, H2, W2)
+        return corr_fused_xy_plain(f1p, f2p, coords, H2, W2, whole)
     name = "corr_fused_xy_raw" if raw else "corr_fused_xy"
-    f1p, f2p, coords = _k1_operands(name, f1p, f2p, coords, H2, W2)
+    f1p, f2p, coords = _k1_operands(name, f1p, f2p, coords, H2, W2, wide=not raw)
     E, P, Cpad = f1p.shape
     from ..utils.cuda_build import load_kernel_library
 
     lib = load_kernel_library("corr_fused_xy")
     out = torch.empty((E, coords.shape[1], coords.shape[2], RAW_CHANNELS if raw else NUM_CHANNELS),
                       dtype=torch.bfloat16, device=f1p.device)
-    launch = lib.corr_fused_xy_raw_launch if raw else lib.corr_fused_xy_launch
-    rc = launch(_ptr(f1p), _ptr(f2p), _ptr(coords), _ptr(out), E, P, H2, W2, Cpad, _stream())
+    if raw:
+        rc = lib.corr_fused_xy_raw_launch(_ptr(f1p), _ptr(f2p), _ptr(coords), _ptr(out), E, P,
+                                          H2, W2, Cpad, _stream())
+    else:
+        rc = lib.corr_fused_xy_launch(_ptr(f1p), _ptr(f2p), _ptr(coords), _ptr(out), E, P, H2,
+                                      W2, Cpad, int(whole), _stream())
     _raise_on(rc, name)
     LAUNCHES[name] += 1
     return out
@@ -407,9 +432,10 @@ def corr_fused_xy_int8(f1p: torch.Tensor, f2p: torch.Tensor, coords: torch.Tenso
     """Fused correlation build + int8 x stage + 4-level lookup, the
     contract of :func:`corr_fused_xy_int8_plain`; with ``return_vmax`` also
     the tile scales, (E, P // tile) f32 as :func:`corr_int8_vmax_plain`.
-    A CUDA input launches kernel K1-int8 once (K1's limits and those of
-    :func:`check_int8_tile`), and raises where it does not launch; a CPU
-    input takes the plain versions."""
+    A CUDA input launches kernel K1-int8 once (within
+    :func:`check_k1_shape` with ``wide=False`` and :func:`check_int8_tile`),
+    and raises where it does not launch; a CPU input takes the plain
+    versions."""
     if not f1p.is_cuda:
         out = corr_fused_xy_int8_plain(f1p, f2p, coords, H2, W2, tile)
         return (out, corr_int8_vmax_plain(f1p, f2p, tile)) if return_vmax else out
@@ -434,22 +460,24 @@ def corr_fused_xy_int8(f1p: torch.Tensor, f2p: torch.Tensor, coords: torch.Tenso
 # K2: lookup on a prebuilt volume
 # ---------------------------------------------------------------------------
 
-def corr_lookup_plain(volume: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+def corr_lookup_plain(volume: torch.Tensor, coords: torch.Tensor,
+                      whole: bool = False) -> torch.Tensor:
     """Plain version of K2 (``lookup_fused``): (E, 196, H, W) f32."""
-    return lookup_fused(volume, coords)
+    return lookup_fused(volume, coords, whole=whole)
 
 
-def corr_lookup(volume: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+def corr_lookup(volume: torch.Tensor, coords: torch.Tensor, whole: bool = False) -> torch.Tensor:
     """4-level windowed lookup on a prebuilt (E, H*W, H2, W2) volume.
 
     volume bf16 or f32; coords (E, H, W, 2) f32 at level-0 scale.  Returns
     (E, 196, H, W) f32 in the reference channel order.  A CUDA volume
     launches kernel K2, which raises where two volume rows do not fit one
     block's shared memory (H2*W2 above 57k in bf16 or 28k in f32 on the
-    H100); a CPU volume takes the plain version.
+    H100); a CPU volume takes the plain version.  ``whole``: the levels
+    pool whole blocks only (:func:`.corr.pooled_tri_kernel`).
     """
     if not volume.is_cuda:
-        return corr_lookup_plain(volume, coords)
+        return corr_lookup_plain(volume, coords, whole)
     _check(volume.dtype in (torch.bfloat16, torch.float32),
            "corr_lookup: volume must be bf16 or f32")
     _check(coords.dtype == torch.float32, "corr_lookup: coords must be f32")
@@ -471,7 +499,7 @@ def corr_lookup(volume: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     out = torch.empty((E, NUM_CHANNELS, H, W), dtype=torch.float32, device=volume.device)
     is_bf16 = 1 if volume.dtype == torch.bfloat16 else 0
     rc = lib.corr_lookup_launch(
-        _ptr(volume), _ptr(coords), _ptr(out), E, P, H2, W2, is_bf16, _stream(),
+        _ptr(volume), _ptr(coords), _ptr(out), E, P, H2, W2, is_bf16, int(whole), _stream(),
     )
     _raise_on(rc, "corr_lookup")
     LAUNCHES["corr_lookup"] += 1

@@ -106,7 +106,8 @@ def visual_step(ustep: UpdateStep, cfg: DBAFusionConfig, video: DepthVideo, edge
     prox_d = torch.where(pc, ustep.host_metrics(video, t1)[1:], st["prox_d"])
 
     # ---- 1. the motion gate (K2 on the card); the threshold is read per step
-    fmap, delta = gate(feat_fn, ustep.update_fn, image, st["kf_fmap"], st["kf_net"], st["kf_inp"])
+    fmap, delta = gate(feat_fn, ustep.update_fn, image, st["kf_fmap"], st["kf_net"], st["kf_inp"],
+                       cfg.corr_whole_blocks)
     thresh = fc.filter_thresh
     adm = delta > thresh if thresh >= 0 else torch.ones((), dtype=torch.bool, device=dev)
 

@@ -67,16 +67,45 @@ def corr_operands(cfg: DBAFusionConfig, video, ii: torch.Tensor, jj: torch.Tenso
     return (corr_ops.build_volume_nhwc(f1, f2),)
 
 
-def corr_round(prep, coords1: torch.Tensor) -> torch.Tensor:
-    """(E, H, W, 196) correlation features of one round."""
+def round_weights(w_all: torch.Tensor, ii: torch.Tensor, jj: torch.Tensor, mask: torch.Tensor,
+                  poses: torch.Tensor, disps: torch.Tensor, imu: bool, mask_threshold: float,
+                  far_threshold: float):
+    """The BA weights of a round's edges from the update operator's
+    ``w_all`` (E, H, W, 2), the confidence heuristics of
+    covisible_graph.py:309-328: x0.1 on the edges out of the newest source
+    frame and x0.25 on those into the newest target frame (among the valid
+    edges, ``mask``); with ``imu``, x1e-3 on the edges whose frames lie
+    less than ``mask_threshold`` apart (where it is positive) and on the
+    pixels of disparity below ``far_threshold`` (where it is positive).
+    Returns (the weights, the short-baseline mask's flags over the edges or
+    None where it does not apply)."""
+    neg = torch.full_like(ii, -1)
+    max_i = torch.max(torch.where(mask, ii, neg))
+    max_j = torch.max(torch.where(mask, jj, neg))
+    wmul = torch.where(ii == max_i, 0.1, 1.0) * torch.where(jj == max_j, 0.25, 1.0)
+    cut = None
+    if mask_threshold > 0 and imu:
+        tnorm = torch.linalg.norm(lie.se3_rel(poses[jj], poses[ii])[:, :3], dim=-1)
+        cut = tnorm < mask_threshold
+        wmul = wmul * torch.where(cut, 1e-3, 1.0)
+    w_ba = w_all * wmul.to(torch.float32)[:, None, None, None]
+    if far_threshold > 0 and imu:
+        pixmask = (disps[ii] < far_threshold)[..., None]
+        w_ba = torch.where(pixmask, w_ba * 1e-3, w_ba)
+    return w_ba, cut
+
+
+def corr_round(prep, coords1: torch.Tensor, whole: bool = False) -> torch.Tensor:
+    """(E, H, W, 196) correlation features of one round; ``whole``: the
+    pyramid's levels pool whole blocks only (``cfg.corr_whole_blocks``)."""
     if len(prep) == 3:
         f1p, f2p, tile = prep
         H2, W2 = coords1.shape[1], coords1.shape[2]
         if tile is None:
-            return corr_cuda.corr_fused_xy(f1p, f2p, coords1, H2, W2)
+            return corr_cuda.corr_fused_xy(f1p, f2p, coords1, H2, W2, whole=whole)
         return corr_cuda.corr_fused_xy_int8(f1p, f2p, coords1, H2, W2, tile)
     (vol,) = prep
-    return corr_ops.lookup_fused(vol, coords1).permute(0, 2, 3, 1)
+    return corr_ops.lookup_fused(vol, coords1, whole=whole).permute(0, 2, 3, 1)
 
 
 class EdgeSets(NamedTuple):
@@ -152,7 +181,7 @@ class UpdateStep:
         grid = pj.coords_grid(video.h8, video.w8, device=dev)
         coords1, _ = pj.projective_transform(poses, disps, intrinsics, ii, jj)
         motn = torch.cat([coords1 - grid, edges.target - coords1], dim=-1).clamp(-64.0, 64.0)
-        corr = corr_round(prep, coords1)
+        corr = corr_round(prep, coords1, cfg.corr_whole_blocks)
         net_dt = edges.net.dtype
         aux_full = dict(aux)
         aux_full.update(coords1=coords1, poses=poses, disps=disps)
@@ -170,20 +199,11 @@ class UpdateStep:
         else:
             t_all, w_all = target, weight
 
-        # confidence heuristics (covisible_graph.py:309-328)
-        ii_all, jj_all, m_all = sets.ii, sets.jj, sets.mask
-        neg = torch.full_like(ii_all, -1)
-        max_i = torch.max(torch.where(m_all, ii_all, neg))
-        max_j = torch.max(torch.where(m_all, jj_all, neg))
-        wmul = torch.where(ii_all == max_i, 0.1, 1.0) * torch.where(jj_all == max_j, 0.25, 1.0)
-        if cfg.graph.mask_threshold > 0:
-            tnorm = torch.linalg.norm(lie.se3_rel(poses[jj_all], poses[ii_all])[:, :3], dim=-1)
-            if video.imu_enabled:
-                wmul = wmul * torch.where(tnorm < cfg.graph.mask_threshold, 1e-3, 1.0)
-        w_ba = w_all * wmul.to(torch.float32)[:, None, None, None]
-        if cfg.graph.far_threshold > 0 and video.imu_enabled:
-            pixmask = (disps[ii_all] < cfg.graph.far_threshold)[..., None]
-            w_ba = torch.where(pixmask, w_ba * 1e-3, w_ba)
+        w_ba, cut = round_weights(w_all, sets.ii, sets.jj, sets.mask, poses, disps,
+                                  video.imu_enabled, cfg.graph.mask_threshold,
+                                  cfg.graph.far_threshold)
+        if TRACER.on and cut is not None:  # the active edges are the sets' last
+            TRACER.add_masked((cut & sets.mask)[-ii.shape[0]:])
         return t_all, w_ba
 
     def window_ba(self, video: DepthVideo, t_all, w_ba, sets: EdgeSets, t0, t1, s0, iters: int):

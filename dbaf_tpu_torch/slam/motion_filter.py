@@ -27,18 +27,19 @@ from .video import DepthVideo
 
 
 def gate(feat_fn: Callable, update_fn: Callable, image: torch.Tensor, kf_fmap: torch.Tensor,
-         kf_net: torch.Tensor, kf_inp: torch.Tensor):
+         kf_net: torch.Tensor, kf_inp: torch.Tensor, whole: bool = False):
     """Features of ``image`` (1, H, W, 3) and its mean flow magnitude
     against the last keyframe's features, a 0-d device tensor that is never
     read here (motion_filter.py:38-53): one 4-level lookup of the
     keyframe-to-frame volume at the identity (kernel K2 on the card) and
-    one update-operator step on edge 0 -> 0 with an empty aux."""
+    one update-operator step on edge 0 -> 0 with an empty aux.  ``whole``:
+    the pyramid's levels pool whole blocks only (``cfg.corr_whole_blocks``)."""
     fmap_cur = feat_fn(image)[0]
     H, W = fmap_cur.shape[0], fmap_cur.shape[1]
     vol = corr_ops.build_volume_nhwc(kf_fmap[None].to(torch.bfloat16),
                                      fmap_cur[None].to(torch.bfloat16))
     coords0 = pj.coords_grid(H, W, device=image.device)[None]
-    corr = corr_cuda.corr_lookup(vol, coords0).permute(0, 2, 3, 1)
+    corr = corr_cuda.corr_lookup(vol, coords0, whole).permute(0, 2, 3, 1)
     zero_motn = torch.zeros((1, H, W, 4), dtype=kf_net.dtype, device=image.device)
     ii = torch.zeros((1,), dtype=torch.int64, device=image.device)
     _, delta, _ = update_fn(kf_net[None], kf_inp[None], corr.to(kf_net.dtype), zero_motn, ii, ii,
@@ -95,7 +96,7 @@ class MotionFilter:
                      fmap, net[0], inp[0], depth=d, fmap_right=fr)
             return True
         fmap, delta = gate(self.feat, self.update_fn, img, self._kf_fmap, self._kf_net,
-                           self._kf_inp)
+                           self._kf_inp, self.cfg.corr_whole_blocks)
         with host_wait():  # the one read a frame makes (motion_filter.py:159)
             admit = to_host(delta) > self.cfg.frontend.filter_thresh
         if admit:

@@ -36,11 +36,15 @@ class DBAFusion:
     operator's signature is ``(net, inp, corr, motn, ii, jj, aux)``, as in
     the JAX package).  ``device`` defaults to the
     card and raises without one; pass ``device="cpu"`` for the plain path.
-    On the card the image may be at most 1024 px wide (kernel K1's limit,
-    :func:`~dbaf_tpu_torch.ops.corr_cuda.check_k1_shape`); a wider
-    ``cfg.image_size`` raises ``ValueError`` here, and so does a
-    ``cfg.graph.corr_group`` whose int8 tile K1-int8 does not take
-    (:func:`~dbaf_tpu_torch.ops.corr_cuda.check_int8_tile`, with ``corr_int8``).
+    On the card the image may be at most 2048 px wide (kernel K1's limit,
+    :func:`~dbaf_tpu_torch.ops.corr_cuda.check_k1_shape`; past 1024 px its
+    wide path runs); a wider ``cfg.image_size`` raises ``ValueError`` here,
+    and so does, with ``corr_int8``, a ``cfg.graph.corr_group`` whose int8
+    tile K1-int8 does not take
+    (:func:`~dbaf_tpu_torch.ops.corr_cuda.check_int8_tile`) or an image past
+    K1-int8's 1024 px where the grid holds whole int8 tiles, and on any
+    device ``cfg.corr_whole_blocks`` where K1-int8 would run on a feature
+    grid that 8 does not divide (it pools the partial blocks).
     ``dtype`` is the network's compute type.  With
     ``cfg.frontend.async_pipeline``, frames of a visual-only run go through
     the asynchronous pipeline from the first frame after initialization on.
@@ -65,13 +69,17 @@ class DBAFusion:
                  feat_fn: Optional[Callable] = None, ctx_fn: Optional[Callable] = None,
                  update_fn: Optional[Callable] = None, dtype: torch.dtype = torch.bfloat16):
         self.cfg = cfg
+        h8, w8 = cfg.feat_size
+        tile = int8_tile(h8, w8, cfg.graph.corr_group) if cfg.graph.corr_int8 else None
+        if cfg.corr_whole_blocks and tile is not None and (h8 % 8 or w8 % 8):
+            raise ValueError("corr_whole_blocks: K1-int8 pools each level's partial blocks; "
+                             "it does not run with corr_int8 on a grid 8 does not divide")
         if torch.device("cuda" if device is None else device).type == "cuda":
             # K1 runs in every update round: refuse a feature grid it does
             # not take here rather than in the first round (fnet's 128 channels)
-            check_k1_shape(cfg.feat_size[1], 128)
-            h8, w8 = cfg.feat_size
-            tile = int8_tile(h8, w8, cfg.graph.corr_group) if cfg.graph.corr_int8 else None
+            check_k1_shape(w8, 128)
             if tile is not None:  # K1-int8 in every round instead
+                check_k1_shape(w8, 128, wide=False)
                 check_int8_tile(h8 * w8, tile)
         self.device = resolve_device(device)
         self.video = DepthVideo(cfg, self.device)

@@ -115,6 +115,11 @@ class DBAFusionConfig:
     upsample: bool = False
     weights_path: Optional[str] = None
     shard_video: bool = False
+    corr_whole_blocks: bool = False  # the port's own field: each level of
+    # the correlation pyramid pools whole 2^l x 2^l blocks only, as
+    # DROID-SLAM's CorrBlock (avg_pool2d) does; off, a level pools the
+    # partial block at a grid edge that 2^l does not divide, as the JAX
+    # package does.  The two agree on grids that 8 divides (ops/corr.py)
 
     @property
     def feat_size(self) -> Tuple[int, int]:
@@ -148,9 +153,15 @@ def tumvi_config(**overrides) -> DBAFusionConfig:
 
 
 def kitti360_config(**overrides) -> DBAFusionConfig:
-    """KITTI-360 preset (batch_kitti360.py:13-25)."""
+    """KITTI-360 preset (batch_kitti360.py:13-25), at the frames its stream
+    yields: a 376 x 1408 image resized to the area of 320 x 896 and cropped
+    to multiples of 8 is 272 x 1032 (``data/streams.kitti360_stream``), a
+    34 x 129 feature grid, which K1 takes on its wide path.  8 divides
+    neither side, so the correlation pyramid pools whole blocks, as the
+    reference's ``CorrBlock`` does at these frames."""
     cfg = DBAFusionConfig(
-        image_size=(320, 896),
+        image_size=(272, 1032),
+        corr_whole_blocks=True,
         graph=GraphConfig(
             max_factors=48,
             far_threshold=-1.0,

@@ -29,13 +29,13 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "corr_fused_xy": {
-        "corr_fused_xy_launch": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+        "corr_fused_xy_launch": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
         "corr_fused_xy_int8_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
                                       _VP],
         "corr_fused_xy_raw_launch": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
     },
     "corr_lookup": {
-        "corr_lookup_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+        "corr_lookup_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
     },
 }
 

@@ -95,6 +95,10 @@ class StageTimer:
         # (masked ones included), and of those the CUDA graph replays
         # (``fusion/device_graph.lm_optimize``): counted whether on or off
         self.lm_passes = self.lm_launched = self.lm_replayed = 0
+        # counted only while on (one branch at its site when off): the
+        # active edges the update rounds' short-baseline mask down-weighted,
+        # a 0-d device sum that no site reads (see mark)
+        self.masked_edges: Optional[torch.Tensor] = None
         self._stack = []   # open spans: (seq, stage, record_function or None, kind)
         self._next = (None, -1, False)
         self._roots = 0    # open root spans
@@ -184,13 +188,25 @@ class StageTimer:
         self.syncs = 0
         self.sync_sites.clear()
         self.lm_passes = self.lm_launched = self.lm_replayed = 0
+        self.masked_edges = None
+
+    def add_masked(self, cut: torch.Tensor) -> None:
+        """Add the count of true flags in ``cut`` to ``masked_edges`` on
+        their device, with no host read."""
+        n = cut.sum()
+        if self.masked_edges is None or self.masked_edges.device != n.device:
+            self.masked_edges = torch.zeros((), dtype=n.dtype, device=n.device)
+        self.masked_edges.add_(n)
 
     # -- reading the ring -------------------------------------------------------
     def mark(self) -> dict:
-        """Where the ring and the counters stand (for :meth:`spans`)."""
+        """Where the ring and the counters stand (for :meth:`spans`);
+        ``masked_edges`` is a copy of the device sum (or None), read by
+        whoever compares two marks."""
+        masked = None if self.masked_edges is None else self.masked_edges.clone()
         return dict(seq=self.seq, frame=self.frame, syncs=self.syncs,
                     lm_passes=self.lm_passes, lm_launched=self.lm_launched,
-                    lm_replayed=self.lm_replayed)
+                    lm_replayed=self.lm_replayed, masked_edges=masked)
 
     def spans(self, since: int = 0) -> dict:
         """The closed spans from sequence number ``since`` on that the ring

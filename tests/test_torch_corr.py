@@ -55,11 +55,13 @@ def _feats(seed, E, H, W, C):
     return f1, f2, co
 
 
-@pytest.mark.parametrize("shape", [(2, 16, 32, 64), (2, 10, 12, 32)],
-                         ids=["tiled", "ragged"])
+@pytest.mark.parametrize("shape", [(2, 16, 32, 64), (2, 10, 12, 32), (1, 8, 129, 32)],
+                         ids=["tiled", "ragged", "wide_129"])
 def test_k1_plain_matches_pallas_and_lookup_fused(shape):
     """(2,16,32,64) is test_corr.py's shape; (2,10,12,32) has P=120 (not a
-    multiple of 128, one Pallas tile of 120) and H2, W2 not divisible by 8."""
+    multiple of 128, one Pallas tile of 120) and H2, W2 not divisible by 8;
+    (1,8,129,32) KITTI-360's 129 feature columns (K1's wide path on the
+    card)."""
     E, H, W, C = shape
     f1, f2, co = _feats(10, E, H, W, C)
     j1, j2 = jnp.asarray(f1, jnp.bfloat16), jnp.asarray(f2, jnp.bfloat16)
@@ -227,7 +229,8 @@ def _pallas_tile(P):
 
 @pytest.mark.parametrize("h8,w8,group,tile", [
     (48, 64, 16, 256),   # tumvi_config: whole tiles of 16 * group
-    (40, 112, 16, 128),  # kitti360_config: 4480 = 35 x 128, the group-8 fallback
+    (40, 112, 16, 128),  # 320 x 896 frames: 4480 = 35 x 128, the group-8 fallback
+    (34, 129, 16, None),  # kitti360_config's 272 x 1032 frames: 4386, no whole tile
     (10, 12, 16, None),  # 120 pixels: no whole tile, the bf16 lookup
     (48, 64, 3, None),   # 128 % 3: no whole group in a tile
 ])
@@ -246,29 +249,38 @@ def test_int8_tile_follows_corr_blk_layout(h8, w8, group, tile):
 @pytest.mark.parametrize("preset", ["tumvi_config", "kitti360_config", "whu_config",
                                     "subt_config"])
 def test_k1_takes_every_preset(preset):
-    """Every preset's feature grid is within K1's limits (W2 <= 128, C = 128)."""
+    """Every preset's feature grid is within K1's limits (W2 <= 256, C = 128;
+    KITTI-360's 129 columns on its wide path)."""
     from dbaf_tpu_torch.utils import config
 
     cfg = getattr(config, preset)()
     tk.check_k1_shape(cfg.feat_size[1], 128)
 
 
-@pytest.mark.parametrize("W2,C", [(129, 128), (136, 128), (64, 192)],
-                         ids=["w2_129", "w2_136", "c_192"])
+@pytest.mark.parametrize("W2,C", [(129, 128), (136, 128), (64, 192), (257, 128)],
+                         ids=["w2_129", "w2_136", "c_192", "w2_257"])
 def test_k1_shape_check_rejects_what_the_kernel_does_not_take(W2, C):
-    with pytest.raises(ValueError, match="W2" if W2 > 128 else "channels"):
-        tk.check_k1_shape(W2, C)
+    """Past 128 columns only K1's wide path takes the grid (K1-int8 and
+    K1-raw hold whole rows in a chunk, ``wide=False``), past 256 none;
+    past 128 channels none."""
+    if C > 128 or W2 > 256:
+        with pytest.raises(ValueError, match="W2" if W2 > 256 else "channels"):
+            tk.check_k1_shape(W2, C)
+        return
+    tk.check_k1_shape(W2, C)
+    with pytest.raises(ValueError, match="whole rows"):
+        tk.check_k1_shape(W2, C, wide=False)
 
 
 def test_dbafusion_refuses_a_grid_k1_does_not_take_at_construction():
-    """An image wider than 1024 px raises when the system is built for the
+    """An image wider than 2048 px raises when the system is built for the
     card, before any card is looked for, and is accepted on the CPU (the
     plain version takes any width)."""
     from dbaf_tpu_torch.slam.system import DBAFusion
     from dbaf_tpu_torch.utils import config
 
-    cfg = config.tumvi_config(image_size=(384, 1088))
-    with pytest.raises(ValueError, match="1088 px"):
+    cfg = config.tumvi_config(image_size=(384, 2112))
+    with pytest.raises(ValueError, match="2112 px"):
         DBAFusion(cfg, device="cuda", feat_fn=lambda *a: None, ctx_fn=lambda *a: None,
                   update_fn=lambda *a: None)
     assert DBAFusion(cfg, device="cpu", feat_fn=lambda *a: None, ctx_fn=lambda *a: None,
@@ -291,6 +303,28 @@ def test_int8_tile_check_takes_whole_blocks(P, tile, ok):
             tk.check_int8_tile(P, tile)
 
 
+def test_dbafusion_refuses_int8_past_whole_rows_at_construction():
+    """With corr_int8 and a grid of whole int8 tiles past 128 columns
+    (32 x 136 = 17 tiles of 256), K1-int8 would run every round and holds
+    whole rows in a chunk: the system refuses it for the card, and takes it
+    on the CPU.  KITTI-360's 34 x 129 holds no whole tile: its int8 rounds
+    run K1's bf16 wide path, and it builds."""
+    from dbaf_tpu_torch.slam.system import DBAFusion
+    from dbaf_tpu_torch.utils import config
+
+    fns = dict(feat_fn=lambda *a: None, ctx_fn=lambda *a: None, update_fn=lambda *a: None)
+    cfg = config.tumvi_config(image_size=(256, 1088))
+    cfg.graph.corr_int8 = True
+    assert tk.int8_tile(*cfg.feat_size, cfg.graph.corr_group) == 256
+    with pytest.raises(ValueError, match="whole rows"):
+        DBAFusion(cfg, device="cuda", **fns)
+    assert DBAFusion(cfg, device="cpu", **fns).device.type == "cpu"
+    cfg = config.kitti360_config()
+    cfg.graph.corr_int8 = True
+    assert tk.int8_tile(*cfg.feat_size, cfg.graph.corr_group) is None
+    tk.check_k1_shape(cfg.feat_size[1], 128)
+
+
 @pytest.mark.parametrize("group,tile", [(10, 160), (14, 224)])
 def test_dbafusion_refuses_an_int8_tile_k1_int8_does_not_take_at_construction(group, tile):
     """With corr_int8, a corr_group whose tile K1-int8 does not take (not
@@ -300,7 +334,7 @@ def test_dbafusion_refuses_an_int8_tile_k1_int8_does_not_take_at_construction(gr
     from dbaf_tpu_torch.slam.system import DBAFusion
     from dbaf_tpu_torch.utils import config
 
-    cfg = config.kitti360_config()  # 40 x 112 features: 4480 pixels
+    cfg = config.kitti360_config(image_size=(320, 896))  # 40 x 112 features: 4480 pixels
     cfg.graph.corr_int8 = True
     cfg.graph.corr_group = group
     assert tk.int8_tile(*cfg.feat_size, group) == tile

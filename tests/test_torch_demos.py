@@ -157,7 +157,17 @@ def test_demo_setup_matches_jax(tmp_path, monkeypatch, case):
     j, jr = run_main("dbaf_tpu", kind, argv, monkeypatch)
     p, pr = run_main("dbaf_tpu_torch", kind, argv, monkeypatch)
 
-    assert_same(dataclasses.asdict(p.cfg), dataclasses.asdict(j.cfg), "cfg")
+    pc, jc = dataclasses.asdict(p.cfg), dataclasses.asdict(j.cfg)
+    # the port's own field: KITTI-360's ragged 34 x 129 grid pools whole
+    # pyramid blocks, as the reference's CorrBlock does
+    assert pc.pop("corr_whole_blocks") == (kind == "kitti360")
+    if kind == "kitti360":
+        # the port builds the system at the stream's frames (272 x 1032 from
+        # a 376 x 1408 image); the JAX package at its preset's 320 x 896
+        assert p.cfg.image_size == pr["first"][1].shape[:2] == (272, 1032)
+        assert jc["image_size"] == (320, 896)
+        jc["image_size"] = pc["image_size"]
+    assert_same(pc, jc, "cfg")
     assert p.cfg.image_size == getattr(importlib.import_module("dbaf_tpu_torch.utils.config"),
                                        f"{kind}_config")().image_size
     assert p.kw == {"device": None}  # the card, unless the caller asks for the CPU

@@ -225,11 +225,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     vol = torch.zeros(1, 48, 6, 8, device=dev, dtype=torch.float16)
     with pytest.raises(ValueError):
         cc.corr_lookup(vol, coords)
-    # K1 holds whole rows of f2 in a chunk: W2 <= 128
+    # K1 takes W2 <= 256 (its wide path past 128); K1-raw holds whole rows
+    # of f2 in a chunk: W2 <= 128
+    f1, f2, coords = _inputs(dev, 1, 2, 264, 32, 3)
+    f1p, f2p = cc.prepare_corr_fmaps(f1, f2)
+    with pytest.raises(ValueError, match="W2=264"):
+        cc.corr_fused_xy(f1p, f2p, coords, 2, 264)
     f1, f2, coords = _inputs(dev, 1, 2, 136, 32, 3)
     f1p, f2p = cc.prepare_corr_fmaps(f1, f2)
     with pytest.raises(ValueError, match="W2=136"):
-        cc.corr_fused_xy(f1p, f2p, coords, 2, 136)
+        cc.corr_fused_xy(f1p, f2p, coords, 2, 136, raw=True)
     # K1-int8 takes tiles of whole 64-pixel blocks
     f1, f2, coords = _inputs(dev, 1, 20, 64, 32, 3)
     f1p, f2p = cc.prepare_corr_fmaps(f1, f2)
