@@ -250,6 +250,13 @@ NaN row: within one bf16 ulp of its largest output, rows and columns
 its output through the full network's update operator against the
 196-channel route (delta and weight within 4 bf16 ulps of their largest
 value).
+Phase 2 also holds fg_linearize, the factor graph's linearize as one
+kernel, against linearize_plain at NW = 20 (4 pose and 4 bias prior slots,
+GNSS, odometry, a marginal) on tests/lm_windows.py's settled window, as the
+LM calls it and as the device marginalization does, at
+tests/test_torch_linearize_cuda.py's per-entry tolerances (H, b and err);
+prints its ms (graph replay; the eager launches' beside), the plain
+version's (eager and as a graph replay) and the bound's.
 Phase 2 prints a digest of every case's kernel output ("[digest]" lines):
 with --root, two packages' digests show whether a kernel's outputs changed.
 Then one JSON line listing the kernels (launches summed over the main,
@@ -257,8 +264,15 @@ coupled, coupled_async, visual_async, int8, export, upsample, stereo,
 oracle_stereo, oracle_rgbd, resume, the four demo paths, phase 12d's
 sharded_main and sharded_coupled_async (both ranks' launches) and phase
 13's multisensor_sync and multisensor_async (13a and 13b), each counted
-from 0 just before its run; "launches_by_path" splits them), and last the
-ok line.
+from 0 just before its run; "launches_by_path" splits them).  fg_linearize
+is counted over phases 5, 6 and 13 (coupled, coupled_async,
+multisensor_sync, multisensor_async), from 0 just before each run: its
+launches are the wrapper's calls (each eager linearize of the device
+marginalization and each capture of an LM graph; a graph replay calls no
+wrapper), and "lm_kernel_linearized_by_path" gives the launched LM
+iterations whose linearize was the kernel, of all launched; those phases
+are fatal unless LM iterations ran and every one's linearize was the
+kernel.  Last the ok line.
 
 Exits non-zero without a CUDA device, and without the port's package.
 """
@@ -416,6 +430,96 @@ def bound(bytes_moved: float, op_seconds: float):
     if op_seconds > t_bytes:
         return op_seconds * 1e3, "operations"
     return t_bytes * 1e3, "bytes"
+
+
+def fg_reset() -> tuple:
+    """Zero the factor graph's hand-kernel launch count; the LM counters'
+    marks for :func:`fg_launches`."""
+    from dbaf_tpu_torch.fusion import device_graph as dg
+    from dbaf_tpu_torch.utils.profiling import TRACER
+
+    if hasattr(dg, "LAUNCHES"):
+        dg.LAUNCHES["fg_linearize"] = 0
+    return TRACER.lm_launched, getattr(TRACER, "lm_kernel_linearized", 0)
+
+
+def fg_launches(mark: tuple) -> dict:
+    """Since :func:`fg_reset`: the hand kernel's launches (its wrapper's
+    calls: each eager ``linearize`` and each capture of an LM graph that
+    holds one; a replay calls no wrapper), the LM iterations launched, and
+    of those the ones whose ``linearize`` was the kernel.  Empty for a
+    package without the kernel."""
+    from dbaf_tpu_torch.fusion import device_graph as dg
+    from dbaf_tpu_torch.utils.profiling import TRACER
+
+    if not hasattr(dg, "LAUNCHES"):
+        return {}
+    return dict(fg_linearize=dg.LAUNCHES["fg_linearize"], lm_launched=TRACER.lm_launched - mark[0],
+                lm_kernel_linearized=TRACER.lm_kernel_linearized - mark[1])
+
+
+def fg_checks(tag: str, launches: dict) -> list:
+    """(condition, message) pairs: LM iterations launched, and every one's
+    ``linearize`` was the kernel (the launch count alone can stay 0 where
+    an earlier phase captured the graphs and no window advanced)."""
+    if "fg_linearize" not in launches:
+        return []
+    n, k = launches["lm_launched"], launches["lm_kernel_linearized"]
+    return [(k == n > 0, f"{tag}: {k} of {n} launched LM iterations ran fg_linearize")]
+
+
+def phase_fg_linearize(dev) -> dict:
+    """Phase 2's factor-graph case: ``linearize`` (csrc/fg_linearize.cu) at
+    NW = 20 (the cells' sensors.fg_cap) with 4 pose and 4 bias prior slots,
+    GNSS, odometry and a marginal, on tests/lm_windows.py's window settled as
+    a phase-5 pass finds its later iterations (positions tens of metres out,
+    every term's gradient cancelling to a small b), as the LM calls it and as
+    the device marginalization does (hold_empty off, the masks cut to two
+    frames), each against ``linearize_plain`` on the same inputs at the card
+    test's per-entry tolerance; then its ms (graph replay; eager launches
+    beside), the plain version's (eager, and a graph replay) and the bound's.
+    None for a package without the kernel."""
+    from dbaf_tpu_torch.fusion import device_graph as dg
+
+    if not hasattr(dg, "linearize_plain"):
+        log("[kernels] fg_linearize: this package has no hand kernel for linearize")
+        return None
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from lm_windows import cut_masks, settled_inputs, tolerance_ratios
+
+    st, pg, vH, vv, lR, lt, sel, mgd = settled_inputs(20, 14, 3, gnss=True, device=dev)
+    worst = dict(H=0.0, b=0.0, err=0.0)
+    max_abs = 0.0
+    for label, args, hold in (
+            ("LM", (st, pg, vH, vv, lR, lt, sel, mgd), True),
+            ("marginalization", (st, cut_masks(pg, 2), vH, vv, st.R, st.t, sel, mgd), False)):
+        kernel, plain = dg.linearize(*args, hold), dg.linearize_plain(*args, hold)
+        ratios = tolerance_ratios(kernel, plain, args)
+        worst = {k: max(v, ratios[k]) for k, v in worst.items()}
+        max_abs = max(max_abs, float((kernel[0].double() - plain[0].double()).abs().max()))
+        log(f"[kernels] fg_linearize NW=20 ({label}): H, b and err at "
+            f"{ratios['H']:.4f}, {ratios['b']:.4f} and {ratios['err']:.4f} of their bounds")
+        if not max(ratios.values()) <= 1.0:  # nan: a non-finite entry
+            raise SystemExit(f"fg_linearize ({label}) disagrees with its plain version: {ratios}")
+    args = (st, pg, vH, vv, lR, lt, sel, mgd)
+    kernel = lambda: dg.linearize(*args)  # noqa: E731
+    plain = lambda: dg.linearize_plain(*args)  # noqa: E731
+    ms, eager_ms = graph_ms(kernel, 50), cuda_ms(kernel, 50)
+    plain_ms, plain_graph_ms = cuda_ms(plain, 10, warmup=1), graph_ms(plain, 5)
+    N, NW = 15 * 20, 20
+    ins = [x for x in (*st, *pg, vH, vv, lR, lt, *mgd) if isinstance(x, torch.Tensor)]
+    nbytes = sum(x.numel() * x.element_size() for x in ins) + 4 * (N * N + N + 1 + NW)
+    # the marginal's and visual system's products, H's additions, and each
+    # band's two IMU factors' J^T L and J^T L J rows
+    ops = 2 * N * N + 2 * (6 * NW) ** 2 + N * N + NW * 2 * (2 * 15 ** 3 + 2 * 15 * 30 * 15)
+    bms, by = bound(nbytes, ops / PEAK_F32)
+    row = dict(case="fg_linearize NW=20", max_abs_err=max_abs, tol_ratio=worst, ms=ms,
+               eager_ms=eager_ms, plain_ms=plain_ms, plain_graph_ms=plain_graph_ms,
+               bound_ms=bms, bound_by=by)
+    log("[kernels] " + json.dumps(row))
+    log(f"[rate] fg_linearize: {nbytes / (ms * 1e-3) / 1e12:.4f} TB/s, share of bound "
+        f"{bms / ms:.4f} (bound by {by}; latency bounds it)")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -658,6 +762,7 @@ def phase_kernels(dev) -> dict:
                                               "nan_row"),
         "corr_lookup": k2_case("K2 E=1 48x64 bf16", torch.bfloat16),
         "corr_lookup_f32": k2_case("K2 E=1 48x64 f32", torch.float32),
+        "fg_linearize": phase_fg_linearize(dev),
     }
 
 
@@ -914,6 +1019,7 @@ def phase_coupled(dev, n_frames: int) -> dict:
         run.track(k, upload)
 
     cc.reset_launch_counts()
+    fg0 = fg_reset()
     vi_key = t_steady = prof = None
     lm_iters = lm_passes = 0
     for k in range(n_frames):
@@ -939,7 +1045,7 @@ def phase_coupled(dev, n_frames: int) -> dict:
             reads0 = devmod.HOST_READS["count"]
     rounds_prof = fe.update_rounds - rounds_prof0
     pr = prof.stop("coupled", "profile_coupled.txt")
-    launches = dict(cc.LAUNCHES)
+    launches = {**cc.LAUNCHES, **fg_launches(fg0)}
     traj = system.terminate()
     ecef = system.trajectory_ecef
     k1_ms = sum(ms for name, ms in pr["kernels"].items() if "corr_fused_xy_kernel" in name)
@@ -960,6 +1066,9 @@ def phase_coupled(dev, n_frames: int) -> dict:
     if launches["corr_fused_xy"] < fe.update_rounds or fe.update_rounds == 0:
         raise SystemExit(f"coupled: K1 launched {launches['corr_fused_xy']} times for "
                          f"{fe.update_rounds} update rounds")
+    for ok, msg in fg_checks("coupled", launches):
+        if not ok:
+            raise SystemExit(msg)
     if g.mega_count < 10:
         raise SystemExit(f"coupled: only {g.mega_count} fused coupled steps ran")
     if fe.rollup_count < 1:
@@ -993,6 +1102,7 @@ def phase_coupled_async(dev, n_frames: int, sync_res: dict) -> dict:
     system = run.system
     fe, g = system.frontend, system.graph
     cc.reset_launch_counts()
+    fg0 = fg_reset()
     prof = None
     guarded = steps_timed = reads_timed = 0
     wall = 0.0
@@ -1025,7 +1135,7 @@ def phase_coupled_async(dev, n_frames: int, sync_res: dict) -> dict:
         raise SystemExit("coupled_async: no steady-state async step before the profiled frames")
     k1_prof = cc.LAUNCHES["corr_fused_xy"] - k1_prof0
     pr = prof.stop("coupled_async", "profile_coupled_async.txt")
-    launches = dict(cc.LAUNCHES)
+    launches = {**cc.LAUNCHES, **fg_launches(fg0)}
     stats = ca.stats()
     traj = system.terminate()
     ate, span, bias = run.accuracy()
@@ -1064,6 +1174,7 @@ def phase_coupled_async(dev, n_frames: int, sync_res: dict) -> dict:
          f"K1 launched {launches['corr_fused_xy']} times for {fe.update_rounds} update rounds"),
         (launches["corr_lookup"] >= n_frames - 1,
          f"K2 launched {launches['corr_lookup']} times for {n_frames - 1} gated frames"),
+        *fg_checks("coupled_async", launches),
         (traj.shape[0] > 0 and np.all(np.isfinite(traj)), f"trajectory {traj.shape} not finite"),
         (ate < 0.08 * span, f"ATE {ate} m is not under 0.08 x span ({span} m)"),
         (bias < 0.2, f"a bias reached {bias} (bound 0.2)"),
@@ -2948,13 +3059,14 @@ def run_multisensor(dev, kind: str, coupled_async: bool) -> dict:
         ops["k1"] = (f1p, f2p, coords, H, W)
         return k1(f1p, f2p, coords, H, W, *a, **kw)
 
-    def k2_kept(vol, coords):
-        ops["k2"] = (vol, coords)
-        return k2(vol, coords)
+    def k2_kept(vol, coords, *a, **kw):
+        ops["k2"] = (vol, coords, *a)
+        return k2(vol, coords, *a, **kw)
 
     fe._zupt_gate = recording_gate
     secs = dict(setup=time.perf_counter() - t_setup, frames=[])
     cc.reset_launch_counts()
+    fg0 = fg_reset()
     cc.corr_fused_xy, cc.corr_lookup = k1_kept, k2_kept
     clock = dict(steps=0, reads=0, guarded=0, guarded_wall=0.0)  # the guarded async frames
     vi_frame = gnss_frame = steps_at_gnss = prof = None
@@ -3011,7 +3123,7 @@ def run_multisensor(dev, kind: str, coupled_async: bool) -> dict:
                    f"profile_multisensor_{kind}_{'async' if coupled_async else 'sync'}.txt",
                    MS_PROFILED)
     t_prof = time.perf_counter() - t_prof
-    launches = dict(cc.LAUNCHES)
+    launches = {**cc.LAUNCHES, **fg_launches(fg0)}
     ca = fe._casync
     active_at_end = ca is not None and ca.active
     stats = ca.stats() if ca is not None else None
@@ -3053,20 +3165,20 @@ def run_multisensor(dev, kind: str, coupled_async: bool) -> dict:
 
 
 def k2_path_check(operands) -> dict:
-    """K2 on a path's gate operands (``(volume, coords)`` of a launch the run
-    made) against its plain version, within K2_REL_TOL of its largest
+    """K2 on a path's gate operands (``(volume, coords[, whole])`` of a launch
+    the run made) against its plain version, within K2_REL_TOL of its largest
     output (and phase 2's absolute K2_TOL), and its ms beside its bound."""
     from dbaf_tpu_torch.ops import corr_cuda as cc
 
-    vol, coords = operands
-    out = cc.corr_lookup(vol, coords)
-    ref = cc.corr_lookup_plain(vol, coords)
+    vol, coords, *whole = operands
+    out = cc.corr_lookup(vol, coords, *whole)
+    ref = cc.corr_lookup_plain(vol, coords, *whole)
     err = float((out - ref).abs().max())
     max_out = float(ref.abs().max())
     E, P, H2, W2 = vol.shape
     _, H, W, _ = coords.shape
-    ms = graph_ms(lambda: cc.corr_lookup(vol, coords), 100)
-    plain_ms = cuda_ms(lambda: cc.corr_lookup_plain(vol, coords), 3, warmup=1)
+    ms = graph_ms(lambda: cc.corr_lookup(vol, coords, *whole), 100)
+    plain_ms = cuda_ms(lambda: cc.corr_lookup_plain(vol, coords, *whole), 3, warmup=1)
     peak = PEAK_BF16 if vol.dtype == torch.bfloat16 else PEAK_F32
     bms, by = bound(vol.numel() * vol.element_size() + E * P * 2 * 4 + E * P * 196 * 4,
                     lookup_flops(coords, H, W, False) / peak)
@@ -3164,6 +3276,7 @@ def phase_multisensor(dev, card: str) -> dict:
              f"{tag}: K1 launched {L['corr_fused_xy']} times for {r['update_rounds']} rounds"),
             (L["corr_lookup"] >= r["frames"] - 1,
              f"{tag}: K2 launched {L['corr_lookup']} times for {r['frames'] - 1} gated frames"),
+            *fg_checks(tag, L),
         ]
     # 13a: tests/test_georef.py's assertions on both flows, async against sync
     geo = {k: georef_check(r) for k, r in (("sync", gs), ("async", ga))}
@@ -3965,14 +4078,28 @@ def main() -> int:
              replaces="dbaf_tpu/ops/corr_pallas.py:515", row=rows["corr_fused_xy_raw"]),
         dict(name="corr_lookup", route="cuda", source=src + "corr_lookup.cu",
              replaces="dbaf_tpu/ops/corr_pallas.py:58", row=rows["corr_lookup"]),
+        # no Pallas kernel: the JAX package leaves linearize to XLA
+        dict(name="fg_linearize", route="cuda", source=src + "fg_linearize.cu", replaces=None,
+             row=rows["fg_linearize"]),
     ]
     out = []
     for k in kernels:
         r = k.pop("row")
-        by_path = {p: n[k["name"]] for p, n in paths.items()}
+        if r is None:  # a package without the kernel
+            continue
+        # fg_linearize is counted on the paths that run the factor graph's LM
+        by_path = {p: n[k["name"]] for p, n in paths.items() if k["name"] in n}
+        extra = {}
+        if k["name"] == "fg_linearize":
+            extra = dict(tol_ratio=r["tol_ratio"], eager_ms=r["eager_ms"],
+                         plain_graph_ms=r["plain_graph_ms"],
+                         lm_kernel_linearized_by_path={
+                             p: f"{n['lm_kernel_linearized']} of {n['lm_launched']}"
+                             for p, n in paths.items() if k["name"] in n})
         out.append(dict(k, launches=sum(by_path.values()), max_abs_err=r["max_abs_err"],
                         ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                        bound_by=r["bound_by"], library_ms=None, launches_by_path=by_path))
+                        bound_by=r["bound_by"], library_ms=None, launches_by_path=by_path,
+                        **extra))
     log(f"[main] {main_res['kf_per_s']:.3f} kf/s on {card}")
     log(f"[coupled] {coupled_res['kf_per_s']:.3f} kf/s after VI init on {card}")
     log(f"[coupled_async] {async_res['kf_per_s']:.3f} kf/s over the async steps on {card}")

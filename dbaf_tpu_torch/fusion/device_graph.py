@@ -29,11 +29,16 @@ Eager-PyTorch notes:
   and a pass launches at most one iteration past its realized count;
 * a failed Cholesky factorization: ``cholesky_ex`` returns a partial factor
   and ``info > 0`` where ``cho_factor`` gives NaN, so the step is accepted
-  only with ``info == 0`` as well as a finite step.
+  only with ``info == 0`` as well as a finite step;
+* on the card ``linearize`` is one hand-written kernel
+  (``csrc/fg_linearize.cu``, a block per 15-row frame band, no atomics)
+  where XLA fuses the JAX package's; the CPU runs its plain version,
+  ``linearize_plain``, the batched formulas above.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -392,9 +397,10 @@ def _scatter_blocks(H, b, rows, A, rhs):
     b.index_put_((rows,), rhs, accumulate=True)
 
 
-def linearize(state: FgState, pg: PackedGraph, vis_H, vis_v, vis_linR, vis_lint, sel_pose,
-              mgd: Optional[MargDense] = None, hold_empty: bool = True):
-    """Dense normal equations over the padded window.
+def linearize_plain(state: FgState, pg: PackedGraph, vis_H, vis_v, vis_linR, vis_lint, sel_pose,
+                    mgd: Optional[MargDense] = None, hold_empty: bool = True):
+    """Dense normal equations over the padded window (the plain version of
+    :func:`linearize`).
 
     vis_H/vis_v: body-frame reduced camera system (NW*6 square/vec),
     anchored at vis_linR/vis_lint; sel_pose: static (N, NW*6) selector;
@@ -483,6 +489,91 @@ def linearize(state: FgState, pg: PackedGraph, vis_H, vis_v, vis_linR, vis_lint,
     return H, b, err
 
 
+def linearize(state: FgState, pg: PackedGraph, vis_H, vis_v, vis_linR, vis_lint, sel_pose,
+              mgd: Optional[MargDense] = None, hold_empty: bool = True):
+    """Dense normal equations over the padded window, the contract of
+    :func:`linearize_plain`.  A CUDA input launches the hand kernel
+    (``csrc/fg_linearize.cu``), which places vis_H's 6x6 blocks at the pose
+    rows where the plain version multiplies by the selector (``sel_pose``,
+    the static :func:`make_sel_pose`, is not read), and raises on what it
+    does not take (:func:`_kernel_operands`); a CPU input takes the plain
+    version."""
+    if not state.t.is_cuda:
+        return linearize_plain(state, pg, vis_H, vis_v, vis_linR, vis_lint, sel_pose, mgd,
+                               hold_empty)
+    return _linearize_kernel(state, pg, vis_H, vis_v, vis_linR, vis_lint, mgd, hold_empty)
+
+
+# the kernel's limits: a frame's displacements (21 floats) live in shared memory
+MAX_FRAMES = 256
+MAX_PRIORS = 64
+
+# launches of the kernel, a plain integer (read around a capture by the LM)
+LAUNCHES = {"fg_linearize": 0}
+
+# the kernel's operands, in the order of its FgLinearizeArgs
+KERNEL_OPERANDS = ("R", "t", "vel", "bias", "valid", *PackedGraph._fields, "vis_H", "vis_v",
+                   "vis_linR", "vis_lint", "mgd_mask", "mgd_lin", "mgd_H", "mgd_v", "H", "b",
+                   "err", "partial")
+
+_KINDS = {"f": torch.float32, "b": torch.bool, "i": torch.int64}
+
+
+def _kernel_operands(state: FgState, pg: PackedGraph, vis_H, vis_v, vis_linR, vis_lint,
+                     mgd: Optional[MargDense]):
+    """The kernel's inputs in its operand order (None for an absent
+    marginal), each on the state's device with the shape and dtype it
+    reads, made contiguous; and (NW, PP, PB).  Raises ValueError on what the
+    kernel does not take: a window outside [2, MAX_FRAMES] frames, more than
+    MAX_PRIORS priors of a kind, or another dtype (f32; masks bool; prior
+    frames int64)."""
+    NW, PP, PB = state.R.shape[0], pg.pp_mask.shape[0], pg.pb_mask.shape[0]
+    if not (2 <= NW <= MAX_FRAMES and PP <= MAX_PRIORS and PB <= MAX_PRIORS):
+        raise ValueError(f"linearize: the kernel takes 2..{MAX_FRAMES} frames and at most "
+                         f"{MAX_PRIORS} priors of a kind, not NW={NW}, PP={PP}, PB={PB}")
+    N = 15 * NW
+    spec = [("R", (NW, 3, 3), "f"), ("t", (NW, 3), "f"), ("vel", (NW, 3), "f"),
+            ("bias", (NW, 6), "f"), ("valid", (NW,), "b"), *_graph_spec(NW, PP, PB),
+            ("vis_H", (6 * NW, 6 * NW), "f"), ("vis_v", (6 * NW,), "f"),
+            ("vis_linR", (NW, 3, 3), "f"), ("vis_lint", (NW, 3), "f")]
+    given = [*state, *pg, vis_H, vis_v, vis_linR, vis_lint]
+    if mgd is not None:
+        spec += [("mgd_mask", (NW,), "b"), ("mgd_lin", (NW, 21), "f"), ("mgd_H", (N, N), "f"),
+                 ("mgd_v", (N,), "f")]
+        given += list(mgd)
+    dev = state.t.device
+    out = []
+    for (name, shape, kind), x in zip(spec, given):
+        if x.dtype != _KINDS[kind] or tuple(x.shape) != shape or x.device != dev:
+            raise ValueError(f"linearize: {name} is {x.dtype} {tuple(x.shape)} on {x.device}; "
+                             f"the kernel takes {_KINDS[kind]} {shape} on {dev}")
+        out.append(x.contiguous())
+    return out + [None] * (len(KERNEL_OPERANDS) - 4 - len(out)), (NW, PP, PB)
+
+
+def _linearize_kernel(state, pg, vis_H, vis_v, vis_linR, vis_lint, mgd, hold_empty):
+    """One :func:`linearize` on the card: the kernel and its error sum on
+    the current stream, outputs from ``torch.empty`` (so the launch can be
+    captured in a CUDA graph), no host synchronisation."""
+    from ..utils.cuda_build import load_kernel_library
+
+    ins, (NW, PP, PB) = _kernel_operands(state, pg, vis_H, vis_v, vis_linR, vis_lint, mgd)
+    lib = load_kernel_library("fg_linearize")
+    dev = state.t.device
+    N = 15 * NW
+    shapes = ((N, N), (N,), (), (NW,))  # H, b, err and the bands' shares of err
+    outs = [torch.empty(shape, dtype=torch.float32, device=dev) for shape in shapes]
+    ptrs = (ctypes.c_void_p * len(KERNEL_OPERANDS))(
+        *(None if x is None else x.data_ptr() for x in (*ins, *outs)))
+    rc = lib.fg_linearize_launch(ctypes.addressof(ptrs), len(ptrs), NW, PP, PB,
+                                 int(mgd is not None), int(hold_empty),
+                                 torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fg_linearize: the launch failed with code {rc}")
+    LAUNCHES["fg_linearize"] += 1
+    return tuple(outs[:3])
+
+
 # ---------------------------------------------------------------------------
 # Levenberg-Marquardt (fusion.graph.LevenbergMarquardt semantics)
 # ---------------------------------------------------------------------------
@@ -561,9 +652,11 @@ def _lm_inputs(ts: list):
 
 
 class _EagerLM:
-    """An LM pass launched op by op (the CPU)."""
+    """An LM pass launched op by op (the CPU).  ``kernel``: the last
+    iteration's relinearization was the hand kernel."""
 
     replayed = False
+    kernel = False
 
     def __init__(self, ts: list, lambda_initial: float, step_consts: tuple):
         state, pg, vis_H, vis_v, vis_linR, vis_lint, sel_pose, mgd = _lm_inputs(ts)
@@ -578,9 +671,11 @@ class _EagerLM:
         self.its = torch.zeros((), dtype=torch.int64, device=dev)
 
     def iterate(self):
+        n = LAUNCHES["fg_linearize"]
         (self.st, self.H, self.b, self.lam, self.err, self.done,
          self.its) = _lm_iterate(self.st, self.H, self.b, self.lam, self.err, self.done,
                                  self.its, self.relin, *self.step_consts)
+        self.kernel = LAUNCHES["fg_linearize"] > n
 
     def result(self, valid: torch.Tensor):
         return FgState(*self.st[:4], valid), (self.err, self.its)
@@ -594,7 +689,8 @@ class _ReplayedLM(_EagerLM):
     read and write one set of static tensors: :meth:`load` copies a pass's
     inputs in, :meth:`result` clones the solved state out.  Built (the
     graphs captured) at the first pass of its key, reused by every later
-    one."""
+    one.  ``kernel``: the iteration's graph holds the hand kernel (the
+    kernel's launch count moved while it was captured)."""
 
     replayed = True
 
@@ -609,7 +705,10 @@ class _ReplayedLM(_EagerLM):
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             self._iterate()
-            self.start, self.step = self._capture(self._start), self._capture(self._iterate)
+            self.start = self._capture(self._start)
+            n = LAUNCHES["fg_linearize"]
+            self.step = self._capture(self._iterate)
+            self.kernel = LAUNCHES["fg_linearize"] > n
         torch.cuda.current_stream(dev).wait_stream(side)
 
     @staticmethod
@@ -686,6 +785,7 @@ def lm_optimize(state: FgState, pg: PackedGraph, vis_H, vis_v, vis_linR, vis_lin
         lm.iterate()
         TRACER.lm_launched += 1
         TRACER.lm_replayed += lm.replayed
+        TRACER.lm_kernel_linearized += lm.kernel
         poll.post(lm.done)
     return lm.result(state.valid)
 

@@ -23,7 +23,7 @@ CSRC = osp.join(_PKG, "csrc")
 BUILD_DIR = osp.join(_PKG, "_build")
 GRAPHOPS_SRC = osp.join(osp.dirname(_PKG), "native", "graphops.cpp")
 
-KERNELS = ("corr_fused_xy", "corr_lookup")
+KERNELS = ("corr_fused_xy", "corr_lookup", "fg_linearize")
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +36,9 @@ _SIGNATURES = {
     },
     "corr_lookup": {
         "corr_lookup_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
+    },
+    "fg_linearize": {
+        "fg_linearize_launch": [_VP, _I, _I, _I, _I, _I, _I, _VP],
     },
 }
 
@@ -97,13 +100,14 @@ def build_kernels(names: Iterable[str] = KERNELS, verbose: bool = False) -> Dict
 
 
 def load_kernel_library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built on first use."""
+    """The loaded library of kernel ``name``.  The first use builds every
+    kernel of ``KERNELS`` not yet built, all at once."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
     with _lock:
         if name not in _libs:
-            path = build_kernels([name])[name]
+            path = build_kernels(KERNELS)[name]
             lib = ctypes.CDLL(path)
             for fn, argtypes in _SIGNATURES[name].items():
                 f = getattr(lib, fn)

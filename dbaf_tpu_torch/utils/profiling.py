@@ -92,9 +92,11 @@ class StageTimer:
         self.syncs = 0     # unplanned synchronisations counted
         self.sync_sites: Dict[str, int] = {}
         # the factor graph's LM passes and the iterations they launched
-        # (masked ones included), and of those the CUDA graph replays
+        # (masked ones included), and of those the CUDA graph replays and
+        # the ones relinearized by the hand kernel
         # (``fusion/device_graph.lm_optimize``): counted whether on or off
         self.lm_passes = self.lm_launched = self.lm_replayed = 0
+        self.lm_kernel_linearized = 0
         # counted only while on (one branch at its site when off): the
         # active edges the update rounds' short-baseline mask down-weighted,
         # a 0-d device sum that no site reads (see mark)
@@ -188,6 +190,7 @@ class StageTimer:
         self.syncs = 0
         self.sync_sites.clear()
         self.lm_passes = self.lm_launched = self.lm_replayed = 0
+        self.lm_kernel_linearized = 0
         self.masked_edges = None
 
     def add_masked(self, cut: torch.Tensor) -> None:
@@ -206,7 +209,8 @@ class StageTimer:
         masked = None if self.masked_edges is None else self.masked_edges.clone()
         return dict(seq=self.seq, frame=self.frame, syncs=self.syncs,
                     lm_passes=self.lm_passes, lm_launched=self.lm_launched,
-                    lm_replayed=self.lm_replayed, masked_edges=masked)
+                    lm_replayed=self.lm_replayed,
+                    lm_kernel_linearized=self.lm_kernel_linearized, masked_edges=masked)
 
     def spans(self, since: int = 0) -> dict:
         """The closed spans from sequence number ``since`` on that the ring

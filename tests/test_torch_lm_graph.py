@@ -1,8 +1,9 @@
 """The device LM's loop (``fusion/device_graph.py::lm_optimize``) on the CPU:
 its bound on the run-ahead of a non-blocking poll, the eager path the CPU
-takes, and the counters of launched and replayed iterations with the two
+takes (the plain ``linearize``, never the hand kernel), and the counters of
+launched, replayed and kernel-relinearized iterations with the three
 per-layer metrics that read them (``perfbench/metrics/lm_graph_share.py``,
-``lm_launched_per_pass.py``).
+``lm_launched_per_pass.py``, ``lm_linearize_kernel_share.py``).
 
 The run-ahead bound is held with a poll whose posts land only when waited
 on, the slowest card there can be: the loop must launch at most one
@@ -140,3 +141,57 @@ def test_the_readers_read_nothing_without_the_counters_or_the_passes(monkeypatch
         mod.at_close(run)
         assert mod.read(run) is None
     assert _stub_run().state == {} and share.read(_stub_run()) is None
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+def test_the_cpu_relinearizes_with_the_plain_version(window):
+    args = lm_inputs(**WINDOWS[window])
+    assert all(torch.equal(a, b) for a, b in zip(tdg.linearize(*args), tdg.linearize_plain(*args)))
+    m0, n0 = profiling.TRACER.mark(), tdg.LAUNCHES["fg_linearize"]
+    _, (_, its) = tdg.lm_optimize(*args)
+    m1 = profiling.TRACER.mark()
+    assert m1["lm_launched"] - m0["lm_launched"] == int(its) > 1
+    assert m1["lm_kernel_linearized"] == m0["lm_kernel_linearized"]
+    assert tdg.LAUNCHES["fg_linearize"] == n0
+
+
+# (iterations launched, of those relinearized by the kernel) between the
+# window's marks, and the share the reader gives
+SHARES = {"all": (41, 41, 100.0), "some": (12, 3, 25.0), "none": (7, 0, 0.0),
+          "no_pass": (0, 0, None)}
+
+
+class _Marks:
+    """A tracer whose marks give the counters of a stubbed window."""
+
+    def __init__(self, launched, kernel, with_counter=True):
+        self.marks = [dict(seq=0, frame=-1, syncs=0, lm_passes=0, lm_launched=5,
+                           lm_replayed=5, lm_kernel_linearized=5),
+                      dict(seq=9, frame=3, syncs=0, lm_passes=2, lm_launched=5 + launched,
+                           lm_replayed=5 + launched, lm_kernel_linearized=5 + kernel)]
+        if not with_counter:  # the parent's tracer
+            for m in self.marks:
+                del m["lm_kernel_linearized"]
+
+    def mark(self):
+        return self.marks.pop(0)
+
+
+@pytest.mark.parametrize("case", SHARES)
+def test_the_kernel_share_reader_on_stubbed_marks(case, monkeypatch):
+    launched, kernel, share = SHARES[case]
+    reader = harness.load_reader("lm_linearize_kernel_share")
+    monkeypatch.setattr(profiling, "TRACER", _Marks(launched, kernel))
+    run = _stub_run()
+    reader.at_open(run)
+    reader.at_close(run)
+    assert reader.read(run) == (None if share is None else pytest.approx(share))
+
+
+def test_the_kernel_share_reader_reads_nothing_without_the_counter(monkeypatch):
+    reader = harness.load_reader("lm_linearize_kernel_share")
+    monkeypatch.setattr(profiling, "TRACER", _Marks(10, 10, with_counter=False))
+    run = _stub_run()
+    reader.at_open(run)
+    reader.at_close(run)
+    assert reader.read(run) is None and reader.read(_stub_run()) is None
