@@ -487,12 +487,12 @@ def phase_fg_linearize(dev) -> dict:
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from lm_windows import cut_masks, settled_inputs, tolerance_ratios
 
-    st, pg, vH, vv, lR, lt, sel, mgd = settled_inputs(20, 14, 3, gnss=True, device=dev)
+    st, pg, vH, vv, lR, lt, mgd = settled_inputs(20, 14, 3, gnss=True, device=dev)
     worst = dict(H=0.0, b=0.0, err=0.0)
     max_abs = 0.0
     for label, args, hold in (
-            ("LM", (st, pg, vH, vv, lR, lt, sel, mgd), True),
-            ("marginalization", (st, cut_masks(pg, 2), vH, vv, st.R, st.t, sel, mgd), False)):
+            ("LM", (st, pg, vH, vv, lR, lt, mgd), True),
+            ("marginalization", (st, cut_masks(pg, 2), vH, vv, st.R, st.t, mgd), False)):
         kernel, plain = dg.linearize(*args, hold), dg.linearize_plain(*args, hold)
         ratios = tolerance_ratios(kernel, plain, args)
         worst = {k: max(v, ratios[k]) for k, v in worst.items()}
@@ -501,7 +501,7 @@ def phase_fg_linearize(dev) -> dict:
             f"{ratios['H']:.4f}, {ratios['b']:.4f} and {ratios['err']:.4f} of their bounds")
         if not max(ratios.values()) <= 1.0:  # nan: a non-finite entry
             raise SystemExit(f"fg_linearize ({label}) disagrees with its plain version: {ratios}")
-    args = (st, pg, vH, vv, lR, lt, sel, mgd)
+    args = (st, pg, vH, vv, lR, lt, mgd)
     kernel = lambda: dg.linearize(*args)  # noqa: E731
     plain = lambda: dg.linearize_plain(*args)  # noqa: E731
     ms, eager_ms = graph_ms(kernel, 50), cuda_ms(kernel, 50)
@@ -2159,7 +2159,7 @@ def stereo_k1_check(system) -> dict:
     from dbaf_tpu_torch.slam.graph import corr_operands
 
     g, v = system.graph, system.video
-    g._flush()
+    g.flush()
     dev = v.device
     ii, jj = torch.as_tensor(g.ii, device=dev), torch.as_tensor(g.jj, device=dev)
     selfs = ii == jj
@@ -2585,7 +2585,7 @@ class DemoRun:
         self.system, self.demo_stream = mod.setup(self.args, device)
         system = self.system
         self.dev = system.device
-        step = system.graph._step
+        step = system.graph.update_step
         model_update = step.update_fn
         oracle = make_oracle(scene.gt_cw, scene.gt_disps, scene.intr8, device=self.dev)
 

@@ -13,10 +13,9 @@
 // chain (CombinedImuFactor's residual, its 15x30 Jacobian, J^T L J), the pose
 // and bias priors, the Cauchy-robust GNSS term, the odometry term, the dense
 // marginal prior (its H and v, and the H @ dvec product), the visual reduced
-// camera system at the pose rows (an index placement of its 6x6 blocks at
-// rows 15f..15f+6, the numbers of sel_pose @ vis_H @ sel_pose^T without the
-// selector product), and with `hold_empty` a unit diagonal wherever the
-// diagonal is zero.
+// camera system at the pose rows (its 6x6 blocks placed by index at rows
+// 15f..15f+6, as the plain version places them), and with `hold_empty` a
+// unit diagonal wherever the diagonal is zero.
 //
 // Bound: latency.  At NW = 20 (N = 300) it reads the marginal's H (360 KB),
 // the visual system (58 KB) and about 25 KB of factors and writes H

@@ -230,18 +230,6 @@ def marg_to_device(md, device) -> MargDense:
     return MargDense(*(torch.as_tensor(np.asarray(a), device=device) for a in md))
 
 
-def _sel_pose(NW: int) -> np.ndarray:
-    """Static (NW*15, NW*6) selector: global rows <- stacked pose rows."""
-    S = np.zeros((NW * 15, NW * 6), np.float32)
-    for f in range(NW):
-        S[15 * f: 15 * f + 6, 6 * f: 6 * f + 6] = np.eye(6)
-    return S
-
-
-def make_sel_pose(NW: int, device=None) -> torch.Tensor:
-    return torch.as_tensor(_sel_pose(NW), device=device)
-
-
 def _graph_spec(NW: int, PP: int, PB: int):
     """(name, shape, kind) per PackedGraph field, in field order: the flat
     single-upload layout (kind 'f' f32, 'b' bool as 0/1, 'i' small int
@@ -397,14 +385,14 @@ def _scatter_blocks(H, b, rows, A, rhs):
     b.index_put_((rows,), rhs, accumulate=True)
 
 
-def linearize_plain(state: FgState, pg: PackedGraph, vis_H, vis_v, vis_linR, vis_lint, sel_pose,
+def linearize_plain(state: FgState, pg: PackedGraph, vis_H, vis_v, vis_linR, vis_lint,
                     mgd: Optional[MargDense] = None, hold_empty: bool = True):
     """Dense normal equations over the padded window (the plain version of
     :func:`linearize`).
 
     vis_H/vis_v: body-frame reduced camera system (NW*6 square/vec),
-    anchored at vis_linR/vis_lint; sel_pose: static (N, NW*6) selector;
-    mgd: dense marginal prior (or None).  Returns (H, b, err); with
+    anchored at vis_linR/vis_lint, placed at each frame's pose rows
+    [15f, 15f + 6); mgd: dense marginal prior (or None).  Returns (H, b, err); with
     ``hold_empty`` unconstrained rows are held at identity (the solve needs
     an invertible system; the marginalization must not)."""
     NW = state.R.shape[0]
@@ -479,8 +467,9 @@ def linearize_plain(state: FgState, pg: PackedGraph, vis_H, vis_v, vis_linR, vis
     dpose = _se3_local(vis_linR, vis_lint, state.R, state.t) * state.valid[:, None].to(dtype)
     dp6 = dpose.reshape(NW * 6)
     Hv = vis_H @ dp6
-    H = H + sel_pose @ vis_H @ sel_pose.T
-    b = b + sel_pose @ (vis_v - Hv)
+    pose_rows = ((15 * NWr)[:, None] + ar(6)).reshape(NW * 6)
+    H = H.index_put((pose_rows[:, None], pose_rows[None, :]), vis_H, accumulate=True)
+    b = b.index_put((pose_rows,), vis_v - Hv, accumulate=True)
     err = err + 0.5 * (dp6 @ Hv) - vis_v @ dp6
 
     if hold_empty:
@@ -489,18 +478,14 @@ def linearize_plain(state: FgState, pg: PackedGraph, vis_H, vis_v, vis_linR, vis
     return H, b, err
 
 
-def linearize(state: FgState, pg: PackedGraph, vis_H, vis_v, vis_linR, vis_lint, sel_pose,
+def linearize(state: FgState, pg: PackedGraph, vis_H, vis_v, vis_linR, vis_lint,
               mgd: Optional[MargDense] = None, hold_empty: bool = True):
     """Dense normal equations over the padded window, the contract of
     :func:`linearize_plain`.  A CUDA input launches the hand kernel
-    (``csrc/fg_linearize.cu``), which places vis_H's 6x6 blocks at the pose
-    rows where the plain version multiplies by the selector (``sel_pose``,
-    the static :func:`make_sel_pose`, is not read), and raises on what it
-    does not take (:func:`_kernel_operands`); a CPU input takes the plain
-    version."""
+    (``csrc/fg_linearize.cu``), which raises on what it does not take
+    (:func:`_kernel_operands`); a CPU input takes the plain version."""
     if not state.t.is_cuda:
-        return linearize_plain(state, pg, vis_H, vis_v, vis_linR, vis_lint, sel_pose, mgd,
-                               hold_empty)
+        return linearize_plain(state, pg, vis_H, vis_v, vis_linR, vis_lint, mgd, hold_empty)
     return _linearize_kernel(state, pg, vis_H, vis_v, vis_linR, vis_lint, mgd, hold_empty)
 
 
@@ -638,17 +623,17 @@ def _lm_iterate(st: FgState, H, b, lam, err, done, its, relin, *step_consts):
             its + live.long())
 
 
-def _lm_tensors(state, pg, vis_H, vis_v, vis_linR, vis_lint, sel_pose, mgd) -> list:
+def _lm_tensors(state, pg, vis_H, vis_v, vis_linR, vis_lint, mgd) -> list:
     """An LM pass's inputs as one list of tensors (:func:`_lm_inputs`
     rebuilds them)."""
-    return [*state, *pg, vis_H, vis_v, vis_linR, vis_lint, sel_pose, *(mgd or ())]
+    return [*state, *pg, vis_H, vis_v, vis_linR, vis_lint, *(mgd or ())]
 
 
 def _lm_inputs(ts: list):
     n_s, n_g = len(FgState._fields), len(PackedGraph._fields)
-    mgd = MargDense(*ts[n_s + n_g + 5:]) if len(ts) > n_s + n_g + 5 else None
-    return (FgState(*ts[:n_s]), PackedGraph(*ts[n_s:n_s + n_g]), *ts[n_s + n_g:n_s + n_g + 5],
-            mgd)
+    n = n_s + n_g + 4
+    mgd = MargDense(*ts[n:]) if len(ts) > n else None
+    return (FgState(*ts[:n_s]), PackedGraph(*ts[n_s:n_s + n_g]), *ts[n_s + n_g:n], mgd)
 
 
 class _EagerLM:
@@ -659,9 +644,8 @@ class _EagerLM:
     kernel = False
 
     def __init__(self, ts: list, lambda_initial: float, step_consts: tuple):
-        state, pg, vis_H, vis_v, vis_linR, vis_lint, sel_pose, mgd = _lm_inputs(ts)
-        self.relin = lambda st: linearize(st, pg, vis_H, vis_v, vis_linR, vis_lint, sel_pose,
-                                          mgd)
+        state, pg, vis_H, vis_v, vis_linR, vis_lint, mgd = _lm_inputs(ts)
+        self.relin = lambda st: linearize(st, pg, vis_H, vis_v, vis_linR, vis_lint, mgd)
         self.step_consts = step_consts
         dev = state.t.device
         self.st = state
@@ -755,7 +739,7 @@ class _ReplayedLM(_EagerLM):
 _REPLAYED = {}
 
 
-def lm_optimize(state: FgState, pg: PackedGraph, vis_H, vis_v, vis_linR, vis_lint, sel_pose,
+def lm_optimize(state: FgState, pg: PackedGraph, vis_H, vis_v, vis_linR, vis_lint,
                 mgd: Optional[MargDense] = None, lambda_initial=1e-5, lambda_factor=10.0,
                 lambda_max=1e5, max_iterations=24, relative_tol=1e-5, absolute_tol=1e-5,
                 poll: Optional[FlagPoll] = None):
@@ -775,7 +759,7 @@ def lm_optimize(state: FgState, pg: PackedGraph, vis_H, vis_v, vis_linR, vis_lin
     as they were once done, as after the JAX ``while_loop``.  The realized
     count is a 0-d device tensor."""
     poll = poll or FlagPoll(blocking=True)
-    lm = _lm_pass(_lm_tensors(state, pg, vis_H, vis_v, vis_linR, vis_lint, sel_pose, mgd),
+    lm = _lm_pass(_lm_tensors(state, pg, vis_H, vis_v, vis_linR, vis_lint, mgd),
                   lambda_initial, (lambda_factor, lambda_max, relative_tol, absolute_tol))
     TRACER.lm_passes += 1
     poll.reset()
@@ -819,7 +803,7 @@ def _body_system(S, v, A, NW: int):
 
 def coupled_rounds_body(poses_buf, disps_buf, damping_buf, intrinsics, target, weight,
                         ii_d, jj_d, mask, t0, n, fg: FgState, pg: PackedGraph,
-                        mgd: MargDense, A, sel_pose, P: int, NW: int, n_iters: int = 2,
+                        mgd: MargDense, A, P: int, NW: int, n_iters: int = 2,
                         eps_damping: float = 1e-7, poll: Optional[FlagPoll] = None):
     """The multi-sensor DBA call of depth_video.py:524-558: reduced camera
     system -> body conversion -> factor-graph LM -> camera dx -> depth
@@ -836,7 +820,7 @@ def coupled_rounds_body(poses_buf, disps_buf, damping_buf, intrinsics, target, w
     lm_its = []
     for it in range(n_iters):
         Hb, vb = _body_system(S, v, A, NW)
-        fg2, (_, lm_it) = lm_optimize(fg, pg, Hb, vb, fg.R, fg.t, sel_pose, mgd, poll=poll)
+        fg2, (_, lm_it) = lm_optimize(fg, pg, Hb, vb, fg.R, fg.t, mgd, poll=poll)
         lm_its.append(lm_it)
         dxb = _se3_local(fg.R, fg.t, fg2.R, fg2.t) * fg.valid[:, None].to(poses_buf.dtype)
         dx_full = torch.zeros((P, 6), dtype=poses_buf.dtype, device=poses_buf.device)
@@ -898,8 +882,7 @@ def marginalize_window_body(poses_buf, disps_buf, damping_buf, intrinsics, marg_
         gnss_mask=pg.gnss_mask & (arW < m),
         odo_mask=pg.odo_mask & (arW < m),
     )
-    H, b, _ = linearize(fg, pgm, Hb, vb, fg.R, fg.t, sel_pose_for(NW, dev), mgd_old,
-                        hold_empty=False)
+    H, b, _ = linearize(fg, pgm, Hb, vb, fg.R, fg.t, mgd_old, hold_empty=False)
 
     # Schur-eliminate rows [0, 15m) on the Jacobi-scaled system (unit
     # diagonal): IMU information spans ~10 orders of magnitude across dims,
@@ -948,17 +931,6 @@ def marg_identity_lin(NW: int, dtype, device) -> torch.Tensor:
     zero elsewhere) with no host->device copy."""
     eye9 = torch.eye(3, dtype=dtype, device=device).reshape(1, 9).expand(NW, 9)
     return torch.cat([eye9, torch.zeros((NW, 12), dtype=dtype, device=device)], dim=1)
-
-
-_SEL_CACHE: dict = {}
-
-
-def sel_pose_for(NW: int, device) -> torch.Tensor:
-    """The static pose selector, uploaded once per device."""
-    key = (NW, str(device))
-    if key not in _SEL_CACHE:
-        _SEL_CACHE[key] = make_sel_pose(NW, device)
-    return _SEL_CACHE[key]
 
 
 # ---------------------------------------------------------------------------

@@ -43,9 +43,9 @@ import torch
 
 from ..utils.config import DBAFusionConfig
 from ..utils.device import FlagPoll, PendingRead, host_wait, rows_at, set_row, to_host, upload
-from .coupled_async import pad_bad_store, restore_bad_store
 from .edge_select import cull_transition, edge_transition, roll_transition
-from .graph import MegaPolls, UpdateStep, _rebuild_edges, _rebuild_inactive
+from .graph import (EDGE_CARRY, MegaPolls, StepPack, UpdateStep, _rebuild_edges,
+                    _rebuild_inactive, prox_fields, read_ints)
 from .motion_filter import gate
 from .video import DepthVideo, move_rows
 
@@ -62,8 +62,8 @@ def visual_step(ustep: UpdateStep, cfg: DBAFusionConfig, video: DepthVideo, edge
     """One frame with no host read (``make_step_kernel``'s step).
 
     The video rows, edge stores and inactive store are updated in place;
-    ``st`` is the carried state (device tensors, see :data:`_CARRY`),
-    ``image`` the (1, H, W, 3) uint8 frame on the device.  With
+    ``st`` is the carried state (:meth:`CovisibleGraph.carry`'s, the gate's
+    keyframe features, ``t1`` and ``prev_cull``: device tensors), ``image`` the (1, H, W, 3) uint8 frame on the device.  With
     ``host_rollup`` the step never rolls (the host does, between steps).
     Returns (new carried state, pack, aux, rounds run masked as (rounds_a,
     rounds_b), masked rounds whose gate was off, a 0-d device count)."""
@@ -188,10 +188,6 @@ def visual_step(ustep: UpdateStep, cfg: DBAFusionConfig, video: DepthVideo, edge
     return state, pack, aux, masked, wasted
 
 
-_CARRY = ("ii", "jj", "age", "e_valid", "ii_i", "jj_i", "i_valid", "bad_ii", "bad_jj",
-          "bad_valid", "kf_fmap", "kf_net", "kf_inp", "t1", "prox_d", "prev_cull")
-
-
 class AsyncPipeline:
     """Streams frames through :func:`visual_step` with a lagged drain."""
 
@@ -237,30 +233,10 @@ class AsyncPipeline:
         """Enter the pipeline from the synchronized host state."""
         sysm = self.sys
         g, v, fe, flt = sysm.graph, sysm.video, sysm.frontend, sysm.filter
-        g._flush()
         dev = v.device
-        E, I = g.e_cap, g.i_cap
-        wf = self.cfg.graph.frontend_window
-        n_prox = 5 * wf + (len(self.cfg.graph.skip_edge) if wf == 5 else 0)
-
-        def pad(a, cap):
-            out = np.zeros(cap, np.int64)
-            out[:len(a)] = a
-            return upload(out, dev)
-
-        if g._host_pack_t1 == fe.t1:  # the last step's distances for this keyframe
-            off = g._prox_offset
-            prox = g._host_pack_dev[off:off + n_prox].float().clone()
-        else:
-            prox = g._step.host_metrics(v, fe.t1)[1:]
         self.state = dict(
-            ii=pad(g.ii, E), jj=pad(g.jj, E), age=pad(g.age, E), e_valid=upload(np.arange(E) < g.n, dev),
-            ii_i=pad(g.ii_inac, I), jj_i=pad(g.jj_inac, I),
-            i_valid=upload(np.arange(I) < len(g.ii_inac), dev),
-            **pad_bad_store(g, dev),
-            kf_fmap=flt._kf_fmap, kf_net=flt._kf_net, kf_inp=flt._kf_inp,
-            t1=upload(np.asarray(fe.t1, np.int64), dev), prox_d=prox,
-            prev_cull=upload(np.asarray(False), dev))
+            **g.carry(fe.t1), kf_fmap=flt.kf_fmap, kf_net=flt.kf_net, kf_inp=flt.kf_inp,
+            t1=upload(np.asarray(fe.t1, np.int64), dev), prev_cull=upload(np.asarray(False), dev))
         if self._wasted is None:
             self._wasted = torch.zeros((), dtype=torch.int64, device=dev)
         self.t1_mirror = fe.t1
@@ -276,7 +252,7 @@ class AsyncPipeline:
         image = np.asarray(image, dtype=np.uint8)
         img = upload(image, v.device)[None]
         state, pack, aux, masked, wasted = visual_step(
-            g._step, self.cfg, v, g.edges, g.t_inac, g.w_inac, self.state, img, flt.feat,
+            g.update_step, self.cfg, v, g.edges, g.t_inac, g.w_inac, self.state, img, flt.feat,
             flt.ctx, g.aux, self.polls, self.host_rollup)
         self.state = state
         g.aux = aux
@@ -291,7 +267,7 @@ class AsyncPipeline:
             # a deliberate drain, so its reads are waits that belong here
             with host_wait():
                 self.sync()
-                sysm.frontend._rollup()
+                sysm.frontend.rollup()
                 self.host_rollups += 1
                 self.activate()
 
@@ -357,26 +333,12 @@ class AsyncPipeline:
         sysm = self.sys
         g, v, fe, flt = sysm.graph, sysm.video, sysm.frontend, sysm.filter
         st = self.state
-        names = ("prev_cull", "t1", "e_valid", "i_valid", "ii", "jj", "age", "ii_i", "jj_i",
-                 "bad_ii", "bad_jj", "bad_valid")
-        flat = to_host(torch.cat([st[k].reshape(-1).to(torch.int64) for k in names]))
-        h, o = {}, 0
-        for k in names:
-            n = st[k].numel()
-            h[k] = flat[o:o + n]
-            o += n
-        n, ni, t1 = int(h["e_valid"].sum()), int(h["i_valid"].sum()), int(h["t1"][0])
-        g.ii, g.jj, g.age = h["ii"][:n], h["jj"][:n], h["age"][:n]
-        g.ii_inac, g.jj_inac = h["ii_i"][:ni], h["jj_i"][:ni]
-        restore_bad_store(g, h)
-        g._perm = np.arange(g.e_cap, dtype=np.int64)
-        g._is_new = np.zeros(g.e_cap, dtype=bool)
-        g._dirty = False
-        g._set_pack(torch.cat([torch.zeros(2, device=v.device), st["prox_d"]]))
-        g._prox_offset = 2
-        g._host_pack_t1 = t1
+        h = read_ints(st, ("prev_cull", "t1", *EDGE_CARRY))  # one read
+        t1 = int(h["t1"][0])
+        g.restore(h)
+        g.set_prox(t1, StepPack(st["prox_d"], prox_fields))
         v.counter = fe.t1 = t1
-        flt._kf_fmap, flt._kf_net, flt._kf_inp = st["kf_fmap"], st["kf_net"], st["kf_inp"]
+        flt.kf_fmap, flt.kf_net, flt.kf_inp = st["kf_fmap"], st["kf_net"], st["kf_inp"]
         if h["prev_cull"][0]:
             # the last step's cull never reached the device (the next step
             # would have applied it): finish it here, as resolve_pending
@@ -387,7 +349,7 @@ class AsyncPipeline:
             g.aux = v.rm_keyframe_aux(g.aux, fe.t1 - 2)
             fe.t1 -= 1
             v.seed_next(fe.t1)
-            g._host_pack_t1 = -(10 ** 6)  # the proximity distances predate the shift
+            g.set_prox(None)  # the proximity distances predate the shift
         self.t1_mirror = fe.t1
         self.active = False
         self.state = None

@@ -35,7 +35,8 @@ from ..fusion.se3np import Pose
 from ..ops import dba
 from ..utils import geodesy
 from ..utils.config import DBAFusionConfig
-from ..utils.device import to_host
+from ..utils.device import to_host, upload
+from .graph import padded
 from .multisensor import MultiSensorState
 from .video import DepthVideo
 
@@ -45,6 +46,9 @@ ODO_NOISE = Noise.sigmas([2.0, 2.0, 2.0])  # depth_video.py:300
 
 class MultiSensorBA:
     """Owns the factor-graph state and drives the coupled iterations."""
+
+    # the window carry's integers a drain reads back (restore_carry)
+    CARRY_INTS = ("o_prev", "cur_mask", "cur_ii", "cur_jj")
 
     def __init__(self, video: DepthVideo, cfg: DBAFusionConfig):
         self.video = video
@@ -83,7 +87,6 @@ class MultiSensorBA:
         self._fg_synced = True
         self._A_dev = None
         self._Tbc12 = None
-        self._lm_stats = None    # realized LM iterations of the last call
         self._fg_rows_np = None  # host state copy that rode the host pack
         self._mgd_cache = None   # ((t0, marginal version), device MargDense)
         self._marg_dev = None    # device-computed MargDense (or None)
@@ -157,22 +160,14 @@ class MultiSensorBA:
     # ------------------------------------------------------------------
     def _edge_args(self, ii, jj, e_cap: int, s0: int):
         P = self.cfg.ba.window
-        n = len(ii)
-        ii_pad = np.zeros(e_cap, dtype=np.int64)
-        jj_pad = np.zeros(e_cap, dtype=np.int64)
-        ii_pad[:n] = np.clip(np.asarray(ii) - s0, 0, P - 1)
-        jj_pad[:n] = np.clip(np.asarray(jj) - s0, 0, P - 1)
-        mask = np.zeros(e_cap, dtype=bool)
-        mask[:n] = True
         d = self.device
-        return (torch.as_tensor(ii_pad, device=d), torch.as_tensor(jj_pad, device=d),
-                torch.as_tensor(mask, device=d))
+        return (torch.as_tensor(padded(np.clip(np.asarray(ii) - s0, 0, P - 1), e_cap), device=d),
+                torch.as_tensor(padded(np.clip(np.asarray(jj) - s0, 0, P - 1), e_cap), device=d),
+                torch.as_tensor(np.arange(e_cap) < len(ii), device=d))
 
     def _gather_rows(self, arr: torch.Tensor, sel: np.ndarray) -> torch.Tensor:
         """Rows ``sel`` of a padded edge array, zero-padded to its length."""
-        sel_pad = np.zeros(arr.shape[0], dtype=np.int64)
-        sel_pad[: len(sel)] = sel
-        return arr[torch.as_tensor(sel_pad, device=arr.device)]
+        return arr[torch.as_tensor(padded(sel, arr.shape[0]), device=arr.device)]
 
     def _vis_hessian(self, ii, jj, target, weight, s0: int, t0: int, t1: int):
         """Device reduced camera system over window [t0, t1) at slot origin
@@ -239,7 +234,7 @@ class MultiSensorBA:
         pgf = dg.pack_graph_flat(self, self.last_t0, self.last_t1, NW)
         if pgf is None:
             return False
-        mgd_old = self._mgd_device(self.last_t0, self.last_t1, NW)
+        mgd_old = self.marginal_on_device(self.last_t0, self.last_t1, NW)
         if mgd_old is None:
             return False
         fgf = dg.pack_state_flat(self, self.last_t0, self.last_t1, NW)
@@ -264,7 +259,7 @@ class MultiSensorBA:
         self._marg_dev = dg.marginalize_window_body(
             v.poses, v.disps, v.damping, v.intrinsics, tgt, wgt, ii_d, jj_d, mask,
             self.last_t0, dg.unflatten_state(blob[:NW * 21], n_old, NW),
-            dg.unflatten_graph(blob[NW * 21:], NW), mgd_old, self._A_block(), m,
+            dg.unflatten_graph(blob[NW * 21:], NW), mgd_old, self.adjoint_block(), m,
             marg_t1 - self.last_t0, P=P, NW=NW, eps_damping=self.cfg.ba.eps_damping)
         self._marg_dev_origin = t0
         self.marg_factor = None
@@ -459,7 +454,7 @@ class MultiSensorBA:
         pgf = dg.pack_graph_flat(self, t0, t1, NW)
         if pgf is None:
             return None
-        mgd = self._mgd_device(t0, t1, NW)
+        mgd = self.marginal_on_device(t0, t1, NW)
         if mgd is None:
             return None
         # one upload for everything the step needs this keyframe: [graph |
@@ -479,9 +474,9 @@ class MultiSensorBA:
         self._fg_key = (t0, t1)
         return dict(pg=dg.unflatten_graph(blob[:G], NW), fg=dg.unflatten_state(blob[G:o], n, NW),
                     sel=idx_d[0].long(), ii=idx_d[1].long(), jj=idx_d[2].long(),
-                    mask=idx_d[3] > 0.5, t0=t0, n=n, mgd=mgd, A=self._A_block())
+                    mask=idx_d[3] > 0.5, t0=t0, n=n, mgd=mgd, A=self.adjoint_block())
 
-    def _mgd_device(self, t0: int, t1: int, NW: int):
+    def marginal_on_device(self, t0: int, t1: int, NW: int):
         """The dense marginal prior on the device, uploaded once per
         marginal (keyed on the marginal's version counter).  None when a key
         falls outside the window (host fallback)."""
@@ -518,22 +513,22 @@ class MultiSensorBA:
             self._fg_state = torch.as_tensor(dg.pack_state_flat(self, t0, t1, NW),
                                              device=self.device)
             self._fg_key = (t0, t1)
-        mgd = self._mgd_device(t0, t1, NW)
+        mgd = self.marginal_on_device(t0, t1, NW)
         if mgd is None:
             return False
         ii_d, jj_d, mask = self._edge_args(self.cur_ii, self.cur_jj, e_cap, t0)
         v = self.video
-        _, _, fg, self._lm_stats = dg.coupled_rounds_body(
+        _, _, fg, _ = dg.coupled_rounds_body(
             v.poses, v.disps, v.damping, v.intrinsics, self.cur_target, self.cur_weight,
             ii_d, jj_d, mask, t0, n, dg.unflatten_state(self._fg_state, n, NW), self._fg_pg,
-            mgd, self._A_block(), dg.sel_pose_for(NW, self.device), P=P, NW=NW,
-            n_iters=self.cfg.ba.lm_iters, eps_damping=self.cfg.ba.eps_damping)
+            mgd, self.adjoint_block(), P=P, NW=NW, n_iters=self.cfg.ba.lm_iters,
+            eps_damping=self.cfg.ba.eps_damping)
         self._fg_state = dg.flatten_state(fg)
         self._fg_synced = False
         self._fg_rows_np = None  # a stashed copy no longer matches the state
         return True
 
-    def _A_block(self) -> torch.Tensor:
+    def adjoint_block(self) -> torch.Tensor:
         """Cached device copy of the camera->body tangent adjoint
         (fusion/coupling.py ba2fg_block); Tbc is fixed after init."""
         if self._A_dev is None:
@@ -543,7 +538,7 @@ class MultiSensorBA:
                                           device=self.device)
         return self._A_dev
 
-    def _Tbc12_dev(self) -> torch.Tensor:
+    def tbc12_device(self) -> torch.Tensor:
         """Cached device copy of the body<-camera extrinsic as 12 floats
         [R(9)|t(3)], for the asynchronous step's pose seed
         (slam/coupled_async.py); Tbc is fixed after init."""
@@ -552,10 +547,68 @@ class MultiSensorBA:
                                           dtype=torch.float32, device=self.device)
         return self._Tbc12
 
-    def stash_state_rows(self, rows_flat_np):
-        """Host copy of the flat window state that rode the host-pack read;
-        sync_host consumes it with no extra read."""
-        self._fg_rows_np = np.asarray(rows_flat_np, np.float64)
+    # ------------------------------------------------------------------
+    def take_fused(self, target, weight, fg_flat: torch.Tensor, rows: np.ndarray):
+        """Take over a fused coupled step's selection targets and weights and
+        solved window state, whose host copy ``rows`` rode its pack read."""
+        self.cur_target, self.cur_weight = target, weight
+        self._fg_state = fg_flat
+        self._fg_synced = False
+        self._fg_rows_np = np.asarray(rows, np.float64).reshape(-1)
+        self.sync_host()
+
+    def has_device_window(self) -> bool:
+        """The solved window state is on the device, for the current window."""
+        return self._fg_state is not None and self._fg_key == (self.last_t0, self.last_t1)
+
+    def carry(self, cap: int) -> dict:
+        """The window's device carry for the asynchronous coupled step: the
+        window state (a copy), its origin, the device marginal, the last
+        selection padded to ``cap`` with its targets and weights.  Builds the
+        run-constant operands too, outside the steady state."""
+        NW = self.cfg.sensors.fg_cap
+        mgd = self.marginal_on_device(self.last_t0, self.last_t1, NW)
+        if mgd is None:
+            raise RuntimeError("coupled async: the marginal does not fit the device window")
+        up = lambda a: upload(a, self.device)  # noqa: E731
+        out = dict(fg_flat=self._fg_state.reshape(-1).clone(),
+                   o_prev=torch.as_tensor(np.int64(self.last_t0), device=self.device),
+                   mgd_mask=mgd.mask, mgd_lin=mgd.lin, mgd_H=mgd.H, mgd_v=mgd.v,
+                   cur_ii=up(padded(self.cur_ii, cap)), cur_jj=up(padded(self.cur_jj, cap)),
+                   cur_mask=up(np.arange(cap) < len(self.cur_ii)),
+                   cur_target=self.cur_target, cur_weight=self.cur_weight)
+        self.tbc12_device()
+        self.adjoint_block()
+        return out
+
+    def restore_carry(self, st: dict, h: dict, t1: int, culled: Optional[int] = None):
+        """Take back :meth:`carry` at a drain (``h``: the host copies of
+        ``CARRY_INTS``), numbered at keyframe count ``t1`` (pre-cull).  The
+        row of ``culled``, a keyframe the device culled but never removed,
+        leaves the window state (merge_keyframe's deletion), at one read."""
+        NW = self.cfg.sensors.fg_cap
+        o = int(h["o_prev"][0])
+        self.last_t0 = o
+        self.last_t1 = t1
+        if culled is not None:
+            r = culled - o
+            rows = to_host(st["fg_flat"]).reshape(NW, 21).astype(np.float64)
+            rows[r:-1] = rows[r + 1:].copy()
+            self._fg_rows_np = rows.reshape(-1)
+            self._fg_key = (o, t1 - 1)
+            self._fg_state = torch.as_tensor(rows.reshape(-1), dtype=torch.float32,
+                                             device=self.device)
+        else:
+            self._fg_state = st["fg_flat"]
+            self._fg_key = (o, t1)
+            self._fg_rows_np = None
+        self._fg_synced = False
+        self._marg_dev = dg.MargDense(st["mgd_mask"], st["mgd_lin"], st["mgd_H"], st["mgd_v"])
+        self._marg_dev_origin = o
+        self._mgd_cache = None
+        nsel = int(h["cur_mask"].sum())
+        self.cur_ii, self.cur_jj = h["cur_ii"][:nsel], h["cur_jj"][:nsel]
+        self.cur_target, self.cur_weight = st["cur_target"], st["cur_weight"]
 
     def sync_host(self):
         """Bring the device window states back into the host bookkeeping
@@ -607,8 +660,7 @@ class MultiSensorBA:
         snap = copy.copy(self)
         snap.__dict__.update(video=None, device=None, _marg_dev=None, _fg_state=None,
                              _fg_pg=None, _fg_key=None, _A_dev=None, _Tbc12=None,
-                             _fg_synced=True, _lm_stats=None, _fg_rows_np=None,
-                             _mgd_cache=None)
+                             _fg_synced=True, _fg_rows_np=None, _mgd_cache=None)
         for k in ("cur_target", "cur_weight"):
             if getattr(snap, k) is not None:
                 setattr(snap, k, to_host(getattr(snap, k)))

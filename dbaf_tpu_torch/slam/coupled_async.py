@@ -68,33 +68,13 @@ from ..fusion import preint_device as pint
 from ..ops import lie
 from ..ops import projective as pj
 from ..utils.config import DBAFusionConfig
-from ..utils.device import (FlagPoll, PendingRead, device_const, rows_at, set_row, to_host,
-                            upload)
+from ..utils.device import FlagPoll, PendingRead, device_const, rows_at, set_row, to_host, upload
 from ..utils.profiling import TRACER
-from .coupled_fused import RoundPolls, run_coupled_rounds
+from .coupled_fused import RoundPolls, pack_fields, run_coupled_rounds
 from .edge_select import cull_transition, edge_transition, roll_transition
-from .graph import EdgeArrays, EdgeSets, UpdateStep, _rebuild_edges, _rebuild_inactive
+from .graph import (EDGE_CARRY, EdgeArrays, EdgeSets, StepFields, StepPack, UpdateStep,
+                    _rebuild_edges, _rebuild_inactive, prox_fields, read_ints)
 from .video import DepthVideo, slot_keyed
-
-BAD_CAP = 64  # quarantined-edge store capacity (CovisibleGraph.filter_edges)
-
-
-def pad_bad_store(g, dev) -> dict:
-    """The graph's quarantined edges as the steps' carried store: the first
-    ``BAD_CAP`` of them, padded, with their valid mask."""
-    nb = min(len(g.ii_bad), BAD_CAP)
-    out = np.zeros((2, BAD_CAP), np.int64)
-    out[0, :nb], out[1, :nb] = g.ii_bad[:nb], g.jj_bad[:nb]
-    return dict(bad_ii=upload(out[0], dev), bad_jj=upload(out[1], dev),
-                bad_valid=upload(np.arange(BAD_CAP) < nb, dev))
-
-
-def restore_bad_store(g, h: dict):
-    """Write the carried store back into the graph at a drain (``h``: the
-    drain's host copies of ``bad_ii``, ``bad_jj`` and ``bad_valid``); the
-    steps' rollups shifted and pruned it."""
-    nb = int(h["bad_valid"].sum())
-    g.ii_bad, g.jj_bad = h["bad_ii"][:nb], h["bad_jj"][:nb]
 
 
 def _with_row(arr: torch.Tensor, idx: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
@@ -281,14 +261,13 @@ def coupled_step(ustep: UpdateStep, cfg: DBAFusionConfig, NW: int, video: DepthV
     ``make_coupled_step``).
 
     The video rows, edge stores and inactive store are updated in place;
-    ``st`` is the carried index/solve state (device tensors, see
-    ``_CARRY``); ``pgf`` the uploaded blob [packed factor graph | h0 | t1].
+    ``st`` is the carried state (``CovisibleGraph.carry``'s,
+    ``MultiSensorBA.carry``'s and ``prev_cull``: device tensors); ``pgf`` the uploaded blob [packed factor graph | h0 | t1].
     Returns (new carried state, pack, trajectory 7-vec, aux, device
-    counters, rounds run masked, roll_out), with the pack laid out as the
-    fused step's host pack plus the window origin: [cull, d, prox...,
-    hyst(7), window state(NW*21), pose(12), t0_c]; ``roll_out`` (with
-    ``cfg.save_pkl``, else None) holds rows [0, rollup_shift) as [pose |
-    disparity] before a rollup could move them."""
+    counters, rounds run masked, roll_out), with the pack the fused step's
+    (``coupled_fused.build_pack``); ``roll_out`` (with ``cfg.save_pkl``,
+    else None) holds rows [0, rollup_shift) as [pose | disparity] before a
+    rollup could move them."""
     gc, fc = cfg.graph, cfg.frontend
     P = cfg.ba.window
     wf = gc.frontend_window
@@ -485,14 +464,13 @@ def coupled_step(ustep: UpdateStep, cfg: DBAFusionConfig, NW: int, video: DepthV
     src = torch.clamp(t1 - 1, 0, P - 1)
     set_row(video.poses, slot, rows_at(video.poses, src))
     set_row(video.disps, slot, rows_at(video.disps, src).mean().expand(video.disps.shape[1:]))
-    wtb = res.host_pack[-12:]
+    fields = pack_fields(res.pack, cfg)
+    wtb = fields.pose
     traj7 = torch.cat([wtb[9:12], lie.matrix_to_quat(wtb[:9].reshape(3, 3))]).to(torch.float32)
-    pack = torch.cat([res.host_pack, t0_c.to(torch.float32).reshape(1)])
-    n_prox = 5 * wf + n_skip
     state = dict(
         ii=ii2, jj=jj2, age=age3, e_valid=e_valid2, ii_i=ii_i2, jj_i=jj_i2, i_valid=i_valid2,
         bad_ii=bad_ii, bad_jj=bad_jj, bad_valid=bad_valid,
-        prox_d=res.host_pack[2:2 + n_prox], fg_flat=res.fg_flat, o_prev=t0_c,
+        prox_d=fields.prox, fg_flat=res.fg_flat, o_prev=t0_c,
         mgd_mask=mgd2.mask, mgd_lin=mgd2.lin, mgd_H=mgd2.H, mgd_v=mgd2.v,
         cur_ii=ii_full[order], cur_jj=jj_full[order], cur_mask=mask_d,
         cur_target=res.cur_target, cur_weight=res.cur_weight,
@@ -501,14 +479,7 @@ def coupled_step(ustep: UpdateStep, cfg: DBAFusionConfig, NW: int, video: DepthV
     # [realized LM iterations, LM passes, rounds undone by this cull]
     stats = torch.stack([res.lm_stats.sum(), torch.count_nonzero(res.lm_stats),
                          cull.long() * res.masked])
-    return state, pack, traj7, aux, stats, res.masked, roll_out
-
-
-_CARRY = (
-    "ii", "jj", "age", "e_valid", "ii_i", "jj_i", "i_valid", "bad_ii", "bad_jj", "bad_valid",
-    "prox_d", "fg_flat", "o_prev", "mgd_mask", "mgd_lin", "mgd_H", "mgd_v",
-    "cur_ii", "cur_jj", "cur_mask", "cur_target", "cur_weight", "prev_cull",
-)
+    return state, res.pack, traj7, aux, stats, res.masked, roll_out
 
 
 class CoupledAsync:
@@ -545,8 +516,7 @@ class CoupledAsync:
             and not cfg.upsample and not cfg.stereo and not fe.video.has_depth
             and coupled is not None
             and not coupled.reinit
-            and coupled._fg_state is not None
-            and coupled._fg_key == (coupled.last_t0, coupled.last_t1)
+            and coupled.has_device_window()
             and coupled.cur_target is not None
             # the last synchronous keyframe must NOT have culled: the host
             # then keeps its window state and last_t1 in pre-cull numbering
@@ -574,41 +544,11 @@ class CoupledAsync:
             raise ValueError(
                 "coupled async rollup needs rollup_start - rollup_shift >= active_window "
                 f"({fc.rollup_start} - {fc.rollup_shift} < {fc.active_window})")
-        g._flush()
+        g.flush()
         coupled.sync_host()
         dev = v.device
-        E, I = g.e_cap, g.i_cap
-        NW = cfg.sensors.fg_cap
-        t = lambda a: torch.as_tensor(np.asarray(a), device=dev)  # noqa: E731
-
-        def pad(a, cap):
-            out = np.zeros(cap, np.int64)
-            out[:len(a)] = a
-            return t(out)
-
-        nsel = len(coupled.cur_ii)
-        mgd = coupled._mgd_device(coupled.last_t0, coupled.last_t1, NW)
-        if mgd is None:
-            raise RuntimeError("coupled async: the marginal does not fit the device window")
-        wf = cfg.graph.frontend_window
-        n_skip = len(cfg.graph.skip_edge) if wf == 5 else 0
-        off = g._prox_offset
-        self.state = dict(
-            ii=pad(g.ii, E), jj=pad(g.jj, E), age=pad(g.age, E), e_valid=t(np.arange(E) < g.n),
-            ii_i=pad(g.ii_inac, I), jj_i=pad(g.jj_inac, I),
-            i_valid=t(np.arange(I) < len(g.ii_inac)),
-            **pad_bad_store(g, dev),
-            prox_d=g._host_pack_dev[off:off + 5 * wf + n_skip].float().clone(),
-            fg_flat=coupled._fg_state.reshape(-1).clone(), o_prev=t(np.int64(coupled.last_t0)),
-            mgd_mask=mgd.mask, mgd_lin=mgd.lin, mgd_H=mgd.H, mgd_v=mgd.v,
-            cur_ii=pad(coupled.cur_ii, E + I), cur_jj=pad(coupled.cur_jj, E + I),
-            cur_mask=t(np.arange(E + I) < nsel),
-            cur_target=coupled.cur_target, cur_weight=coupled.cur_weight,
-            prev_cull=t(np.bool_(False)),
-        )
-        # run-constant device operands, built now, outside the steady state
-        coupled._Tbc12_dev()
-        coupled._A_block()
+        self.state = dict(**g.carry(fe.t1), **coupled.carry(g.e_cap + g.i_cap),
+                          prev_cull=torch.as_tensor(np.bool_(False), device=dev))
         if self._stats is None:
             self._stats = torch.zeros(3, dtype=torch.int64, device=dev)
         self.active = True
@@ -637,8 +577,8 @@ class CoupledAsync:
             raise RuntimeError("coupled async: the factor pack exceeds its capacity")
         blob = upload(np.concatenate([pgf, np.asarray([h0, t1], np.float32)]), v.device)
         state, pack, traj7, aux, stats, masked, roll_out = coupled_step(
-            g._step, cfg, NW, v, g.edges, g.t_inac, g.w_inac, self.state, g.aux, blob,
-            coupled._Tbc12_dev(), coupled._A_block(), fe.iters1, fe.iters2, self.polls)
+            g.update_step, cfg, NW, v, g.edges, g.t_inac, g.w_inac, self.state, g.aux, blob,
+            coupled.tbc12_device(), coupled.adjoint_block(), fe.iters1, fe.iters2, self.polls)
         # enqueued ahead of the pack's copy, so the drain's wait covers it
         retired = PendingRead(roll_out) if roll_out is not None else None
         self.state = state
@@ -658,11 +598,6 @@ class CoupledAsync:
             self._host_roll(cfg.frontend.rollup_shift, retired)
         # the keyframe count the carried state is numbered at
         self._last_t1 = fe.t1
-        # the pack stays on the device, laid out as the fused step's, so a
-        # later host consumer parses it alike
-        g._set_pack(pack, tail=NW * 21, dec=13)
-        g._host_pack_t1 = fe.t1
-        g._prox_offset = 2
         g.mega_count += 1
         fe.trajectory.append((cur_t, traj7))
 
@@ -691,11 +626,11 @@ class CoupledAsync:
         p = self.pending.pop(0)
         t1_at, cur_t, frame = p.meta
         with TRACER("drain", cause=frame):
-            pack = p.read()
+            pack = pack_fields(p.read(), self.cfg)
             self._resolve_archives(wait=False)
             self._refresh_mirrors_from_pack(pack, t1_at)
             self._monitor_from_pack(pack, t1_at, cur_t)
-            culled = bool(pack[0] > 0.5)
+            culled = bool(pack.cull > 0.5)
             fe = self.fe
             fe.update_rounds += fe.iters1 + (0 if culled else fe.iters2)
             if culled:
@@ -706,39 +641,36 @@ class CoupledAsync:
                 self._host_apply_cull(fe.t1 - 3)
             self._drained_cull = culled
 
-    def _parse_pack(self, pack: np.ndarray, t1_at: int):
-        """The drained pack's tail: [... | state(NW*21) | pose(12) | t0_c].
-        The step's keyframe count is the host's t1 at dispatch, less the
-        PREVIOUS pack's cull (applied at the step's start), less the step's
-        own rollup; its post-roll numbering is the host's at drain time."""
-        NW = self.cfg.sensors.fg_cap
+    def _window_t1(self, t1_at: int) -> int:
+        """A drained step's keyframe count: the host's t1 at dispatch, less
+        the PREVIOUS pack's cull (applied at the step's start), less the
+        step's own rollup; its post-roll numbering is the host's at drain
+        time."""
         fc = self.cfg.frontend
-        t0_c = int(pack[-1])
-        rows = pack[-(13 + NW * 21):-13].reshape(NW, 21)
         t1_k = t1_at - int(self._drained_cull)
         if t1_k > fc.rollup_start:
             t1_k -= fc.rollup_shift
-        return t0_c, rows, t1_k
+        return t1_k
 
-    def _monitor_from_pack(self, pack: np.ndarray, t1_at: int, cur_t: float):
-        """Feed the monitor from a drained pack: the decision-time body pose
-        and the keyframe's solved gyro bias ride it, so the rows cost no
-        read; they lag the solve by one keyframe.  A summary at each rollup."""
+    def _monitor_from_pack(self, pack: StepFields, t1_at: int, cur_t: float):
+        """Feed the monitor from a drained pack (its fields): the
+        decision-time body pose and the keyframe's solved gyro bias ride it,
+        so the rows cost no read; they lag the solve by one keyframe.  A
+        summary at each rollup."""
         mon = self.fe.monitor
         if mon is None:
             return
         NW = self.cfg.sensors.fg_cap
-        t0_c, rows, t1_k = self._parse_pack(pack, t1_at)
-        wtb = pack[-13:-1]
+        t0_c, t1_k = int(pack.t0), self._window_t1(t1_at)
         T = np.eye(4)
-        T[:3, :3] = wtb[:9].reshape(3, 3)
-        T[:3, 3] = wtb[9:12]
-        mon.record_keyframe(cur_t, T, gyro_bias=rows[int(np.clip(t1_k - 1 - t0_c, 0, NW - 1)),
-                                                     18:21])
+        T[:3, :3] = pack.pose[:9].reshape(3, 3)
+        T[:3, 3] = pack.pose[9:12]
+        mon.record_keyframe(cur_t, T, gyro_bias=pack.rows[int(np.clip(t1_k - 1 - t0_c, 0, NW - 1)),
+                                                          18:21])
         if t1_at - int(self._drained_cull) > self.cfg.frontend.rollup_start:
             mon.dump_summary()
 
-    def _refresh_mirrors_from_pack(self, pack: np.ndarray, t1_at: int):
+    def _refresh_mirrors_from_pack(self, pack: StepFields, t1_at: int):
         """Mirror the drained pack's solved window into the host
         MultiSensorState (wTbs/vs/bs), the asynchronous counterpart of the
         synchronous flow's sync_host at no extra read: it keeps the ZUPT
@@ -749,10 +681,10 @@ class CoupledAsync:
         from ..fusion.se3np import Pose
 
         ms = self.fe.coupled.state
-        t0_c, rows, t1_k = self._parse_pack(pack, t1_at)
+        t0_c, t1_k = int(pack.t0), self._window_t1(t1_at)
         n = len(ms)
         for i in range(max(t0_c, 0), min(t1_k, n)):
-            row = np.asarray(rows[i - t0_c], np.float64)
+            row = np.asarray(pack.rows[i - t0_c], np.float64)
             ms.wTbs[i] = Pose(row[:9].reshape(3, 3), row[9:12])
             ms.vs[i] = row[12:15]
             ms.bs[i] = row[15:21]
@@ -808,7 +740,6 @@ class CoupledAsync:
             return
         fe = self.fe
         g, v, coupled = fe.graph, fe.video, fe.coupled
-        NW = self.cfg.sensors.fg_cap
         st = self.state
         # the carried state is numbered at the LAST step's t1; fe.t1 is one
         # higher when the drain fires from inside _update (reinit), where
@@ -819,53 +750,18 @@ class CoupledAsync:
         # prev_cull, finished below; its monitor row is recorded here (a
         # read the drain makes only with the monitor on)
         if fe.monitor is not None and self.pending:
-            self._monitor_from_pack(self.pending[-1].read(), *self.pending[-1].meta[:2])
+            self._monitor_from_pack(pack_fields(self.pending[-1].read(), self.cfg),
+                                    *self.pending[-1].meta[:2])
         self.pending.clear()
         self._resolve_archives(wait=True)
-        names = ("prev_cull", "e_valid", "i_valid", "ii", "jj", "age", "ii_i", "jj_i", "o_prev",
-                 "cur_mask", "cur_ii", "cur_jj", "bad_ii", "bad_jj", "bad_valid")
-        flat = to_host(torch.cat([st[k].reshape(-1).to(torch.int64) for k in names]))
-        h, o = {}, 0
-        for k in names:
-            n = st[k].numel()
-            h[k] = flat[o:o + n]
-            o += n
+        # one read of the carried integers restores the graph and the window
+        h = read_ints(st, ("prev_cull", *EDGE_CARRY, *coupled.CARRY_INTS))
         pend_cull = bool(h["prev_cull"][0])
-        n, ni = int(h["e_valid"].sum()), int(h["i_valid"].sum())
-        g.ii, g.jj, g.age = h["ii"][:n], h["jj"][:n], h["age"][:n]
-        g.ii_inac, g.jj_inac = h["ii_i"][:ni], h["jj_i"][:ni]
-        restore_bad_store(g, h)
-        g._perm = np.arange(g.e_cap, dtype=np.int64)
-        g._is_new = np.zeros(g.e_cap, dtype=bool)
-        g._dirty = False
-        g._prox_offset = 2
-        g._host_pack_t1 = t1 if self.steps else -(10 ** 6)
-
-        o = int(h["o_prev"][0])
-        coupled.last_t0 = o
-        coupled.last_t1 = t1  # pre-cull numbering, as the host flow keeps it
-        if pend_cull:
-            # drop the culled window row (merge_keyframe's list deletion) so
-            # sync_host maps the rows onto the merged state
-            rows = to_host(st["fg_flat"]).reshape(NW, 21).astype(np.float64)
-            rows[t1 - 2 - o:-1] = rows[t1 - 1 - o:].copy()
-            coupled._fg_rows_np = rows.reshape(-1)
-            coupled._fg_key = (o, t1 - 1)
-            coupled._fg_state = torch.as_tensor(rows.reshape(-1), dtype=torch.float32,
-                                                device=v.device)
-        else:
-            coupled._fg_state = st["fg_flat"]
-            coupled._fg_key = (o, t1)
-            coupled._fg_rows_np = None
-        coupled._fg_synced = False
-        coupled._marg_dev = dg.MargDense(st["mgd_mask"], st["mgd_lin"], st["mgd_H"], st["mgd_v"])
-        coupled._marg_dev_origin = o
-        coupled._mgd_cache = None
-        nsel = int(h["cur_mask"].sum())
-        coupled.cur_ii = h["cur_ii"][:nsel]
-        coupled.cur_jj = h["cur_jj"][:nsel]
-        coupled.cur_target = st["cur_target"]
-        coupled.cur_weight = st["cur_weight"]
+        g.restore(h)
+        g.set_prox(t1 if self.steps else None, StepPack(st["prox_d"], prox_fields))
+        # pre-cull numbering, as the host flow keeps it; a pending cull's
+        # keyframe leaves the window state
+        coupled.restore_carry(st, h, t1, culled=t1 - 2 if pend_cull else None)
         if pend_cull:
             # the device never applied its own last cull (the next step
             # would have): finish it on the host, as the synchronous flow's
@@ -886,7 +782,7 @@ class CoupledAsync:
             fe.t1 -= 1
             v.counter = fe.t1
             v.seed_next(fe.t1)
-            g._host_pack_t1 = -(10 ** 6)  # the prox pack predates the shift
+            g.set_prox(None)  # the distances predate the shift
             self.culls += 1
             fe.culls += 1
         if self.steps:

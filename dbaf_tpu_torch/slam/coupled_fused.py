@@ -9,8 +9,10 @@ distance + translation hysteresis, dbaf_frontend.py:317-336), then
 gates the rounds with ``lax.cond`` inside one ``fori_loop``; here they are
 a Python loop; the decision goes to a flag poll, made only when rounds
 follow it.  Everything else the host needs -- the cull pack, the
-hysteresis norms, the window state rows and the post-``rounds_a`` body
-pose of the new keyframe -- comes back in one packed read at the end.
+hysteresis norms, the window state rows, the post-``rounds_a`` body pose of
+the new keyframe and the window origin -- comes back in one packed read at
+the end, laid out by :func:`build_pack` and cut apart by :func:`pack_fields`
+(the asynchronous step, ``slam/coupled_async.py``, writes the same pack).
 """
 
 from __future__ import annotations
@@ -24,12 +26,33 @@ from ..ops import lie
 from ..utils.config import DBAFusionConfig
 from ..utils.device import FlagPoll, clip, rows_at
 from ..utils.profiling import TRACER
-from .graph import EdgeSets, UpdateStep, corr_operands
+from .graph import EdgeSets, StepFields, UpdateStep, corr_operands, metrics_fields, n_prox
 from .video import DepthVideo
 
 
+def build_pack(cull, d, prox, hyst, fg_flat, pose, t0) -> torch.Tensor:
+    """The coupled step's pack on the device: [cull, d, prox..., hyst(7),
+    window state(NW*21), pose(12), t0].  ``cull`` is a 0-d bool, ``d`` a
+    0-d distance, ``t0`` the window origin (an int or a 0-d tensor)."""
+    f32 = torch.float32
+    t0 = (t0.to(f32).reshape(1) if isinstance(t0, torch.Tensor)
+          else torch.full((1,), float(t0), dtype=f32, device=d.device))
+    return torch.cat([cull.to(f32).reshape(1), d.reshape(1), prox, hyst, fg_flat, pose, t0])
+
+
+def pack_fields(x, cfg: DBAFusionConfig) -> StepFields:
+    """The fields of a :func:`build_pack` pack, on the device tensor (as
+    views) or on its host copy alike."""
+    NW = cfg.sensors.fg_cap
+    h = 2 + n_prox(cfg)       # the hysteresis norms' start
+    r = h + 7                 # the window state's
+    p = r + NW * 21           # the pose's
+    return StepFields(cull=x[0], d=x[1], prox=x[2:h], hyst=x[h:r],
+                      rows=x[r:p].reshape(NW, 21), pose=x[p:p + 12], t0=x[p + 12])
+
+
 class CoupledStepResult(NamedTuple):
-    host_pack: torch.Tensor  # [cull, d, prox..., hyst(7), window state(NW*21), pose(12)]
+    pack: torch.Tensor       # build_pack's layout
     cur_target: torch.Tensor
     cur_weight: torch.Tensor
     fg_flat: torch.Tensor    # (NW*21,) window state
@@ -81,7 +104,6 @@ def run_coupled_rounds(step: UpdateStep, cfg: DBAFusionConfig, video: DepthVideo
     dev = video.poses.device
     fg_t0, n_fg = prep["t0"], prep["n"]
     fg = prep["fg"]
-    sel_pose = dg.sel_pose_for(NW, dev)
     # round-invariant correlation operands and context features
     corr_prep = corr_operands(cfg, video, ii, jj)
     inp_e = video.feature_rows("inps", ii)
@@ -103,7 +125,7 @@ def run_coupled_rounds(step: UpdateStep, cfg: DBAFusionConfig, video: DepthVideo
             _, _, fg, its = dg.coupled_rounds_body(
                 video.poses, video.disps, video.damping, video.intrinsics, cur_target,
                 cur_weight, prep["ii"], prep["jj"], prep["mask"], fg_t0, n_fg, fg, prep["pg"],
-                prep["mgd"], prep["A"], sel_pose, P=P, NW=NW, n_iters=cfg.ba.lm_iters,
+                prep["mgd"], prep["A"], P=P, NW=NW, n_iters=cfg.ba.lm_iters,
                 eps_damping=cfg.ba.eps_damping, poll=polls.lm)
         lm_stats.append(torch.stack(its))
 
@@ -113,7 +135,7 @@ def run_coupled_rounds(step: UpdateStep, cfg: DBAFusionConfig, video: DepthVideo
     # last round's pre-solve pack, hysteresis on the post-solve poses, the
     # out-of-range candidate slots masked like the host's k0 slice
     # (lo = t1 - 10 past ten keyframes, else t1 - 6)
-    d = pack[0]
+    d = metrics_fields(pack).d
     lo = t1 - 10 + 4 * (t1 <= 10)
     k0 = clip(lo, 0, 1 << 30) - (t1 - 10)
     valid = torch.arange(7, device=dev) >= k0
@@ -149,7 +171,7 @@ def run_coupled_rounds(step: UpdateStep, cfg: DBAFusionConfig, video: DepthVideo
             for r in range(rounds_a, rounds_a + rounds_b):
                 one(r)
     fg_flat = dg.flatten_state(fg)
-    host_pack = torch.cat([cull.to(torch.float32).reshape(1), d.reshape(1), pack[1:],
-                           hyst_norms(video.poses, t1, P), fg_flat, wtb])
-    return CoupledStepResult(host_pack, cur_target, cur_weight, fg_flat, torch.stack(lm_stats),
+    out = build_pack(cull, d, metrics_fields(pack).prox, hyst_norms(video.poses, t1, P), fg_flat,
+                     wtb, fg_t0)
+    return CoupledStepResult(out, cur_target, cur_weight, fg_flat, torch.stack(lm_stats),
                              cull, masked)

@@ -212,7 +212,7 @@ class Frontend:
         self.trajectory.append((t, np.concatenate([T.t, q]).astype(np.float32)))
 
     # ------------------------------------------------------------------
-    def _rollup(self):
+    def rollup(self):
         """Shift the window down (dbaf_frontend.py:253-257).  It is index
         bookkeeping, so it moves ahead of the update (the reference
         interleaves it mid-keyframe)."""
@@ -287,7 +287,7 @@ class Frontend:
         if v.has_depth:  # RGB-D: seed from the sensor (dbaf_frontend.py:247-248)
             v.seed_depth(self.t1 - 1)
 
-        self._rollup()
+        self.rollup()
         if not multisensor and self.monitor is None:
             self._update_visual_fused(cur_t)
             return
@@ -304,7 +304,7 @@ class Frontend:
             self.update_rounds += self.iters1 + (0 if culled else self.iters2)
             # trajectory row from the post-iters1 state (the reference
             # writes it before the keyframe removal, dbaf_frontend.py:261-274)
-            dec = g.dec_pose
+            dec = g.host_pack.pose
             self._write_traj_row(cur_t, Pose(dec[:9].reshape(3, 3).astype(np.float64),
                                              dec[9:12].astype(np.float64)))
             self._monitor_keyframe(cur_t)
@@ -377,7 +377,7 @@ class Frontend:
         # came with the update's pack
         pack = g.host_pack
         if pack is not None and not self.did_rollup:
-            d = float(pack[g._prox_offset - 1])
+            d = float(pack.d)
         else:
             d = float(v.distance([self.t1 - 3], [self.t1 - 2], beta=self.beta)[0])
         cull = d < self.keyframe_thresh
@@ -385,7 +385,7 @@ class Frontend:
             # translation hysteresis (dbaf_frontend.py:319-325): candidates
             # t1-10..t1-4 (the immediate neighbor t1-3 is excluded)
             lo = self.t1 - 10 if self.t1 > 10 else self.t1 - 6
-            hyst = g.hyst_norms
+            hyst = None if pack is None else pack.hyst
             if hyst is not None and not self.did_rollup:
                 cam_t = hyst[max(lo, 0) - (self.t1 - 10):7]
             else:

@@ -17,7 +17,8 @@ its plain version on the CPU) where the feature grid holds whole int8 tiles.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from functools import partial
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -28,14 +29,90 @@ from ..ops import dba, lie
 from ..ops import projective as pj
 from ..train.unroll import upsample_disp
 from ..utils.config import DBAFusionConfig
-from ..utils.device import FlagPoll, clip, device_const, rows_at, set_row, to_host
+from ..utils.device import FlagPoll, clip, device_const, rows_at, set_row, to_host, upload
 from ..utils.profiling import TRACER
 from .video import DepthVideo
+
+
+BAD_CAP = 64  # the asynchronous steps' quarantined-edge store (CovisibleGraph.filter_edges)
+
+# the edge stores' device carry (CovisibleGraph.carry), the integers a drain reads back
+EDGE_CARRY = ("ii", "jj", "age", "e_valid", "ii_i", "jj_i", "i_valid", "bad_ii", "bad_jj",
+              "bad_valid")
 
 
 class UpdateResult(NamedTuple):
     host_pack: torch.Tensor  # [cull..., prox dists...] on the device
     traj_row: Optional[torch.Tensor]  # camera-to-world 7-vec (mega step)
+
+
+class StepFields(NamedTuple):
+    """A keyframe step's packed results by name; None where its layout has
+    no such field."""
+    cull: Any = None   # 1.0 where the keyframe culls
+    d: Any = None      # the cull flow distance
+    prox: Any = None   # the next keyframe's proximity candidate distances
+    hyst: Any = None   # (7,) translation-hysteresis norms (coupled)
+    rows: Any = None   # (NW, 21) solved window state (coupled)
+    pose: Any = None   # [R(9)|t(3)] body pose of the new keyframe after rounds_a (coupled)
+    t0: Any = None     # the window origin (coupled)
+
+
+def metrics_fields(x) -> StepFields:
+    """:meth:`UpdateStep.host_metrics`' pack: [d, prox...]."""
+    return StepFields(d=x[0], prox=x[1:])
+
+
+def mega_fields(x) -> StepFields:
+    """:meth:`UpdateStep.mega`'s pack: [cull, d, prox...]."""
+    return StepFields(cull=x[0], d=x[1], prox=x[2:])
+
+
+def prox_fields(x) -> StepFields:
+    """A pipeline's carried proximity distances alone."""
+    return StepFields(prox=x)
+
+
+class StepPack:
+    """A step's packed results on the device, cut into :class:`StepFields`
+    by ``layout`` (which slices the device tensor, as views, and its host
+    copy alike); the host copy is read once, on first use."""
+
+    def __init__(self, dev: torch.Tensor, layout: Callable[..., StepFields]):
+        self.dev = dev
+        self.layout = layout
+        self._host = None
+
+    def on_device(self) -> StepFields:
+        return self.layout(self.dev)
+
+    def on_host(self) -> StepFields:
+        if self._host is None:
+            self._host = self.layout(to_host(self.dev))
+        return self._host
+
+
+def n_prox(cfg: DBAFusionConfig) -> int:
+    """The number of proximity candidate distances a step computes for the
+    next keyframe (:meth:`UpdateStep.host_metrics`)."""
+    wf = cfg.graph.frontend_window
+    return 5 * wf + (len(cfg.graph.skip_edge) if wf == 5 else 0)
+
+
+def padded(arr, cap: int) -> np.ndarray:
+    """The first ``cap`` entries of an int64 array, zero-padded to ``cap``."""
+    out = np.zeros(cap, dtype=np.int64)
+    n = min(len(arr), cap)
+    out[:n] = arr[:n]
+    return out
+
+
+def read_ints(st: dict, names) -> dict:
+    """The integer and bool tensors ``names`` of ``st`` as int64 host
+    arrays, flattened, in one read."""
+    flat = to_host(torch.cat([st[k].reshape(-1).to(torch.int64) for k in names]))
+    ends = np.cumsum([st[k].numel() for k in names])
+    return {k: flat[e - st[k].numel():e] for k, e in zip(names, ends)}
 
 
 def edge_confidence(weight: torch.Tensor) -> torch.Tensor:
@@ -419,23 +496,17 @@ class CovisibleGraph:
         self.edges = EdgeArrays(self.e_cap, h8, w8, self.device)
         self.t_inac = torch.zeros((self.i_cap, h8, w8, 2), dtype=torch.float32, device=self.device)
         self.w_inac = torch.zeros((self.i_cap, h8, w8, 2), dtype=torch.float32, device=self.device)
-        self._step = UpdateStep(cfg, update_fn)
-        self._host_pack_dev = None
-        self._host_pack_np = None
-        self._host_pack_t1 = -1
-        self._host_pack_tail = 0    # trailing window-state floats (coupled)
-        self._host_pack_dec = 0     # trailing decision-pose floats (coupled)
-        self.dec_pose = None        # post-rounds_a body pose [R(9)|t(3)]
-        self.hyst_norms = None      # (7,) cull-hysteresis |rel t| (coupled)
-        self._prox_offset = 1
+        self.update_step = UpdateStep(cfg, update_fn)
+        self.pack: Optional[StepPack] = None  # the last step's packed results
+        # (keyframe count, StepPack): the proximity distances the next
+        # selection may reuse (set_prox)
+        self.prox = (None, None)
         self.aux = {}               # forwarded to update_fn each round
         self.agg_fn = None          # GraphAgg head of the upsample path
         self.coupled = None         # MultiSensorBA when multi-sensor fusion is on
         self.mega_count = 0         # fused coupled keyframe steps taken
         self.lm_stats = None        # realized LM iterations per coupled round
-        self._perm = np.arange(self.e_cap, dtype=np.int64)
-        self._is_new = np.zeros(self.e_cap, dtype=bool)
-        self._dirty = False
+        self.drop_pending()
 
     # ------------------------------------------------------------------
     @property
@@ -444,11 +515,6 @@ class CovisibleGraph:
 
     def _dev(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
-
-    def _padded(self, arr, cap: int) -> torch.Tensor:
-        out = np.zeros(cap, dtype=np.int64)
-        out[: len(arr)] = arr
-        return self._dev(out)
 
     # ------------------------------------------------------------------
     def add_factors(self, ii_new, jj_new, remove: bool = False):
@@ -498,21 +564,61 @@ class CovisibleGraph:
         self._is_new = new_is_new
         self._dirty = True
 
-    def _flush(self):
+    def flush(self):
         """Apply the pending membership change as one gather: surviving
         edges move to compact slots, new ones start from nets[ii], the
         reprojection and zero weight (covisible_graph.py:124-149)."""
         if not self._dirty:
             return
         v = self.video
-        ii = self._padded(self.ii, self.e_cap)
+        ii = self._dev(padded(self.ii, self.e_cap))
         self.edges.assign(_rebuild_edges(
             self.edges, self._dev(self._perm), self._dev(self._is_new), ii,
-            self._padded(self.jj, self.e_cap), v.poses, v.disps, v.intrinsics,
+            self._dev(padded(self.jj, self.e_cap)), v.poses, v.disps, v.intrinsics,
             v.feature_rows("nets", ii)))
+        self.drop_pending()
+
+    def drop_pending(self):
+        """Forget the pending membership change (the device stores hold the
+        host's edges slot for slot)."""
         self._perm = np.arange(self.e_cap, dtype=np.int64)
-        self._is_new[:] = False
+        self._is_new = np.zeros(self.e_cap, dtype=bool)
         self._dirty = False
+
+    # ------------------------------------------------------------------
+    def carry(self, t1: int) -> dict:
+        """The padded device carry both asynchronous pipelines start from:
+        the edge stores (``EDGE_CARRY``; the first ``BAD_CAP`` quarantined)
+        and ``prox_d``, the proximity distances for keyframe count ``t1``."""
+        self.flush()
+        E, I = self.e_cap, self.i_cap
+        up = lambda a: upload(a, self.device)  # noqa: E731
+        p_t1, pack = self.prox
+        if p_t1 == t1:
+            prox_d = pack.on_device().prox.float().clone()
+        else:
+            prox_d = metrics_fields(self.update_step.host_metrics(self.video, t1)).prox
+        return dict(
+            ii=up(padded(self.ii, E)), jj=up(padded(self.jj, E)), age=up(padded(self.age, E)),
+            e_valid=up(np.arange(E) < self.n), ii_i=up(padded(self.ii_inac, I)),
+            jj_i=up(padded(self.jj_inac, I)), i_valid=up(np.arange(I) < len(self.ii_inac)),
+            bad_ii=up(padded(self.ii_bad, BAD_CAP)), bad_jj=up(padded(self.jj_bad, BAD_CAP)),
+            bad_valid=up(np.arange(BAD_CAP) < min(len(self.ii_bad), BAD_CAP)), prox_d=prox_d)
+
+    def restore(self, h: dict):
+        """Take back the edge stores from a drain's host copies of
+        ``EDGE_CARRY`` (:func:`read_ints`); nothing is pending after it."""
+        n, ni, nb = (int(h[k].sum()) for k in ("e_valid", "i_valid", "bad_valid"))
+        self.ii, self.jj, self.age = h["ii"][:n], h["jj"][:n], h["age"][:n]
+        self.ii_inac, self.jj_inac = h["ii_i"][:ni], h["jj_i"][:ni]
+        self.ii_bad, self.jj_bad = h["bad_ii"][:nb], h["bad_jj"][:nb]
+        self.drop_pending()
+
+    def set_prox(self, t1: Optional[int], pack: Optional[StepPack] = None):
+        """The proximity distances the next selection may reuse: those of
+        ``pack`` (by default the ones held), computed for keyframe count
+        ``t1``; None once they predate a shift."""
+        self.prox = (t1, self.prox[1] if pack is None else pack)
 
     def _rebuild_inactive(self, perm_old, from_active, act_idx):
         """Compact the inactive store, absorbing retired active edges."""
@@ -539,7 +645,7 @@ class CovisibleGraph:
         drop_idx = np.nonzero(mask)[0]
         keep_idx = np.nonzero(~mask)[0]
         if store and np.any(self._is_new[drop_idx]):
-            self._flush()
+            self.flush()
         if store:
             n_i = len(self.ii_inac)
             n_add = len(drop_idx)
@@ -622,30 +728,16 @@ class CovisibleGraph:
         i_mask[: len(self.ii_inac)] = True
         return e_mask, i_mask
 
-    def _pad_np(self, arr, cap: int) -> np.ndarray:
-        out = np.zeros(cap, dtype=np.int64)
-        out[: len(arr)] = arr
-        return out
-
-    def _set_pack(self, pack: torch.Tensor, tail: int = 0, dec: int = 0):
-        self._host_pack_dev = pack
-        self._host_pack_np = None
-        self._host_pack_tail = tail
-        self._host_pack_dec = dec
-        self.hyst_norms = None
-        self.dec_pose = None
-
     def _run(self, t0: int, t1: int, iters: int, use_inactive: bool, rounds: int, rounds_b: int,
              mega: bool) -> UpdateResult:
         s0 = max(0, t1 - self.cfg.ba.window)
         e_mask, i_mask = self._masks()
-        res = self._step(
-            self.video, self.edges,
-            self._pad_np(self.ii, self.e_cap), self._pad_np(self.jj, self.e_cap), e_mask,
-            self.t_inac, self.w_inac,
-            self._pad_np(self.ii_inac, self.i_cap), self._pad_np(self.jj_inac, self.i_cap),
-            i_mask, t0, t1, s0, rounds, rounds_b, iters, use_inactive, mega, self.aux)
-        self._set_pack(res.host_pack)
+        res = self.update_step(
+            self.video, self.edges, padded(self.ii, self.e_cap), padded(self.jj, self.e_cap),
+            e_mask, self.t_inac, self.w_inac, padded(self.ii_inac, self.i_cap),
+            padded(self.jj_inac, self.i_cap), i_mask, t0, t1, s0, rounds, rounds_b, iters,
+            use_inactive, mega, self.aux)
+        self.pack = StepPack(res.host_pack, mega_fields if mega else metrics_fields)
         return res
 
     def update(self, t0: Optional[int] = None, t1: Optional[int] = None, iters: int = 2,
@@ -658,13 +750,12 @@ class CovisibleGraph:
             t0 = max(1, int(self.ii.min()) + 1)
         if t1 is None:
             t1 = int(max(self.ii.max(), self.jj.max())) + 1
-        self._flush()
-        self._prox_offset = 1
+        self.flush()
         if self.video.imu_enabled and self.coupled is not None:
             self._update_coupled(t0, t1, iters, use_inactive, rounds)
         else:
             self._run(t0, t1, iters, use_inactive, rounds, 0, mega=False)
-        self._host_pack_t1 = t1
+        self.set_prox(t1, self.pack)
         self.age += rounds
 
     def _update_coupled(self, t0: int, t1: int, iters: int, use_inactive: bool, rounds: int):
@@ -674,13 +765,12 @@ class CovisibleGraph:
         if self.cfg.sensors.device_solver and self._update_coupled_fused(
                 rounds, 0, iters, use_inactive, t0, t1, s0) is not None:
             return
-        step = self._step
+        step = self.update_step
         dev = self.device
         e_mask, i_mask = self._masks()
-        ii, jj = self._pad_np(self.ii, self.e_cap), self._pad_np(self.jj, self.e_cap)
-        sets = step.edge_sets(ii, jj, e_mask, self._pad_np(self.ii_inac, self.i_cap),
-                              self._pad_np(self.jj_inac, self.i_cap), i_mask, t0, use_inactive,
-                              dev)
+        ii, jj = padded(self.ii, self.e_cap), padded(self.jj, self.e_cap)
+        sets = step.edge_sets(ii, jj, e_mask, padded(self.ii_inac, self.i_cap),
+                              padded(self.jj_inac, self.i_cap), i_mask, t0, use_inactive, dev)
         ii_t, jj_t = torch.as_tensor(ii, device=dev), torch.as_tensor(jj, device=dev)
         prep = corr_operands(self.cfg, self.video, ii_t, jj_t)
         inp_e = self.video.feature_rows("inps", ii_t)
@@ -689,7 +779,7 @@ class CovisibleGraph:
                                             torch.as_tensor(e_mask, device=dev), self.t_inac,
                                             self.w_inac, sets, prep, inp_e, self.aux,
                                             use_inactive)
-            self._set_pack(step.host_metrics(self.video, t1))
+            self.pack = StepPack(step.host_metrics(self.video, t1), metrics_fields)
             self.coupled.ba(sets.ii_np, sets.jj_np, sets.mask_np, t_all, w_ba, t1, itrs=iters,
                             reuse_state=r > 0)
         self.coupled.sync_host()
@@ -698,20 +788,16 @@ class CovisibleGraph:
         """The fused visual keyframe step: rounds_a rounds, the cull
         decision, then rounds_b rounds + seeding unless culled.  Returns
         (culled, cull_distance, trajectory row on the device)."""
-        self._flush()
+        self.flush()
         t0 = max(1, int(self.ii.min()) + 1)
         t1 = int(max(self.ii.max(), self.jj.max())) + 1
         res = self._run(t0, t1, iters, True, rounds_a, rounds_b, mega=True)
-        self._prox_offset = 2
-        pack = self.host_pack
-        culled = bool(pack[0] > 0.5)
-        if culled:
-            self._host_pack_t1 = -(10 ** 6)  # prox entries predate the shift
-            self.age += rounds_a
-        else:
-            self._host_pack_t1 = t1
-            self.age += rounds_a + rounds_b
-        return culled, float(pack[1]), res.traj_row
+        f = self.host_pack
+        culled = bool(f.cull > 0.5)
+        # a cull's distances predate the shift
+        self.set_prox(None if culled else t1, self.pack)
+        self.age += rounds_a + (0 if culled else rounds_b)
+        return culled, float(f.d), res.traj_row
 
     # ------------------------------------------------------------------
     def update_coupled_mega(self, rounds_a: int, rounds_b: int, iters: int = 2):
@@ -725,7 +811,7 @@ class CovisibleGraph:
                 or not self.cfg.sensors.device_solver or not self.cfg.sensors.coupled_mega):
             return None
         with TRACER("step"):
-            self._flush()
+            self.flush()
             t0 = max(1, int(self.ii.min()) + 1)
             t1 = int(max(self.ii.max(), self.jj.max())) + 1
             s0 = max(0, t1 - self.cfg.ba.window)
@@ -736,7 +822,7 @@ class CovisibleGraph:
         self.mega_count += 1
         self.age += rounds_a + (0 if culled else rounds_b)
         if culled:
-            self._host_pack_t1 = -(10 ** 6)  # prox entries predate the shift
+            self.set_prox(None)  # the distances predate the shift
         return culled, d
 
     def _update_coupled_fused(self, rounds_a: int, rounds_b: int, iters: int,
@@ -745,53 +831,33 @@ class CovisibleGraph:
         (slam/coupled_fused.py), one host read of the packed results at the
         end.  Returns (culled, cull_distance), or None to fall back to the
         per-round path."""
-        from .coupled_fused import run_coupled_rounds
+        from .coupled_fused import pack_fields, run_coupled_rounds
 
         dev = self.device
         e_mask, i_mask = self._masks()
-        ii, jj = self._pad_np(self.ii, self.e_cap), self._pad_np(self.jj, self.e_cap)
-        sets = self._step.edge_sets(ii, jj, e_mask, self._pad_np(self.ii_inac, self.i_cap),
-                                    self._pad_np(self.jj_inac, self.i_cap), i_mask, t0,
-                                    use_inactive, dev)
+        ii, jj = padded(self.ii, self.e_cap), padded(self.jj, self.e_cap)
+        sets = self.update_step.edge_sets(ii, jj, e_mask, padded(self.ii_inac, self.i_cap),
+                                          padded(self.jj_inac, self.i_cap), i_mask, t0,
+                                          use_inactive, dev)
         prep = self.coupled.prepare_device(sets.ii_np, sets.jj_np, sets.mask_np, t1, iters)
         if prep is None:
             return None
         out = run_coupled_rounds(
-            self._step, self.cfg, self.video, self.edges, torch.as_tensor(ii, device=dev),
+            self.update_step, self.cfg, self.video, self.edges, torch.as_tensor(ii, device=dev),
             torch.as_tensor(jj, device=dev), torch.as_tensor(e_mask, device=dev), self.t_inac,
             self.w_inac, sets, t1, self.aux, prep, rounds_a, rounds_b, use_inactive)
-        NW = self.cfg.sensors.fg_cap
         self.lm_stats = out.lm_stats
-        self._set_pack(out.host_pack, tail=NW * 21, dec=12)
-        self._host_pack_t1 = t1
-        self._prox_offset = 2
-        c = self.coupled
-        c.cur_target, c.cur_weight = out.cur_target, out.cur_weight
-        c._fg_state = out.fg_flat
-        c._lm_stats = out.lm_stats
-        c._fg_synced = False
-        pack = self.host_pack  # one read: cull pack + window state rows
-        c.sync_host()
-        return bool(pack[0] > 0.5), float(pack[1])
+        self.pack = StepPack(out.pack, partial(pack_fields, cfg=self.cfg))
+        f = self.host_pack  # one read: the cull pack and the window state rows
+        self.set_prox(t1, self.pack)
+        self.coupled.take_fused(out.cur_target, out.cur_weight, out.fg_flat, f.rows)
+        return bool(f.cull > 0.5), float(f.d)
 
     @property
-    def host_pack(self) -> Optional[np.ndarray]:
-        """The last step's packed scalars, read from the device once.  After
-        a coupled step the trailing [hysteresis(7) | window state | decision
-        pose(12)] go to ``hyst_norms``, the MultiSensorBA and ``dec_pose``."""
-        if self._host_pack_dev is None:
-            return None
-        if self._host_pack_np is None:
-            full = to_host(self._host_pack_dev)
-            tail, dec = self._host_pack_tail, self._host_pack_dec
-            if tail:
-                self._host_pack_np = full[: -(tail + 7 + dec)]
-                self.hyst_norms = full[-(tail + 7 + dec): -(tail + dec)]
-                self.coupled.stash_state_rows(full[-(tail + dec): len(full) - dec])
-                self.dec_pose = full[len(full) - dec:] if dec else None
-            else:
-                self._host_pack_np = full
-        return self._host_pack_np
+    def host_pack(self) -> Optional[StepFields]:
+        """The last step's packed results by field, read from the device
+        once."""
+        return None if self.pack is None else self.pack.on_host()
 
     # ------------------------------------------------------------------
     def run_upsample(self, agg_fn: Callable):
@@ -809,7 +875,7 @@ class CovisibleGraph:
         """
         if self.n == 0:
             return
-        self._flush()
+        self.flush()
         v = self.video
         frames, local = np.unique(self.ii, return_inverse=True)
         eta, upmask = agg_fn(self.edges.net[:self.n], self._dev(local), len(frames))
@@ -830,14 +896,10 @@ class CovisibleGraph:
     def _candidate_distances(self, t0, t1, t, ii, jj, beta) -> np.ndarray:
         """Proximity distances: the values the last update step computed on
         its end state when they match this query, else fresh ones."""
-        pack = self.host_pack
-        wf = self.cfg.graph.frontend_window
-        n_skip = len(self.cfg.graph.skip_edge) if wf == 5 else 0
-        expected = 5 * wf + n_skip
-        off = self._prox_offset
-        if (pack is not None and self._host_pack_t1 + 1 == t and t0 == t - 5
-                and t1 == t - wf and len(ii) == expected):
-            return pack[off:off + expected].astype(np.float64).copy()
+        p_t1, pack = self.prox
+        if (p_t1 is not None and p_t1 + 1 == t and t0 == t - 5
+                and t1 == t - self.cfg.graph.frontend_window and len(ii) == n_prox(self.cfg)):
+            return pack.on_host().prox.astype(np.float64)
         return self.video.distance(ii, jj, beta=beta).astype(np.float64)
 
     def add_proximity_factors(self, t0: int = 0, t1: int = 0, rad: int = 2, nms: int = 2,

@@ -59,9 +59,9 @@ class MotionFilter:
         self.feat = feat_fn
         self.ctx = ctx_fn
         self.update_fn = update_fn
-        self._kf_fmap = None
-        self._kf_net = None
-        self._kf_inp = None
+        self.kf_fmap = None  # the last keyframe's features (store)
+        self.kf_net = None
+        self.kf_inp = None
 
     def track(self, tstamp: float, image: np.ndarray, depth: Optional[np.ndarray] = None,
               intrinsics: Optional[np.ndarray] = None,
@@ -90,13 +90,13 @@ class MotionFilter:
         if v.counter == 0:
             fmap = self.feat(img)[0]
             net, inp = self.ctx(img)
-            self._store(fmap, net[0], inp[0])
+            self.store(fmap, net[0], inp[0])
             d, fr = sensors()
             v.append(tstamp, small, lie.se3_identity(device=v.device), 1.0, intr8,
                      fmap, net[0], inp[0], depth=d, fmap_right=fr)
             return True
-        fmap, delta = gate(self.feat, self.update_fn, img, self._kf_fmap, self._kf_net,
-                           self._kf_inp, self.cfg.corr_whole_blocks)
+        fmap, delta = gate(self.feat, self.update_fn, img, self.kf_fmap, self.kf_net,
+                           self.kf_inp, self.cfg.corr_whole_blocks)
         with host_wait():  # the one read a frame makes (motion_filter.py:159)
             admit = to_host(delta) > self.cfg.frontend.filter_thresh
         if admit:
@@ -104,7 +104,7 @@ class MotionFilter:
             net, inp = self.ctx(img)
             v.set_features(idx, fmap, net[0], inp[0])
             v.set_sensors(idx, *sensors())
-            self._store(fmap, net[0], inp[0])
+            self.store(fmap, net[0], inp[0])
             v.tstamp[idx] = tstamp
             v.images_small[idx] = small
             v.intrinsics = intr8
@@ -112,7 +112,8 @@ class MotionFilter:
             return True
         return False
 
-    def _store(self, fmap, net, inp):
-        self._kf_fmap = fmap
-        self._kf_net = net.to(torch.bfloat16)
-        self._kf_inp = inp.to(torch.bfloat16)
+    def store(self, fmap, net, inp):
+        """The last keyframe's features, which the gate compares against."""
+        self.kf_fmap = fmap
+        self.kf_net = net.to(torch.bfloat16)
+        self.kf_inp = inp.to(torch.bfloat16)

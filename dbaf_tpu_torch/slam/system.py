@@ -192,7 +192,7 @@ class DBAFusion:
             self._async.sync()
         v, g, fe = self.video, self.graph, self.frontend
         fe.drain_async()
-        g._flush()
+        g.flush()
         traj = fe.trajectory
         dev_idx = [k for k, (_, p) in enumerate(traj) if isinstance(p, torch.Tensor)]
         rows = to_host(torch.stack([traj[k][1] for k in dev_idx])) if dev_idx else None
@@ -248,16 +248,14 @@ class DBAFusion:
         stores = self._graph_dev()
         for name, arr in state["graph_dev"].items():
             _load_array(stores[name], arr)
-        g._perm = np.arange(g.e_cap, dtype=np.int64)
-        g._is_new[:] = False
-        g._dirty = False
+        g.drop_pending()
         for k, val in state["frontend"].items():
             setattr(fe, k, val)
         if self.filter is not None and v.counter > 0:
             # the motion gate's last keyframe: the newest row (a cull never
             # removes it), which the JAX file leaves out
             last = v.counter - 1
-            self.filter._store(*(v.feature_rows(name, last) for name in ("fmaps", "nets", "inps")))
+            self.filter.store(*(v.feature_rows(name, last) for name in ("fmaps", "nets", "inps")))
         if state["coupled"] is not None:
             state["coupled"].attach(v)
             g.coupled = state["coupled"]

@@ -139,7 +139,7 @@ def lm_inputs(nw, n, seed, gnss=False, device="cpu", origin=None):
     """The port's ``lm_optimize`` inputs for an ``n``-frame window padded to
     ``nw`` frames (perturbed from the second frame on, so the LM has work),
     on ``device``: (state, graph, vis_H, vis_v, vis_linR, vis_lint,
-    sel_pose, marginal)."""
+    marginal)."""
     from dbaf_tpu_torch.fusion import device_graph as tdg
 
     msba, rng = build_window(PORT, seed, n, origin=origin)
@@ -150,8 +150,7 @@ def lm_inputs(nw, n, seed, gnss=False, device="cpu", origin=None):
     mgd = tdg.marg_to_device(tdg.marg_dense_np(msba.marg_factor, 0, n, nw), device)
     return (tdg.pack_state(msba, 0, n, nw, device=device),
             tdg.pack_graph(msba, 0, n, nw, device=device),
-            *(torch.as_tensor(a, device=device) for a in vis),
-            tdg.make_sel_pose(nw, device), mgd)
+            *(torch.as_tensor(a, device=device) for a in vis), mgd)
 
 
 CELL_ORIGIN = (25.0, -12.0, 3.0)  # metres: the cells' windows lie tens of metres out
@@ -196,11 +195,11 @@ def _f64(x):
     return type(x)(*ys) if hasattr(x, "_fields") else type(x)(ys)
 
 
-def rounding_scale(state, pg, vis_H, vis_v, vis_linR, vis_lint, sel_pose, mgd=None):
-    """For ``linearize``'s arguments (sel_pose unread), the size of the
-    terms behind each entry of its b and behind its err, in f64: (m_b (N,),
-    m_err).  An f32 evaluation of the same formulas rounds each entry of b
-    by a small multiple of eps32 m_b[i], and err by one of eps32 m_err.
+def rounding_scale(state, pg, vis_H, vis_v, vis_linR, vis_lint, mgd=None):
+    """For ``linearize``'s arguments, the size of the terms behind each
+    entry of its b and behind its err, in f64: (m_b (N,), m_err).  An f32
+    evaluation of the same formulas rounds each entry of b by a small
+    multiple of eps32 m_b[i], and err by one of eps32 m_err.
 
     A factor's rhs -J^T L r is rounded in its product and in its residual
 r.  A difference of two inputs rounds once, relative to itself, but r

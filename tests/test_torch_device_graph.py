@@ -68,8 +68,7 @@ def _both(n=5, seed=7, perturb_from=0):
 def _port_inputs(msba, vis, n):
     pg = tdg.pack_graph(msba, 0, n, NW)
     mgd = tdg.marg_to_device(tdg.marg_dense_np(msba.marg_factor, 0, n, NW), "cpu")
-    return (tdg.pack_state(msba, 0, n, NW), pg, *(torch.as_tensor(a) for a in vis),
-            tdg.make_sel_pose(NW), mgd)
+    return (tdg.pack_state(msba, 0, n, NW), pg, *(torch.as_tensor(a) for a in vis), mgd)
 
 
 def _jax_inputs(msba, vis, n):
@@ -202,7 +201,7 @@ def test_coupled_rounds_body_matches_jax():
             r = tdg.coupled_rounds_body(
                 *args, s0, n, tdg.unflatten_state(T(fg_flat), n, NW),
                 tdg.unflatten_graph(T(pg_flat), NW), tdg.marg_to_device(md, "cpu"),
-                torch.eye(6), tdg.make_sel_pose(NW), P=P, NW=NW, n_iters=2)
+                torch.eye(6), P=P, NW=NW, n_iters=2)
             out.append((r[0].numpy(), r[1].numpy(), tdg.flatten_state(r[2]).numpy(), r[3]))
         else:
             r = jdg.coupled_rounds_device(

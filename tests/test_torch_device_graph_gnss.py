@@ -134,12 +134,13 @@ def test_linearize_with_gnss_matches_jax_and_host():
 def _gnss_only(args, zeros, false):
     """Linearize inputs with every term but the GNSS rows masked off (the
     IMU chain's information is ~1e9, and hides the robust term's f32
-    contribution in the full system)."""
-    state, pg, vis_H, vis_v, linR, lint, sel, mgd = args
+    contribution in the full system); the JAX package's carry its pose
+    selector before the marginal."""
+    state, pg, vis_H, vis_v, linR, lint, *sel, mgd = args
     pg = pg._replace(imu_mask=false(pg.imu_mask), pp_mask=false(pg.pp_mask),
                      pb_mask=false(pg.pb_mask), odo_mask=false(pg.odo_mask))
     mgd = type(mgd)(false(mgd.mask), mgd.lin, zeros(mgd.H), zeros(mgd.v))
-    return state, pg, zeros(vis_H), zeros(vis_v), linR, lint, sel, mgd
+    return state, pg, zeros(vis_H), zeros(vis_v), linR, lint, *sel, mgd
 
 
 def test_gnss_term_alone_matches_jax_and_host():
@@ -217,7 +218,7 @@ def test_coupled_rounds_with_gnss_match_jax():
             r = tdg.coupled_rounds_body(
                 *args, s0, n, tdg.unflatten_state(T(fg_flat), n, NW),
                 tdg.unflatten_graph(T(pg_flat), NW), tdg.marg_to_device(md, "cpu"),
-                torch.eye(6), tdg.make_sel_pose(NW), P=P, NW=NW, n_iters=2)
+                torch.eye(6), P=P, NW=NW, n_iters=2)
             out.append((r[0].numpy(), r[1].numpy(), tdg.flatten_state(r[2]).numpy(), r[3]))
         else:
             r = jdg.coupled_rounds_device(

@@ -100,7 +100,7 @@ def _graph(rng, t, n_edges, n_inac, n_aged):
             pairs.add((int(a), int(b)))
     pairs = sorted(pairs)
     g.add_factors([p[0] for p in pairs], [p[1] for p in pairs])
-    g._flush()
+    g.flush()
     g.edges.target.copy_(torch.as_tensor(rng.normal(size=g.edges.target.shape), dtype=torch.float32))
     g.edges.weight.copy_(torch.as_tensor(rng.uniform(size=g.edges.weight.shape), dtype=torch.float32))
     g.age = rng.integers(0, 10, size=g.n).astype(np.int64)
@@ -108,7 +108,7 @@ def _graph(rng, t, n_edges, n_inac, n_aged):
         m = np.zeros(g.n, dtype=bool)
         m[rng.choice(g.n, size=n_inac, replace=False)] = True
         g.rm_factors(m, store=True)
-        g._flush()
+        g.flush()
     if n_aged and g.n:
         g.age[rng.choice(g.n, size=min(n_aged, g.n), replace=False)] = cfg.graph.max_age + 5
     return video, g
@@ -164,7 +164,7 @@ def test_edge_transition_matches_host_and_jax(seed):
     g._candidate_distances = lambda *a, **k: d_syn.copy()
     g.add_proximity_factors(t1 - SRC, max(t1 - WF, 0), rad=RAD, nms=NMS,
                             thresh=mc.frontend_thresh, remove=True)
-    g._flush()
+    g.flush()
 
     kw = dict(src=SRC, wf=WF, n_skip=n_skip, skip_offsets=SKIP, rad=RAD, nms=NMS,
               max_factors=mc.max_factors, max_age=mc.max_age, active_window=aw,
@@ -209,7 +209,7 @@ def test_cull_transition_matches_host_and_jax(seed):
     ix = int(rng.integers(1, t1 - 1))
     pre = _snapshot(g)
     g.rm_keyframe(ix)
-    g._flush()
+    g.flush()
 
     args = (pre["ii"], pre["jj"], pre["age"], pre["valid"], pre["ii_i"], pre["jj_i"],
             pre["i_valid"])

@@ -28,7 +28,7 @@ def test_the_operand_order_and_limits_are_the_kernels():
 
 @pytest.mark.parametrize("with_marginal", [True, False])
 def test_the_operands_in_order_contiguous_and_typed(with_marginal):
-    st, pg, vH, vv, lR, lt, sel, mgd = lm_inputs(nw=8, n=5, seed=7)
+    st, pg, vH, vv, lR, lt, mgd = lm_inputs(nw=8, n=5, seed=7)
     # the state as the coupled step holds it: strided views of the flat rows
     st = tdg.unflatten_state(tdg.flatten_state(st), 5, 8)
     assert not st.R.is_contiguous()
@@ -65,7 +65,7 @@ REFUSALS = {
 
 @pytest.mark.parametrize("case", REFUSALS)
 def test_the_wrapper_refuses_what_the_kernel_does_not_take(case):
-    st, pg, vH, vv, lR, lt, sel, mgd = lm_inputs(nw=8, n=5, seed=7)
+    st, pg, vH, vv, lR, lt, mgd = lm_inputs(nw=8, n=5, seed=7)
     _refused(*REFUSALS[case]((st, pg, vH, vv, lR, lt, mgd)))
 
 
@@ -73,7 +73,7 @@ def test_the_window_sizes_the_kernel_takes():
     """2 frames up to MAX_FRAMES (at least the 64 asked of it); one frame
     has no IMU factor slot and is refused."""
     assert tdg.MAX_FRAMES >= 64
-    st, pg, vH, vv, lR, lt, sel, mgd = lm_inputs(nw=2, n=2, seed=5)
+    st, pg, vH, vv, lR, lt, mgd = lm_inputs(nw=2, n=2, seed=5)
     ins, dims = tdg._kernel_operands(st, pg, vH, vv, lR, lt, mgd)
     assert dims == (2, 4, 4)
     one = tdg.FgState(*(x[:1] for x in st))

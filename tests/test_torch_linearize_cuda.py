@@ -103,13 +103,13 @@ def _check(kernel, plain, args):
 
 def _case_args(window, case, dev):
     """linearize's arguments for a case of test_kernel_matches_the_plain_version."""
-    st, pg, vH, vv, lR, lt, sel, mgd = _inputs(window, dev)
+    st, pg, vH, vv, lR, lt, mgd = _inputs(window, dev)
     NW = st.R.shape[0]
     if case == "no_marginal":
         mgd = None
     if case == "marginalization":  # marginalize_window_body's call
         pg, lR, lt = cut_masks(pg, min(2, NW - 1)), st.R, st.t
-    return (st, pg, vH, vv, lR, lt, sel, mgd), case in ("full", "no_marginal")
+    return (st, pg, vH, vv, lR, lt, mgd), case in ("full", "no_marginal")
 
 
 @pytest.mark.cuda
@@ -164,11 +164,11 @@ def test_two_launches_give_the_same_bits(dev, window):
 
 @pytest.mark.cuda
 def test_the_wrapper_raises_on_what_the_kernel_does_not_take(dev):
-    st, pg, vH, vv, lR, lt, sel, mgd = _inputs("nw8", dev)
+    st, pg, vH, vv, lR, lt, mgd = _inputs("nw8", dev)
     with pytest.raises(ValueError, match="vis_H"):
-        tdg.linearize(st, pg, vH.double(), vv, lR, lt, sel, mgd)
+        tdg.linearize(st, pg, vH.double(), vv, lR, lt, mgd)
     with pytest.raises(ValueError, match="mgd_H"):
-        tdg.linearize(st, pg, vH, vv, lR, lt, sel, mgd._replace(H=mgd.H.cpu()))
+        tdg.linearize(st, pg, vH, vv, lR, lt, mgd._replace(H=mgd.H.cpu()))
 
 
 def _counts():

@@ -35,10 +35,10 @@ def _inputs(window):
 
 
 def _args(window, case):
-    st, pg, vH, vv, lR, lt, sel, mgd = _inputs(window)
+    st, pg, vH, vv, lR, lt, mgd = _inputs(window)
     if case == "marginalization":  # marginalize_window_body's call
-        return (st, cut_masks(pg, 2), vH, vv, st.R, st.t, sel, mgd), False
-    return (st, pg, vH, vv, lR, lt, sel, mgd), True
+        return (st, cut_masks(pg, 2), vH, vv, st.R, st.t, mgd), False
+    return (st, pg, vH, vv, lR, lt, mgd), True
 
 
 @pytest.mark.parametrize("case", ["full", "marginalization"])
@@ -68,7 +68,7 @@ def test_the_settled_windows_reach_the_cells_cancellation(window):
         _, b64, _ = tdg.linearize_plain(*_f64(args))
         rel[name] = float((b.double() - b64).norm() / b64.norm())
     assert rel[window] < 1e-6 < 1e-3 < rel[window + "_settled"]
-    st, _, _, _, lR, lt, _, mgd = _inputs(window + "_settled")
+    st, _, _, _, lR, lt, mgd = _inputs(window + "_settled")
     n = int(st.valid.sum())
     assert float((st.t[:n] - lt[:n]).abs().max()) > 1e-3
     st, mgd = _f64(st), _f64(mgd)
